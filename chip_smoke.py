@@ -4,8 +4,9 @@
 
 1. prints the card's name and power limit and builds the CUDA kernels from
    the sources in this checkout (one ``nvcc`` per source, in parallel);
-2. renders one chunk of a validation frame at the full width of the
-   default model and records the inputs each kernel wrapper got there;
+2. renders one chunk of a validation frame (its test grid included) at the
+   full width of the default model and records the inputs each kernel
+   wrapper got there;
 3. runs each kernel and its plain PyTorch twin on those inputs, holds them
    to the stated tolerance and times both with CUDA events;
 4. serves: renders 2 frames x 16,384 rays of the synthetic val split through
@@ -102,9 +103,13 @@ def main():
     from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
     from intrinsicavatar_tpu_torch.fields import geometry as GEO
     from intrinsicavatar_tpu_torch.fields import radiance as RAD
+    from intrinsicavatar_tpu_torch.ops import compact as C
     from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import grid_traversal as G
     from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    from intrinsicavatar_tpu_torch.ops import resample as RS
     from intrinsicavatar_tpu_torch.ops import volrend as V
+    from intrinsicavatar_tpu_torch.render import renderer as RD
     from intrinsicavatar_tpu_torch.render.renderer import IntrinsicAvatar
     from intrinsicavatar_tpu_torch.train import evaluate as EV
     from intrinsicavatar_tpu_torch.utils.default_config import serve_config
@@ -141,6 +146,14 @@ def main():
         Recorder(DF, "broyden_search", lambda a: a[0].shape[0]),
         Recorder(V, "render_weight_from_alpha", lambda a: a[0].numel()),
         Recorder(V, "composite", lambda a: a[0].numel()),
+        Recorder(RD, "occupancy_sampling", lambda a: a[0].shape[0]),
+        Recorder(RS, "merge_resample_rays", lambda a: a[0].numel()),
+        Recorder(C, "_compact", lambda a: a[0].numel()),
+        Recorder(DF, "deform_prologue", lambda a: a[0].shape[0]),
+        Recorder(DF, "deform_epilogue", lambda a: a[0].x.shape[0]),
+        # the largest epilogue that blends the rotation (a shading query)
+        Recorder(DF, "deform_epilogue",
+                 lambda a: a[0].x.shape[0] if a[3] else -1),
     ]
     gen = torch.Generator().manual_seed(SEED + 1)
     occ, frame, cond = EV.build_test_occ_grid(model, statics, batches[0],
@@ -148,10 +161,11 @@ def main():
     with torch.no_grad():
         model(statics, frame, cond, occ, batches[0]["rays"][:chunk], step,
               flags, background_color=torch.ones(3, device=dev))
-    for r in recs:
+    for r in reversed(recs):
         r.restore()
     ka = max(recs[:2], key=lambda r: r.best[0]).best
-    kb, kc, kd_w, kd_c = (r.best for r in recs[2:])
+    kb, kc, kd_w, kd_c, ke, kf, kg, kh_pro, kh_epi, kh_rot = (
+        r.best for r in recs[2:])
 
     # ---------------------------------------------------------- 3. kernels
     rows = []
@@ -282,6 +296,134 @@ def main():
         n * (4 + 4 + 1 + 12 + 12 + 4 + 4 + 4) + cargs[0].shape[0] * 32,
         n * 40)
 
+    # KE occupancy march (the chunk's march)
+    args, kw = ke[1], ke[2]
+    ik = G.occupancy_sampling(*args, **kw)
+    ip = G.occupancy_sampling_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name in ("is_left", "is_right", "valid", "vals"):
+        a, b = getattr(ik, name), getattr(ip, name)
+        if name != "vals" and not torch.equal(a, b):
+            fail(f"occupancy_march: {name} differs from its twin")
+    if not torch.equal(torch.isinf(ik.vals), torch.isinf(ip.vals)):
+        fail("occupancy_march: +inf slots differ from its twin")
+    err = (ik.vals - ip.vals)[ip.valid].abs().max().item()
+    if not err <= 1e-6:
+        fail(f"occupancy_march disagrees with its twin: {err}")
+    R, E = ip.vals.shape
+    res = args[2].shape[0]
+    row("occupancy_march", "cuda", "intrinsicavatar_tpu_torch/csrc/march.cu",
+        "intrinsicavatar_tpu/ops/grid_traversal.py:56",
+        f"rays{[R, 3]} S={E - 1}", err,
+        time_ms(lambda: G.occupancy_sampling(*args, **kw)),
+        time_ms(lambda: G.occupancy_sampling_plain(*args, **kw)),
+        R * (12 + 12 + 4 + 4 + 4) + res ** 3 + 24 + R * E * (4 + 3),
+        R * (E - 1) * 30 + R * 40)
+
+    # KF merge resampling (the larger, second round)
+    args = kf[1]
+    mk = RS.merge_resample_rays(*args)
+    mp = RS.merge_resample_rays_plain(*args)
+    torch.cuda.synchronize()
+    same = torch.ones(mp.vals.shape[0], dtype=torch.bool, device=dev)
+    for name in ("is_left", "is_right", "valid", "is_new", "gather_idx"):
+        same &= (getattr(mk, name) == getattr(mp, name)).all(-1)
+    same_share = same.float().mean().item()
+    err = (mk.vals - mp.vals)[same[:, None] & mp.valid].abs().max().item()
+    # torch.cumsum on the card sums in another order than the kernel's
+    # sequential sum and can move a draw across a CDF boundary
+    print(f"merge_resample: {same_share:.6f} of rays equal on flags and "
+          f"indices", flush=True)
+    if not (same_share >= 0.999 and err <= 1e-5):
+        fail(f"merge_resample disagrees with its twin: {same_share} of "
+             f"rays equal, err={err}")
+    R, E = args[0].shape
+    n_new = args[5]
+    row("merge_resample", "cuda",
+        "intrinsicavatar_tpu_torch/csrc/resample.cu",
+        "intrinsicavatar_tpu/ops/resample.py:166",
+        f"vals{[R, E]} B={n_new}", err,
+        time_ms(lambda: RS.merge_resample_rays(*args)),
+        time_ms(lambda: RS.merge_resample_rays_plain(*args)),
+        R * E * (4 + 3 + 4) + R * (E + n_new) * (4 + 4 + 8),
+        R * (E * 10 + n_new * 20 + 2 * E * n_new))
+
+    # KG compaction (the test grid's candidate lanes)
+    mask, budget, sample_major = kg[1]
+    ck = C._compact(mask, budget, sample_major)
+    cp = C.compact_indices_plain(mask, budget, sample_major)
+    torch.cuda.synchronize()
+    if not (torch.equal(ck[0], cp[0]) and torch.equal(ck[1], cp[1])):
+        fail("compact_indices differs from its twin")
+    flat = mask.T.reshape(-1) if sample_major else mask
+    M = mask.numel()
+    row("compact_indices", "cuda", "intrinsicavatar_tpu_torch/csrc/compact.cu",
+        "intrinsicavatar_tpu/ops/compact.py:43",
+        f"mask[{M}] budget={budget}", 0.0,
+        time_ms(lambda: C._compact(mask, budget, sample_major)),
+        time_ms(lambda: C.compact_indices_plain(mask, budget, sample_major)),
+        M + budget * 9, M * 4,
+        time_ms(lambda: torch.argsort(~flat, stable=True)[:budget]))
+
+    # KH prologue (the test grid's points)
+    args = kh_pro[1]
+    sk = B.deform_prologue(*args)
+    sp = B.deform_prologue_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(sk, sp):
+        fail("deform_prologue differs from its twin")
+    N, n_all, n_init = args[0].shape[0], args[1].shape[0], args[3]
+    row("deform_prologue", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
+        "intrinsicavatar_tpu/anim/deformer.py:264", f"pts{[N, 3]}", 0.0,
+        time_ms(lambda: B.deform_prologue(*args)),
+        time_ms(lambda: B.deform_prologue_plain(*args)),
+        N * 12 + n_all * (64 + 28) + N * n_init * 4,
+        N * n_all * (45 + n_init))
+
+    # KH epilogue: filter + first-K (the test grid's lanes), without the
+    # blend, which the next row times on a shading call
+    args = (*kh_epi[1][:3], False, *kh_epi[1][4:])
+    ek = B.deform_epilogue(*args)
+    ep = B.deform_epilogue_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(ek[:4], ep[:4])):
+        fail("deform_epilogue differs from its twin")
+    res, n_init, K = args[:3]
+    M = res.x.shape[0]
+    N = M // n_init
+    row("deform_epilogue", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
+        "intrinsicavatar_tpu/anim/broyden.py:518",
+        f"lanes[{M}] I={n_init} K={K}", 0.0,
+        time_ms(lambda: B.deform_epilogue(*args)),
+        time_ms(lambda: B.deform_epilogue_plain(*args), 3),
+        M * (12 + 36 + 1) + N * K * (12 + 36 + 1) + 8,
+        N * (n_init * (n_init - 1) // 2 * 10 + n_init * 4))
+
+    # KH skinning: LBS-weight sample + blend at a shading call's kept lanes
+    if not kh_rot[1][3]:
+        fail("no deform_epilogue call blended the rotation")
+    _, _, _, _, lbs_cl, spec, tfs = kh_rot[1]
+    xc = B.deform_epilogue(*kh_rot[1]).xc
+    rk = B.deform_skinning(xc, lbs_cl, spec, tfs)
+    rp = B.deform_skinning_plain(xc, lbs_cl, spec, tfs)
+    torch.cuda.synchronize()
+    err = (rk - rp).abs().max().item()
+    # the kernel sums the 24 bones in order, the twin's product in cuBLAS's
+    if not err <= 1e-5:
+        fail(f"deform_skinning disagrees with its twin: {err}")
+    M = xc.shape[0]
+    vox5 = statics.lbs_voxel[None]
+    grid5 = spec.normalize(xc).reshape(1, M, 1, 1, 3)
+    row("deform_skinning", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
+        "intrinsicavatar_tpu/anim/deformer.py:235", f"xc{[M, 3]}", err,
+        time_ms(lambda: B.deform_skinning(xc, lbs_cl, spec, tfs)),
+        time_ms(lambda: B.deform_skinning_plain(xc, lbs_cl, spec, tfs), 3),
+        M * 12 + min(lbs_cl.numel() * 4, M * 8 * 96) + 24 * 64 + M * 36,
+        M * (8 * (4 + 24 * 2) + 9 * 24 * 2 + 20),
+        time_ms(lambda: torch.nn.functional.grid_sample(
+            vox5, grid5, mode="bilinear", padding_mode="border",
+            align_corners=True)))
+
     # ---------------------------------------------------------- 4. serve
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -300,12 +442,19 @@ def main():
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
     names = {"hashgrid_encode", "encode_mlp_sdfgrad", "broyden_search",
-             "volrend_weights", "volrend_composite"}
+             "volrend_weights", "volrend_composite", "occupancy_march",
+             "merge_resample", "compact_indices", "deform_prologue",
+             "deform_epilogue", "deform_skinning"}
     for r in rows:
         r["launches"] = int(launches.get(r["name"], 0))
     missing = [n for n in names if not launches.get(n)]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
+    # the LBS rotation is blended only for the shading query of each chunk
+    n_chunks = sum(-(-b["rays"].shape[0] // chunk) for b in batches)
+    n_rot = launches.get("deform_skinning", 0)
+    if n_rot > n_chunks:
+        fail(f"deform_skinning launched {n_rot} times for {n_chunks} chunks")
 
     # where a frame's device time goes: one more frame under the profiler,
     # its test-grid build timed on its own

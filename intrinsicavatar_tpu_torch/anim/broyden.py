@@ -1,10 +1,18 @@
-"""Broyden inverse-LBS root search, duplicate filter and forward skinning.
+"""Broyden inverse-LBS root search with its prologue and epilogue.
 
-Counterpart of the JAX package's ``anim/broyden.py``.  :func:`broyden_search`
-launches kernel KC (``csrc/broyden.cu``) for CUDA tensors and takes its plain
-twin :func:`broyden_search_plain` only for CPU tensors.  Both compute the
-single-phase loop (the JAX op's ``two_phase=False``); nothing here copies the
-TPU layouts (SoA state, corner-packed tables, lane compaction).
+Counterpart of the JAX package's ``anim/broyden.py`` and of the search's
+surroundings in its ``anim/deformer.py``.  Each wrapper launches its kernel
+for CUDA tensors and takes its plain twin only for CPU tensors:
+
+- :func:`deform_prologue` (kernel KH, ``csrc/deform.cu``): init pruning;
+- :func:`broyden_search` (kernel KC, ``csrc/broyden.cu``): the single-phase
+  loop (the JAX op's ``two_phase=False``);
+- :func:`deform_epilogue` (kernel KH): duplicate filter, overflow count and
+  first-K survivors, then, where asked, :func:`deform_skinning` (KH's second
+  stage): the LBS-weight sample and the forward-skinning rotation.
+
+Nothing here copies the TPU layouts (SoA state, corner-packed tables, lane
+compaction).
 """
 
 from __future__ import annotations
@@ -15,10 +23,13 @@ import numpy as np
 import torch
 
 from intrinsicavatar_tpu_torch import kernels
+from intrinsicavatar_tpu_torch.ops.compact import stable_partition_indices
 
 # Bone indices used as Broyden initializations (`deformer_torch.py:27`).
 INIT_BONES = np.array([0, 1, 2, 4, 5, 10, 11, 12, 15, 16, 17, 18, 19],
                       dtype=np.int64)
+N_BONES = 24
+MAX_INIT = 16   # kMaxInit of csrc/deform.cu
 
 
 def grid_sample_3d(vox_cl: torch.Tensor, shape_dhw, coords: torch.Tensor,
@@ -66,6 +77,64 @@ def grid_sample_3d(vox_cl: torch.Tensor, shape_dhw, coords: torch.Tensor,
 def channel_last(vox: torch.Tensor) -> torch.Tensor:
     """``[C, D, H, W]`` -> contiguous ``[D*H*W, C]``."""
     return vox.reshape(vox.shape[0], -1).T.contiguous()
+
+
+def segment_table(init_segs: np.ndarray) -> np.ndarray:
+    """``[n, 7]`` rows ``(a, b - a, |b - a|^2 + 1e-9)`` of the canonical bone
+    segments ``init_segs [n, 2, 3]``.  The denominator is rounded on the
+    host as the JAX op rounds its Python-float denominator, so the pruning
+    of both packages divides by the same float32."""
+    a = init_segs[:, 0]
+    ab = init_segs[:, 1] - a
+    denom = np.asarray([float(v @ v) + 1e-9 for v in ab], np.float32)
+    return np.concatenate([a, ab, denom[:, None]], 1).astype(np.float32)
+
+
+def deform_prologue_plain(pts, tfs_table, segs, n_init: int) -> torch.Tensor:
+    """Plain twin of :func:`deform_prologue`."""
+    px, py, pz = pts[:, 0], pts[:, 1], pts[:, 2]
+    dists = []
+    for s_ in range(tfs_table.shape[0]):
+        T, g = tfs_table[s_], segs[s_]
+        dx, dy, dz = px - T[0, 3], py - T[1, 3], pz - T[2, 3]
+        xi = T[0, 0] * dx + T[1, 0] * dy + T[2, 0] * dz
+        yi = T[0, 1] * dx + T[1, 1] * dy + T[2, 1] * dz
+        zi = T[0, 2] * dx + T[1, 2] * dy + T[2, 2] * dz
+        t = torch.clamp(((xi - g[0]) * g[3] + (yi - g[1]) * g[4]
+                         + (zi - g[2]) * g[5]) / g[6], 0.0, 1.0)
+        ddx = xi - (g[0] + t * g[3])
+        ddy = yi - (g[1] + t * g[4])
+        ddz = zi - (g[2] + t * g[5])
+        dists.append(ddx * ddx + ddy * ddy + ddz * ddz)
+    d = torch.stack(dists, -1)
+    # ascending stable sort = jax.lax.top_k(-d) with its tie order
+    slot = torch.argsort(d, dim=-1, stable=True)[:, :n_init]
+    return slot.reshape(-1).to(torch.int32)
+
+
+def deform_prologue(pts, tfs_table, segs, n_init: int) -> torch.Tensor:
+    """Init pruning of the search (`FastSNARF.search`): for each point
+    ``pts [N, 3]`` the ``n_init`` rows of ``tfs_table [n, 4, 4]`` whose
+    canonicalized start point ``R^T (p - t)`` lies nearest its segment
+    (``segs [n, 7]`` from :func:`segment_table`), nearest first, lower row
+    first on ties.  Returns ``slot [N * n_init]`` int32."""
+    if pts.device.type == "cpu":
+        return deform_prologue_plain(pts, tfs_table, segs, n_init)
+    dev = pts.device
+    N, n_all = pts.shape[0], tfs_table.shape[0]
+    kernels.require(pts, "pts", torch.float32, dev, (N, 3))
+    kernels.require(tfs_table, "tfs_table", torch.float32, dev, (n_all, 4, 4))
+    kernels.require(segs, "segs", torch.float32, dev, (n_all, 7))
+    if not 1 <= n_init <= min(n_all, MAX_INIT):
+        raise ValueError(f"n_init {n_init} outside "
+                         f"[1, {min(n_all, MAX_INIT)}]")
+    slot = torch.empty((N * n_init,), dtype=torch.int32, device=dev)
+    err = kernels.lib("deform").deform_prologue_fwd(
+        pts.data_ptr(), tfs_table.data_ptr(), segs.data_ptr(), N, n_all,
+        n_init, slot.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(err, "deform_prologue")
+    kernels.launches["deform_prologue"] += 1
+    return slot
 
 
 class BroydenResult(NamedTuple):
@@ -227,3 +296,103 @@ def forward_skinning(xc: torch.Tensor, weights: torch.Tensor,
     rot = torch.stack([t[0], t[1], t[2], t[4], t[5], t[6], t[8], t[9], t[10]],
                       dim=-1)
     return xd, rot
+
+
+class EpilogueOut(NamedTuple):
+    xc: torch.Tensor        # [N*K, 3] kept roots
+    j_inv: torch.Tensor     # [N*K, 9] their J^-1
+    valid: torch.Tensor     # [N*K] kept lane is a surviving root
+    overflow: torch.Tensor  # () int64: survivors beyond K, summed
+    fwd_rot: torch.Tensor | None  # [N*K, 9] blended rotation, row-major
+
+
+def deform_epilogue_plain(res: BroydenResult, n_init: int, n_keep: int,
+                          need_rot: bool, lbs_cl, spec, tfs,
+                          thresh: float = 1e-4) -> EpilogueOut:
+    """Plain twin of :func:`deform_epilogue`."""
+    I, K = n_init, n_keep
+    N = res.x.shape[0] // I
+    valid = filter_duplicates(res.x.reshape(N, I, 3), res.valid.reshape(N, I),
+                              thresh)
+    overflow = torch.relu(valid.sum(-1, dtype=torch.int64) - K).sum()
+    order = stable_partition_indices(valid)[:, :K]                # [N, K]
+    lane = (torch.arange(N, device=res.x.device)[:, None] * I
+            + order).reshape(-1)
+    xc = res.x[lane]
+    return EpilogueOut(
+        xc=xc, j_inv=res.j_inv[lane], valid=valid.reshape(-1)[lane],
+        overflow=overflow,
+        fwd_rot=deform_skinning_plain(xc, lbs_cl, spec, tfs) if need_rot
+        else None)
+
+
+def deform_epilogue(res: BroydenResult, n_init: int, n_keep: int,
+                    need_rot: bool, lbs_cl, spec, tfs,
+                    thresh: float = 1e-4) -> EpilogueOut:
+    """After the search over ``n_init`` lanes per point: drop each root
+    within ``thresh`` of a later valid one (`filter.cu:25-51`), count the
+    survivors beyond ``n_keep``, keep the first ``n_keep`` survivors in lane
+    order (then the first lanes that did not survive), and with
+    ``need_rot`` sample the LBS weights ``lbs_cl [D*H*W, 24]`` (border
+    padding) at each kept root and blend the rotation of ``tfs [24, 4, 4]``
+    (`deformer_torch.py:213-227`).  ``spec`` is the voxel's
+    :class:`~intrinsicavatar_tpu_torch.anim.lbs_voxel.VoxelSpec`."""
+    if res.x.device.type == "cpu":
+        return deform_epilogue_plain(res, n_init, n_keep, need_rot, lbs_cl,
+                                     spec, tfs, thresh)
+    dev = res.x.device
+    I, K = n_init, n_keep
+    M = res.x.shape[0]
+    N = M // I
+    if N * I != M or not 1 <= K <= I <= MAX_INIT:
+        raise ValueError(f"{M} lanes, n_init {I}, n_keep {K}")
+    kernels.require(res.x, "x", torch.float32, dev, (M, 3))
+    kernels.require(res.j_inv, "j_inv", torch.float32, dev, (M, 9))
+    kernels.require(res.valid, "valid", torch.bool, dev, (M,))
+    xc = torch.empty((N * K, 3), dtype=torch.float32, device=dev)
+    j_inv = torch.empty((N * K, 9), dtype=torch.float32, device=dev)
+    valid = torch.empty((N * K,), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    err = kernels.lib("deform").deform_epilogue_fwd(
+        res.x.data_ptr(), res.j_inv.data_ptr(), res.valid.data_ptr(), N, I,
+        K, float(thresh) * float(thresh), xc.data_ptr(), j_inv.data_ptr(),
+        valid.data_ptr(), overflow.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(err, "deform_epilogue")
+    kernels.launches["deform_epilogue"] += 1
+    return EpilogueOut(
+        xc=xc, j_inv=j_inv, valid=valid, overflow=overflow,
+        fwd_rot=deform_skinning(xc, lbs_cl, spec, tfs) if need_rot else None)
+
+
+def deform_skinning_plain(xc, lbs_cl, spec, tfs) -> torch.Tensor:
+    """Plain twin of :func:`deform_skinning`."""
+    weights = grid_sample_3d(lbs_cl, spec.shape_dhw, spec.normalize(xc),
+                             padding="border")
+    return forward_skinning(xc, weights, tfs)[1]
+
+
+def deform_skinning(xc, lbs_cl, spec, tfs) -> torch.Tensor:
+    """Rotation rows ``[M, 9]`` of the LBS transform at canonical points
+    ``xc [M, 3]``: the weights ``lbs_cl [D*H*W, 24]`` sampled with border
+    padding (``spec`` normalizes), blended over ``tfs [24, 4, 4]``
+    (`FastSNARF.query_weights` + `forward_skinning`).  Kernel KH's second
+    stage; :func:`deform_epilogue` calls it when ``need_rot``."""
+    if xc.device.type == "cpu":
+        return deform_skinning_plain(xc, lbs_cl, spec, tfs)
+    dev = xc.device
+    M = xc.shape[0]
+    D, H, W = spec.shape_dhw
+    kernels.require(xc, "xc", torch.float32, dev, (M, 3))
+    kernels.require(lbs_cl, "lbs_cl", torch.float32, dev,
+                    (D * H * W, N_BONES))
+    kernels.require(tfs, "tfs", torch.float32, dev, (N_BONES, 4, 4))
+    if lbs_cl.data_ptr() % 16:
+        raise ValueError("lbs_cl must be 16-byte aligned")
+    rot = torch.empty((M, 9), dtype=torch.float32, device=dev)
+    err = kernels.lib("deform").deform_skinning_fwd(
+        xc.data_ptr(), lbs_cl.data_ptr(), tfs.data_ptr(), M, D, H, W,
+        *(float(v) for v in spec.offset), float(spec.scale),
+        float(spec.ratio), rot.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(err, "deform_skinning")
+    kernels.launches["deform_skinning"] += 1
+    return rot

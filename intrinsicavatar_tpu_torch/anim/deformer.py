@@ -2,12 +2,13 @@
 (counterpart of the JAX package's ``anim/deformer.py``, eval mode).
 
 Once-per-sequence state lives in :class:`DeformerStatics`, per-frame state
-in :class:`FrameState` (from :meth:`FastSNARF.prepare`).  A point query runs
-the Broyden search (kernel KC) over the ``n_init`` pruned bone inits,
-filters duplicate roots, keeps the first ``max_candidates`` survivors,
-queries the canonical field on them and reduces by min-SDF
-(`snarf_deformer.py:187-255`).  The train-mode implicit-function gradient
-correction comes with the training slice.
+in :class:`FrameState` (from :meth:`FastSNARF.prepare`).  A point query
+prunes the bone inits to ``n_init`` (kernel KH's prologue), runs the Broyden
+search (kernel KC) over them, filters duplicate roots and keeps the first
+``max_candidates`` survivors (KH's epilogue, which also blends the LBS
+rotation where a gradient query reads it), queries the canonical field on
+them and reduces by min-SDF (`snarf_deformer.py:187-255`).  The train-mode
+implicit-function gradient correction comes with the training slice.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import torch
 from torch import nn
 
 from intrinsicavatar_tpu_torch.anim.broyden import (
-    INIT_BONES, broyden_search, channel_last, filter_duplicates,
-    forward_skinning, grid_sample_3d,
+    INIT_BONES, broyden_search, channel_last, deform_epilogue,
+    deform_prologue, segment_table,
 )
 from intrinsicavatar_tpu_torch.anim.lbs_voxel import (
     make_voxel_spec, make_weight_voxel, precompute_transform_voxels,
@@ -30,7 +31,7 @@ from intrinsicavatar_tpu_torch.anim.smpl import (
     smpl_forward,
 )
 from intrinsicavatar_tpu_torch.ops.compact import (
-    compact_indices, scatter_compacted, stable_partition_indices,
+    compact_indices, scatter_compacted,
 )
 from intrinsicavatar_tpu_torch.ops.math import (
     rigid_inverse, rodrigues, safe_normalize,
@@ -46,6 +47,7 @@ class DeformerStatics(NamedTuple):
     lbs_voxel: torch.Tensor   # [24, D, H, W]
     lbs_cl: torch.Tensor      # [D*H*W, 24] channel-last copy for sampling
     vs_template: torch.Tensor  # [V, 3] canonical-pose vertices
+    seg_table: torch.Tensor   # [13, 7] init-bone segments (segment_table)
 
 
 class FrameState(NamedTuple):
@@ -113,9 +115,11 @@ class FastSNARF(nn.Module):
         lbs_voxel = make_weight_voxel(
             verts_t, torch.as_tensor(self.body_model.lbs_weights,
                                      device=device), self.spec)
-        return DeformerStatics(tfs_inv_t=tfs_inv_t, lbs_voxel=lbs_voxel,
-                               lbs_cl=channel_last(lbs_voxel),
-                               vs_template=verts_t)
+        return DeformerStatics(
+            tfs_inv_t=tfs_inv_t, lbs_voxel=lbs_voxel,
+            lbs_cl=channel_last(lbs_voxel), vs_template=verts_t,
+            seg_table=torch.as_tensor(segment_table(self.init_segs),
+                                      device=device))
 
     # ---------------------------------------------------------- per frame
 
@@ -165,12 +169,7 @@ class FastSNARF(nn.Module):
 
     # ---------------------------------------------------------- queries
 
-    def query_weights(self, statics: DeformerStatics, x):
-        """Trilinear LBS weights at canonical points (border padding)."""
-        return grid_sample_3d(statics.lbs_cl, self.spec.shape_dhw,
-                              self.spec.normalize(x), padding="border")
-
-    def search(self, frame: FrameState, pts):
+    def search(self, statics: DeformerStatics, frame: FrameState, pts):
         """Broyden search from the ``n_init`` bone inits whose canonicalized
         start point lies closest to that bone's canonical segment."""
         N = pts.shape[0]
@@ -180,32 +179,13 @@ class FastSNARF(nn.Module):
         init_bones = torch.as_tensor(INIT_BONES, device=pts.device)
         tfs_table = frame.tfs[init_bones].contiguous()           # [13, 4, 4]
         if I >= n_all:
-            slot = torch.arange(n_all, device=pts.device).repeat(N)
+            slot = torch.arange(n_all, dtype=torch.int32,
+                                device=pts.device).repeat(N)
         else:
-            px, py, pz = pts[:, 0], pts[:, 1], pts[:, 2]
-            dists = []
-            for s_ in range(n_all):
-                T = tfs_table[s_]
-                dx, dy, dz = px - T[0, 3], py - T[1, 3], pz - T[2, 3]
-                xi = T[0, 0] * dx + T[1, 0] * dy + T[2, 0] * dz
-                yi = T[0, 1] * dx + T[1, 1] * dy + T[2, 1] * dz
-                zi = T[0, 2] * dx + T[1, 2] * dy + T[2, 2] * dz
-                a = self.init_segs[s_, 0]
-                ab = self.init_segs[s_, 1] - a
-                denom = float(ab @ ab) + 1e-9
-                t = torch.clamp(((xi - float(a[0])) * float(ab[0])
-                                 + (yi - float(a[1])) * float(ab[1])
-                                 + (zi - float(a[2])) * float(ab[2]))
-                                / denom, 0.0, 1.0)
-                ddx = xi - (float(a[0]) + t * float(ab[0]))
-                ddy = yi - (float(a[1]) + t * float(ab[1]))
-                ddz = zi - (float(a[2]) + t * float(ab[2]))
-                dists.append(ddx * ddx + ddy * ddy + ddz * ddz)
-            d = torch.stack(dists, -1)                            # [N, 13]
-            # ascending stable sort = jax.lax.top_k(-d) with its tie order
-            slot = torch.argsort(d, dim=-1, stable=True)[:, :I].reshape(-1)
+            slot = deform_prologue(pts.contiguous(), tfs_table,
+                                   statics.seg_table, I)
         return broyden_search(
-            xd.contiguous(), slot.to(torch.int32), frame.voxel_J, tfs_table,
+            xd.contiguous(), slot, frame.voxel_J, tfs_table,
             self.spec.offset, self.spec.scale_kernel,
             cvg_thresh=self.cvg_thresh, dvg_thresh=self.dvg_thresh)
 
@@ -247,31 +227,26 @@ class FastSNARF(nn.Module):
 
         Returns ``(pts_cano, sdf, valid_any, sdf_grad_obs, sdf_grad_cano,
         feature)`` (the last three when ``geometry_fn`` returns them), with
-        invalid points carrying sdf = 1e5.
+        invalid points carrying sdf = 1e5.  A ``geometry_fn`` that returns
+        gradients needs ``with_jac``: the rotation that takes them to
+        observation space is blended only then.
         """
         if not eval_mode:
             raise NotImplementedError("train-mode deform comes with the "
                                       "training slice")
         N = pts.shape[0]
         I, K = self.n_init, min(self.max_candidates, self.n_init)
-        res = self.search(frame, pts)
+        res = self.search(statics, frame, pts)
         # the single-phase search drops no lane
         record(counters, "ovf_broyden_phase2",
                torch.zeros((), dtype=torch.int64, device=pts.device))
-        valid = filter_duplicates(res.x.reshape(N, I, 3),
-                                  res.valid.reshape(N, I))
-        record(counters, "ovf_candidates", torch.relu(
-            valid.sum(-1, dtype=torch.int64) - K).sum())
-        order = stable_partition_indices(valid)[:, :K]            # [N, K]
-        lane = (torch.arange(N, device=pts.device)[:, None] * I
-                + order).reshape(-1)
-        xc = res.x[lane]
-        jinv = res.j_inv[lane]
-        valid_flat = (valid.reshape(-1) & res.valid)[lane]
-        weights = self.query_weights(statics, xc)
-        _, fwd_rot = forward_skinning(xc, weights, frame.tfs)
-        c2w = jinv if self.use_j_inv else fwd_rot                 # [M, 9]
-        return self._finish_query(N, K, xc, c2w, valid_flat, geometry_fn,
+        # the blended rotation is read only by a gradient query without J^-1
+        ep = deform_epilogue(res, I, K, with_jac and not self.use_j_inv,
+                             statics.lbs_cl, self.spec,
+                             frame.tfs.contiguous())
+        record(counters, "ovf_candidates", ep.overflow)
+        c2w = ep.j_inv if self.use_j_inv else ep.fwd_rot          # [M, 9]
+        return self._finish_query(N, K, ep.xc, c2w, ep.valid, geometry_fn,
                                   boost, counters)
 
     def _finish_query(self, N, K, xc, c2w, valid_flat, geometry_fn, boost,
@@ -283,6 +258,9 @@ class FastSNARF(nn.Module):
         sel = torch.arange(N, device=xc.device) * K + idx
         out = [xc[sel], sdf.min(-1).values, valid_flat.reshape(N, K).any(-1)]
         if len(ret) > 1:
+            if c2w is None:
+                raise ValueError("a geometry query that returns gradients "
+                                 "needs deform(..., with_jac=True)")
             gx, gy, gz = ret[1].unbind(-1)
             c = c2w.unbind(-1)
             if j_inv_nr is not None:

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("hashgrid", "encode_grad", "broyden")
+SOURCES = ("hashgrid", "encode_grad", "broyden", "march", "resample",
+           "compact", "deform")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # no multiply-add contraction: the kernels then round like
               # their plain PyTorch twins, which the checks compare against
@@ -44,6 +45,17 @@ SIGNATURES = {
     "broyden": {"broyden_search_fwd": (
         P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
         F32, F32, F32, F32, F32, F32, F32, F32, P)},
+    "march": {"occupancy_march_fwd": (
+        P, P, P, P, P, P, P, I64, I32, I32, F32, P, P, P, P, P)},
+    "resample": {"merge_resample_fwd": (
+        P, P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P, P, P, P)},
+    "compact": {"compact_indices_fwd": (
+        P, I64, I64, I64, I32, I64, P, P, P, P)},
+    "deform": {
+        "deform_prologue_fwd": (P, P, P, I64, I32, I32, P, P),
+        "deform_epilogue_fwd": (P, P, P, I64, I32, I32, F32, P, P, P, P, P),
+        "deform_skinning_fwd": (P, P, P, I64, I32, I32, I32, F32, F32, F32,
+                                F32, F32, P, P)},
 }
 
 launches: collections.Counter = collections.Counter()

@@ -1,11 +1,22 @@
 """Valid-first stable compaction into a static budget (counterpart of the
-JAX package's ``ops/compact.py``), in plain PyTorch."""
+JAX package's ``ops/compact.py``).
+
+:func:`compact_indices` and :func:`compact_indices_interleaved` launch
+kernel KG (``csrc/compact.cu``) for CUDA tensors and take the plain twin
+:func:`compact_indices_plain` only for CPU tensors.  The row gather and the
+scatter back with fills around ``fn`` stay tensor indexing: plain data
+movement, which the JAX op also leaves to XLA's gather and scatter.
+"""
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import torch
+
+from intrinsicavatar_tpu_torch import kernels
+
+CHUNK = 4096    # entries per block of kernel KG (kChunk in csrc/compact.cu)
 
 
 def stable_partition_indices(mask: torch.Tensor) -> torch.Tensor:
@@ -14,20 +25,54 @@ def stable_partition_indices(mask: torch.Tensor) -> torch.Tensor:
     return torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
 
 
+def compact_indices_plain(mask: torch.Tensor, budget: int,
+                          sample_major: bool = False):
+    """Plain twin of kernel KG.  ``mask`` is ``[M]``, or ``[R, S]`` with
+    ``sample_major``: the order then runs over samples first and the indices
+    returned are flat ray-major."""
+    if not sample_major:
+        idx = stable_partition_indices(mask)[:budget]
+        return idx, mask[idx]
+    R, S = mask.shape
+    idx_sm, picked = compact_indices_plain(mask.T.reshape(-1), budget)
+    return (idx_sm % R) * S + idx_sm // R, picked
+
+
+def _compact(mask: torch.Tensor, budget: int, sample_major: bool):
+    if mask.device.type == "cpu":
+        return compact_indices_plain(mask, budget, sample_major)
+    dev = mask.device
+    kernels.require(mask, "mask", torch.bool, dev,
+                    (None, None) if sample_major else (None,))
+    R, S = mask.shape if sample_major else (mask.shape[0], 1)
+    M = mask.numel()
+    if not 0 <= budget <= M:
+        raise ValueError(f"budget {budget} outside [0, {M}]")
+    idx = torch.empty((budget,), dtype=torch.int64, device=dev)
+    picked = torch.empty((budget,), dtype=torch.bool, device=dev)
+    if budget == 0:
+        return idx, picked
+    counts = torch.empty((-(-M // CHUNK),), dtype=torch.int32, device=dev)
+    err = kernels.lib("compact").compact_indices_fwd(
+        mask.data_ptr(), M, R, S, int(sample_major), budget,
+        counts.data_ptr(), idx.data_ptr(), picked.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check(err, "compact_indices")
+    kernels.launches["compact_indices"] += 1
+    return idx, picked
+
+
 def compact_indices(mask: torch.Tensor, budget: int):
     """``(idx [budget], picked [budget])``: up to ``budget`` valid entries in
     valid-first stable order."""
-    idx = stable_partition_indices(mask)[:budget]
-    return idx, mask[idx]
+    return _compact(mask, budget, False)
 
 
 def compact_indices_interleaved(mask2d: torch.Tensor, budget: int):
     """Valid-first indices over a ``[R, S]`` mask in sample-major order, so
     budget overflow drops the far samples of every ray.  Returns flat
     ray-major ``(indices [budget], picked [budget])``."""
-    R, S = mask2d.shape
-    idx_sm, picked = compact_indices(mask2d.T.reshape(-1), budget)
-    return (idx_sm % R) * S + idx_sm // R, picked
+    return _compact(mask2d, budget, True)
 
 
 def scatter_compacted(outs, idx, picked, M: int, fills: Sequence):

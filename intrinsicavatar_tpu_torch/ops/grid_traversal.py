@@ -1,9 +1,12 @@
 """Occupancy-grid ray marching with rectangular output (counterpart of the
-JAX package's ``ops/grid_traversal.py``; plain PyTorch in this slice).
+JAX package's ``ops/grid_traversal.py``).
 
 Every ray gets a fixed budget of ``S`` uniform steps between its entry and
 exit of the scene AABB; a step is a sample iff the occupancy voxel at its
 midpoint is set.  Output is the edge-list form the merge resampler consumes.
+:func:`occupancy_sampling` launches kernel KE (``csrc/march.cu``) for CUDA
+tensors and takes the plain twin :func:`occupancy_sampling_plain` only for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from intrinsicavatar_tpu_torch import kernels
 from intrinsicavatar_tpu_torch.ops.compact import stable_partition_indices
 
 
@@ -38,11 +42,10 @@ def ray_aabb_intersect(rays_o, rays_d, aabb):
     return t_min, t_max
 
 
-def occupancy_sampling(rays_o, rays_d, binaries, aabb, step_size: float,
-                       num_steps: int, near=None, far=None,
-                       stratified_u=None) -> RayIntervals:
-    """March rays through the binary grid ``[res]^3`` (x, y, z order);
-    ``stratified_u [R]`` shifts each start by ``u * step_size``."""
+def occupancy_sampling_plain(rays_o, rays_d, binaries, aabb,
+                             step_size: float, num_steps: int, near=None,
+                             far=None, stratified_u=None) -> RayIntervals:
+    """Plain twin of kernel KE."""
     S = num_steps
     res = binaries.shape[0]
     t_enter, t_exit = ray_aabb_intersect(rays_o, rays_d, aabb)
@@ -72,6 +75,42 @@ def occupancy_sampling(rays_o, rays_d, binaries, aabb, step_size: float,
     take = lambda a: torch.gather(a, 1, order)
     return RayIntervals(vals=take(vals), is_left=take(is_left),
                         is_right=take(is_right), valid=take(valid))
+
+
+def occupancy_sampling(rays_o, rays_d, binaries, aabb, step_size: float,
+                       num_steps: int, near=None, far=None,
+                       stratified_u=None) -> RayIntervals:
+    """March rays ``[R, 3]`` through the binary grid ``[res]^3`` (x, y, z
+    order) inside ``aabb [6]``; ``near``/``far [R]`` clip each ray and
+    ``stratified_u [R]`` shifts each start by ``u * step_size``.  Returns
+    ``[R, num_steps + 1]`` edge lists."""
+    if rays_o.device.type == "cpu":
+        return occupancy_sampling_plain(rays_o, rays_d, binaries, aabb,
+                                        step_size, num_steps, near, far,
+                                        stratified_u)
+    dev = rays_o.device
+    R, S, res = rays_o.shape[0], int(num_steps), binaries.shape[0]
+    f32 = torch.float32
+    kernels.require(rays_o, "rays_o", f32, dev, (R, 3))
+    kernels.require(rays_d, "rays_d", f32, dev, (R, 3))
+    kernels.require(binaries, "binaries", torch.bool, dev, (res, res, res))
+    kernels.require(aabb, "aabb", f32, dev, (6,))
+    opt = []
+    for name, t in (("near", near), ("far", far),
+                    ("stratified_u", stratified_u)):
+        if t is not None:
+            kernels.require(t, name, f32, dev, (R,))
+        opt.append(None if t is None else t.data_ptr())
+    vals = torch.empty((R, S + 1), dtype=f32, device=dev)
+    flags = [torch.empty((R, S + 1), dtype=torch.bool, device=dev)
+             for _ in range(3)]
+    err = kernels.lib("march").occupancy_march_fwd(
+        rays_o.data_ptr(), rays_d.data_ptr(), *opt, binaries.data_ptr(),
+        aabb.data_ptr(), R, S, res, float(step_size), vals.data_ptr(),
+        *(f.data_ptr() for f in flags), kernels.stream_ptr(dev))
+    kernels.check(err, "occupancy_march")
+    kernels.launches["occupancy_march"] += 1
+    return RayIntervals(vals, *flags)
 
 
 def intervals_to_samples(iv: RayIntervals):

@@ -232,12 +232,12 @@ class IntrinsicAvatar(nn.Module):
         ``(t_starts, t_ends, smask)`` rectangular ``[R, S]``."""
         sched = self.schedules(step, rays_world.device)
         rays = self.deformer.rigid.transform_rays_w2s(frame, rays_world)
-        rays_o, rays_d = rays[:, :3], rays[:, 3:6]
+        rays_o, rays_d = rays[:, :3].contiguous(), rays[:, 3:6].contiguous()
         lvl = level_of(occ, t_idx)
         iv = occupancy_sampling(
             rays_o, rays_d, occ.binaries[lvl], occ.aabbs[lvl],
             self.render_step_size, self.num_samples_per_ray,
-            near=rays[:, 6], far=rays[:, 7],
+            near=rays[:, 6].contiguous(), far=rays[:, 7].contiguous(),
             stratified_u=stratified_u if flags.randomized else None)
         if flags.importance_sample:
             iv = self._importance_resample(statics, frame, cond, sched,

@@ -14,9 +14,13 @@ import torch
 from intrinsicavatar_tpu_torch import kernels
 from intrinsicavatar_tpu_torch.anim import broyden as TB
 from intrinsicavatar_tpu_torch.anim.deformer import FastSNARF
+from intrinsicavatar_tpu_torch.anim.lbs_voxel import VoxelSpec
 from intrinsicavatar_tpu_torch.nets.mlp import VanillaMLP
+from intrinsicavatar_tpu_torch.ops import compact as C
 from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+from intrinsicavatar_tpu_torch.ops import grid_traversal as G
 from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
 from intrinsicavatar_tpu_torch.utils.config import wrap
 
@@ -134,6 +138,178 @@ def test_volrend_kernels_match_twins(cuda):
     torch.testing.assert_close(t, t_r, rtol=1e-5, atol=1e-6)
 
 
+AABB = [-1.0, -1.2, -0.9, 1.1, 1.0, 1.3]
+
+
+def _march_inputs(cuda, fill, R=4096, S=128, res=64, seed=4):
+    """Rays from a ring of origins at the scene: a quarter of them turned
+    away (they miss), some along the top face (a miss: t_exit == 0), some
+    whose far plane cuts the march short, and some with near == far."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, R)
+    o = np.stack([2.5 * np.cos(ang), rng.uniform(-0.5, 0.5, R),
+                  2.5 * np.sin(ang)], -1)
+    tgt = rng.uniform(-0.8, 0.8, (R, 3))
+    d = tgt - o
+    d[: R // 4] *= -1.0
+    o[R // 4: R // 4 + 64, 1] = 1.0                 # on the top face
+    d[R // 4: R // 4 + 64, 1] = 0.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dist = np.linalg.norm(o, axis=-1)
+    near, far = dist - 1.6, dist + 1.6
+    far[R // 2: R // 2 + 64] = near[R // 2: R // 2 + 64] + 0.5
+    near[R // 2 + 64: R // 2 + 128] = far[R // 2 + 64: R // 2 + 128]
+    grid = (np.ones((res,) * 3, bool) if fill == "full"
+            else rng.random((res,) * 3) < 0.3)
+    diag = float(np.linalg.norm(np.subtract(AABB[3:], AABB[:3])))
+    t = lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=cuda)
+    return (t(o), t(d), t(grid, torch.bool), t(AABB), diag / S, S,
+            t(near), t(far), t(rng.random(R)))
+
+
+@pytest.mark.parametrize("fill", ["random", "full"])
+def test_march_kernel_matches_twin(cuda, fill):
+    o, d, grid, aabb, step, S, near, far, u = _march_inputs(cuda, fill)
+    for kw in ({"near": near, "far": far, "stratified_u": u}, {}):
+        before = kernels.launches["occupancy_march"]
+        out = G.occupancy_sampling(o, d, grid, aabb, step, S, **kw)
+        assert kernels.launches["occupancy_march"] == before + 1
+        ref = G.occupancy_sampling_plain(o, d, grid, aabb, step, S, **kw)
+        for name in ("is_left", "is_right", "valid"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        # the same f32 operations in the same order
+        torch.testing.assert_close(out.vals, ref.vals, rtol=0, atol=1e-6)
+        assert not ref.valid[: o.shape[0] // 4].any()       # the misses
+        assert ref.valid.any(-1).float().mean() > 0.3
+
+
+def test_resample_kernel_matches_twin(cuda):
+    o, d, grid, aabb, step, S, near, far, u = _march_inputs(cuda, "random")
+    iv = G.occupancy_sampling_plain(o, d, grid, aabb, step, S, near=near,
+                                    far=far, stratified_u=u)
+    rng = np.random.default_rng(5)
+    R = o.shape[0]
+    for rnd in range(2):
+        E = iv.vals.shape[1]
+        w = rng.random((R, E)) * rng.choice([0.0, 0.002, 0.02], (R, 1))
+        w[-64:] *= 40.0                       # foreground mass above 1
+        w = torch.as_tensor(w, dtype=torch.float32, device=cuda)
+        args = (iv.vals, iv.is_left, iv.is_right, iv.valid, w, 16)
+        out = RS.merge_resample_rays(*args)
+        ref = RS.merge_resample_rays_plain(*args)
+        # torch.cumsum on the card sums in another order than the kernel's
+        # sequential sum, which can move a draw across a CDF boundary: rays
+        # may differ on 1e-3 of rows; the rest agree exactly on flags and
+        # indices and within 1e-5 on values (t_new divides by the CDF step)
+        same = torch.ones(R, dtype=torch.bool, device=cuda)
+        for name in ("is_left", "is_right", "valid", "is_new", "gather_idx"):
+            same &= (getattr(out, name) == getattr(ref, name)).all(-1)
+        assert same.float().mean().item() >= 0.999
+        torch.testing.assert_close(out.vals[same], ref.vals[same], rtol=0,
+                                   atol=1e-5)
+        assert ref.is_new.any() and (ref.valid.sum(-1) == 0).any()
+        iv = G.RayIntervals(ref.vals, ref.is_left, ref.is_right, ref.valid)
+
+
+@pytest.mark.parametrize("sample_major", [False, True])
+@pytest.mark.parametrize("budget_of", ["below", "at", "above"])
+def test_compact_kernel_matches_twin(cuda, sample_major, budget_of):
+    rng = np.random.default_rng(6)
+    mask = torch.as_tensor(rng.random((4096, 160)) < 0.2, device=cuda)
+    n_valid = int(mask.sum())
+    budget = {"below": n_valid - 1000, "at": n_valid,
+              "above": n_valid + 70_000}[budget_of]
+    m = mask if sample_major else mask.reshape(-1)
+    fn = C.compact_indices_interleaved if sample_major else C.compact_indices
+    idx, picked = fn(m, budget)
+    ref_idx, ref_picked = C.compact_indices_plain(m, budget, sample_major)
+    assert torch.equal(idx, ref_idx) and torch.equal(picked, ref_picked)
+
+
+def _rigid_table(cuda, seed=7):
+    rng = np.random.default_rng(seed)
+    rots = []
+    for _ in range(13):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        rots.append(q)
+    T = np.zeros((13, 4, 4))
+    T[:, :3, :3] = rots
+    T[:, :3, 3] = rng.normal(scale=0.3, size=(13, 3))
+    T[:, 3, 3] = 1.0
+    segs = rng.normal(scale=0.4, size=(13, 2, 3)).astype(np.float32)
+    # rows 4 and 9 identical: every point has a tie between them
+    T[9], segs[9] = T[4], segs[4]
+    # row 2's segment is a point: zero length, the denominator is 1e-9
+    segs[2, 1] = segs[2, 0]
+    return (torch.as_tensor(T, dtype=torch.float32, device=cuda),
+            torch.as_tensor(TB.segment_table(segs), device=cuda))
+
+
+def test_deform_prologue_kernel_matches_twin(cuda):
+    tfs_table, segs = _rigid_table(cuda)
+    pts = torch.randn(200_000, 3, generator=torch.Generator().manual_seed(8)
+                      ).to(cuda) * 0.5
+    for I in (1, 8, 12):
+        slot = TB.deform_prologue(pts, tfs_table, segs, I)
+        ref = TB.deform_prologue_plain(pts, tfs_table, segs, I)
+        assert torch.equal(slot, ref), I
+
+
+def _search_result(cuda, N=50_000, I=8, seed=9):
+    """Lanes with 0, some and all roots valid, near-duplicate roots (within
+    and beyond 1e-4 of a later lane) and invalid lanes whose x is 0."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.3, 1.3, (N, I, 3))
+    valid = rng.random((N, I)) < rng.choice([0.0, 0.3, 1.0], (N, 1))
+    dup = rng.random((N, I)) < 0.3
+    src = rng.integers(0, I, (N, I))
+    near = x[np.arange(N)[:, None], src] + rng.normal(
+        scale=rng.choice([2e-5, 2e-4], (N, I, 1)), size=(N, I, 3))
+    x = np.where(dup[..., None], near, x)
+    x[~valid] = 0.0
+    jinv = rng.normal(size=(N, I, 9)) * valid[..., None]
+    f = lambda a: torch.as_tensor(a.reshape(N * I, -1).astype(np.float32),
+                                  device=cuda)
+    return TB.BroydenResult(x=f(x), j_inv=f(jinv),
+                            valid=torch.as_tensor(valid.reshape(-1),
+                                                  device=cuda))
+
+
+def _skin_inputs(cuda, seed=10):
+    rng = np.random.default_rng(seed)
+    spec = VoxelSpec(resolution=128, offset=np.zeros(3, np.float32),
+                     scale=1.0)
+    D, H, W = spec.shape_dhw
+    w = rng.random((D * H * W, 24)) ** 4
+    lbs_cl = torch.as_tensor((w / w.sum(-1, keepdims=True)
+                              ).astype(np.float32), device=cuda)
+    tfs = torch.as_tensor(rng.normal(size=(24, 4, 4)), dtype=torch.float32,
+                          device=cuda)
+    return lbs_cl, spec, tfs
+
+
+@pytest.mark.parametrize("need_rot", [False, True])
+def test_deform_epilogue_kernel_matches_twin(cuda, need_rot):
+    res = _search_result(cuda)
+    lbs_cl, spec, tfs = _skin_inputs(cuda)
+    args = (res, 8, 4, need_rot, lbs_cl, spec, tfs)
+    before = kernels.launches["deform_skinning"]
+    out = TB.deform_epilogue(*args)
+    assert kernels.launches["deform_skinning"] == before + int(need_rot)
+    ref = TB.deform_epilogue_plain(*args)
+    for a, b in zip(out[:4], ref[:4]):
+        assert torch.equal(a, b)
+    assert ref.overflow.item() > 0
+    if need_rot:
+        # the blend sums the 24 bones in order, the twin's matrix product
+        # in cuBLAS's order
+        torch.testing.assert_close(out.fwd_rot, ref.fwd_rot, rtol=0,
+                                   atol=1e-5)
+    else:
+        assert out.fwd_rot is None and ref.fwd_rot is None
+
+
 def test_wrappers_refuse_bad_input(cuda):
     spec, table, x, mask = _grid(False, 16)
     table = torch.as_tensor(table, device=cuda)
@@ -142,3 +318,29 @@ def test_wrappers_refuse_bad_input(cuda):
         HG.hashgrid_encode(table, x.double(), spec)
     with pytest.raises(ValueError):
         HG.hashgrid_encode(table, x.T.contiguous().T, spec)
+    o, d, grid, aabb, step, S, *_ = _march_inputs(cuda, "random", R=64)
+    with pytest.raises(ValueError):
+        G.occupancy_sampling(o.double(), d, grid, aabb, step, S)
+    with pytest.raises(ValueError):
+        G.occupancy_sampling(o, d, grid.float(), aabb, step, S)
+    iv = G.occupancy_sampling(o, d, grid, aabb, step, S)
+    w = torch.zeros_like(iv.vals)
+    with pytest.raises(ValueError):
+        RS.merge_resample_rays(iv.vals, iv.is_left, iv.is_right, iv.valid,
+                               w.T.contiguous().T, 16)
+    with pytest.raises(ValueError):
+        RS.merge_resample_rays(iv.vals, iv.is_left, iv.is_right, iv.valid,
+                               w, 65)
+    with pytest.raises(ValueError):
+        C.compact_indices(iv.valid.reshape(-1).int(), 10)
+    with pytest.raises(ValueError):
+        C.compact_indices(iv.valid.reshape(-1), iv.valid.numel() + 1)
+    tfs_table, segs = _rigid_table(cuda)
+    with pytest.raises(ValueError):
+        TB.deform_prologue(o, tfs_table, segs[:, :6].contiguous(), 8)
+    res = _search_result(cuda, N=16)
+    with pytest.raises(ValueError):
+        TB.deform_epilogue(res._replace(valid=res.valid.int()), 8, 4, False,
+                           None, None, None)
+    with pytest.raises(ValueError):
+        TB.deform_epilogue(res, 8, 9, False, None, None, None)

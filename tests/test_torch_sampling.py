@@ -12,6 +12,9 @@ from intrinsicavatar_tpu.ops import compact as JC
 from intrinsicavatar_tpu.ops import grid_traversal as JG
 from intrinsicavatar_tpu.ops import resample as JR
 from intrinsicavatar_tpu.render import occupancy as JO
+from intrinsicavatar_tpu_torch import kernels
+from intrinsicavatar_tpu_torch.anim import broyden as TB
+from intrinsicavatar_tpu_torch.anim.lbs_voxel import VoxelSpec
 from intrinsicavatar_tpu_torch.ops import compact as TC
 from intrinsicavatar_tpu_torch.ops import grid_traversal as TG
 from intrinsicavatar_tpu_torch.ops import resample as TR
@@ -47,8 +50,14 @@ def _rays(seed=0, R=96):
     return o, d, near, far, binaries, u
 
 
-def _march(seed=0):
+def _march(seed=0, case=None):
+    """``case``: ``miss`` turns every other ray away from the box; ``full``
+    sets every voxel, so every step inside the box is a sample."""
     o, d, near, far, binaries, u = _rays(seed)
+    if case == "miss":
+        d[::2] *= -1.0
+    elif case == "full":
+        binaries[:] = True
     jiv = JG.occupancy_sampling(
         jnp.asarray(o), jnp.asarray(d), jnp.asarray(binaries),
         jnp.asarray(AABB), STEP, 32, near=jnp.asarray(near),
@@ -78,6 +87,28 @@ def test_occupancy_sampling_matches_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **VTOL)
 
 
+@pytest.mark.parametrize("case", ["miss", "full"])
+def test_occupancy_sampling_edge_cases_match_jax(case):
+    jiv, tiv = _march(5, case)
+    _assert_intervals(jiv, tiv)
+    valid = np.asarray(jiv.valid)
+    if case == "miss":
+        assert not valid[::2].any() and valid[1::2].any()
+    else:
+        # a hit ray's samples run without a gap from entry to exit
+        n = valid.sum(-1)
+        assert (n > 0).any()
+        assert (valid == (np.arange(valid.shape[1]) < n[:, None])).all()
+        assert (np.asarray(jiv.is_left).sum(-1) == np.maximum(n - 1, 0)).all()
+
+
+def _assert_merged(jm, tm):
+    _assert_intervals(jm, tm)
+    np.testing.assert_array_equal(tm.is_new.numpy(), np.asarray(jm.is_new))
+    np.testing.assert_array_equal(tm.gather_idx.numpy(),
+                                  np.asarray(jm.gather_idx))
+
+
 def test_merge_resample_rays_matches_jax():
     jiv, tiv = _march(1)
     rng = np.random.default_rng(2)
@@ -88,11 +119,31 @@ def test_merge_resample_rays_matches_jax():
                                 jiv.valid, jnp.asarray(w), 16)
     tm = TR.merge_resample_rays(tiv.vals, tiv.is_left, tiv.is_right,
                                 tiv.valid, torch.as_tensor(w), 16)
-    _assert_intervals(jm, tm)
-    np.testing.assert_array_equal(tm.is_new.numpy(), np.asarray(jm.is_new))
-    np.testing.assert_array_equal(tm.gather_idx.numpy(),
-                                  np.asarray(jm.gather_idx))
+    _assert_merged(jm, tm)
     assert np.asarray(jm.is_new).any()
+
+
+@pytest.mark.parametrize("mass", ["zero", "above_one"])
+def test_merge_resample_weight_mass_matches_jax(mass):
+    """``zero``: no foreground mass, nothing is placed; ``above_one``: the
+    CDF is normalized by the mass itself and every draw is placed."""
+    jiv, tiv = _march(6)
+    rng = np.random.default_rng(7)
+    E = jiv.vals.shape[1]
+    w = (1.0 + rng.random((jiv.vals.shape[0], E))).astype(np.float32)
+    if mass == "zero":
+        w[:] = 0.0
+    args = lambda lib, iv, ww: (iv.vals, iv.is_left, iv.is_right, iv.valid,
+                                lib(ww), 16)
+    jm = JR.merge_resample_rays(*args(jnp.asarray, jiv, w))
+    tm = TR.merge_resample_rays(*args(torch.as_tensor, tiv, w))
+    _assert_merged(jm, tm)
+    new = np.asarray(jm.is_new).sum(-1)
+    if mass == "zero":
+        assert (new == 0).all()
+    else:
+        hit = np.asarray(JG.intervals_to_samples(jiv)[2]).any(-1)
+        assert hit.any() and (new[hit] == 16).all()
 
 
 def test_compaction_matches_jax():
@@ -115,6 +166,63 @@ def test_compaction_matches_jax():
                          fills, mask2d=torch.as_tensor(mask2d))
     for a, b in zip(t, j):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("sample_major", [False, True])
+@pytest.mark.parametrize("budget_of", ["below", "at", "above"])
+def test_compaction_budgets_match_jax(sample_major, budget_of):
+    """Budget below, at and above the valid count; above it the invalid
+    entries follow in their order."""
+    rng = np.random.default_rng(8)
+    mask2d = rng.random((48, 30)) < 0.3
+    n = int(mask2d.sum())
+    budget = {"below": n - 50, "at": n, "above": n + 200}[budget_of]
+    if sample_major:
+        j = JC.compact_indices_interleaved(jnp.asarray(mask2d), budget)
+        t = TC.compact_indices_interleaved(torch.as_tensor(mask2d), budget)
+    else:
+        j = JC.compact_indices(jnp.asarray(mask2d.reshape(-1)), budget)
+        t = TC.compact_indices(torch.as_tensor(mask2d.reshape(-1)), budget)
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(t[1].sum()) == min(n, budget)
+
+
+def test_cpu_tensors_take_the_twins():
+    """Every wrapper of this slice gives its twin's result for CPU tensors
+    and launches nothing."""
+    before = dict(kernels.launches)
+    o, d, near, far, binaries, u = (torch.as_tensor(a) for a in _rays(9))
+    aabb = torch.as_tensor(AABB)
+    pairs = []
+    march = (o, d, binaries, aabb, STEP, 32, near, far, u)
+    iv = TG.occupancy_sampling(*march)
+    pairs.append((iv, TG.occupancy_sampling_plain(*march)))
+    w = torch.rand(iv.vals.shape, generator=torch.Generator().manual_seed(0))
+    merge = (*iv, w, 16)
+    pairs.append((TR.merge_resample_rays(*merge),
+                  TR.merge_resample_rays_plain(*merge)))
+    pairs.append((TC.compact_indices(iv.valid.reshape(-1), 500),
+                  TC.compact_indices_plain(iv.valid.reshape(-1), 500)))
+    pairs.append((TC.compact_indices_interleaved(iv.valid, 500),
+                  TC.compact_indices_plain(iv.valid, 500, True)))
+    rng = np.random.default_rng(10)
+    tfs = torch.as_tensor(np.tile(np.eye(4, dtype=np.float32), (24, 1, 1)))
+    segs = torch.as_tensor(TB.segment_table(
+        rng.normal(size=(13, 2, 3)).astype(np.float32)))
+    pro = (o, tfs[:13].contiguous(), segs, 8)
+    pairs.append((TB.deform_prologue(*pro), TB.deform_prologue_plain(*pro)))
+    res = TB.BroydenResult(x=o[:64].repeat_interleave(8, 0),
+                           j_inv=torch.zeros(512, 9),
+                           valid=torch.as_tensor(rng.random(512) < 0.5))
+    spec = VoxelSpec(resolution=8, offset=np.zeros(3, np.float32), scale=2.0)
+    lbs_cl = torch.full((2 * 8 * 8, 24), 1.0 / 24)
+    epi = (res, 8, 4, True, lbs_cl, spec, tfs)
+    pairs.append((TB.deform_epilogue(*epi), TB.deform_epilogue_plain(*epi)))
+    for out, ref in pairs:
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    assert dict(kernels.launches) == before
 
 
 def test_test_occ_grid_matches_jax():
