@@ -396,7 +396,8 @@ def main():
         f"lanes[{M}] I={n_init} K={K}", 0.0,
         time_ms(lambda: B.deform_epilogue(*args)),
         time_ms(lambda: B.deform_epilogue_plain(*args), 3),
-        M * (12 + 36 + 1) + N * K * (12 + 36 + 1) + 8,
+        # x and valid of every lane; j_inv of the N*K kept lanes only
+        M * (12 + 1) + N * K * (36 + 12 + 36 + 1) + 8,
         N * (n_init * (n_init - 1) // 2 * 10 + n_init * 4))
 
     # KH skinning: LBS-weight sample + blend at a shading call's kept lanes
@@ -418,7 +419,8 @@ def main():
         "intrinsicavatar_tpu/anim/deformer.py:235", f"xc{[M, 3]}", err,
         time_ms(lambda: B.deform_skinning(xc, lbs_cl, spec, tfs)),
         time_ms(lambda: B.deform_skinning_plain(xc, lbs_cl, spec, tfs), 3),
-        M * 12 + min(lbs_cl.numel() * 4, M * 8 * 96) + 24 * 64 + M * 36,
+        # of tfs only the 3x3 rotation part of each bone is read
+        M * 12 + min(lbs_cl.numel() * 4, M * 8 * 96) + 24 * 36 + M * 36,
         M * (8 * (4 + 24 * 2) + 9 * 24 * 2 + 20),
         time_ms(lambda: torch.nn.functional.grid_sample(
             vox5, grid5, mode="bilinear", padding_mode="border",

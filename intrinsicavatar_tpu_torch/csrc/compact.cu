@@ -118,13 +118,19 @@ __global__ void scatter_kernel(const uint8_t* __restrict__ mask, int64_t M,
 
 }  // namespace
 
+// Length of the `counts` buffer compact_indices_fwd needs for M entries
+// (one int per chunk): the chunk size is decided here and nowhere else.
+extern "C" int compact_counts_len(long long M) {
+  return (int)((M + kChunk - 1) / kChunk);
+}
+
 extern "C" int compact_indices_fwd(const uint8_t* mask, long long M,
                                    long long R, long long S, int sample_major,
                                    long long budget, int* counts,
                                    int64_t* idx, uint8_t* picked,
                                    void* stream) {
   if (M <= 0 || budget <= 0) return 0;
-  const int n_chunks = (int)((M + kChunk - 1) / kChunk);
+  const int n_chunks = compact_counts_len(M);
   cudaStream_t st = (cudaStream_t)stream;
   count_kernel<<<n_chunks, kThreads, 0, st>>>(mask, M, R, S,
                                               sample_major != 0, counts);

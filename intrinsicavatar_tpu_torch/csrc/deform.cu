@@ -22,10 +22,11 @@
 // rotation (a gradient query without use_j_inv).
 //
 // What bounds them on an H100: bytes.  The prologue reads 12 B and writes
-// 4 I B per point with ~40 flops per bone; the epilogue reads I x 49 B and
-// writes K x 49 B per point; the skinning reads 8 corners x 96 B of the
+// 4 I B per point with ~40 flops per bone; the epilogue reads I x 13 B
+// (x and valid of every lane) and K x 36 B (j_inv of the kept lanes only)
+// and writes K x 49 B per point; the skinning reads 8 corners x 96 B of the
 // 50 MB weight voxel per lane (counted once per lane, as the sample's
-// input) and writes 36 B.
+// input), the 24 bones' 3 x 3 rotations once, and writes 36 B.
 //
 // Design: one thread per point for the prologue and for the filter and
 // first-K, with the I candidates in per-thread arrays (indexed at run time,

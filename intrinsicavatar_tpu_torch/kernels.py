@@ -35,7 +35,8 @@ P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
-# C signatures: every function returns cudaGetLastError() after its launch
+# C signatures: every function returns an int, the launching ones
+# cudaGetLastError() after their launch
 SIGNATURES = {
     "hashgrid": {"hashgrid_encode_fwd": (
         P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, F32, P)},
@@ -49,8 +50,9 @@ SIGNATURES = {
         P, P, P, P, P, P, P, I64, I32, I32, F32, P, P, P, P, P)},
     "resample": {"merge_resample_fwd": (
         P, P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P, P, P, P)},
-    "compact": {"compact_indices_fwd": (
-        P, I64, I64, I64, I32, I64, P, P, P, P)},
+    "compact": {
+        "compact_counts_len": (I64,),
+        "compact_indices_fwd": (P, I64, I64, I64, I32, I64, P, P, P, P)},
     "deform": {
         "deform_prologue_fwd": (P, P, P, I64, I32, I32, P, P),
         "deform_epilogue_fwd": (P, P, P, I64, I32, I32, F32, P, P, P, P, P),

@@ -16,8 +16,6 @@ import torch
 
 from intrinsicavatar_tpu_torch import kernels
 
-CHUNK = 4096    # entries per block of kernel KG (kChunk in csrc/compact.cu)
-
 
 def stable_partition_indices(mask: torch.Tensor) -> torch.Tensor:
     """Permutation putting True entries first, order preserved, along the
@@ -52,8 +50,10 @@ def _compact(mask: torch.Tensor, budget: int, sample_major: bool):
     picked = torch.empty((budget,), dtype=torch.bool, device=dev)
     if budget == 0:
         return idx, picked
-    counts = torch.empty((-(-M // CHUNK),), dtype=torch.int32, device=dev)
-    err = kernels.lib("compact").compact_indices_fwd(
+    lib = kernels.lib("compact")
+    counts = torch.empty((lib.compact_counts_len(M),), dtype=torch.int32,
+                         device=dev)
+    err = lib.compact_indices_fwd(
         mask.data_ptr(), M, R, S, int(sample_major), budget,
         counts.data_ptr(), idx.data_ptr(), picked.data_ptr(),
         kernels.stream_ptr(dev))

@@ -1,6 +1,6 @@
 """Worked-out bounds on an H100 for the hot ops the port has not ported yet.
 
-    python -m intrinsicavatar_tpu_torch.bounds      # prints one JSON line
+    python3 queued_bounds.py      # prints one JSON line
 
 K10-K13 run only in the PBR stage and with the eval seed grid, which the
 port does not run yet, so nothing can be measured for them.  This works out,
@@ -18,10 +18,9 @@ from __future__ import annotations
 
 import json
 
+from chip_smoke import PEAK_BYTES, PEAK_FP32
 from intrinsicavatar_tpu_torch.utils.default_config import default_config
 
-PEAK_BYTES = 3.35e12     # H100 SXM HBM3
-PEAK_FP32 = 67e12        # H100 SXM, float32 outside the tensor cores
 FRAME_RAYS = 16384
 
 
