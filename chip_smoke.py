@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # build, check kernels, serve 2 frames
+    python3 chip_smoke.py            # build, check kernels, serve, train
 
 1. prints the card's name and power limit and builds the CUDA kernels from
    the sources in this checkout (one ``nvcc`` per source, in parallel);
@@ -16,7 +16,17 @@
 5. checks the output: finite maps, a surface (opacity > 0.5) in view, and a
    256-ray crop of the same frame rendered on the CPU with the plain twins
    agreeing with the card's render;
-6. prints the ``kernels`` line, the serve line, and last the device line.
+6. trains: records the backward kernels' inputs in one full-width train
+   step at step 2000, holds each backward kernel against its twin on them
+   and times both; then, with every launch counter set to 0 just before and
+   read just after, runs ``fit`` for 5 steps from step 0 (full budgets, no
+   importance rounds, an occupancy update) and 10 from step 2000 (2 x 16
+   importance samples, compacted shading, curvature on a 25% subsample),
+   with the plain backward twins set to fail if called; profiles one step;
+   and runs one 256-ray step on the card and on the CPU twins from the same
+   parameters and draws, whose loss and gradients must agree;
+7. prints the ``kernels`` line, the serve and train lines, and last the
+   device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -528,17 +538,345 @@ def main():
     if agree < 0.99:
         fail(f"the card's render disagrees with the plain twins: {agree}")
 
-    # ---------------------------------------------------------- 6. report
+    train_line = train(rows, row, card, dev)
+
+    # ---------------------------------------------------------- 7. report
     print(json.dumps({
         "serve": {"frames": len(outs), "rays": n_rays,
                   "rays_per_s": n_rays / serve_s, "frame_s": frame_s,
                   "peak_mem_bytes": peak, "card": card,
                   "psnr": [m["psnr"] for m in metrics]}}), flush=True)
+    print(json.dumps({"train": train_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+class Tripwire:
+    """Stands in for a plain backward twin during the train phase: a call
+    there means a CUDA tensor did not reach its kernel."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = 0
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.fn(*args, **kwargs)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def check_step_sizes(mcfg, R):
+    """``(shading lanes, curvature subsample, samples per ray)`` of a
+    compacted step at step 2000 of ``R`` rays."""
+    S = int(mcfg.num_samples_per_ray) + int(mcfg.get(
+        "n_importance_rounds", 2)) * int(mcfg.get("n_importance_samples", 16))
+    frac = float(mcfg.get("query_compaction", 0.5)) + 0.0625
+    nq = int(np.ceil(R * S * frac / 128)) * 128
+    nsub = int(np.ceil(nq * float(mcfg.get("curvature_subsample", 0.25))
+                       / 128)) * 128
+    return nq, nsub, S
+
+
+# norm-relative tolerance of the card-vs-CPU step's gradients, by leaf
+GRAD_TOL = {"geometry.table": 5e-2}
+BWD_NAMES = ("hashgrid_encode_bwd", "encode_mlp_sdfgrad_bwd_gather",
+             "encode_mlp_sdfgrad_bwd_scatter", "volrend_composite_bwd")
+
+
+def train(rows, row, card, dev):
+    """Steps 6: the backward kernels against their twins, the train phase,
+    its profile and the card-vs-CPU step.  Returns the train line."""
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    from intrinsicavatar_tpu_torch.ops import volrend as V
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils.config import merge
+    from intrinsicavatar_tpu_torch.utils.default_config import train_config
+
+    cfg = train_config()
+    ds = SyntheticDataset(cfg.dataset, rng=np.random.default_rng(SEED))
+    system = IntrinsicAvatarSystem(cfg, dev)
+    t0 = time.perf_counter()
+    system.setup(ds.betas)
+    torch.cuda.synchronize()
+    print(f"train setup in {time.perf_counter() - t0:.2f} s", flush=True)
+    data = ds.train_iter(np.random.default_rng(SEED + 1))
+
+    # ------------------------------------------------ capture at step 2000
+    recs = [Recorder(HG, "hashgrid_encode_bwd", lambda a: a[1].shape[0]),
+            Recorder(EG, "encode_mlp_sdfgrad_bwd_gather",
+                     lambda a: a[2].shape[0]),
+            Recorder(EG, "encode_mlp_sdfgrad_bwd_scatter",
+                     lambda a: a[2].shape[0]),
+            # the largest pass 2 that pulls xn back (the curvature call)
+            Recorder(EG, "encode_mlp_sdfgrad_bwd_scatter",
+                     lambda a: a[2].shape[0] if a[7] else -1),
+            Recorder(V, "composite_bwd", lambda a: a[0].numel())]
+    batch, t_idx = next(data)
+    batch = system.to_device(batch)
+    system.step = 2000
+    system.occ_update_step(batch, t_idx)
+    system.train_step(batch, t_idx, system.flags_for_step(2000))
+    torch.cuda.synchronize()
+    for r in reversed(recs):
+        r.restore()
+    ka, kb1, kb2, kb2x, kd = (r.best for r in recs)
+    if kb2x[0] < 0:
+        fail("no pass 2 of KB' pulled xn back (the curvature call)")
+
+    def relerr(a, b, rtol=0.0):
+        """Largest error beyond ``rtol`` of each entry, over the largest
+        entry."""
+        excess = ((a - b).abs() - rtol * b.abs()).clamp(min=0.0)
+        return excess.max().item() / max(b.abs().max().item(), 1e-30)
+
+    # float atomics (the kernels' and index_add_'s on the card) sum a dense
+    # level's row of ~300 terms in changing order: 1e-4 of each entry
+    ATOMIC_RTOL = 1e-4
+
+    # KA' (table only, as on the path: the radiance points carry no grad)
+    table, x, spec, g, mask, need_x = ka[1]
+    out_k = HG.hashgrid_encode_bwd(*ka[1])
+    out_p = HG.hashgrid_encode_bwd_plain(*ka[1])
+    torch.cuda.synchronize()
+    err = relerr(out_k[0], out_p[0], ATOMIC_RTOL)
+    if not err <= 1e-5:
+        fail(f"hashgrid_encode_bwd disagrees with its twin: {err}")
+    N, (L, T, F) = x.shape[0], table.shape
+    row("hashgrid_encode_bwd", "cuda",
+        "intrinsicavatar_tpu_torch/csrc/hashgrid.cu",
+        "intrinsicavatar_tpu/ops/hashgrid.py:182", f"x{list(x.shape)}",
+        (out_k[0] - out_p[0]).abs().max().item(),
+        time_ms(lambda: HG.hashgrid_encode_bwd(*ka[1])),
+        time_ms(lambda: HG.hashgrid_encode_bwd_plain(*ka[1]), 3),
+        # x and g read once; the cotangent's rows each read and written
+        # once, at most twice the table
+        x.numel() * 4 + g.numel() * 4
+        + min(N * L * 8 * F * 4, 2 * table.numel() * 4),
+        N * L * (8 * (6 + 2 * F) + 12))
+
+    # KB' pass 1 and pass 2 (the shading call), pass 2 with d_xn checked
+    # on the curvature call
+    spec_b, table_b, xn, mask_b, g_grad = kb1[1]
+    enc_k, gg_k = EG.encode_mlp_sdfgrad_bwd_gather(*kb1[1])
+    enc_p, gg_p = EG.encode_mlp_sdfgrad_bwd_gather_plain(*kb1[1])
+    torch.cuda.synchronize()
+    err = max(relerr(enc_k, enc_p), relerr(gg_k, gg_p))
+    if not err <= 1e-5:
+        fail(f"encode_mlp_sdfgrad_bwd_gather disagrees with its twin: {err}")
+    N, (L, T, F) = xn.shape[0], table_b.shape
+    D = enc_k.shape[1]
+    gathered = min(N * L * 8 * F * 4, table_b.numel() * 4)
+    row("encode_mlp_sdfgrad_bwd_gather", "cuda",
+        "intrinsicavatar_tpu_torch/csrc/encode_grad.cu",
+        "intrinsicavatar_tpu/ops/encode_grad.py:238", f"x{list(xn.shape)}",
+        max((enc_k - enc_p).abs().max().item(),
+            (gg_k - gg_p).abs().max().item()),
+        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_gather(*kb1[1])),
+        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_gather_plain(*kb1[1]), 3),
+        N * 24 + gathered + 2 * N * D * 4, N * L * 8 * (24 + 4 * F))
+    errs, abs_err = [], 0.0
+    for args in (kb2[1], kb2x[1]):
+        dk = EG.encode_mlp_sdfgrad_bwd_scatter(*args)
+        dp = EG.encode_mlp_sdfgrad_bwd_scatter_plain(*args)
+        torch.cuda.synchronize()
+        pairs = list(zip(dk, dp))[:2 if args[7] else 1]
+        errs += [relerr(a, b, ATOMIC_RTOL) for a, b in pairs]
+        abs_err = max([abs_err] + [(a - b).abs().max().item()
+                                   for a, b in pairs])
+    err = max(errs)
+    if not err <= 1e-5:
+        fail(f"encode_mlp_sdfgrad_bwd_scatter disagrees with its twin: "
+             f"{errs}")
+    _, table_b, xn, _, _, d_enc, _, need_x = kb2[1]
+    N = xn.shape[0]
+    print(f"KB' pass 2: {N} points (d_xn {need_x}), curvature call "
+          f"{kb2x[1][2].shape[0]} points (d_xn True)", flush=True)
+    row("encode_mlp_sdfgrad_bwd_scatter", "cuda",
+        "intrinsicavatar_tpu_torch/csrc/encode_grad.cu",
+        "intrinsicavatar_tpu/ops/encode_grad.py:288", f"x{list(xn.shape)}",
+        abs_err,
+        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_scatter(*kb2[1])),
+        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_scatter_plain(*kb2[1]),
+                3),
+        N * 24 + 2 * d_enc.numel() * 4
+        + min(N * L * 8 * F * 4, 2 * table_b.numel() * 4)
+        + (gathered + N * 12 if need_x else 0),
+        N * L * 8 * (30 + (6 * F + 30 if need_x else 0)))
+
+    # KD'
+    dk = V.composite_bwd(*kd[1])
+    dp = V.composite_bwd_plain(*kd[1])
+    torch.cuda.synchronize()
+    err = max(relerr(a, b) for a, b in zip(dk, dp))
+    # a tree-ordered scan vs the twin's sequential recurrence
+    if not err <= 1e-5:
+        fail(f"composite_bwd disagrees with its twin: {err}")
+    R, S = kd[1][0].shape
+    n = R * S
+    row("volrend_composite_bwd", "triton",
+        "intrinsicavatar_tpu_torch/ops/volrend_triton.py",
+        "intrinsicavatar_tpu/ops/volrend.py:38", f"sdf[{R}, {S}]",
+        max((a - b).abs().max().item() for a, b in zip(dk, dp)),
+        time_ms(lambda: V.composite_bwd(*kd[1])),
+        time_ms(lambda: V.composite_bwd_plain(*kd[1]), 3),
+        # reads sdf, dists, mask, rgb, normal, mids, d weights and the
+        # per-ray cotangents; writes d sdf, d rgb, d normal, d beta
+        n * (4 + 4 + 1 + 12 + 12 + 4 + 4) + R * 32 + n * (4 + 12 + 12)
+        + R * 4, n * 60)
+    del recs, ka, kb1, kb2, kb2x, kd, out_k, out_p, dk, dp
+
+    # ------------------------------------------------ train phase
+    system.setup(ds.betas)
+    trips = [Tripwire(HG, "hashgrid_encode_bwd_plain"),
+             Tripwire(EG, "encode_mlp_sdfgrad_bwd_gather_plain"),
+             Tripwire(EG, "encode_mlp_sdfgrad_bwd_scatter_plain"),
+             Tripwire(V, "composite_bwd_plain")]
+    regimes = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for start, n_steps in ((0, 5), (2000, 10)):
+        system.step = start
+        stamps = [time.perf_counter()]
+        torch.cuda.reset_peak_memory_stats()
+        hist = system.fit(data, start + n_steps, log_every=1,
+                          callback=lambda s, sc: stamps.append(
+                              time.perf_counter()))
+        steps_s = np.diff(stamps).tolist()
+        last = hist[-1][1]
+        regimes.append({
+            "from_step": start, "steps": n_steps,
+            "step_s": steps_s,
+            "rays_per_s": cfg.dataset.n_rays * n_steps / sum(steps_s),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "losses": {k: [h[1][k] for h in hist] for k in (
+                "total", "rgb_l1", "eikonal", "mask_bce", "curvature")},
+            "counters": {k: v for k, v in last.items()
+                         if k.startswith(("ovf_", "shading_"))}})
+        print(json.dumps({"train_regime": regimes[-1]}), flush=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for t in trips:
+        t.restore()
+    if any(t.calls for t in trips):
+        fail(f"plain backward twins ran on the card: "
+             f"{[(t.name, t.calls) for t in trips if t.calls]}")
+    for r in rows:
+        if r["name"] in BWD_NAMES:
+            r["launches"] = int(launches.get(r["name"], 0))
+    missing = [n for n in BWD_NAMES if not launches.get(n)]
+    if missing:
+        fail(f"backward kernels not launched in the train phase: {missing}")
+    for reg in regimes:
+        for k, v in reg["losses"].items():
+            if not np.all(np.isfinite(v)):
+                fail(f"train from step {reg['from_step']}: {k} is not "
+                     f"finite: {v}")
+    print(f"train launches: {json.dumps(launches)}", flush=True)
+
+    # one step under the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tf = time.perf_counter()
+        system.fit(data, system.step + 1, log_every=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tf) * 1e3
+    by_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, cnt = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                 cnt + 1)
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    profile_line = {
+        "step": system.step - 1, "step_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_launches": sum(cnt for _, cnt in by_kernel.values()),
+        "top": [[k[:70], ms, cnt] for k, (ms, cnt) in top]}
+    print(json.dumps({"train_profile": profile_line}), flush=True)
+
+    # ------------------------------------------------ card vs CPU twins
+    cfg_s = merge(cfg, {"dataset": {"n_rays": 256}})
+    ds_s = SyntheticDataset(cfg_s.dataset, rng=np.random.default_rng(SEED))
+    gpu = IntrinsicAvatarSystem(cfg_s, dev).setup(ds_s.betas)
+    # noise on the SDF MLP's rows of the hash features, zero at the sphere
+    # init (the geometry table would get no gradient)
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        v = gpu.model.geometry.mlp.layers[0].v
+        v[3:] += 0.05 * torch.randn(v[3:].shape, generator=gen).to(dev)
+    cpu = IntrinsicAvatarSystem(cfg_s, "cpu").setup(ds_s.betas)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    b = ds_s[0]
+    t_idx = b.pop("t_idx")
+    gpu.step = cpu.step = 2000
+    gpu.occ_update_step(gpu.to_device(b), t_idx)
+    cpu.occ = type(gpu.occ)(*(a.cpu() for a in gpu.occ))
+    R = b["rays"].shape[0]
+    nq, nsub, S = check_step_sizes(cfg_s.model, R)
+    g = torch.Generator().manual_seed(SEED + 2)
+    draws = {"bg": torch.rand(3, generator=g),
+             "strat_u": torch.rand(R, generator=g),
+             "lap_sub": torch.randint(0, nq, (nsub,), generator=g),
+             "lap_u": torch.rand(nsub, 3, generator=g)}
+    lg = gpu.train_step(gpu.to_device(b), t_idx, gpu.flags_for_step(2000),
+                        draws)
+    tc = time.perf_counter()
+    lc = cpu.train_step(cpu.to_device(b), t_idx, cpu.flags_for_step(2000),
+                        draws)
+    cpu_s = time.perf_counter() - tc
+    if int(lg["shading_total_samples"]) != R * S:
+        fail(f"the check step has {int(lg['shading_total_samples'])} "
+             f"samples, expected {R * S}")
+    loss_rel = abs(float(lg["total"]) - float(lc["total"])) \
+        / abs(float(lc["total"]))
+    grads = {}
+    cpu_params = dict(cpu.model.named_parameters())
+    for name, p in gpu.model.named_parameters():
+        if name.startswith("pose_correction"):
+            continue
+        gc, gp = p.grad, cpu_params[name].grad
+        if gc is None or gp is None or not torch.isfinite(gc).all() \
+                or float(gc.abs().max()) == 0.0:
+            fail(f"card step: {name} has no finite nonzero gradient")
+        grads[name] = float((gc.cpu() - gp).norm() / gp.norm())
+    print(f"card vs CPU-twin step of {R} rays (CPU {cpu_s:.1f} s): loss "
+          f"{float(lg['total']):.7g} vs {float(lc['total']):.7g} "
+          f"(rel {loss_rel:.2e}); gradient rel errors {json.dumps(grads)}",
+          flush=True)
+    # the loss within 1e-4; each leaf's gradient within 1% of its norm
+    # (atomics and cuBLAS sum in other orders), the geometry table's within
+    # 5%: near the initial sphere the curvature proxy, arccos of a dot
+    # within ~1e-6 of 1, dominates that gradient and its f32 rounding moves
+    # with every reordered sum (2.6% between the CPU twins and JAX too,
+    # tests/test_torch_train.py)
+    if not loss_rel <= 1e-4:
+        fail(f"card and CPU-twin losses disagree: {loss_rel}")
+    bad = {k: v for k, v in grads.items()
+           if not v <= GRAD_TOL.get(k, 1e-2)}
+    if bad:
+        fail(f"card and CPU-twin gradients disagree: {bad}")
+    return {"regimes": regimes, "launches": launches, "card": card,
+            "profile": {k: profile_line[k] for k in (
+                "step_wall_ms", "device_busy_ms", "device_idle_share",
+                "device_launches")},
+            "cpu_check": {"rays": R, "loss_rel": loss_rel,
+                          "grad_rel": grads}}
 
 
 if __name__ == "__main__":

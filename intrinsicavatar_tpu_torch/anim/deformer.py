@@ -7,8 +7,9 @@ prunes the bone inits to ``n_init`` (kernel KH's prologue), runs the Broyden
 search (kernel KC) over them, filters duplicate roots and keeps the first
 ``max_candidates`` survivors (KH's epilogue, which also blends the LBS
 rotation where a gradient query reads it), queries the canonical field on
-them and reduces by min-SDF (`snarf_deformer.py:187-255`).  The train-mode
-implicit-function gradient correction comes with the training slice.
+them and reduces by min-SDF (`snarf_deformer.py:187-255`).  Gradients of
+the field outputs pass through the candidate compaction's scatter and the
+min-SDF gather.
 """
 
 from __future__ import annotations
@@ -231,9 +232,15 @@ class FastSNARF(nn.Module):
         gradients needs ``with_jac``: the rotation that takes them to
         observation space is blended only then.
         """
-        if not eval_mode:
-            raise NotImplementedError("train-mode deform comes with the "
-                                      "training slice")
+        if not eval_mode and frame.tfs.requires_grad:
+            # the implicit-function correction (`anim/deformer.py:396-412`
+            # of the JAX package) carries gradient to the pose only
+            raise NotImplementedError(
+                "train-mode deform with a pose that requires a gradient "
+                "(pose correction or optimized betas) needs the backward of "
+                "the LBS blend with respect to tfs (K5), which is queued")
+        # without a pose gradient the correction is zero in value and in
+        # gradient, so train mode gives the eval-mode outputs
         N = pts.shape[0]
         I, K = self.n_init, min(self.max_candidates, self.n_init)
         res = self.search(statics, frame, pts)

@@ -1,4 +1,5 @@
-// KB: fused hash encode + SDF MLP + analytic SDF gradient, forward.
+// KB: fused hash encode + SDF MLP + analytic SDF gradient, forward (KB',
+// its backward, below).
 //
 // Replaces intrinsicavatar_tpu/ops/encode_grad.py:166-216 (_forward of
 // encode_mlp_sdfgrad): per point, the multi-level hash encode, the one-hidden
@@ -154,7 +155,200 @@ __global__ void encode_mlp_sdfgrad_kernel(
   go[2] = g[2];
 }
 
+// KB': the backward of KB, two launches around the MLP's vector-Jacobian
+// product (which stays in PyTorch, as JAX leaves it to XLA).
+//
+// Replaces intrinsicavatar_tpu/ops/encode_grad.py:225-344 (_bwd of
+// encode_mlp_sdfgrad): pass 1 (:238-269) regathers each level's corner rows
+// and writes enc and g_genc_cot, the cotangent that the point gradient's
+// cotangent g_grad puts on the MLP's input gradient (u_k = s * g_grad .
+// dw_k / dpos); pass 2 (:288-341) adds the merged row cotangent
+// w_k * d_enc + u_k * g_enc into the table (the TPU sorts and aggregates,
+// ops/scatter.py; here an atomicAdd into the row each corner read) and pulls
+// xn back: the encode path s * sum_k (row_k . d_enc) dw_k and the s^2
+// second-order terms of the gradient path.
+//
+// What bounds them on an H100: bytes.  Pass 1 gathers N * L * 8 * F * 4 B
+// of table rows (counted at most at the table's size) and writes 2 * N *
+// d_in floats; pass 2 gathers the same rows when d_xn is asked for and adds
+// N * L * 8 * F atomics into a 64 MB cotangent (counted at most at twice its
+// size).  A few dozen flops per (point, level, corner) stay far below the
+// gather time.
+//
+// Design: one thread per (point, level) in both passes, levels fastest as in
+// KA; nothing is kept between the passes but enc and g_genc_cot (the corner
+// weights are recomputed from xn).  Pass 2 adds its d_xn part with three
+// atomics per thread.
+__global__ void encode_mlp_sdfgrad_bwd_gather_kernel(
+    const float* __restrict__ table, const float* __restrict__ x,
+    const float* __restrict__ scales, const int* __restrict__ res,
+    const float* __restrict__ level_mask, const float* __restrict__ g_grad,
+    float* __restrict__ enc, float* __restrict__ gg, int64_t N, int L, int T,
+    int F, int include_xyz, float xyz_scale, float xyz_offset) {
+  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= N * L) return;
+  int64_t n = tid / L;
+  int l = (int)(tid - n * L);
+  int off = include_xyz ? 3 : 0;
+  int D = L * F + off;
+  const float* p = x + n * 3;
+  const float* gn = g_grad + n * 3;
+  float* eo = enc + n * D;
+  float* go = gg + n * D;
+  if (include_xyz && l == 0) {
+    for (int a = 0; a < 3; ++a) {
+      eo[a] = __fadd_rn(__fmul_rn(p[a], xyz_scale), xyz_offset);
+      go[a] = gn[a] * xyz_scale;
+    }
+  }
+  float s = scales[l];
+  int r = res[l];
+  bool dense = level_is_dense(r, T);
+  int c0[3];
+  float f[3];
+  for (int a = 0; a < 3; ++a) {
+    float pos = __fadd_rn(__fmul_rn(p[a], s), 0.5f);
+    float fl = floorf(pos);
+    c0[a] = (int)fl;
+    f[a] = pos - fl;
+  }
+  const float* tab = table + (int64_t)l * T * F;
+  uint32_t tmask = (uint32_t)(T - 1);
+  float e[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < 8; ++k) {
+    int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    float wx = dx ? f[0] : 1.f - f[0];
+    float wy = dy ? f[1] : 1.f - f[1];
+    float wz = dz ? f[2] : 1.f - f[2];
+    float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f, sz = dz ? 1.f : -1.f;
+    float w = wx * wy * wz;
+    float uk = s * (gn[0] * (sx * wy * wz) + gn[1] * (wx * sy * wz)
+                    + gn[2] * (wx * wy * sz));
+    int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r, dense, tmask);
+    const float* tr = tab + row * F;
+    for (int c = 0; c < F; ++c) {
+      float v = __ldg(tr + c);
+      e[c] += w * v;
+      u[c] += uk * v;
+    }
+  }
+  for (int c = 0; c < F; ++c) {
+    int q = l * F + c;
+    float m = level_mask[q];
+    eo[off + q] = e[c] * m;
+    go[off + q] = u[c] * m;
+  }
+}
+
+__global__ void encode_mlp_sdfgrad_bwd_scatter_kernel(
+    const float* __restrict__ table, const float* __restrict__ x,
+    const float* __restrict__ scales, const int* __restrict__ res,
+    const float* __restrict__ level_mask, const float* __restrict__ g_grad,
+    const float* __restrict__ d_enc, const float* __restrict__ g_enc,
+    float* __restrict__ d_table, float* __restrict__ d_xn, int64_t N, int L,
+    int T, int F, int include_xyz, float xyz_scale) {
+  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= N * L) return;
+  int64_t n = tid / L;
+  int l = (int)(tid - n * L);
+  int off = include_xyz ? 3 : 0;
+  int D = L * F + off;
+  const float* p = x + n * 3;
+  const float* gn = g_grad + n * 3;
+  float de[4] = {0.f, 0.f, 0.f, 0.f}, gl[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = 0; c < F; ++c) {
+    int q = l * F + c;
+    float m = level_mask[q];
+    de[c] = d_enc[n * D + off + q] * m;
+    gl[c] = g_enc[n * D + off + q] * m;
+  }
+  float s = scales[l];
+  int r = res[l];
+  bool dense = level_is_dense(r, T);
+  int c0[3];
+  float f[3];
+  for (int a = 0; a < 3; ++a) {
+    float pos = __fadd_rn(__fmul_rn(p[a], s), 0.5f);
+    float fl = floorf(pos);
+    c0[a] = (int)fl;
+    f[a] = pos - fl;
+  }
+  const float* tab = table + (int64_t)l * T * F;
+  float* dtab = d_table + (int64_t)l * T * F;
+  uint32_t tmask = (uint32_t)(T - 1);
+  float ge[3] = {0.f, 0.f, 0.f}, g2[3] = {0.f, 0.f, 0.f};
+  for (int k = 0; k < 8; ++k) {
+    int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    float wx = dx ? f[0] : 1.f - f[0];
+    float wy = dy ? f[1] : 1.f - f[1];
+    float wz = dz ? f[2] : 1.f - f[2];
+    float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f, sz = dz ? 1.f : -1.f;
+    float w = wx * wy * wz;
+    float dwx = sx * wy * wz, dwy = wx * sy * wz, dwz = wx * wy * sz;
+    float uk = s * (gn[0] * dwx + gn[1] * dwy + gn[2] * dwz);
+    int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r, dense, tmask);
+    for (int c = 0; c < F; ++c)
+      atomicAdd(dtab + row * F + c, w * de[c] + uk * gl[c]);
+    if (d_xn) {
+      float re = 0.f, fg = 0.f;
+      for (int c = 0; c < F; ++c) {
+        float v = __ldg(tab + row * F + c);
+        re += v * de[c];
+        fg += v * gl[c];
+      }
+      ge[0] += re * dwx;
+      ge[1] += re * dwy;
+      ge[2] += re * dwz;
+      g2[0] += fg * sx * (gn[1] * sy * wz + gn[2] * sz * wy);
+      g2[1] += fg * sy * (gn[0] * sx * wz + gn[2] * sz * wx);
+      g2[2] += fg * sz * (gn[0] * sx * wy + gn[1] * sy * wx);
+    }
+  }
+  if (d_xn) {
+    float* dxn = d_xn + n * 3;
+    for (int a = 0; a < 3; ++a) {
+      float v = s * ge[a] + (s * s) * g2[a];
+      if (include_xyz && l == 0) v += d_enc[n * D + a] * xyz_scale;
+      atomicAdd(dxn + a, v);
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int encode_mlp_sdfgrad_bwd_gather(
+    const float* table, const float* x, const float* scales, const int* res,
+    const float* level_mask, const float* g_grad, float* enc, float* gg,
+    long long N, int L, int T, int F, int include_xyz, float xyz_scale,
+    float xyz_offset, void* stream) {
+  if (F > 4) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  const int threads = 256;
+  int64_t total = (int64_t)N * L;
+  unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  encode_mlp_sdfgrad_bwd_gather_kernel<<<blocks, threads, 0,
+                                         (cudaStream_t)stream>>>(
+      table, x, scales, res, level_mask, g_grad, enc, gg, N, L, T, F,
+      include_xyz, xyz_scale, xyz_offset);
+  return launch_status();
+}
+
+extern "C" int encode_mlp_sdfgrad_bwd_scatter(
+    const float* table, const float* x, const float* scales, const int* res,
+    const float* level_mask, const float* g_grad, const float* d_enc,
+    const float* g_enc, float* d_table, float* d_xn, long long N, int L,
+    int T, int F, int include_xyz, float xyz_scale, void* stream) {
+  if (F > 4) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  const int threads = 256;
+  int64_t total = (int64_t)N * L;
+  unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  encode_mlp_sdfgrad_bwd_scatter_kernel<<<blocks, threads, 0,
+                                          (cudaStream_t)stream>>>(
+      table, x, scales, res, level_mask, g_grad, d_enc, g_enc, d_table, d_xn,
+      N, L, T, F, include_xyz, xyz_scale);
+  return launch_status();
+}
 
 extern "C" int encode_mlp_sdfgrad_fwd(
     const float* table, const float* x, const float* scales, const int* res,

@@ -1,6 +1,5 @@
 """Synthetic dataset: generated poses, procedural targets (copy of the JAX
-package's ``data/synthetic.py``, host-side numpy; its JAX training iterator
-is left for the training slice)."""
+package's ``data/synthetic.py``, host-side numpy)."""
 
 from __future__ import annotations
 
@@ -76,3 +75,14 @@ class SyntheticDataset:
             **self.pose_batch(idx),
             "t_idx": idx / self.n_frames,
         }
+
+    def train_iter(self, rng=None):
+        """Endless ``(batch, t_idx)`` of random frames, numpy arrays; frame
+        indices from ``rng`` (a numpy generator, seeded 1 by default, as
+        the JAX iterator draws them)."""
+        rng = rng or np.random.default_rng(1)
+        while True:
+            idx = int(rng.integers(0, len(self)))
+            d = self[idx]
+            t_idx = d.pop("t_idx")
+            yield d, t_idx

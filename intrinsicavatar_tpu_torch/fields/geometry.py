@@ -1,7 +1,9 @@
 """Canonical SDF geometry field (counterpart of the JAX package's
 ``fields/geometry.py``): progressive hash-grid encoding + sphere-initialized
 MLP; channel 0 of the output is the SDF.  The analytic SDF gradient runs
-through the fused kernel KB (``ops/encode_grad.py``)."""
+through the fused kernel KB (``ops/encode_grad.py``), whose backward KB'
+keeps the training loss's gradient of the gradient first-order; the
+curvature proxy is the PermutoSDF tangent-perturbation angle."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from intrinsicavatar_tpu_torch.ops.encoding import hashgrid_level_mask
 from intrinsicavatar_tpu_torch.ops.hashgrid import (
     HashGridSpec, hashgrid_encode, init_hashgrid,
 )
+from intrinsicavatar_tpu_torch.ops.math import safe_normalize
 from intrinsicavatar_tpu_torch.registry import register
 
 
@@ -107,3 +110,15 @@ class VolumeSDF(BBoxNormalized):
             level_mask)
         grad = grad_n / torch.as_tensor(self.scale, device=x.device)[None, :]
         return feat[:, 0], grad, feat
+
+    def tangent_laplace(self, x, grad, level_mask, rand_u):
+        """PermutoSDF curvature proxy (`fields/geometry.py:214-228` of the
+        JAX package): the angle, over pi, between the normals at ``x`` and
+        at ``x + 1e-4 * t``, with ``t`` the tangent ``normal x
+        normalize(rand_u)``; ``rand_u [N, 3]`` holds U[0, 1) draws."""
+        normal = safe_normalize(grad)
+        tangent = torch.linalg.cross(normal, safe_normalize(rand_u), dim=-1)
+        _, grad_d, _ = self.sdf_grad_feature(x + 1e-4 * tangent, level_mask)
+        dot = torch.sum(normal * safe_normalize(grad_d), -1)
+        return torch.arccos(torch.clamp(dot, -1.0 + 1e-6, 1.0 - 1e-6)) \
+            / np.pi

@@ -38,11 +38,20 @@ F32 = ctypes.c_float
 # C signatures: every function returns an int, the launching ones
 # cudaGetLastError() after their launch
 SIGNATURES = {
-    "hashgrid": {"hashgrid_encode_fwd": (
-        P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, F32, P)},
-    "encode_grad": {"encode_mlp_sdfgrad_fwd": (
-        P, P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
-        I32, I32, I32, F32, F32, P)},
+    "hashgrid": {
+        "hashgrid_encode_fwd": (
+            P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, F32, P),
+        "hashgrid_encode_bwd": (
+            P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, P)},
+    "encode_grad": {
+        "encode_mlp_sdfgrad_fwd": (
+            P, P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
+            I32, I32, I32, F32, F32, P),
+        "encode_mlp_sdfgrad_bwd_gather": (
+            P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, F32, P),
+        "encode_mlp_sdfgrad_bwd_scatter": (
+            P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, F32,
+            P)},
     "broyden": {"broyden_search_fwd": (
         P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
         F32, F32, F32, F32, F32, F32, F32, F32, P)},

@@ -1,15 +1,23 @@
-"""CLI launcher of the port; this slice serves ``--mode validate``.
+"""CLI launcher of the port: ``--mode validate`` and ``--mode train``.
 
     python -m intrinsicavatar_tpu_torch.launch --mode validate
     python -m intrinsicavatar_tpu_torch.launch --mode validate \\
         --config configs/tiny-synthetic.yaml --params params.npz --device cpu
+    python -m intrinsicavatar_tpu_torch.launch --mode train \\
+        trainer.max_steps=100
+    python -m intrinsicavatar_tpu_torch.launch --mode train --device cpu \\
+        --config configs/tiny-synthetic.yaml trainer.max_steps=3
 
-Without ``--config`` the run uses :func:`serve_config` (the default model at
-its published widths on the synthetic dataset, eval step 5000).  ``--params``
-loads an ``.npz`` of the JAX parameter tree flattened to dotted keys (as
-:func:`weights.flatten_tree` names them); without it the parameters are
-random, drawn from the config's seed.  The render runs on ``cuda`` unless
-``--device`` names another device.
+Without ``--config`` a validate run uses :func:`serve_config` (the default
+model at its published widths on the synthetic dataset, eval step 5000) and
+a train run :func:`train_config` (the same model, 4096 rays per step); a
+``--config`` YAML is merged onto the default config (validate) or onto
+:func:`train_config` (train).  Training runs the radiance regime from step
+0 and prints the losses every ``trainer.log_every_n_steps`` steps.
+``--params`` loads an ``.npz`` of the JAX parameter tree flattened to dotted
+keys (as :func:`weights.flatten_tree` names them); without it the
+parameters are random, drawn from the config's seed.  The run is on
+``cuda`` unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -20,28 +28,8 @@ import sys
 
 import numpy as np
 
-LATER = {"train": "the training slice", "test": "the relighting slice (PBR)",
+LATER = {"test": "the relighting slice (PBR)",
          "predict": "the relighting slice (PBR)"}
-
-
-def unflatten(flat: dict) -> dict:
-    """Nested dicts and lists from dotted keys (list items are digits)."""
-    root: dict = {}
-    for key, arr in flat.items():
-        node, parts = root, key.split(".")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = arr
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        node = {k: lists(v) for k, v in node.items()}
-        if node and all(k.isdigit() for k in node):
-            return [node[str(i)] for i in range(len(node))]
-        return node
-
-    return lists(root)
 
 
 def main(argv=None):
@@ -55,7 +43,7 @@ def main(argv=None):
                         help="torch device (default: cuda)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
-    if args.mode != "validate":
+    if args.mode in LATER:
         print(f"--mode {args.mode} is not ported yet: it comes with "
               f"{LATER[args.mode]}", file=sys.stderr)
         return 2
@@ -69,19 +57,23 @@ def main(argv=None):
         apply_dotlist, load_yaml, merge, resolve,
     )
     from intrinsicavatar_tpu_torch.utils.default_config import (
-        default_config, serve_config,
+        default_config, serve_config, train_config,
     )
     from intrinsicavatar_tpu_torch.utils.device import resolve_device
-    from intrinsicavatar_tpu_torch.weights import from_jax_params
+    from intrinsicavatar_tpu_torch.weights import from_jax_params, unflatten
 
     device = resolve_device(args.device)
-    cfg = serve_config()
+    train = args.mode == "train"
+    cfg = train_config() if train else serve_config()
     if args.config:
-        cfg = merge(default_config(), load_yaml(args.config))
+        cfg = merge(train_config() if train else default_config(),
+                    load_yaml(args.config))
     if args.overrides:
         cfg = apply_dotlist(cfg, args.overrides)
     cfg = resolve(cfg)
     seed = int(cfg.get("seed", 42))
+    if train:
+        return _train(cfg, device, seed, args.params)
     step = int(cfg.trainer.get("eval_step", 5000))
     flags = EV.eval_flags(cfg.model, step)
     if flags.enable_phys:
@@ -115,6 +107,35 @@ def main(argv=None):
               flush=True)
     print("mean:", json.dumps({k: float(np.mean([m[k] for m in all_metrics]))
                                for k in all_metrics[0]}))
+    return 0
+
+
+def _train(cfg, device, seed, params_path):
+    from intrinsicavatar_tpu_torch.data import make as make_dataset
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.weights import unflatten
+
+    dataset = make_dataset(cfg.dataset.get("name", "synthetic"), cfg.dataset,
+                           split="train", mode="train",
+                           rng=np.random.default_rng(seed))
+    system = IntrinsicAvatarSystem(cfg, device)
+    params = unflatten(dict(np.load(params_path))) if params_path else None
+    system.setup(dataset.betas, params)
+
+    def log(step, scalars):
+        print(f"[{step}] " + " ".join(f"{k}={v:.5g}" for k, v in
+                                      sorted(scalars.items())), flush=True)
+
+    def all_frames():
+        return [dataset.pose_batch(i) for i in range(len(dataset))]
+
+    history = system.fit(dataset.train_iter(np.random.default_rng(seed + 1)),
+                         int(cfg.trainer.get("max_steps", 25000)),
+                         log_every=int(cfg.trainer.get("log_every_n_steps",
+                                                       100)),
+                         callback=log, all_frames_fn=all_frames)
+    if history:
+        print("last:", json.dumps(history[-1][1]))
     return 0
 
 

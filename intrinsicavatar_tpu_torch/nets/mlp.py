@@ -127,6 +127,39 @@ class VanillaMLP(nn.Module):
             g = (g * dact) @ ws[i][0].T
         return self.output_activation(out), g
 
+    def pair_vjp(self, x, weights, g_out, g_grad, out_channel: int = 0):
+        """Vector-Jacobian product of :meth:`value_and_input_grad` (the
+        ``jax.vjp`` step of the JAX ``encode_mlp_sdfgrad`` backward,
+        ``ops/encode_grad.py:271-275``): pulls the cotangents ``(g_out,
+        g_grad)`` of ``(out, grad)`` back to the weights and to ``x``.
+
+        Returns ``([(d_W, d_b), ...], d_x, grad)``, all without history."""
+        with torch.enable_grad():
+            x = x.detach().requires_grad_()
+            ws = [(w.detach().requires_grad_(), b.detach().requires_grad_())
+                  for w, b in weights]
+            out, grad = self.value_and_input_grad(x, out_channel, ws)
+            flat = [t for pair in ws for t in pair]
+            d = torch.autograd.grad((out, grad), flat + [x],
+                                    (g_out, g_grad))
+        d_w = list(zip(d[:-1:2], d[1:-1:2]))
+        return d_w, d[-1], grad.detach()
+
+
+def init_lipschitz_mlp(dims, generator: torch.Generator):
+    """Parameters with the distributions of the JAX ``LipschitzMLP.init``
+    (`nets/mlp.py:269-284`): per layer ``{"w": [in, out], "b": [out], "c":
+    [1]}``, ``w`` and ``b`` uniform in +-1/sqrt(in) and ``c`` twice the
+    largest absolute column sum of ``w``."""
+    layers = []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        bound = 1.0 / math.sqrt(d_in)
+        w = (torch.rand(d_in, d_out, generator=generator) * 2 - 1) * bound
+        b = (torch.rand(d_out, generator=generator) * 2 - 1) * bound
+        c = torch.ones(1) * torch.sum(torch.abs(w), 0).max() * 2.0
+        layers.append({"w": w, "b": b, "c": c})
+    return layers
+
 
 def make_mlp(dim_in: int, dim_out: int, config):
     """Factory mirroring ``get_mlp`` (VanillaMLP only in this slice)."""

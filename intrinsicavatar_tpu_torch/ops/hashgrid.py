@@ -1,8 +1,11 @@
-"""Multi-level hash-grid encoding (Instant-NGP style), forward.
+"""Multi-level hash-grid encoding (Instant-NGP style), forward and backward.
 
 Counterpart of the JAX package's ``ops/hashgrid.py``.  :func:`hashgrid_encode`
-launches kernel KA (``csrc/hashgrid.cu``) for CUDA tensors and takes its
-plain PyTorch twin :func:`hashgrid_encode_plain` only for CPU tensors.
+is differentiable in the table and the points (the JAX custom VJP,
+``ops/hashgrid.py:173-188``).  For CUDA tensors its forward launches kernel
+KA and its backward kernel KA' (both ``csrc/hashgrid.cu``); CPU tensors take
+the plain twins :func:`hashgrid_encode_plain` and
+:func:`hashgrid_encode_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from intrinsicavatar_tpu_torch import kernels
 
@@ -146,13 +150,61 @@ def hashgrid_encode_plain(table, x, spec: HashGridSpec, level_mask=None):
     return out
 
 
-def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
-    """Encode points ``x in [0,1]^3`` -> ``[N, n_output_dims]`` features.
+def corner_weight_grads(f):
+    """``[N, 8]`` x 3: d w_k / d pos along x, y and z (corner order as
+    :func:`corner_weights`)."""
+    fx, fy, fz = f
+    gx, gy, gz = [], [], []
+    for dx in (0, 1):
+        wx, sx = (fx, 1.0) if dx else (1.0 - fx, -1.0)
+        for dy in (0, 1):
+            wy, sy = (fy, 1.0) if dy else (1.0 - fy, -1.0)
+            for dz in (0, 1):
+                wz, sz = (fz, 1.0) if dz else (1.0 - fz, -1.0)
+                gx.append(sx * wy * wz)
+                gy.append(wx * sy * wz)
+                gz.append(wx * wy * sz)
+    return [torch.stack(g, dim=-1) for g in (gx, gy, gz)]
 
-    CPU tensors take the plain twin; CUDA tensors launch kernel KA.
-    """
-    if x.device.type == "cpu":
-        return hashgrid_encode_plain(table, x, spec, level_mask)
+
+def hashgrid_encode_bwd_plain(table, x, spec: HashGridSpec, g,
+                              level_mask=None, need_x: bool = True):
+    """Plain twin of kernel KA': ``(d_table, d_x)`` for the output cotangent
+    ``g [N, n_output_dims]`` (``d_x`` is None unless ``need_x``).
+
+    The table cotangent adds ``w_k * g`` into each corner's row with
+    ``index_add_`` (the JAX ``encode_table_grad``, ``ops/encode_grad.py:
+    350-392``); the point pullback is ``hashgrid_encode_vjp_x``
+    (``ops/hashgrid.py:263-346``).  The level mask multiplies ``g`` first."""
+    N = x.shape[0]
+    L, T, F = table.shape
+    gl = g[:, 3:] if spec.include_xyz else g
+    if level_mask is not None:
+        gl = gl * level_mask[None, :]
+    gl = gl.reshape(N, L, F)
+    d_table = torch.zeros_like(table)
+    d_x = torch.zeros_like(x) if need_x else None
+    for lvl in range(L):
+        s = float(spec.scales[lvl])
+        r = int(spec.resolutions[lvl])
+        c0, f = zip(*(level_coords(x[:, a], s) for a in range(3)))
+        rows = corner_rows(c0, r, bool(spec.dense_levels[lvl]), T)
+        w = corner_weights(f)
+        d_table[lvl].index_add_(0, rows.reshape(-1),
+                                (w[:, :, None] * gl[:, lvl, None, :])
+                                .reshape(-1, F))
+        if need_x:
+            fg = torch.einsum("nkf,nf->nk", table[lvl][rows], gl[:, lvl])
+            d_x = d_x + s * torch.stack(
+                [torch.sum(fg * dw, -1) for dw in corner_weight_grads(f)], -1)
+    if need_x and spec.include_xyz:
+        d_x = d_x + g[:, :3] * spec.xyz_scale
+    return d_table, d_x
+
+
+def _check(table, x, spec: HashGridSpec, level_mask):
+    """Shape, dtype, device and layout checks before a launch; returns
+    ``(device, N, L, T, F)``."""
     dev = x.device
     L, T, F = table.shape
     N = x.shape[0]
@@ -164,6 +216,11 @@ def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
     kernels.require(x, "x", torch.float32, dev, (N, 3))
     if level_mask is not None:
         kernels.require(level_mask, "level_mask", torch.float32, dev, (L * F,))
+    return dev, N, L, T, F
+
+
+def _launch_fwd(table, x, spec: HashGridSpec, level_mask):
+    dev, N, L, T, F = _check(table, x, spec, level_mask)
     scales, res = level_tensors(spec, dev)
     out = torch.empty((N, spec.n_output_dims), dtype=torch.float32,
                       device=dev)
@@ -176,3 +233,61 @@ def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
     kernels.check(err, "hashgrid_encode")
     kernels.launches["hashgrid_encode"] += 1
     return out
+
+
+def hashgrid_encode_bwd(table, x, spec: HashGridSpec, g, level_mask=None,
+                        need_x: bool = True):
+    """``(d_table, d_x)``: CPU tensors take the plain twin; CUDA tensors
+    launch kernel KA' (the table cotangent by ``atomicAdd``)."""
+    if x.device.type == "cpu":
+        return hashgrid_encode_bwd_plain(table, x, spec, g, level_mask,
+                                         need_x)
+    dev, N, L, T, F = _check(table, x, spec, level_mask)
+    kernels.require(g, "g", torch.float32, dev, (N, spec.n_output_dims))
+    scales, res = level_tensors(spec, dev)
+    d_table = torch.zeros_like(table)
+    d_x = torch.zeros_like(x) if need_x else None
+    err = kernels.lib("hashgrid").hashgrid_encode_bwd(
+        table.data_ptr(), x.data_ptr(), scales.data_ptr(), res.data_ptr(),
+        level_mask.data_ptr() if level_mask is not None else None,
+        g.data_ptr(), d_table.data_ptr(),
+        d_x.data_ptr() if need_x else None, N, L, T, F,
+        int(spec.include_xyz), float(spec.xyz_scale),
+        kernels.stream_ptr(dev))
+    kernels.check(err, "hashgrid_encode_bwd")
+    kernels.launches["hashgrid_encode_bwd"] += 1
+    return d_table, d_x
+
+
+class _HashgridEncode(torch.autograd.Function):
+    """The encode with its closed-form backward; the level mask is a
+    function of the step only and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, x, spec, level_mask):
+        ctx.spec = spec
+        ctx.save_for_backward(table, x, level_mask)
+        if x.device.type == "cpu":
+            return hashgrid_encode_plain(table, x, spec, level_mask)
+        return _launch_fwd(table, x, spec, level_mask)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        table, x, level_mask = ctx.saved_tensors
+        need_table, need_x = ctx.needs_input_grad[:2]
+        if not (need_table or need_x):
+            return None, None, None, None
+        d_table, d_x = hashgrid_encode_bwd(table, x, ctx.spec,
+                                           g.contiguous(), level_mask,
+                                           need_x)
+        return (d_table if need_table else None), d_x, None, None
+
+
+def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
+    """Encode points ``x in [0,1]^3`` -> ``[N, n_output_dims]`` features.
+
+    CPU tensors take the plain twins; CUDA tensors launch kernel KA (and
+    KA' in the backward).
+    """
+    return _HashgridEncode.apply(table, x, spec, level_mask)

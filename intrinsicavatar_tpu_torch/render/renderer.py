@@ -1,11 +1,17 @@
-"""The composed volumetric renderer, eval mode, radiance regime
+"""The composed volumetric renderer, radiance regime, eval and training
 (counterpart of the JAX package's ``render/renderer.py``).
 
 Per batch of rays: rays world -> SMPL space; occupancy marching into edge
-lists; two merge-importance rounds driven by coarse SDF queries; the shading
-pass at interval midpoints through the deformer -> SDF (kernel KB) and
-radiance (kernel KA) fields; compositing (kernel KD).  The PBR stage,
-training outputs, the seed grid and the bf16 scope come with later slices.
+lists; two merge-importance rounds driven by coarse SDF queries (no
+gradient); the shading pass at interval midpoints through the deformer ->
+SDF (kernel KB) and radiance (kernel KA) fields; compositing (kernel KD).
+In training the shading pass, the curvature proxy and the composite are
+differentiated (kernels KB', KA', KD' in the backward).  The PBR stage, the
+seed grid and the bf16 scope come with later slices.
+
+Randomness is passed in through ``draws`` (a dict; see :meth:`forward`) or
+drawn from a ``torch.Generator``, so a caller can reproduce another
+implementation's draws.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from intrinsicavatar_tpu_torch.nets.mlp import init_lipschitz_mlp
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
 from intrinsicavatar_tpu_torch.ops.compact import (
@@ -39,8 +46,17 @@ class RenderFlags(NamedTuple):
     enable_phys: bool = False
     importance_sample: bool = False
     randomized: bool = True
+    with_curvature_loss: bool = True
     full_budget: bool = False
     budget_boost: int = 0
+
+
+def get_draw(draws, key, make, generator, device):
+    """``draws[key]`` on ``device``, else ``make(generator)`` (drawn on the
+    CPU from ``generator``, then moved)."""
+    if draws is not None and key in draws:
+        return torch.as_tensor(draws[key], device=device)
+    return make(generator).to(device)
 
 
 @register("intrinsic-avatar")
@@ -76,11 +92,37 @@ class IntrinsicAvatar(nn.Module):
 
     @torch.no_grad()
     def init(self, generator: torch.Generator):
-        """Random parameters with the distributions of the JAX ``init``."""
+        """Random parameters with the distributions of the JAX ``init``; the
+        material head, which this slice runs only for its Lipschitz bound,
+        is held in ``later_slices``."""
         self.geometry.init(generator)
         self.radiance.init(generator)
         self.density.init(generator)
+        mcfg = self.config.material
+        mlp_cfg = mcfg.get("mlp_network_config", {})
+        if mlp_cfg.get("otype") in ("LipshitzMLP", "LipschitzMLP"):
+            dims = ([mcfg.get("input_feature_dim", 48)]
+                    + [mlp_cfg.get("n_neurons", 64)]
+                    * mlp_cfg.get("n_hidden_layers", 2)
+                    + [mcfg.get("n_output_dim", 5)])
+            dev = self.geometry.table.device
+            for i, layer in enumerate(init_lipschitz_mlp(dims, generator)):
+                for k, v in layer.items():
+                    self.later_slices[f"material.mlp.{i}.{k}"] = v.to(dev)
         return self
+
+    def lipschitz_bound(self):
+        """Mean of the product of ``softplus(c)`` over the material MLP's
+        layers (`nets/mlp.py:301-305` of the JAX package), from the held
+        ``material.mlp.*.c`` tensors; 0 without them."""
+        cs = [v for k, v in sorted(self.later_slices.items())
+              if k.startswith("material.mlp.") and k.endswith(".c")]
+        if not cs:
+            return torch.zeros((), device=self.geometry.table.device)
+        bound = 1.0
+        for c in cs:
+            bound = bound * torch.nn.functional.softplus(c)
+        return torch.mean(bound).to(self.geometry.table.device)
 
     @torch.no_grad()
     def initialize(self, betas):
@@ -113,7 +155,7 @@ class IntrinsicAvatar(nn.Module):
 
     def _deform_query(self, statics, frame, cond, pts, sched, with_grad,
                       global_step=0, mask=None, budget=None, mask2d=None,
-                      boost=0, counters=None):
+                      boost=0, counters=None, eval_mode=True):
         """Canonicalize + query geometry; returns the deformer outputs.
 
         With ``mask`` and query compaction, only a fixed budget of valid
@@ -130,7 +172,7 @@ class IntrinsicAvatar(nn.Module):
         def query(p):
             return tuple(self.deformer(
                 statics, frame, p, cond, geometry_fn, with_jac=with_grad,
-                eval_mode=True, global_step=global_step, boost=boost,
+                eval_mode=eval_mode, global_step=global_step, boost=boost,
                 counters=counters))
 
         frac = self.config.get("query_compaction", 0.5)
@@ -225,20 +267,29 @@ class IntrinsicAvatar(nn.Module):
 
     # ------------------------------------------------------------ forward
 
+    @torch.no_grad()
     def sample_intervals(self, statics, frame, cond, occ: OccGridState,
                          rays_world, step, flags: RenderFlags, t_idx=0.0,
-                         stratified_u=None, counters=None):
+                         draws=None, generator=None, counters=None):
         """Ray transform, occupancy marching, importance rounds ->
-        ``(t_starts, t_ends, smask)`` rectangular ``[R, S]``."""
+        ``(t_starts, t_ends, smask)`` rectangular ``[R, S]``, without
+        gradient.  ``draws["strat_u"] [R]`` holds the stratified offsets
+        (drawn from ``generator`` when absent and ``flags.randomized``)."""
         sched = self.schedules(step, rays_world.device)
         rays = self.deformer.rigid.transform_rays_w2s(frame, rays_world)
+        R = rays.shape[0]
         rays_o, rays_d = rays[:, :3].contiguous(), rays[:, 3:6].contiguous()
+        strat_u = None
+        if flags.randomized:
+            strat_u = get_draw(draws, "strat_u",
+                               lambda g: torch.rand((R,), generator=g),
+                               generator, rays.device).contiguous()
         lvl = level_of(occ, t_idx)
         iv = occupancy_sampling(
             rays_o, rays_d, occ.binaries[lvl], occ.aabbs[lvl],
             self.render_step_size, self.num_samples_per_ray,
             near=rays[:, 6].contiguous(), far=rays[:, 7].contiguous(),
-            stratified_u=stratified_u if flags.randomized else None)
+            stratified_u=strat_u)
         if flags.importance_sample:
             iv = self._importance_resample(statics, frame, cond, sched,
                                            rays_o, rays_d, iv, step,
@@ -246,39 +297,54 @@ class IntrinsicAvatar(nn.Module):
                                            counters=counters)
         return intervals_to_samples(iv)
 
-    @torch.no_grad()
     def forward(self, statics, frame, cond, occ: OccGridState, rays_world,
                 step, flags: RenderFlags, t_idx=0.0, background_color=None,
-                stratified_u=None):
+                intervals=None, draws=None, generator=None):
         """Render a batch of rays ``[R, 8]``.  Returns ``comp_rgb,
-        comp_normal, opacity, depth, rays_valid, ... comp_rgb_full`` and
-        the budget counters under ``counters``."""
-        if flags.training or flags.enable_phys:
-            raise NotImplementedError(
-                "training and the PBR stage come with later slices")
+        comp_normal, opacity, depth, rays_valid, ... comp_rgb_full``, the
+        budget counters under ``counters`` and, in training, the per-sample
+        outputs the losses read (``sdf_samples``, ``sdf_grad_samples``,
+        ``weights``, ``points``, ``intervals``, ``sample_mask``,
+        ``sample_valid``, ``sdf_laplace_samples``, ``laplace_mask``).
+
+        ``intervals`` (from :meth:`sample_intervals`) skips the sampling
+        stage.  ``draws`` may hold ``strat_u [R]``, the curvature
+        subsample's lane indices ``lap_sub [n]`` and its directions' U[0, 1)
+        draws ``lap_u [n, 3]``; what it lacks is drawn from ``generator``.
+        Eval renders run without autograd; a training render is
+        differentiable in every parameter it reads.
+        """
+        if flags.enable_phys:
+            raise NotImplementedError("the PBR stage comes with a later "
+                                      "slice")
         counters: dict = {}
-        out = self._forward_body(statics, frame, cond, occ, rays_world, step,
-                                 flags, t_idx, background_color,
-                                 stratified_u, counters)
+        with torch.set_grad_enabled(flags.training
+                                    and torch.is_grad_enabled()):
+            out = self._forward_body(statics, frame, cond, occ, rays_world,
+                                     step, flags, t_idx, background_color,
+                                     intervals, draws, generator, counters)
         out["counters"] = {k: torch.as_tensor(v).to(torch.int32)
                            for k, v in counters.items()}
         return out
 
     def _forward_body(self, statics, frame, cond, occ, rays_world, step,
-                      flags, t_idx, background_color, stratified_u,
-                      counters):
+                      flags, t_idx, background_color, intervals, draws,
+                      generator, counters):
         dev = rays_world.device
         sched = self.schedules(step, dev)
         rays = self.deformer.rigid.transform_rays_w2s(frame, rays_world)
         R = rays.shape[0]
-        rays_o, rays_d = rays[:, :3], rays[:, 3:6]
+        rays_d = rays[:, 3:6]
+        rays_o = rays[:, :3]
         far = rays[:, 7]
         if background_color is None:
             background_color = torch.zeros(3, device=dev)
 
-        t_starts, t_ends, smask = self.sample_intervals(
-            statics, frame, cond, occ, rays_world, step, flags, t_idx,
-            stratified_u, counters)
+        if intervals is None:
+            intervals = self.sample_intervals(
+                statics, frame, cond, occ, rays_world, step, flags, t_idx,
+                draws, generator, counters)
+        t_starts, t_ends, smask = intervals
         S = t_starts.shape[1]
         mids = 0.5 * (t_starts + t_ends)
         dists = t_ends - t_starts
@@ -286,6 +352,7 @@ class IntrinsicAvatar(nn.Module):
         # shading queries in the compact domain of the valid samples
         pos = (rays_o[:, None, :] + rays_d[:, None, :] * mids[..., None]
                ).reshape(-1, 3)
+        with_lap = flags.training and flags.with_curvature_loss
         Mfull = R * S
         frac = self.config.get("query_compaction", 0.5)
         use_compact = bool(frac) and Mfull >= 4096 and not flags.full_budget
@@ -308,8 +375,36 @@ class IntrinsicAvatar(nn.Module):
 
         out = self._deform_query(statics, frame, cond, pos_q, sched,
                                  with_grad=True, global_step=step, mask=qmask,
-                                 boost=flags.budget_boost, counters=counters)
-        pos_cano, sdf, valid, sdf_grad, _, feat = out[:6]
+                                 boost=flags.budget_boost, counters=counters,
+                                 eval_mode=not flags.training)
+        pos_cano, sdf, valid, sdf_grad, sdf_grad_cano, feat = out[:6]
+
+        # curvature on a with-replacement subsample of the shading lanes
+        # (an unbiased estimator of the per-sample mean the loss reads)
+        laplace = laplace_mask = None
+        if with_lap:
+            q_valid = valid & (spicked if use_compact else smask.reshape(-1))
+            frac_lap = float(self.config.get("curvature_subsample", 0.25))
+            nq = pos_cano.shape[0]
+            if frac_lap >= 1.0:
+                x_sub, grad_sub, laplace_mask = pos_cano, sdf_grad_cano, \
+                    q_valid
+            else:
+                nsub = min(max(int(np.ceil(nq * frac_lap / 128.0)) * 128,
+                               128), nq)
+                sub = get_draw(draws, "lap_sub",
+                               lambda g: torch.randint(0, nq, (nsub,),
+                                                       generator=g),
+                               generator, dev).to(torch.int64)
+                x_sub, grad_sub = pos_cano[sub], sdf_grad_cano[sub]
+                laplace_mask = q_valid[sub]
+            lap_u = get_draw(draws, "lap_u",
+                             lambda g: torch.rand((x_sub.shape[0], 3),
+                                                  generator=g),
+                             generator, dev)
+            laplace = self.geometry.tangent_laplace(
+                x_sub, grad_sub, sched["geo_mask"], lap_u)
+
         dirs_world = self.deformer.rigid.transform_dirs_s2w(frame, dirs_q)
         normal_world_q = self.deformer.rigid.transform_dirs_s2w(frame,
                                                                 sdf_grad)
@@ -328,17 +423,20 @@ class IntrinsicAvatar(nn.Module):
             picked_full = torch.zeros(Mfull, dtype=torch.bool, device=dev)
             picked_full[sidx] = spicked
             smask = smask & picked_full.reshape(R, S)
+            valid_full = torch.zeros(Mfull, dtype=torch.bool, device=dev)
+            valid_full[sidx] = valid & spicked
+            valid = valid_full
 
         normal_world = self.deformer.rigid.transform_dirs_s2w(frame, sdf_grad)
         beta = self.density.get_beta(step)
-        _, _, rgb_map, normal_map, acc_map, depth_map = V.composite(
+        _, weights, rgb_map, normal_map, acc_map, depth_map = V.composite(
             sdf.reshape(R, S).contiguous(), dists.contiguous(), beta,
             smask.contiguous(), rgbs.reshape(R, S, 3).contiguous(),
             normal_world.reshape(R, S, 3).contiguous(), mids.contiguous())
         depth_map = depth_map + (1.0 - acc_map) * far[:, None]
 
         bg_rgb = background_color[None, :].expand_as(rgb_map)
-        return {
+        out_dict = {
             "comp_rgb": rgb_map,
             "comp_normal": normal_map,
             "opacity": acc_map,
@@ -351,3 +449,17 @@ class IntrinsicAvatar(nn.Module):
             "comp_rgb_full": torch.clamp(
                 linear_to_srgb(rgb_map + bg_rgb * (1.0 - acc_map)), 0.0, 1.0),
         }
+        if flags.training:
+            out_dict.update({
+                "sdf_samples": sdf,
+                "sdf_grad_samples": sdf_grad,
+                "weights": weights,
+                "points": mids,
+                "intervals": dists,
+                "sample_mask": smask,
+                "sample_valid": valid.reshape(R, S),
+            })
+            if laplace is not None:
+                out_dict["sdf_laplace_samples"] = laplace
+                out_dict["laplace_mask"] = laplace_mask
+        return out_dict

@@ -1,5 +1,5 @@
 """Default configuration tree (a copy of the JAX package's, plus
-:func:`serve_config`).
+:func:`serve_config` and :func:`train_config`).
 
 Mirrors the composed Hydra defaults of the reference
 (`configs/config.yaml` + the per-module group yamls in
@@ -315,4 +315,17 @@ def serve_config() -> ConfigNode:
         "dataset": {"name": "synthetic", "n_rays": 16384, "n_frames": 2},
         "model": {"eval_seed_grid": False, "primary_dtype": "float32"},
         "trainer": {"eval_step": 5000},
+    })
+
+
+def train_config() -> ConfigNode:
+    """The training this package runs: the default model at its published
+    widths on the seeded synthetic body and dataset, 4096 rays per step
+    (the published sampler's ``num_sample``), in float32 and without the
+    eval seed grid.  The radiance regime (steps below
+    ``phys_kick_in_step``) is what the port trains."""
+    cfg = default_config()
+    return merge(cfg, {
+        "dataset": {"name": "synthetic", "n_rays": 4096, "n_frames": 8},
+        "model": {"eval_seed_grid": False, "primary_dtype": "float32"},
     })

@@ -6,7 +6,8 @@
 ``table``, the density ``beta``, the pose corrections, and empty groups for
 the deformer and the pose encoder.  Weights are ``[in, out]`` on both sides.
 Groups this slice does not run (material, scatterer, emitter) are held as
-plain tensors in ``model.later_slices``.
+plain tensors in ``model.later_slices``.  :func:`to_jax_tree` is the inverse
+of :func:`from_jax_params`: the port's parameters as a JAX-shaped tree.
 """
 
 from __future__ import annotations
@@ -33,6 +34,45 @@ def flatten_tree(tree, prefix: str = "") -> dict:
 def port_key(jax_key: str) -> str:
     """Name of a JAX leaf in the port's ``state_dict``."""
     return jax_key.replace(".mlp.", ".mlp.layers.")
+
+
+def jax_key(port_name: str) -> str:
+    """Dotted path of the JAX leaf that a port parameter carries."""
+    return port_name.replace(".mlp.layers.", ".mlp.")
+
+
+def unflatten(flat: dict) -> dict:
+    """Nested dicts and lists from dotted keys (list items are digits)."""
+    root: dict = {}
+    for key, arr in flat.items():
+        node, parts = root, key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(root)
+
+
+def to_jax_tree(model, grads: bool = False) -> dict:
+    """The port's parameters (or, with ``grads``, their ``.grad``, zeros
+    where unset) as numpy arrays in the JAX tree's layout, the held
+    later-slice groups included."""
+    flat = {}
+    for name, p in model.named_parameters():
+        t = p if not grads else (p.grad if p.grad is not None
+                                 else torch.zeros_like(p))
+        flat[jax_key(name)] = t.detach().cpu().numpy()
+    for key, t in model.later_slices.items():
+        flat[key] = (torch.zeros_like(t) if grads else t).cpu().numpy()
+    return unflatten(flat)
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
-"""Kernel KB's plain twin (``intrinsicavatar_tpu_torch.ops.encode_grad``)
-against the JAX ``encode_mlp_sdfgrad`` and ``VanillaMLP.value_and_input_grad``
-(the kernel itself: ``test_torch_kernels.py``)."""
+"""Kernels KB and KB''s plain twins (``intrinsicavatar_tpu_torch.ops.
+encode_grad``) against the JAX ``encode_mlp_sdfgrad``, its custom VJP and
+``VanillaMLP.value_and_input_grad`` (the kernels themselves:
+``test_torch_kernels.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +13,9 @@ from intrinsicavatar_tpu.nets.mlp import VanillaMLP as JMLP
 from intrinsicavatar_tpu.ops.encode_grad import encode_mlp_sdfgrad as j_fused
 from intrinsicavatar_tpu.ops.hashgrid import HashGridSpec as JSpec
 from intrinsicavatar_tpu_torch.nets.mlp import VanillaMLP as TMLP
-from intrinsicavatar_tpu_torch.ops.encode_grad import encode_mlp_sdfgrad
+from intrinsicavatar_tpu_torch.ops.encode_grad import (
+    encode_mlp_sdfgrad, encode_mlp_sdfgrad_plain,
+)
 from intrinsicavatar_tpu_torch.ops.hashgrid import HashGridSpec as TSpec
 from intrinsicavatar_tpu_torch.weights import from_jax_params
 
@@ -111,3 +114,76 @@ def test_init_distributions_match_jax():
                                    np.linalg.norm(tv, axis=0, keepdims=True),
                                    rtol=1e-6)
         np.testing.assert_allclose(tl.b.detach().numpy(), np.asarray(jl["b"]))
+
+
+def _perturbed(params, seed):
+    """The sphere init zeroes the first layer's rows of the hash features;
+    noise there puts every term of the backward to work."""
+    rng = np.random.default_rng(seed)
+    return [{k: np.asarray(v) + rng.normal(scale=0.3, size=np.shape(v))
+             .astype(np.float32) for k, v in layer.items()}
+            for layer in jax.tree.map(np.asarray, params)]
+
+
+# f32 on both sides; the table cotangent is summed in another order (JAX
+# sort-aggregates) and the MLP's VJP reassociates: each leaf within 1e-4 of
+# its largest entry
+def _close(a, b, name):
+    b = np.asarray(b)
+    np.testing.assert_allclose(np.asarray(a), b, rtol=0,
+                               atol=1e-4 * max(np.abs(b).max(), 1e-12),
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("include_xyz", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_backward_matches_jax_vjp(include_xyz, masked):
+    """The Function's backward (pass 1, the MLP's VJP, pass 2) against
+    ``jax.vjp`` of the JAX custom-VJP op, with random cotangents of both
+    outputs; the weight-norm ``v``/``g``/``b`` gradients come through
+    autograd from the effective weights."""
+    jspec, tspec, jmlp, params, tmlp, table, x, mask = _setup(include_xyz,
+                                                              masked, seed=4)
+    params = _perturbed(params, 5)
+    from_jax_params(_Holder(tmlp), {"f": {"mlp": params}})
+    jparams = jax.tree.map(jnp.asarray, params)
+    rng = np.random.default_rng(6)
+    g_feat = rng.normal(size=(x.shape[0], 13)).astype(np.float32)
+    g_grad = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t, mp, p: j_fused(jspec, jmlp.value_and_input_grad,
+                                              t, mp, p, jnp.asarray(mask)),
+                     jnp.asarray(table), jparams, jnp.asarray(x))
+    dt_r, dmlp_r, dx_r = vjp((jnp.asarray(g_feat), jnp.asarray(g_grad)))
+    t = torch.tensor(table, requires_grad=True)
+    p = torch.tensor(x, requires_grad=True)
+    feat, grad = encode_mlp_sdfgrad(tspec, tmlp, t, p, torch.as_tensor(mask))
+    torch.autograd.backward((feat, grad), (torch.as_tensor(g_feat),
+                                           torch.as_tensor(g_grad)))
+    _close(t.grad, dt_r, "table")
+    _close(p.grad, dx_r, "xn")
+    assert np.abs(np.asarray(dt_r)).max() > 0
+    for i, layer in enumerate(tmlp.layers):
+        for k in ("v", "g", "b"):
+            _close(getattr(layer, k).grad, dmlp_r[i][k], f"mlp.{i}.{k}")
+
+
+def test_function_matches_autograd_of_twin():
+    """The closed-form backward against autograd's second-order pass
+    through the plain forward (``value_and_input_grad`` differentiated)."""
+    _, tspec, _, params, tmlp, table, x, mask = _setup(True, True, seed=7)
+    from_jax_params(_Holder(tmlp), {"f": {"mlp": _perturbed(params, 8)}})
+    t = torch.tensor(table, requires_grad=True)
+    p = torch.tensor(x, requires_grad=True)
+    m = torch.as_tensor(mask)
+    leaves = [t, p, *tmlp.parameters()]
+    gen = torch.Generator().manual_seed(1)
+    g_feat = torch.randn(x.shape[0], 13, generator=gen)
+    g_grad = torch.randn(x.shape[0], 3, generator=gen)
+    out = encode_mlp_sdfgrad(tspec, tmlp, t, p, m)
+    d_fn = torch.autograd.grad(out, leaves, (g_feat, g_grad))
+    out_ref = encode_mlp_sdfgrad_plain(tspec, tmlp, t, p, m,
+                                       tmlp.effective_weights())
+    d_ref = torch.autograd.grad(out_ref, leaves, (g_feat, g_grad))
+    for a, b in zip(d_fn, d_ref):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))

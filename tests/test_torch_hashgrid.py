@@ -1,7 +1,9 @@
-"""Kernel KA's plain twin (``intrinsicavatar_tpu_torch.ops.hashgrid``)
-against the JAX ``hashgrid_encode_raw`` (the kernel itself is held against
-its twin on a card in ``test_torch_kernels.py``)."""
+"""Kernels KA and KA''s plain twins (``intrinsicavatar_tpu_torch.ops.
+hashgrid``) against the JAX ``hashgrid_encode_raw`` and the VJP of
+``hashgrid_encode`` (the kernels themselves are held against their twins on
+a card in ``test_torch_kernels.py``)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,3 +77,67 @@ def test_hash_of_large_coordinates_matches_uint32():
                                            for v in c), T))
     h = TH.corner_rows([torch.as_tensor(v) for v in c], 1 << 17, False, T)
     np.testing.assert_array_equal(h[:, 0].numpy(), ref)
+
+
+def _border_points(x, spec, rng):
+    """Replace a third of the points by points in the last cell of each
+    dense level's grid (corners +1 clamp onto the cell's own row) and just
+    outside the domain."""
+    n = x.shape[0] // 3
+    x = x.copy()
+    x[:n] = rng.uniform(0.985, 1.0, (n, 3))
+    x[n // 2:n, 1] = rng.uniform(-0.02, 0.0, n - n // 2)
+    return x
+
+
+# the table cotangent sums the same w_k * g terms in another order (JAX
+# sort-aggregates, index_add_ adds in point order): tolerances relative to
+# each leaf's largest entry
+@pytest.mark.parametrize("include_xyz", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bwd_twin_matches_jax_vjp(include_xyz, masked):
+    table, x, mask = _inputs(include_xyz, masked, seed=1)
+    rng = np.random.default_rng(2)
+    x = _border_points(x, _spec(include_xyz, JH), rng).astype(np.float32)
+    jspec, tspec = _spec(include_xyz, JH), _spec(include_xyz, TH)
+    g = rng.normal(size=(x.shape[0], jspec.n_output_dims)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t, p: JH.hashgrid_encode(t, p, jspec,
+                                                     jnp.asarray(mask)),
+                     jnp.asarray(table), jnp.asarray(x))
+    dt_r, dx_r = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    dt, dx = TH.hashgrid_encode_bwd_plain(
+        torch.as_tensor(table), torch.as_tensor(x), tspec, torch.as_tensor(g),
+        torch.as_tensor(mask))
+    np.testing.assert_allclose(dt.numpy(), dt_r, rtol=0,
+                               atol=1e-5 * np.abs(dt_r).max())
+    np.testing.assert_allclose(dx.numpy(), dx_r, rtol=0,
+                               atol=1e-5 * np.abs(dx_r).max())
+    if masked:       # masked levels get no table gradient
+        assert not dt[4:].any()
+    _, dx_none = TH.hashgrid_encode_bwd_plain(
+        torch.as_tensor(table), torch.as_tensor(x), tspec, torch.as_tensor(g),
+        torch.as_tensor(mask), need_x=False)
+    assert dx_none is None
+
+
+def test_autograd_function_matches_autograd_of_twin():
+    """The encode's ``autograd.Function`` (closed-form backward) against
+    autograd through the plain forward."""
+    table, x, mask = _inputs(True, True, seed=3)
+    spec = _spec(True, TH)
+    t = torch.tensor(table, requires_grad=True)
+    p = torch.tensor(x, requires_grad=True)
+    m = torch.as_tensor(mask)
+    g = torch.randn(x.shape[0], spec.n_output_dims,
+                    generator=torch.Generator().manual_seed(0))
+    out = TH.hashgrid_encode(t, p, spec, m)
+    d_fn = torch.autograd.grad(out, (t, p), g)
+    out_ref = TH.hashgrid_encode_plain(t, p, spec, m)
+    torch.testing.assert_close(out, out_ref, rtol=0, atol=0)
+    d_ref = torch.autograd.grad(out_ref, (t, p), g)
+    for a, b in zip(d_fn, d_ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    # only the table asks for a gradient: d_x is not computed
+    out = TH.hashgrid_encode(t, p.detach(), spec, m)
+    (d_t,) = torch.autograd.grad(out, (t,), g)
+    torch.testing.assert_close(d_t, d_fn[0])

@@ -1,5 +1,7 @@
 """Each hand-written kernel of the port against its plain PyTorch twin, on
-a CUDA card.  Where there is no card every test here skips with a reason.
+a CUDA card, and a full-width train step on the card against the same step
+on the CPU twins.  Where there is no card every test here skips with a
+reason.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with a card and no JAX, without the repository's conftest:
@@ -22,7 +24,7 @@ from intrinsicavatar_tpu_torch.ops import grid_traversal as G
 from intrinsicavatar_tpu_torch.ops import hashgrid as HG
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
-from intrinsicavatar_tpu_torch.utils.config import wrap
+from intrinsicavatar_tpu_torch.utils.config import merge, wrap
 
 pytestmark = pytest.mark.gpu
 
@@ -310,6 +312,174 @@ def test_deform_epilogue_kernel_matches_twin(cuda, need_rot):
         assert out.fwd_rot is None and ref.fwd_rot is None
 
 
+def _border(x, rng):
+    """A third of the points in the last cell of the dense levels (their +1
+    corners clamp onto the cell's own row) and just outside the domain."""
+    n = x.shape[0] // 3
+    x[:n] = rng.uniform(0.985, 1.0, (n, 3))
+    x[n // 2:n, 1] = rng.uniform(-0.02, 0.0, n - n // 2)
+    return x
+
+
+# the kernels add the table cotangent with atomics, and index_add_ on the
+# card does too, each in an order that changes from run to run: a dense
+# level's row sums ~300 terms, so an entry may move by 1e-4 of itself;
+# the rest within 1e-5 of the output's largest entry
+def _close(a, b, tol=1e-5, rtol=1e-4):
+    torch.testing.assert_close(a, b, rtol=rtol,
+                               atol=tol * max(float(b.abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("include_xyz", [False, True])
+def test_hashgrid_bwd_kernel_matches_twin(cuda, include_xyz):
+    spec, table, x, mask = _grid(include_xyz, 200_000, seed=11)
+    rng = np.random.default_rng(12)
+    x = _border(x, rng)
+    g = rng.normal(size=(x.shape[0], spec.n_output_dims)).astype(np.float32)
+    table, x, mask, g = (torch.as_tensor(a, device=cuda)
+                         for a in (table, x, mask, g))
+    for need_x in (True, False):
+        before = kernels.launches["hashgrid_encode_bwd"]
+        dt, dx = HG.hashgrid_encode_bwd(table, x, spec, g, mask, need_x)
+        assert kernels.launches["hashgrid_encode_bwd"] == before + 1
+        dt_r, dx_r = HG.hashgrid_encode_bwd_plain(table, x, spec, g, mask,
+                                                  need_x)
+        _close(dt, dt_r)
+        assert not dt[14:].any()              # levels masked off
+        if need_x:
+            _close(dx, dx_r)
+        else:
+            assert dx is None
+
+
+@pytest.mark.parametrize("include_xyz", [False, True])
+def test_encode_grad_bwd_kernels_match_twins(cuda, include_xyz):
+    """KB''s two passes against their twins, with the MLP's VJP between
+    them as the backward runs it."""
+    spec, table, x, mask = _grid(include_xyz, 100_000, seed=13)
+    rng = np.random.default_rng(14)
+    x = _border(x, rng)
+    g_grad = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
+    g_feat = rng.normal(size=(x.shape[0], 13)).astype(np.float32)
+    table, x, mask, g_grad, g_feat = (torch.as_tensor(a, device=cuda) for a
+                                      in (table, x, mask, g_grad, g_feat))
+    mlp = VanillaMLP(spec.n_output_dims, 13, n_neurons=64, n_hidden_layers=1,
+                     sphere_init=True, weight_norm=True).to(cuda)
+    mlp.init(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        mlp.layers[0].v.add_(0.3 * torch.randn_like(mlp.layers[0].v))
+    weights = [(w.detach(), b.detach()) for w, b in mlp.effective_weights()]
+    enc, gg = EG.encode_mlp_sdfgrad_bwd_gather(spec, table, x, mask, g_grad)
+    enc_r, gg_r = EG.encode_mlp_sdfgrad_bwd_gather_plain(spec, table, x,
+                                                         mask, g_grad)
+    # the same f32 terms, the corner sums in another order: the finest
+    # levels' terms reach ~4,000 x 0.1 and cancel, so each output within
+    # 1e-5 of its largest entry
+    _close(enc, enc_r, rtol=0)
+    _close(gg, gg_r, rtol=0)
+    _, d_enc, g_enc = mlp.pair_vjp(enc_r, weights, g_feat, gg_r)
+    for need_x in (True, False):
+        dt, dx = EG.encode_mlp_sdfgrad_bwd_scatter(spec, table, x, mask,
+                                                   g_grad, d_enc, g_enc,
+                                                   need_x)
+        dt_r, dx_r = EG.encode_mlp_sdfgrad_bwd_scatter_plain(
+            spec, table, x, mask, g_grad, d_enc, g_enc, need_x)
+        _close(dt, dt_r)
+        assert not dt[14:].any()
+        if need_x:
+            _close(dx, dx_r)
+        else:
+            assert dx is None
+
+
+def test_composite_bwd_kernel_matches_twin(cuda):
+    rng = np.random.default_rng(15)
+    R, S = 4096, 160
+    sdf = rng.normal(scale=0.3, size=(R, S)).astype(np.float32)
+    sdf[:, ::7] = 0.0                       # sign(0): no gradient there
+    sdf[0] = 1e5                            # the compaction fill
+    dists = rng.uniform(0.0, 0.05, (R, S)).astype(np.float32)
+    sdf[2, 10:], dists[2, 10:] = -2.0, 5.0  # alpha == 1
+    mask = rng.random((R, S)) < 0.6
+    mask[1] = False                         # a ray with no sample
+    rgb = rng.random((R, S, 3)).astype(np.float32)
+    normal = rng.normal(size=(R, S, 3)).astype(np.float32)
+    mids = (np.cumsum(dists, -1) + 1.0).astype(np.float32)
+    cots = [rng.normal(size=s).astype(np.float32)
+            for s in ((R, S), (R, 3), (R, 3), (R, 1), (R, 1))]
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    args = [t(a) for a in (sdf, dists, np.float32(0.05), mask, rgb, normal,
+                           mids)] + [t(c) for c in cots]
+    before = kernels.launches["volrend_composite_bwd"]
+    out = V.composite_bwd(*args)
+    assert kernels.launches["volrend_composite_bwd"] == before + 1
+    ref = V.composite_bwd_plain(*args)
+    # a tree-ordered scan and sums vs the twin's sequential recurrence
+    for a, b in zip(out, ref):
+        _close(a, b, 1e-5, rtol=0)
+    assert not out[0][1].any() and not out[0][t(sdf) == 0].any()
+    assert torch.isfinite(out[0]).all()
+
+
+def roughen(model, gen):
+    """Noise on the SDF MLP's rows of the hash features, zero at the sphere
+    init (the geometry table would get no gradient)."""
+    with torch.no_grad():
+        v = model.geometry.mlp.layers[0].v
+        v[3:] += 0.05 * torch.randn(v[3:].shape, generator=gen).to(v.device)
+
+
+def test_train_step_gradients_match_cpu_twins(cuda):
+    """A step of the full-width default model on the card gives every
+    trainable leaf of the fields (geometry table and MLP, radiance table and
+    MLP, beta) a finite, nonzero gradient, equal to the same step's on the
+    CPU with the plain twins: the kernels' backwards are wired into
+    autograd."""
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils.default_config import train_config
+    cfg = merge(train_config(), {"dataset": {"n_rays": 128}})
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    ds = SyntheticDataset(cfg.dataset)
+    card = IntrinsicAvatarSystem(cfg, cuda).setup(ds.betas)
+    roughen(card.model, torch.Generator().manual_seed(3))
+    cpu = IntrinsicAvatarSystem(cfg, "cpu").setup(ds.betas)
+    cpu.model.load_state_dict(card.model.state_dict())
+    batch = ds[0]
+    t_idx = batch.pop("t_idx")
+    card.step = cpu.step = 2000
+    card.occ_update_step(card.to_device(batch), t_idx)
+    cpu.occ = type(card.occ)(*(a.cpu() for a in card.occ))
+    R = batch["rays"].shape[0]
+    S = 128 + 2 * 16                # the march and two importance rounds
+    nq = int(np.ceil(R * S * (0.5 + 0.0625) / 128)) * 128   # compacted
+    nsub = int(np.ceil(nq * 0.25 / 128)) * 128             # curvature
+    g = torch.Generator().manual_seed(4)
+    draws = {"bg": torch.rand(3, generator=g),
+             "strat_u": torch.rand(R, generator=g),
+             "lap_sub": torch.randint(0, nq, (nsub,), generator=g),
+             "lap_u": torch.rand(nsub, 3, generator=g)}
+    lc = card.train_step(card.to_device(batch), t_idx,
+                         card.flags_for_step(2000), draws)
+    lp = cpu.train_step(cpu.to_device(batch), t_idx,
+                        cpu.flags_for_step(2000), draws)
+    assert int(lc["shading_total_samples"]) == R * S
+    assert float(lc["total"]) == pytest.approx(float(lp["total"]), rel=1e-4)
+    params_cpu = dict(cpu.model.named_parameters())
+    for name, p in card.model.named_parameters():
+        if name.startswith("pose_correction"):
+            continue
+        gc, gp = p.grad, params_cpu[name].grad
+        assert gc is not None and torch.isfinite(gc).all(), name
+        assert float(gc.abs().max()) > 0, name
+        # sums in other orders (atomics, cuBLAS): 1% of each leaf's norm;
+        # 5% for the geometry table, whose gradient the curvature proxy
+        # dominates near the initial sphere (arccos of a dot within ~1e-6 of
+        # 1: its f32 rounding moves with every reordered sum)
+        tol = 5e-2 if name == "geometry.table" else 1e-2
+        err = float((gc.cpu() - gp).norm())
+        assert err <= tol * float(gp.norm()), (name, err, float(gp.norm()))
+
+
 def test_wrappers_refuse_bad_input(cuda):
     spec, table, x, mask = _grid(False, 16)
     table = torch.as_tensor(table, device=cuda)
@@ -344,3 +514,29 @@ def test_wrappers_refuse_bad_input(cuda):
                            None, None, None)
     with pytest.raises(ValueError):
         TB.deform_epilogue(res, 8, 9, False, None, None, None)
+    g = torch.zeros((16, spec.n_output_dims), device=cuda)
+    with pytest.raises(ValueError):
+        HG.hashgrid_encode_bwd(table, x, spec, g.double())
+    with pytest.raises(ValueError):
+        HG.hashgrid_encode_bwd(table, x, spec, g[:8])
+    mask32 = torch.ones(32, device=cuda)
+    with pytest.raises(ValueError):
+        EG.encode_mlp_sdfgrad_bwd_gather(spec, table, x, mask32,
+                                         torch.zeros((16, 3), device=cuda).T
+                                         .contiguous().T)
+    with pytest.raises(ValueError):
+        EG.encode_mlp_sdfgrad_bwd_scatter(spec, table, x, mask32,
+                                          torch.zeros((16, 3), device=cuda),
+                                          g, g[:, :7], True)
+    sdf = torch.zeros((4, 8), device=cuda)
+    vec = torch.zeros((4, 8, 3), device=cuda)
+    ray = torch.zeros((4, 3), device=cuda)
+    one = torch.zeros((4, 1), device=cuda)
+    good = [sdf, sdf, torch.tensor(0.1, device=cuda),
+            torch.ones((4, 8), dtype=torch.bool, device=cuda), vec, vec, sdf,
+            sdf, ray, ray, one, one]
+    V.composite_bwd(*good)
+    with pytest.raises(ValueError):
+        V.composite_bwd(*good[:3], good[3].float(), *good[4:])
+    with pytest.raises(ValueError):
+        V.composite_bwd(*good[:7], sdf[:, :4], *good[8:])

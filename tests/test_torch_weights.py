@@ -80,7 +80,7 @@ def test_missing_leaf_is_refused(trees):
 
 def test_launcher_params_npz_round_trip(trees, tmp_path):
     """``launch --params`` reads the tree flattened to dotted keys."""
-    from intrinsicavatar_tpu_torch.launch import unflatten
+    from intrinsicavatar_tpu_torch.weights import unflatten
     jp, cfg = trees
     path = tmp_path / "params.npz"
     np.savez(path, **flatten_tree(jp))
@@ -92,5 +92,5 @@ def test_launcher_params_npz_round_trip(trees, tmp_path):
 
 def test_launcher_names_the_later_slice(capsys):
     from intrinsicavatar_tpu_torch.launch import main
-    assert main(["--mode", "train"]) == 2
-    assert "training slice" in capsys.readouterr().err
+    assert main(["--mode", "test"]) == 2
+    assert "relighting slice" in capsys.readouterr().err
