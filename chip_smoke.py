@@ -16,7 +16,16 @@
 5. checks the output: finite maps, a surface (opacity > 0.5) in view, and a
    256-ray crop of the same frame rendered on the CPU with the plain twins
    agreeing with the card's render;
-6. trains: records the backward kernels' inputs in one full-width train
+6. relights (``relight_config()``, eval step 25,000, the PBR stage on at
+   the published widths: 512 scattering points per ray, 64-step secondary
+   rays in 32,768-ray shader chunks): records the inputs of KI-KL in one
+   4,096-ray chunk, holds each against its twin and times both; then, with
+   every launch counter set to 0 just before and read just after and the
+   plain twins of KI-KL set to fail if called, renders one frame of 16,384
+   rays; profiles one chunk; and renders a 32-ray crop on the card and on
+   the CPU twins from the same draws, whose physically based maps must
+   agree;
+7. trains: records the backward kernels' inputs in one full-width train
    step at step 2000, holds each backward kernel against its twin on them
    and times both; then, with every launch counter set to 0 just before and
    read just after, runs ``fit`` for 5 steps from step 0 (full budgets, no
@@ -25,8 +34,8 @@
    with the plain backward twins set to fail if called; profiles one step;
    and runs one 256-ray step on the card and on the CPU twins from the same
    parameters and draws, whose loss and gradients must agree;
-7. prints the ``kernels`` line, the serve and train lines, and last the
-   device line.
+8. prints the ``kernels`` line, the serve, relight and train lines, and
+   last the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -146,7 +155,10 @@ def main():
     if flags.enable_phys or not flags.importance_sample:
         fail(f"step {step} is not in the radiance regime")
     chunk = int(cfg.model.get("ray_chunk", 4096))
-    batches = [EV.batch_to_device(ds[i], dev) for i in range(len(ds))]
+    # the synthetic dataset draws new rays on every read: keep each frame's
+    # host copy for its metrics
+    frames_np = [ds[i] for i in range(len(ds))]
+    batches = [EV.batch_to_device(b, dev) for b in frames_np]
 
     # ---------------------------------------------------------- 2. capture
     recs = [
@@ -470,26 +482,21 @@ def main():
 
     # where a frame's device time goes: one more frame under the profiler,
     # its test-grid build timed on its own
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator().manual_seed(100)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    grid = {}
+
+    def profiled_frame():
         tf = time.perf_counter()
         occ_p, frame_p, cond_p = EV.build_test_occ_grid(
-            model, statics, batches[0], step, generator=gen)
+            model, statics, batches[0], step,
+            generator=torch.Generator().manual_seed(100))
         torch.cuda.synchronize()
-        grid_ms = (time.perf_counter() - tf) * 1e3
+        grid["ms"] = (time.perf_counter() - tf) * 1e3
         EV.render_frame(model, statics, batches[0], step, flags,
                         ray_chunk=chunk, occ=occ_p, frame=frame_p,
                         cond=cond_p)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - tf) * 1e3
-    by_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_kernel.get(e.name, (0.0, 0))
-            by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+
+    wall_ms, by_kernel = profile_device(profiled_frame)
+    grid_ms = grid["ms"]
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({"profile": {
@@ -512,7 +519,7 @@ def main():
         hit = float((out["opacity"] > 0.5).mean())
         if hit <= 0.0:
             fail(f"frame {i}: no ray has opacity > 0.5")
-        m = EV.frame_metrics(out, ds[i])
+        m = EV.frame_metrics(out, frames_np[i])
         metrics.append({"psnr": m["psnr"], "hit_fraction": hit,
                         "counters": out["counters"]})
         print(f"frame {i}: {json.dumps(metrics[-1])}", flush=True)
@@ -538,6 +545,7 @@ def main():
     if agree < 0.99:
         fail(f"the card's render disagrees with the plain twins: {agree}")
 
+    relight_line = relight(rows, row, card, dev)
     train_line = train(rows, row, card, dev)
 
     # ---------------------------------------------------------- 7. report
@@ -546,6 +554,7 @@ def main():
                   "rays_per_s": n_rays / serve_s, "frame_s": frame_s,
                   "peak_mem_bytes": peak, "card": card,
                   "psnr": [m["psnr"] for m in metrics]}}), flush=True)
+    print(json.dumps({"relight": relight_line}), flush=True)
     print(json.dumps({"train": train_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -554,9 +563,345 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def profile_device(fn):
+    """Run ``fn`` under ``torch.profiler``; returns ``(wall ms, {kernel
+    name: (device ms, launches)})``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tf = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tf) * 1e3
+    by_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return wall_ms, by_kernel
+
+
+RELIGHT_NAMES = ("cdf_resample", "fine_resample", "secondary_march",
+                 "broyden_polish")
+
+
+def relight(rows, row, card, dev):
+    """Step 6: KI-KL against their twins at the relight path's shapes, one
+    relight frame with the launches counted, its profile and the card vs
+    CPU-twin crop.  Returns the relight line."""
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    from intrinsicavatar_tpu_torch.anim import deformer as DF
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.ops import grid_traversal as G
+    from intrinsicavatar_tpu_torch.ops import resample as RS
+    from intrinsicavatar_tpu_torch.render import pbr as PBR
+    from intrinsicavatar_tpu_torch.render.renderer import IntrinsicAvatar
+    from intrinsicavatar_tpu_torch.train import evaluate as EV
+    from intrinsicavatar_tpu_torch.utils.default_config import relight_config
+
+    cfg = relight_config()
+    step = int(cfg.trainer.eval_step)
+    model = IntrinsicAvatar(cfg.model).to(dev)
+    model.init(torch.Generator().manual_seed(SEED))
+    ds = SyntheticDataset(cfg.dataset, split="val", mode="val")
+    statics = model.initialize(ds.betas)
+    flags = EV.eval_flags(cfg.model, step)
+    if not (flags.enable_phys and flags.render_mode == "uniform_light"):
+        fail(f"step {step} does not render the PBR maps in uniform_light")
+    chunk = int(cfg.model.get("ray_chunk", 4096))
+    batch_np = ds[0]
+    batch = EV.batch_to_device(batch_np, dev)
+    occ, frame, cond = EV.build_test_occ_grid(
+        model, statics, batch, step,
+        generator=torch.Generator().manual_seed(SEED + 3))
+
+    # ------------------------------------------------ capture one chunk
+    # every shader chunk has the same shapes: keep the call with the most
+    # work (masked samples, active rays, seeded lanes), not the first one,
+    # whose rays may miss the body
+    recs = [Recorder(RS, "cdf_resample_rays", lambda a: int(a[4].sum())),
+            Recorder(RS, "sdf_fine_resample_rays",
+                     lambda a: int(a[4].sum())),
+            Recorder(PBR, "secondary_march", lambda a: int(a[8].sum())),
+            Recorder(DF, "broyden_polish", lambda a: int(a[2].sum()))]
+    with torch.no_grad():
+        model(statics, frame, cond, occ, batch["rays"][:chunk], step, flags,
+              background_color=torch.ones(3, device=dev),
+              generator=torch.Generator().manual_seed(SEED + 4))
+    torch.cuda.synchronize()
+    for r in reversed(recs):
+        r.restore()
+    ki, kj, kk, kl = (r.best for r in recs)
+
+    def rel(a, b):
+        """Largest error over the reference's largest entry."""
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    def equal(name, a, b):
+        if not torch.equal(a, b):
+            fail(f"{name}: {int((a != b).sum())} entries differ from the "
+                 f"twin")
+
+    def close_where(name, a, b, where):
+        """Fail unless ``a`` is within 1e-5 of ``max(|b|, 1)`` of ``b`` at
+        every entry of ``where``; returns the largest error there."""
+        d, ref = (a - b).abs()[where], b.abs()[where]
+        if not bool((d <= 1e-5 * ref.clamp(min=1.0)).all()):
+            fail(f"{name} disagrees with its twin: "
+                 f"{int((d > 1e-5 * ref.clamp(min=1.0)).sum())} entries, "
+                 f"max error {d.max().item()}")
+        return d.max().item() if d.numel() else 0.0
+
+    # KI scattering points (the chunk's [4096, S] -> spp draws)
+    args = ki[1]
+    ok_, op_ = RS.cdf_resample_rays(*args), RS.cdf_resample_rays_plain(*args)
+    torch.cuda.synchronize()
+    for name in ("indices", "is_bg", "fg_counts", "bg_count", "surface_idx"):
+        equal(f"cdf_resample {name}", getattr(ok_, name), getattr(op_, name))
+    # the background draws carry t_end + BG_OFFSET: equal, and the
+    # foreground draws entry by entry, so the offset cannot hide an error
+    fg = ~op_.is_bg
+    equal("cdf_resample background ts", ok_.ts[~fg], op_.ts[~fg])
+    equal("cdf_resample background offsets", ok_.offsets[~fg],
+          op_.offsets[~fg])
+    ki_err = max(close_where("cdf_resample ts", ok_.ts, op_.ts, fg),
+                 close_where("cdf_resample offsets", ok_.offsets,
+                             op_.offsets, fg))
+    R, S = args[0].shape
+    Bs = args[5]
+    row("cdf_resample", "cuda", "intrinsicavatar_tpu_torch/csrc/resample.cu",
+        "intrinsicavatar_tpu/ops/resample.py:62", f"[{R}, {S}] B={Bs}",
+        ki_err,
+        time_ms(lambda: RS.cdf_resample_rays(*args)),
+        time_ms(lambda: RS.cdf_resample_rays_plain(*args), 3),
+        R * S * (4 * 4 + 1) + R * Bs * (4 + 4 + 4 + 1) + R * S * 4 + R * 8,
+        R * (S * 12 + Bs * (2 * int(np.log2(S)) + 40)))
+
+    # KJ fine resampling (a shader chunk's [32768, 64] -> 4 intervals)
+    args = kj[1]
+    fk = RS.sdf_fine_resample_rays(*args)
+    fp = RS.sdf_fine_resample_rays_plain(*args)
+    torch.cuda.synchronize()
+    equal("fine_resample mask", fk.mask, fp.mask)
+    # only placed intervals are read; a ray that places nothing divides by
+    # the 1e-20 floor and its unread draws can be huge
+    kj_err = max(close_where("fine_resample t_starts", fk.t_starts,
+                             fp.t_starts, fp.mask),
+                 close_where("fine_resample t_ends", fk.t_ends, fp.t_ends,
+                             fp.mask))
+    M, S2 = args[0].shape
+    n_f = args[5]
+    row("fine_resample", "cuda", "intrinsicavatar_tpu_torch/csrc/resample.cu",
+        "intrinsicavatar_tpu/ops/resample.py:282", f"[{M}, {S2}] n={n_f}",
+        kj_err,
+        time_ms(lambda: RS.sdf_fine_resample_rays(*args)),
+        time_ms(lambda: RS.sdf_fine_resample_rays_plain(*args), 3),
+        M * S2 * (4 * 4 + 1) + M * n_f * (4 + 4 + 1),
+        M * (S2 * 15 + (n_f + 1) * 20))
+
+    # KK secondary march (a shader chunk)
+    args = kk[1]
+    mk = G.secondary_march(*args)
+    mp = G.secondary_march_plain(*args)
+    torch.cuda.synchronize()
+    equal("secondary_march mask", mk[2], mp[2])
+    errs = [rel(mk[0], mp[0]), rel(mk[1], mp[1])]
+    if not max(errs) <= 1e-5:
+        fail(f"secondary_march disagrees with its twin: {errs}")
+    M, S2 = mk[2].shape
+    res = args[2].shape[0]
+    print(f"secondary march: {int(mk[2].sum())} of {M * S2} samples "
+          f"masked (cap {args[9]})", flush=True)
+    row("secondary_march", "cuda", "intrinsicavatar_tpu_torch/csrc/march.cu",
+        "intrinsicavatar_tpu/render/pbr.py:197", f"rays[{M}, 3] S={S2}",
+        max((mk[0] - mp[0]).abs().max().item(),
+            (mk[1] - mp[1]).abs().max().item()),
+        time_ms(lambda: G.secondary_march(*args)),
+        time_ms(lambda: G.secondary_march_plain(*args), 3),
+        M * (12 + 12 + 4 + 4 + 1) + res ** 3 + 24 + M * S2 * (4 + 4 + 1),
+        M * (S2 + 1) * 30 + M * 40)
+
+    # KL seeded polish (a shader chunk's fine budget)
+    args, kw = kl[1], kl[2]
+    pk = B.broyden_polish(*args, **kw)
+    lane_iters = []
+    pp = B.broyden_polish_plain(*args, **kw, lane_iters=lane_iters)
+    torch.cuda.synchronize()
+    equal("broyden_polish valid", pk.valid, pp.valid)
+    errs = [rel(pk.x, pp.x), rel(pk.j_inv, pp.j_inv)]
+    if not max(errs) <= 1e-5:
+        fail(f"broyden_polish disagrees with its twin: {errs}")
+    M = args[0].shape[0]
+
+    def polish_work(a, lane_iters):
+        """Bytes and operations of a polish call: every lane's target, seed
+        and outputs; a trilinear sample (8 corner rows of 48 B, at most the
+        voxel once) and ~250 flops at each seeded lane's start and at each
+        lane-iteration it runs."""
+        samples = int(a[2].sum()) + int(sum(int(n) for n in lane_iters))
+        return (M * (12 + 12 + 1) + M * (12 + 36 + 1)
+                + min(a[3].numel() * 4, samples * 384),
+                samples * (8 * 12 * 2 + 8 * 6 + 40) + samples * 80)
+
+    print(f"broyden polish: {M} lanes, {int(args[2].sum())} seeded, "
+          f"{int(sum(int(a) for a in lane_iters))} lane-iterations, "
+          f"{pk.valid.float().mean().item():.4f} valid", flush=True)
+    row("broyden_polish", "cuda", "intrinsicavatar_tpu_torch/csrc/broyden.cu",
+        "intrinsicavatar_tpu/anim/broyden.py:464", f"xd[{M}, 3]",
+        max((pk.x - pp.x).abs().max().item(),
+            (pk.j_inv - pp.j_inv).abs().max().item()),
+        time_ms(lambda: B.broyden_polish(*args, **kw)),
+        time_ms(lambda: B.broyden_polish_plain(*args, **kw), 3),
+        *polish_work(args, lane_iters))
+    # the same points with every lane seeded, from the roots of a search
+    # from the first init bone (the relight cell's fine pass seeds few
+    # lanes: its secondary rays leave the body)
+    xd, vox, off, sk = args[0], args[3], args[4], args[5]
+    roots = B.broyden_search(
+        xd, torch.zeros(M, dtype=torch.int32, device=dev), vox,
+        frame.tfs[torch.as_tensor(B.INIT_BONES, device=dev)].contiguous(),
+        off, sk)
+    full = (xd, roots.x, roots.valid, vox, off, sk)
+    fk = B.broyden_polish(*full, **kw)
+    lane_iters = []
+    fp = B.broyden_polish_plain(*full, **kw, lane_iters=lane_iters)
+    torch.cuda.synchronize()
+    equal("broyden_polish valid, every lane seeded", fk.valid, fp.valid)
+    errs = [rel(fk.x, fp.x), rel(fk.j_inv, fp.j_inv)]
+    if not max(errs) <= 1e-5:
+        fail(f"broyden_polish, every lane seeded, disagrees with its twin: "
+             f"{errs}")
+    f_err = max((fk.x - fp.x).abs().max().item(),
+                (fk.j_inv - fp.j_inv).abs().max().item())
+    f_ms = time_ms(lambda: B.broyden_polish(*full, **kw))
+    f_plain = time_ms(lambda: B.broyden_polish_plain(*full, **kw), 3)
+    f_bytes, f_ops = polish_work(full, lane_iters)
+    print(f"broyden polish, the same points seeded from a search: "
+          f"{int(roots.valid.sum())} seeded, "
+          f"{int(sum(int(a) for a in lane_iters))} lane-iterations, "
+          f"{fk.valid.float().mean().item():.4f} valid, "
+          f"max_abs_err={f_err:.3g} ms={f_ms:.4f} plain_ms={f_plain:.4f} "
+          f"bound_ms={max(f_bytes / PEAK_BYTES, f_ops / PEAK_FP32) * 1e3:.5f}",
+          flush=True)
+    del ok_, op_, fk, fp, mk, mp, pk, pp, recs, ki, kj, kk, kl, roots
+
+    # ------------------------------------------------ one relight frame
+    trips = [Tripwire(RS, "cdf_resample_rays_plain"),
+             Tripwire(RS, "sdf_fine_resample_rays_plain"),
+             Tripwire(RS, "fine_resample_rays_plain"),
+             Tripwire(G, "secondary_march_plain"),
+             Tripwire(B, "broyden_polish_plain")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = EV.render_frame(model, statics, batch, step, flags, ray_chunk=chunk,
+                          occ=occ, frame=frame, cond=cond,
+                          generator=torch.Generator().manual_seed(SEED + 5))
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for t in trips:
+        t.restore()
+    if any(t.calls for t in trips):
+        fail(f"plain twins ran on the card in the relight frame: "
+             f"{[(t.name, t.calls) for t in trips if t.calls]}")
+    for r in rows:
+        if r["name"] in RELIGHT_NAMES:
+            r["launches"] = int(launches.get(r["name"], 0))
+    forward = {"hashgrid_encode", "encode_mlp_sdfgrad", "broyden_search",
+               "volrend_weights", "volrend_composite", "occupancy_march",
+               "merge_resample", "compact_indices", "deform_prologue",
+               "deform_epilogue", "deform_skinning"}
+    missing = [n for n in sorted(forward | set(RELIGHT_NAMES))
+               if not launches.get(n)]
+    if missing:
+        fail(f"kernels not launched in the relight frame: {missing}")
+    n_rays = batch["rays"].shape[0]
+    for k in EV.KEEP + EV.KEEP_PHYS:
+        if not np.all(np.isfinite(out[k])):
+            fail(f"relight frame: {k} is not finite")
+    if out["comp_rgb_phys_full"].shape != (n_rays, 3):
+        fail(f"relight frame: comp_rgb_phys_full has shape "
+             f"{out['comp_rgb_phys_full'].shape}")
+    hit = float((out["opacity"] > 0.5).mean())
+    if hit <= 0.0 or np.ptp(out["comp_rgb_phys_full"]) <= 0.0:
+        fail("relight frame: no surface or a constant PBR map")
+    if not out["counters"].get("sec_valid_samples"):
+        fail("relight frame: no secondary sample was marched")
+    m = EV.frame_metrics(out, batch_np)
+    counters = {k: v for k, v in out["counters"].items()
+                if k.startswith(("ovf_", "sec_"))}
+    print(f"relight frame: {n_rays} rays in {frame_s:.2f} s "
+          f"({n_rays / frame_s:.1f} rays/s), peak "
+          f"{peak / 2 ** 30:.2f} GiB, psnr {m['psnr']:.3f}, psnr_phys "
+          f"{m['psnr_phys']:.3f}, counters {json.dumps(counters)}",
+          flush=True)
+    print(f"relight launches: {json.dumps(launches)}", flush=True)
+
+    # where a chunk's device time goes
+    wall_ms, by_kernel = profile_device(lambda: EV.render_frame(
+        model, statics, {**batch, "rays": batch["rays"][:chunk]}, step,
+        flags, ray_chunk=chunk, occ=occ, frame=frame, cond=cond,
+        generator=torch.Generator().manual_seed(SEED + 6)))
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    profile_line = {
+        "chunk_rays": chunk, "chunk_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_launches": sum(n for _, n in by_kernel.values()),
+        "top": [[k[:70], ms, n] for k, (ms, n) in top]}
+    print(json.dumps({"relight_profile": profile_line}), flush=True)
+
+    # ------------------------------------------------ card vs CPU twins
+    n_crop = 32
+    B_ = model.samples_per_pixel
+    g = torch.Generator().manual_seed(SEED + 7)
+    n1 = max(B_ // 32, 1)
+    draws = [{"sphere_u": torch.rand((2, n1, B_ // n1), generator=g),
+              "strata_u": torch.rand((n_crop, B_), generator=g)}]
+    crop = {**batch, "rays": batch["rays"][:n_crop]}
+    gpu = EV.render_frame(model, statics, crop, step, flags,
+                          ray_chunk=n_crop, occ=occ, frame=frame, cond=cond,
+                          draws=draws)
+    to_cpu = lambda t: type(t)(*(v.cpu() for v in t))
+    model_cpu = copy.deepcopy(model).cpu()
+    tc = time.perf_counter()
+    cpu = EV.render_frame(
+        model_cpu, to_cpu(statics), {k: v.cpu() for k, v in crop.items()},
+        step, flags, ray_chunk=n_crop, occ=to_cpu(occ), frame=to_cpu(frame),
+        cond=cond.cpu(), draws=draws)
+    cpu_s = time.perf_counter() - tc
+    phys = ("comp_rgb_phys_full", "comp_demod_phys_full", "visibility",
+            "comp_albedo_full", "comp_roughness_full", "comp_metallic_full")
+    agree = {k: float((np.abs(gpu[k] - cpu[k]).max(-1) < 1e-3).mean())
+             for k in phys}
+    print(f"card vs plain-twin relight of {n_crop} rays (CPU {cpu_s:.1f} s):"
+          f" share of rays within 1e-3 {json.dumps(agree)}; counters card "
+          f"{json.dumps(gpu['counters'])} cpu {json.dumps(cpu['counters'])}",
+          flush=True)
+    if min(agree.values()) < 0.99:
+        fail(f"the card's relight disagrees with the plain twins: {agree}")
+    return {"rays": n_rays, "frame_s": frame_s, "rays_per_s": n_rays / frame_s,
+            "peak_mem_bytes": peak, "card": card, "psnr": m["psnr"],
+            "psnr_phys": m["psnr_phys"], "counters": counters,
+            "launches": launches,
+            "profile": {k: profile_line[k] for k in (
+                "chunk_wall_ms", "device_busy_ms", "device_idle_share",
+                "device_launches")},
+            "cpu_check": {"rays": n_crop, "agree_1e-3": agree}}
+
+
 class Tripwire:
-    """Stands in for a plain backward twin during the train phase: a call
-    there means a CUDA tensor did not reach its kernel."""
+    """Stands in for a plain twin during a phase on the card: a call there
+    means a CUDA tensor did not reach its kernel."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -786,20 +1131,8 @@ def train(rows, row, card, dev):
     print(f"train launches: {json.dumps(launches)}", flush=True)
 
     # one step under the profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tf = time.perf_counter()
-        system.fit(data, system.step + 1, log_every=1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - tf) * 1e3
-    by_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, cnt = by_kernel.get(e.name, (0.0, 0))
-            by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
-                                 cnt + 1)
+    wall_ms, by_kernel = profile_device(
+        lambda: system.fit(data, system.step + 1, log_every=1))
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     profile_line = {
@@ -848,7 +1181,10 @@ def train(rows, row, card, dev):
     grads = {}
     cpu_params = dict(cpu.model.named_parameters())
     for name, p in gpu.model.named_parameters():
-        if name.startswith("pose_correction"):
+        # the radiance regime reads neither the emitter nor the material
+        # head (its Lipschitz bounds enter the loss with weight 0 until
+        # step 12,500)
+        if name.startswith(("pose_correction", "emitter.", "material.")):
             continue
         gc, gp = p.grad, cpu_params[name].grad
         if gc is None or gp is None or not torch.isfinite(gc).all() \

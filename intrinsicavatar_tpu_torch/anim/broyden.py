@@ -7,6 +7,8 @@ for CUDA tensors and takes its plain twin only for CPU tensors:
 - :func:`deform_prologue` (kernel KH, ``csrc/deform.cu``): init pruning;
 - :func:`broyden_search` (kernel KC, ``csrc/broyden.cu``): the single-phase
   loop (the JAX op's ``two_phase=False``);
+- :func:`broyden_polish` (kernel KL, the same source): one lane per point
+  started at a seed root, KC's loop body for a few iterations;
 - :func:`deform_epilogue` (kernel KH): duplicate filter, overflow count and
   first-K survivors, then, where asked, :func:`deform_skinning` (KH's second
   stage): the LBS-weight sample and the forward-skinning rotation.
@@ -143,16 +145,12 @@ class BroydenResult(NamedTuple):
     valid: torch.Tensor    # [M] bool
 
 
-def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
-                         cvg_thresh=1e-5, dvg_thresh=1e-1, max_iters=10,
-                         lane_iters: list | None = None) -> BroydenResult:
-    """Plain twin of kernel KC: the JAX single-phase loop, vectorized.
-
-    ``lane_iters``, when given, receives the number of (lane, iteration)
-    steps the lanes ran before converging or diverging (a measurement of
-    the work this data needs)."""
-    shape_dhw = tuple(voxel_J.shape[1:])
-    vox = channel_last(voxel_J)
+def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
+                   cvg_thresh, dvg_thresh, max_iters, lane_iters):
+    """The JAX loop (`anim/broyden.py:242-314`), vectorized over lanes, from
+    canonical starts ``x, y, z [M]``; lanes ``done`` at entry stay invalid."""
+    shape_dhw = tuple(voxel_J.shape[:3])
+    vox = voxel_J.reshape(-1, 12)
     off = [float(v) for v in offset]
     sk = [float(v) for v in scale_kernel]
 
@@ -164,21 +162,12 @@ def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
         return grid_sample_3d(vox, shape_dhw, norm(x, y, z)).unbind(-1)
 
     tx, ty, tz = xd[:, 0], xd[:, 1], xd[:, 2]
-    T = tfs[:, :3, :].reshape(tfs.shape[0], 12)[bone_idx]
-    Tb = T.unbind(-1)
-    dx_, dy_, dz_ = tx - Tb[3], ty - Tb[7], tz - Tb[11]
-    x = Tb[0] * dx_ + Tb[4] * dy_ + Tb[8] * dz_
-    y = Tb[1] * dx_ + Tb[5] * dy_ + Tb[9] * dz_
-    z = Tb[2] * dx_ + Tb[6] * dy_ + Tb[10] * dz_
-
     J0 = sample(x, y, z)
     Ji = [J0[0], J0[4], J0[8], J0[1], J0[5], J0[9], J0[2], J0[6], J0[10]]
     g0 = J0[0] * x + J0[1] * y + J0[2] * z + J0[3] - tx
     g1 = J0[4] * x + J0[5] * y + J0[6] * z + J0[7] - ty
     g2 = J0[8] * x + J0[9] * y + J0[10] * z + J0[11] - tz
 
-    M = xd.shape[0]
-    done = torch.zeros(M, dtype=torch.bool, device=xd.device)
     valid = torch.zeros_like(done)
     out_x = [torch.zeros_like(x) for _ in range(3)]
     out_J = [torch.zeros_like(x) for _ in range(9)]
@@ -229,14 +218,35 @@ def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
                          j_inv=torch.stack(out_J, -1) * vf, valid=valid)
 
 
+def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
+                         cvg_thresh=1e-5, dvg_thresh=1e-1, max_iters=10,
+                         lane_iters: list | None = None) -> BroydenResult:
+    """Plain twin of kernel KC: the JAX single-phase loop, vectorized.
+
+    ``lane_iters``, when given, receives the number of (lane, iteration)
+    steps the lanes ran before converging or diverging (a measurement of
+    the work this data needs)."""
+    tx, ty, tz = xd[:, 0], xd[:, 1], xd[:, 2]
+    T = tfs[:, :3, :].reshape(tfs.shape[0], 12)[bone_idx]
+    Tb = T.unbind(-1)
+    dx_, dy_, dz_ = tx - Tb[3], ty - Tb[7], tz - Tb[11]
+    x = Tb[0] * dx_ + Tb[4] * dy_ + Tb[8] * dz_
+    y = Tb[1] * dx_ + Tb[5] * dy_ + Tb[9] * dz_
+    z = Tb[2] * dx_ + Tb[6] * dy_ + Tb[10] * dz_
+    done = torch.zeros(xd.shape[0], dtype=torch.bool, device=xd.device)
+    return _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
+                          cvg_thresh, dvg_thresh, max_iters, lane_iters)
+
+
 def broyden_search(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
                    cvg_thresh=1e-5, dvg_thresh=1e-1,
                    max_iters=10) -> BroydenResult:
     """Broyden inverse-LBS search over lanes (`fuse_cuda_kernel_fast.cu`).
 
     ``xd [M, 3]`` deformed targets, ``bone_idx [M]`` rows of ``tfs [B, 4, 4]``
-    to initialize from, ``voxel_J [12, D, H, W]`` the baked transform voxel,
-    ``offset`` / ``scale_kernel`` (3 floats each) its normalization.
+    to initialize from, ``voxel_J [D, H, W, 12]`` the baked transform voxel
+    channel-last (as ``FrameState`` holds it), ``offset`` / ``scale_kernel``
+    (3 floats each) its normalization.
     CPU tensors take the plain twin; CUDA tensors launch kernel KC.
     """
     if xd.device.type == "cpu":
@@ -245,24 +255,68 @@ def broyden_search(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
                                     max_iters)
     dev = xd.device
     M = xd.shape[0]
-    _, D, H, W = voxel_J.shape
+    D, H, W, _ = voxel_J.shape
     kernels.require(xd, "xd", torch.float32, dev, (M, 3))
     kernels.require(bone_idx, "bone_idx", torch.int32, dev, (M,))
     kernels.require(tfs, "tfs", torch.float32, dev, (None, 4, 4))
-    kernels.require(voxel_J, "voxel_J", torch.float32, dev, (12, D, H, W))
-    vox = voxel_J.permute(1, 2, 3, 0).contiguous()
+    kernels.require(voxel_J, "voxel_J", torch.float32, dev, (D, H, W, 12))
     x = torch.empty((M, 3), dtype=torch.float32, device=dev)
     j_inv = torch.empty((M, 9), dtype=torch.float32, device=dev)
     valid = torch.empty((M,), dtype=torch.bool, device=dev)
     off = [float(v) for v in offset]
     sk = [float(v) for v in scale_kernel]
     err = kernels.lib("broyden").broyden_search_fwd(
-        xd.data_ptr(), bone_idx.data_ptr(), tfs.data_ptr(), vox.data_ptr(),
+        xd.data_ptr(), bone_idx.data_ptr(), tfs.data_ptr(), voxel_J.data_ptr(),
         x.data_ptr(), j_inv.data_ptr(), valid.data_ptr(), M, D, H, W,
         int(max_iters), *off, *sk, float(cvg_thresh) ** 2,
         float(dvg_thresh) ** 2, kernels.stream_ptr(dev))
     kernels.check(err, "broyden_search")
     kernels.launches["broyden_search"] += 1
+    return BroydenResult(x=x, j_inv=j_inv, valid=valid)
+
+
+def broyden_polish_plain(xd, seed, seed_ok, voxel_J, offset, scale_kernel,
+                         cvg_thresh=1e-5, dvg_thresh=1e-1, max_iters=4,
+                         lane_iters: list | None = None) -> BroydenResult:
+    """Plain twin of kernel KL."""
+    x, y, z = seed.unbind(-1)
+    res = _broyden_plain(xd, x, y, z, ~seed_ok, voxel_J, offset,
+                         scale_kernel, cvg_thresh, dvg_thresh, max_iters,
+                         lane_iters)
+    return res._replace(valid=res.valid & seed_ok)
+
+
+def broyden_polish(xd, seed, seed_ok, voxel_J, offset, scale_kernel,
+                   cvg_thresh=1e-5, dvg_thresh=1e-1,
+                   max_iters=4) -> BroydenResult:
+    """Warm-started Broyden (`anim/broyden.py:464-515` of the JAX package):
+    one lane per point ``xd [M, 3]``, started at ``seed [M, 3]``; lanes with
+    ``seed_ok [M]`` false, and lanes that do not converge within
+    ``max_iters``, come back invalid with zero outputs.  Arguments as
+    :func:`broyden_search`.  CPU tensors take the plain twin; CUDA tensors
+    launch kernel KL."""
+    if xd.device.type == "cpu":
+        return broyden_polish_plain(xd, seed, seed_ok, voxel_J, offset,
+                                    scale_kernel, cvg_thresh, dvg_thresh,
+                                    max_iters)
+    dev = xd.device
+    M = xd.shape[0]
+    D, H, W, _ = voxel_J.shape
+    kernels.require(xd, "xd", torch.float32, dev, (M, 3))
+    kernels.require(seed, "seed", torch.float32, dev, (M, 3))
+    kernels.require(seed_ok, "seed_ok", torch.bool, dev, (M,))
+    kernels.require(voxel_J, "voxel_J", torch.float32, dev, (D, H, W, 12))
+    x = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    j_inv = torch.empty((M, 9), dtype=torch.float32, device=dev)
+    valid = torch.empty((M,), dtype=torch.bool, device=dev)
+    err = kernels.lib("broyden").broyden_polish_fwd(
+        xd.data_ptr(), seed.data_ptr(), seed_ok.data_ptr(), voxel_J.data_ptr(),
+        x.data_ptr(), j_inv.data_ptr(), valid.data_ptr(), M, D, H, W,
+        int(max_iters), *(float(v) for v in offset),
+        *(float(v) for v in scale_kernel), float(cvg_thresh) ** 2,
+        float(dvg_thresh) ** 2, kernels.stream_ptr(dev))
+    kernels.check(err, "broyden_polish")
+    kernels.launches["broyden_polish"] += 1
     return BroydenResult(x=x, j_inv=j_inv, valid=valid)
 
 

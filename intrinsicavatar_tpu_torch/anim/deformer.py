@@ -9,7 +9,9 @@ search (kernel KC) over them, filters duplicate roots and keeps the first
 rotation where a gradient query reads it), queries the canonical field on
 them and reduces by min-SDF (`snarf_deformer.py:187-255`).  Gradients of
 the field outputs pass through the candidate compaction's scatter and the
-min-SDF gather.
+min-SDF gather.  A seeded query (:meth:`FastSNARF.deform_seeded`, the
+secondary fine pass) replaces the search with one polish lane per point
+started at a known root (kernel KL).
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ import torch
 from torch import nn
 
 from intrinsicavatar_tpu_torch.anim.broyden import (
-    INIT_BONES, broyden_search, channel_last, deform_epilogue,
-    deform_prologue, segment_table,
+    INIT_BONES, broyden_polish, broyden_search, channel_last,
+    deform_epilogue, deform_prologue, deform_skinning, segment_table,
 )
 from intrinsicavatar_tpu_torch.anim.lbs_voxel import (
     make_voxel_spec, make_weight_voxel, precompute_transform_voxels,
@@ -57,7 +59,8 @@ class FrameState(NamedTuple):
     tfs: torch.Tensor         # [24, 4, 4] canonical -> SMPL-space transforms
     w2s: torch.Tensor         # [4, 4] world -> SMPL (pelvis-aligned)
     voxel_d: torch.Tensor     # [3, D, H, W] forward-skinned voxel centers
-    voxel_J: torch.Tensor     # [12, D, H, W] blended 3x4 transform voxel
+    voxel_J: torch.Tensor     # [D, H, W, 12] blended 3x4 transform voxel,
+    #                           channel-last for the Broyden kernels
     vertices: torch.Tensor    # [V, 3] posed vertices in SMPL space
     joints: torch.Tensor      # [24, 3] posed joints in SMPL space
     rot_mats: torch.Tensor    # [1, 24, 9] local joint rotations (root = I)
@@ -81,6 +84,7 @@ class FastSNARF(nn.Module):
         self.dvg_thresh = dcfg.get("dvg", 1e-1)
         self.max_candidates = dcfg.get("max_candidates", 4)
         self.n_init = min(int(dcfg.get("n_init", 8)), len(INIT_BONES))
+        self.seed_polish_iters = int(dcfg.get("seed_polish_iters", 4))
         self.candidate_compaction = dcfg.get("candidate_compaction", 0.375)
         model_path = config.get("model_path", None)
         if model_path not in (None, "synthetic"):
@@ -147,6 +151,7 @@ class FastSNARF(nn.Module):
         rots = rodrigues(smpl_params["body_pose"].reshape(23, 3))
         eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
         rot_mats = torch.cat([eye[None], rots], 0).reshape(1, 24, 9)
+        voxel_J = voxel_J.permute(1, 2, 3, 0).contiguous()
         return FrameState(tfs=tfs, w2s=w2s, voxel_d=voxel_d, voxel_J=voxel_J,
                           vertices=verts, joints=joints, rot_mats=rot_mats)
 
@@ -159,6 +164,9 @@ class FastSNARF(nn.Module):
         d = rays[:, 3:6] @ w2s[:3, :3].T
         dist = torch.linalg.vector_norm(o, dim=-1, keepdim=True)
         return torch.cat([o, d, dist - 1.0, dist + 1.0], dim=-1)
+
+    def transform_dirs_w2s(self, frame: FrameState, d):
+        return safe_normalize(d @ frame.w2s[:3, :3].T)
 
     def transform_dirs_s2w(self, frame: FrameState, d):
         return safe_normalize(d @ frame.w2s[:3, :3])
@@ -191,9 +199,10 @@ class FastSNARF(nn.Module):
             cvg_thresh=self.cvg_thresh, dvg_thresh=self.dvg_thresh)
 
     def _query_geometry_compact(self, geometry_fn, xc_flat, valid_flat, boost,
-                                counters):
+                                counters, frac=None):
         """Run the canonical field only on a fixed budget of valid candidate
-        lanes; the rest get neutral fills (sdf = 1e5)."""
+        lanes; the rest get neutral fills (sdf = 1e5).  ``frac`` overrides
+        the configured budget fraction (0: every lane)."""
 
         def run(p):
             ret, j_inv_nr = geometry_fn(p)
@@ -202,7 +211,8 @@ class FastSNARF(nn.Module):
             return tuple(ret) + (() if j_inv_nr is None else (j_inv_nr,))
 
         M = xc_flat.shape[0]
-        frac = self.candidate_compaction
+        if frac is None:
+            frac = self.candidate_compaction
         if frac:
             frac = min(1.0, float(frac) + 0.0625 * boost)
         if not frac or M <= 4096:
@@ -256,10 +266,36 @@ class FastSNARF(nn.Module):
         return self._finish_query(N, K, ep.xc, c2w, ep.valid, geometry_fn,
                                   boost, counters)
 
+    def deform_seeded(self, statics: DeformerStatics, frame: FrameState, pts,
+                      seed_xc, seed_ok, geometry_fn: Callable,
+                      boost: int = 0, counters=None):
+        """Eval-mode canonicalization warm-started at known nearby roots
+        ``seed_xc [N, 3]`` (``seed_ok [N]`` marks the usable ones): one
+        polish lane per point (kernel KL) replaces the search, its filter
+        and its top-K; outputs as :meth:`deform` with ``with_jac`` (the
+        secondary fine pass, its one caller, reads gradients).  Lanes whose
+        polish fails despite a usable seed are counted
+        (``sec_seed_polish_fail``)."""
+        N = pts.shape[0]
+        res = broyden_polish(
+            pts.contiguous(), seed_xc.contiguous(), seed_ok.contiguous(),
+            frame.voxel_J, self.spec.offset, self.spec.scale_kernel,
+            cvg_thresh=self.cvg_thresh, dvg_thresh=self.dvg_thresh,
+            max_iters=self.seed_polish_iters)
+        record(counters, "sec_seed_polish_fail",
+               (seed_ok & ~res.valid).sum(dtype=torch.int64))
+        c2w = res.j_inv if self.use_j_inv else deform_skinning(
+            res.x, statics.lbs_cl, self.spec, frame.tfs.contiguous())
+        # the lanes were compacted by the caller and are mostly valid: no
+        # candidate-level budget (`anim/deformer.py:424-429` of the JAX
+        # package)
+        return self._finish_query(N, 1, res.x, c2w, res.valid, geometry_fn,
+                                  boost, counters, frac=0.0)
+
     def _finish_query(self, N, K, xc, c2w, valid_flat, geometry_fn, boost,
-                      counters):
+                      counters, frac=None):
         ret, j_inv_nr = self._query_geometry_compact(
-            geometry_fn, xc, valid_flat, boost, counters)
+            geometry_fn, xc, valid_flat, boost, counters, frac)
         sdf = torch.where(valid_flat, ret[0], 1e5).reshape(N, K)
         idx = torch.argmin(sdf, dim=-1)
         sel = torch.arange(N, device=xc.device) * K + idx
@@ -325,12 +361,21 @@ class SNARFDeformer(nn.Module):
 
     def forward(self, statics, frame, points, cond, geometry_fn,
                 with_jac=False, eval_mode=True, global_step=0, boost=0,
-                counters=None):
+                counters=None, seed=None):
+        """Canonicalize ``points``; with ``seed = (seed_xc, seed_ok)`` by
+        the seeded polish (eval mode only), else by the search."""
         def composed_geometry_fn(x):
             x_nr, j_inv_nr = self.non_rigid(x, cond=cond, with_jac=with_jac,
                                             global_step=global_step)
             return geometry_fn(x_nr), j_inv_nr
 
+        if seed is not None:
+            if not eval_mode:
+                raise NotImplementedError("the seeded polish runs at eval "
+                                          "only in the port")
+            return self.rigid.deform_seeded(
+                statics, frame, points, seed[0], seed[1],
+                composed_geometry_fn, boost=boost, counters=counters)
         return self.rigid.deform(statics, frame, points, composed_geometry_fn,
                                  with_jac=with_jac, eval_mode=eval_mode,
                                  boost=boost, counters=counters)

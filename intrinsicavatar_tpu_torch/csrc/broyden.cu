@@ -1,5 +1,8 @@
-// KC: Broyden inverse-LBS root search.
+// KC: Broyden inverse-LBS root search (broyden_search_fwd); KL: its seeded
+// single-lane polish (broyden_polish_fwd), described above its kernel
+// below.  Both run the same per-lane body, broyden_lane.
 //
+// KC:
 // Replaces intrinsicavatar_tpu/anim/broyden.py:351-460 broyden_search (body
 // :242-314), itself the TPU form of Fast-SNARF's broyden_kernel.  Per lane
 // (point x initialization bone): start from the bone's inverse rigid
@@ -68,34 +71,21 @@ struct Sampler {
   }
 };
 
-__global__ void broyden_search_kernel(
-    const float* __restrict__ xd, const int* __restrict__ bone_idx,
-    const float* __restrict__ tfs, Sampler S, float* __restrict__ x_out,
-    float* __restrict__ jinv_out, uint8_t* __restrict__ valid_out, int64_t M,
-    int max_iters, float cvg2, float dvg2) {
-  int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float tx = xd[m * 3], ty = xd[m * 3 + 1], tz = xd[m * 3 + 2];
-  const float* T = tfs + (int64_t)bone_idx[m] * 16;  // [4, 4] row-major
-  // x = R^T (x_d - t)
-  float ddx = tx - T[3], ddy = ty - T[7], ddz = tz - T[11];
-  float x = T[0] * ddx + T[4] * ddy + T[8] * ddz;
-  float y = T[1] * ddx + T[5] * ddy + T[9] * ddz;
-  float z = T[2] * ddx + T[6] * ddy + T[10] * ddz;
-
+// From canonical start (x, y, z): J^-1 starts as the transpose of the
+// sampled rotation block, then up to max_iters Broyden steps toward target
+// (tx, ty, tz).  On convergence writes the root to xo, J^-1 to O and
+// returns whether the root is in bounds; returns false otherwise.
+__device__ __forceinline__ bool broyden_lane(
+    const Sampler& S, float x, float y, float z, float tx, float ty,
+    float tz, int max_iters, float cvg2, float dvg2, float* xo, float* O) {
   float J[12];
   S.sample(x, y, z, J);
-  // J^-1 starts as the transpose of the sampled rotation block
   float J00 = J[0], J01 = J[4], J02 = J[8];
   float J10 = J[1], J11 = J[5], J12 = J[9];
   float J20 = J[2], J21 = J[6], J22 = J[10];
   float g0 = J[0] * x + J[1] * y + J[2] * z + J[3] - tx;
   float g1 = J[4] * x + J[5] * y + J[6] * z + J[7] - ty;
   float g2 = J[8] * x + J[9] * y + J[10] * z + J[11] - tz;
-
-  bool valid = false;
-  float ox = 0.f, oy = 0.f, oz = 0.f;
-  float O[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int it = 0; it < max_iters; ++it) {
     float u0 = -(J00 * g0 + J01 * g1 + J02 * g2);
     float u1 = -(J10 * g0 + J11 * g1 + J12 * g2);
@@ -109,14 +99,13 @@ __global__ void broyden_search_kernel(
     float n2 = J[8] * x + J[9] * y + J[10] * z + J[11] - tz;
     float nsq = n0 * n0 + n1 * n1 + n2 * n2;
     if (nsq < cvg2) {
-      ox = x; oy = y; oz = z;
+      xo[0] = x; xo[1] = y; xo[2] = z;
       O[0] = J00; O[1] = J01; O[2] = J02;
       O[3] = J10; O[4] = J11; O[5] = J12;
       O[6] = J20; O[7] = J21; O[8] = J22;
-      valid = S.in_bounds(x, y, z);
-      break;
+      return S.in_bounds(x, y, z);
     }
-    if (nsq > dvg2) break;
+    if (nsq > dvg2) return false;
     // rank-1 update: c = u^T J^-1; s = c . dg; J^-1 += (u - J^-1 dg) c / s
     float d0 = n0 - g0, d1 = n1 - g1, d2 = n2 - g2;
     float c0 = J00 * u0 + J10 * u1 + J20 * u2;
@@ -134,12 +123,77 @@ __global__ void broyden_search_kernel(
     J20 = J20 + c0 * a2; J21 = J21 + c1 * a2; J22 = J22 + c2 * a2;
     g0 = n0; g1 = n1; g2 = n2;
   }
+  return false;
+}
+
+// a lane's outputs, zero where it is not valid
+__device__ __forceinline__ void store_lane(
+    int64_t m, bool valid, const float* xo, const float* O,
+    float* __restrict__ x_out, float* __restrict__ jinv_out,
+    uint8_t* __restrict__ valid_out) {
   float vf = valid ? 1.f : 0.f;
-  x_out[m * 3] = ox * vf;
-  x_out[m * 3 + 1] = oy * vf;
-  x_out[m * 3 + 2] = oz * vf;
+  for (int a = 0; a < 3; ++a) x_out[m * 3 + a] = xo[a] * vf;
   for (int i = 0; i < 9; ++i) jinv_out[m * 9 + i] = O[i] * vf;
   valid_out[m] = valid ? 1 : 0;
+}
+
+__global__ void broyden_search_kernel(
+    const float* __restrict__ xd, const int* __restrict__ bone_idx,
+    const float* __restrict__ tfs, Sampler S, float* __restrict__ x_out,
+    float* __restrict__ jinv_out, uint8_t* __restrict__ valid_out, int64_t M,
+    int max_iters, float cvg2, float dvg2) {
+  int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float tx = xd[m * 3], ty = xd[m * 3 + 1], tz = xd[m * 3 + 2];
+  const float* T = tfs + (int64_t)bone_idx[m] * 16;  // [4, 4] row-major
+  // x = R^T (x_d - t)
+  float ddx = tx - T[3], ddy = ty - T[7], ddz = tz - T[11];
+  float x = T[0] * ddx + T[4] * ddy + T[8] * ddz;
+  float y = T[1] * ddx + T[5] * ddy + T[9] * ddz;
+  float z = T[2] * ddx + T[6] * ddy + T[10] * ddz;
+  float xo[3] = {0.f, 0.f, 0.f};
+  float O[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool valid = broyden_lane(S, x, y, z, tx, ty, tz, max_iters, cvg2, dvg2,
+                            xo, O);
+  store_lane(m, valid, xo, O, x_out, jinv_out, valid_out);
+}
+
+// ---------------------------------------------------------------------------
+// KL: seeded Broyden polish.
+//
+// Replaces intrinsicavatar_tpu/anim/broyden.py:464 broyden_polish, the
+// warm start of the secondary fine pass (FastSNARF.deform_seeded,
+// anim/deformer.py:476-537): one lane per point, started at a known-nearby
+// canonical root (the seed) instead of the bone initializations, at most
+// max_iters (4) Broyden steps with KC's residual, thresholds and bounds
+// test.  A lane without a usable seed (seed_ok false) is done at entry and
+// invalid; invalid lanes' outputs are zero.
+//
+// What bounds it on an H100: bytes.  Per lane it reads 12 B of target,
+// 13 B of seed and writes 49 B, with up to 5 trilinear samples of 384 B
+// from the 25 MB voxel (mostly L2) and ~250 flops each.
+//
+// Design: KC's one thread per lane with its state in registers; the body is
+// KC's own (broyden_lane), so a seed that KC's search would reach gives the
+// same iterates.
+// ---------------------------------------------------------------------------
+
+__global__ void broyden_polish_kernel(
+    const float* __restrict__ xd, const float* __restrict__ seed,
+    const uint8_t* __restrict__ seed_ok, Sampler S,
+    float* __restrict__ x_out, float* __restrict__ jinv_out,
+    uint8_t* __restrict__ valid_out, int64_t M, int max_iters, float cvg2,
+    float dvg2) {
+  int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float xo[3] = {0.f, 0.f, 0.f};
+  float O[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool valid = false;
+  if (seed_ok[m])
+    valid = broyden_lane(S, seed[m * 3], seed[m * 3 + 1], seed[m * 3 + 2],
+                         xd[m * 3], xd[m * 3 + 1], xd[m * 3 + 2], max_iters,
+                         cvg2, dvg2, xo, O);
+  store_lane(m, valid, xo, O, x_out, jinv_out, valid_out);
 }
 
 }  // namespace
@@ -158,6 +212,24 @@ extern "C" int broyden_search_fwd(const float* xd, const int* bone_idx,
   unsigned blocks = (unsigned)((M + threads - 1) / threads);
   broyden_search_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       xd, bone_idx, tfs, S, x_out, jinv_out, valid_out, M, max_iters, cvg2,
+      dvg2);
+  return launch_status();
+}
+
+extern "C" int broyden_polish_fwd(const float* xd, const float* seed,
+                                  const uint8_t* seed_ok, const float* vox,
+                                  float* x_out, float* jinv_out,
+                                  uint8_t* valid_out, long long M,
+                                  int D, int H, int W,
+                                  int max_iters, float ox, float oy,
+                                  float oz, float sx, float sy, float sz,
+                                  float cvg2, float dvg2, void* stream) {
+  if (M <= 0) return 0;
+  Sampler S{vox, D, H, W, ox, oy, oz, sx, sy, sz};
+  const int threads = 128;
+  unsigned blocks = (unsigned)((M + threads - 1) / threads);
+  broyden_polish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      xd, seed, seed_ok, S, x_out, jinv_out, valid_out, M, max_iters, cvg2,
       dvg2);
   return launch_status();
 }

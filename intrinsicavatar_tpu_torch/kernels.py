@@ -52,13 +52,25 @@ SIGNATURES = {
         "encode_mlp_sdfgrad_bwd_scatter": (
             P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, F32,
             P)},
-    "broyden": {"broyden_search_fwd": (
-        P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
-        F32, F32, F32, F32, F32, F32, F32, F32, P)},
-    "march": {"occupancy_march_fwd": (
-        P, P, P, P, P, P, P, I64, I32, I32, F32, P, P, P, P, P)},
-    "resample": {"merge_resample_fwd": (
-        P, P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P, P, P, P)},
+    "broyden": {
+        "broyden_search_fwd": (
+            P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
+            F32, F32, F32, F32, F32, F32, F32, F32, P),
+        "broyden_polish_fwd": (
+            P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
+            F32, F32, F32, F32, F32, F32, F32, F32, P)},
+    "march": {
+        "occupancy_march_fwd": (
+            P, P, P, P, P, P, P, I64, I32, I32, F32, P, P, P, P, P),
+        "secondary_march_fwd": (
+            P, P, P, P, P, P, P, I64, I32, I32, F32, I32, P, P, P, P)},
+    "resample": {
+        "merge_resample_fwd": (
+            P, P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P, P, P, P),
+        "cdf_resample_fwd": (
+            P, P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P, P, P, P, P),
+        "fine_resample_fwd": (
+            P, P, P, P, P, I64, I32, I32, F32, F32, I32, P, P, P, P)},
     "compact": {
         "compact_counts_len": (I64,),
         "compact_indices_fwd": (P, I64, I64, I64, I32, I64, P, P, P, P)},

@@ -1,5 +1,6 @@
 """``VanillaMLP`` with the reference's sphere initialization, Softplus(100)
-and weight normalization (counterpart of the JAX package's ``nets/mlp.py``).
+and weight normalization, and the material head's ``LipschitzMLP``
+(counterpart of the JAX package's ``nets/mlp.py``).
 
 Weights are stored ``[in, out]`` as in JAX, so the parameter tree carries
 over unchanged (``weights.from_jax_params``).
@@ -146,24 +147,79 @@ class VanillaMLP(nn.Module):
         return d_w, d[-1], grad.detach()
 
 
-def init_lipschitz_mlp(dims, generator: torch.Generator):
-    """Parameters with the distributions of the JAX ``LipschitzMLP.init``
-    (`nets/mlp.py:269-284`): per layer ``{"w": [in, out], "b": [out], "c":
-    [1]}``, ``w`` and ``b`` uniform in +-1/sqrt(in) and ``c`` twice the
-    largest absolute column sum of ``w``."""
-    layers = []
-    for d_in, d_out in zip(dims[:-1], dims[1:]):
-        bound = 1.0 / math.sqrt(d_in)
-        w = (torch.rand(d_in, d_out, generator=generator) * 2 - 1) * bound
-        b = (torch.rand(d_out, generator=generator) * 2 - 1) * bound
-        c = torch.ones(1) * torch.sum(torch.abs(w), 0).max() * 2.0
-        layers.append({"w": w, "b": b, "c": c})
-    return layers
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as JAX writes it (``logaddexp(x, 0)``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class _LipschitzLayer(nn.Module):
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(d_in, d_out))
+        self.b = nn.Parameter(torch.zeros(d_out))
+        self.c = nn.Parameter(torch.zeros(1))
+
+    def normalized_w(self) -> torch.Tensor:
+        """Columns scaled so each output unit's absolute row sum stays
+        below ``softplus(c)``."""
+        absrowsum = torch.sum(torch.abs(self.w), 0)
+        scale = torch.clamp(softplus(self.c) / absrowsum, max=1.0)
+        return self.w * scale[None, :]
+
+
+class LipschitzMLP(nn.Module):
+    """ReLU MLP with a learnable per-layer Lipschitz bound
+    (`nets/mlp.py:255-305` of the JAX package, `models/network_utils.py:
+    360-431` of the reference); weights ``[in, out]`` as in JAX."""
+
+    def __init__(self, dim_in: int, dim_out: int, n_neurons: int = 64,
+                 n_hidden_layers: int = 2, output_activation=None):
+        super().__init__()
+        self.dims = [dim_in] + [n_neurons] * n_hidden_layers + [dim_out]
+        self.output_activation = get_activation(output_activation)
+        self.layers = nn.ModuleList(
+            _LipschitzLayer(a, b) for a, b in zip(self.dims[:-1],
+                                                  self.dims[1:]))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        """The distributions of the JAX ``LipschitzMLP.init``: ``w`` and
+        ``b`` uniform in +-1/sqrt(in), ``c`` twice the largest absolute
+        column sum of ``w``."""
+        for layer, d_in in zip(self.layers, self.dims[:-1]):
+            bound = 1.0 / math.sqrt(d_in)
+            w = (torch.rand(layer.w.shape, generator=generator) * 2 - 1) \
+                * bound
+            b = (torch.rand(layer.b.shape, generator=generator) * 2 - 1) \
+                * bound
+            layer.w.copy_(w.to(layer.w.device))
+            layer.b.copy_(b.to(layer.b.device))
+            layer.c.fill_(float(torch.sum(torch.abs(w), 0).max()) * 2.0)
+
+    def forward(self, x):
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            x = x @ layer.normalized_w() + layer.b
+            if i < n - 1:
+                x = torch.relu(x)
+        return self.output_activation(x)
+
+    def lipschitz_bound(self) -> torch.Tensor:
+        """Mean of the product of the layers' ``softplus(c)``."""
+        bound = 1.0
+        for layer in self.layers:
+            bound = bound * softplus(layer.c)
+        return torch.mean(bound)
 
 
 def make_mlp(dim_in: int, dim_out: int, config):
-    """Factory mirroring ``get_mlp`` (VanillaMLP only in this slice)."""
+    """Factory mirroring ``get_mlp`` (`models/network_utils.py:468-483`)."""
     otype = config.get("otype", "VanillaMLP")
+    if otype in ("LipshitzMLP", "LipschitzMLP"):
+        return LipschitzMLP(
+            dim_in, dim_out, n_neurons=config.get("n_neurons", 64),
+            n_hidden_layers=config.get("n_hidden_layers", 2),
+            output_activation=config.get("output_activation"))
     if otype != "VanillaMLP":
         raise ValueError(f"mlp otype {otype!r} is not ported yet")
     return VanillaMLP(

@@ -6,7 +6,9 @@ exit of the scene AABB; a step is a sample iff the occupancy voxel at its
 midpoint is set.  Output is the edge-list form the merge resampler consumes.
 :func:`occupancy_sampling` launches kernel KE (``csrc/march.cu``) for CUDA
 tensors and takes the plain twin :func:`occupancy_sampling_plain` only for
-CPU tensors.
+CPU tensors; :func:`secondary_march` (the secondary rays' march straight to
+capped samples, ``render/pbr.py:197-224`` of the JAX package) launches
+kernel KK of the same source, with :func:`secondary_march_plain` its twin.
 """
 
 from __future__ import annotations
@@ -120,3 +122,54 @@ def intervals_to_samples(iv: RayIntervals):
     t_starts = torch.where(mask, iv.vals[:, :-1], 0.0)
     t_ends = torch.where(mask, iv.vals[:, 1:], 0.0)
     return t_starts, t_ends, mask
+
+
+def secondary_march_plain(rays_o, rays_d, binaries, aabb, step_size: float,
+                          num_steps: int, near, far, active=None,
+                          max_valid: int = 0):
+    """Plain twin of kernel KK."""
+    iv = occupancy_sampling_plain(rays_o, rays_d, binaries, aabb, step_size,
+                                  num_steps, near=near, far=far)
+    t_starts, t_ends, smask = intervals_to_samples(iv)
+    if active is not None:
+        smask = smask & active[:, None]
+    if 0 < max_valid < num_steps:
+        smask = smask & (torch.cumsum(smask.to(torch.int32), 1) <= max_valid)
+    return t_starts, t_ends, smask
+
+
+def secondary_march(rays_o, rays_d, binaries, aabb, step_size: float,
+                    num_steps: int, near, far, active=None,
+                    max_valid: int = 0):
+    """March secondary rays ``[M, 3]`` through the grid (``near``/``far``
+    ``[M]``, no stratified shift) and return their samples ``(t_starts,
+    t_ends, mask)``, each ``[M, num_steps]``, the mask ANDed with
+    ``active [M]`` and cut after each ray's first ``max_valid`` masked
+    samples (0: no cut)."""
+    if rays_o.device.type == "cpu":
+        return secondary_march_plain(rays_o, rays_d, binaries, aabb,
+                                     step_size, num_steps, near, far, active,
+                                     max_valid)
+    dev = rays_o.device
+    M, S, res = rays_o.shape[0], int(num_steps), binaries.shape[0]
+    f32 = torch.float32
+    kernels.require(rays_o, "rays_o", f32, dev, (M, 3))
+    kernels.require(rays_d, "rays_d", f32, dev, (M, 3))
+    kernels.require(near, "near", f32, dev, (M,))
+    kernels.require(far, "far", f32, dev, (M,))
+    kernels.require(binaries, "binaries", torch.bool, dev, (res, res, res))
+    kernels.require(aabb, "aabb", f32, dev, (6,))
+    if active is not None:
+        kernels.require(active, "active", torch.bool, dev, (M,))
+    t_starts = torch.empty((M, S), dtype=f32, device=dev)
+    t_ends = torch.empty((M, S), dtype=f32, device=dev)
+    smask = torch.empty((M, S), dtype=torch.bool, device=dev)
+    err = kernels.lib("march").secondary_march_fwd(
+        rays_o.data_ptr(), rays_d.data_ptr(), near.data_ptr(),
+        far.data_ptr(), None if active is None else active.data_ptr(),
+        binaries.data_ptr(), aabb.data_ptr(), M, S, res, float(step_size),
+        int(max_valid) if 0 < max_valid < S else 0, t_starts.data_ptr(),
+        t_ends.data_ptr(), smask.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(err, "secondary_march")
+    kernels.launches["secondary_march"] += 1
+    return t_starts, t_ends, smask

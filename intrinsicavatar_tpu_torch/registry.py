@@ -44,6 +44,9 @@ def _populate():
     import intrinsicavatar_tpu_torch.fields.geometry  # noqa: F401
     import intrinsicavatar_tpu_torch.fields.radiance  # noqa: F401
     import intrinsicavatar_tpu_torch.fields.density  # noqa: F401
+    import intrinsicavatar_tpu_torch.fields.material  # noqa: F401
+    import intrinsicavatar_tpu_torch.pbr.brdf  # noqa: F401
+    import intrinsicavatar_tpu_torch.pbr.envlight  # noqa: F401
     import intrinsicavatar_tpu_torch.anim.pose  # noqa: F401
     import intrinsicavatar_tpu_torch.anim.deformer  # noqa: F401
     import intrinsicavatar_tpu_torch.anim.non_rigid  # noqa: F401

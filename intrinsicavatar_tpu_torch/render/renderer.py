@@ -1,13 +1,17 @@
-"""The composed volumetric renderer, radiance regime, eval and training
-(counterpart of the JAX package's ``render/renderer.py``).
+"""The composed volumetric renderer (counterpart of the JAX package's
+``render/renderer.py``): the radiance regime in eval and training, the
+physically based (relight) regime in eval.
 
 Per batch of rays: rays world -> SMPL space; occupancy marching into edge
 lists; two merge-importance rounds driven by coarse SDF queries (no
 gradient); the shading pass at interval midpoints through the deformer ->
 SDF (kernel KB) and radiance (kernel KA) fields; compositing (kernel KD).
 In training the shading pass, the curvature proxy and the composite are
-differentiated (kernels KB', KA', KD' in the backward).  The PBR stage, the
-seed grid and the bf16 scope come with later slices.
+differentiated (kernels KB', KA', KD' in the backward).  With
+``enable_phys`` (eval) the material field shades the same samples, the
+albedo / roughness / metallic maps are composited, and ``render/pbr.py``
+renders the physically based maps.  The phys training regime, the seed
+grid and the bf16 scopes come with later slices.
 
 Randomness is passed in through ``draws`` (a dict; see :meth:`forward`) or
 drawn from a ``torch.Generator``, so a caller can reproduce another
@@ -22,7 +26,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from intrinsicavatar_tpu_torch.nets.mlp import init_lipschitz_mlp
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
 from intrinsicavatar_tpu_torch.ops.compact import (
@@ -31,14 +34,11 @@ from intrinsicavatar_tpu_torch.ops.compact import (
 from intrinsicavatar_tpu_torch.ops.grid_traversal import (
     RayIntervals, intervals_to_samples, occupancy_sampling,
 )
-from intrinsicavatar_tpu_torch.ops.math import linear_to_srgb
+from intrinsicavatar_tpu_torch.ops.math import linear_to_srgb, safe_normalize
 from intrinsicavatar_tpu_torch.registry import make, register
+from intrinsicavatar_tpu_torch.render import pbr as PBR
 from intrinsicavatar_tpu_torch.render.occupancy import OccGridState, level_of
 from intrinsicavatar_tpu_torch.utils.diag import record
-
-# parameter groups of the JAX tree that this slice does not run; they are
-# held as plain tensors so that every key of a carried-over tree lands
-LATER_SLICE_GROUPS = ("material", "scatterer", "emitter")
 
 
 class RenderFlags(NamedTuple):
@@ -47,6 +47,11 @@ class RenderFlags(NamedTuple):
     importance_sample: bool = False
     randomized: bool = True
     with_curvature_loss: bool = True
+    jitter_materials: bool = True
+    render_mode: str = "uniform_light"
+    # the material maps without the secondary-ray stage: the pre-pass that
+    # fits the albedo alignment ratio (`models/intrinsic_avatar.py:222`)
+    albedo_only: bool = False
     full_budget: bool = False
     budget_boost: int = 0
 
@@ -74,7 +79,11 @@ class IntrinsicAvatar(nn.Module):
         self.pose_correction = make(config.pose_correction.name,
                                     config.pose_correction)
         self.deformer = make(config.deformer.name, config.deformer)
-        self.later_slices: dict = {}
+        self.material = make(config.material.name, config.material)
+        self.scatterer = (make(config.scatterer.name, config.scatterer)
+                          if config.get("scatterer") else None)
+        self.emitter = (make(config.light.name, config.light)
+                        if config.get("light") else None)
 
         if config.get("primary_dtype", "bfloat16") != "float32":
             raise ValueError("the bf16 primary scope is not ported yet: set "
@@ -87,42 +96,35 @@ class IntrinsicAvatar(nn.Module):
         self.render_step_size = diag / self.num_samples_per_ray
         self.n_importance_rounds = config.get("n_importance_rounds", 2)
         self.n_importance_samples = config.get("n_importance_samples", 16)
+        self.samples_per_pixel = config.get("samples_per_pixel", 512)
+        self.num_samples_per_secondary_ray = config.get(
+            "num_samples_per_secondary_ray", 64)
+        self.secondary_near_plane = config.get("secondary_near_plane", 0.0)
+        self.secondary_far_plane = config.get("secondary_far_plane", 1.5)
+        self.secondary_importance_sample = config.get(
+            "secondary_importance_sample", True)
+        self.zero_crossing_search = config.get("zero_crossing_search", True)
+        self.add_emitter = config.get("add_emitter", False)
+        self.material_feature = config.get("material_feature", "hybrid")
 
     # ------------------------------------------------------------- setup
 
     @torch.no_grad()
     def init(self, generator: torch.Generator):
-        """Random parameters with the distributions of the JAX ``init``; the
-        material head, which this slice runs only for its Lipschitz bound,
-        is held in ``later_slices``."""
+        """Random parameters with the distributions of the JAX ``init``."""
         self.geometry.init(generator)
         self.radiance.init(generator)
         self.density.init(generator)
-        mcfg = self.config.material
-        mlp_cfg = mcfg.get("mlp_network_config", {})
-        if mlp_cfg.get("otype") in ("LipshitzMLP", "LipschitzMLP"):
-            dims = ([mcfg.get("input_feature_dim", 48)]
-                    + [mlp_cfg.get("n_neurons", 64)]
-                    * mlp_cfg.get("n_hidden_layers", 2)
-                    + [mcfg.get("n_output_dim", 5)])
-            dev = self.geometry.table.device
-            for i, layer in enumerate(init_lipschitz_mlp(dims, generator)):
-                for k, v in layer.items():
-                    self.later_slices[f"material.mlp.{i}.{k}"] = v.to(dev)
+        self.material.init(generator)
+        if self.emitter is not None:
+            self.emitter.init(generator)
         return self
 
     def lipschitz_bound(self):
-        """Mean of the product of ``softplus(c)`` over the material MLP's
-        layers (`nets/mlp.py:301-305` of the JAX package), from the held
-        ``material.mlp.*.c`` tensors; 0 without them."""
-        cs = [v for k, v in sorted(self.later_slices.items())
-              if k.startswith("material.mlp.") and k.endswith(".c")]
-        if not cs:
-            return torch.zeros((), device=self.geometry.table.device)
-        bound = 1.0
-        for c in cs:
-            bound = bound * torch.nn.functional.softplus(c)
-        return torch.mean(bound).to(self.geometry.table.device)
+        """The material MLP's Lipschitz bound (`nets/mlp.py:301-305` of the
+        JAX package; 0 for a plain MLP)."""
+        return self.material.lipschitz_bound().to(
+            self.geometry.table.device)
 
     @torch.no_grad()
     def initialize(self, betas):
@@ -155,12 +157,15 @@ class IntrinsicAvatar(nn.Module):
 
     def _deform_query(self, statics, frame, cond, pts, sched, with_grad,
                       global_step=0, mask=None, budget=None, mask2d=None,
-                      boost=0, counters=None, eval_mode=True):
+                      boost=0, counters=None, eval_mode=True, seed=None):
         """Canonicalize + query geometry; returns the deformer outputs.
 
         With ``mask`` and query compaction, only a fixed budget of valid
         points runs the search + field query; the rest get neutral fills
         (sdf = 1e5 -> alpha 0).  ``mask2d`` selects sample-major order.
+        ``seed = (xc [M, 3], ok [M])`` warm-starts each point's root search
+        at a known canonical root (the seeded polish, eval only); the seeds
+        ride along as extra point columns through the compaction.
         """
         geo = self.geometry
 
@@ -170,11 +175,18 @@ class IntrinsicAvatar(nn.Module):
             return (geo.features(xc, sched["geo_mask"])[:, 0],)
 
         def query(p):
+            s = None
+            if seed is not None:
+                p, s = p[:, :3].contiguous(), (p[:, 3:6].contiguous(),
+                                               p[:, 6] > 0.5)
             return tuple(self.deformer(
                 statics, frame, p, cond, geometry_fn, with_jac=with_grad,
                 eval_mode=eval_mode, global_step=global_step, boost=boost,
-                counters=counters))
+                counters=counters, seed=s))
 
+        if seed is not None:
+            pts = torch.cat([pts, seed[0], seed[1].to(pts.dtype)[:, None]],
+                            -1)
         frac = self.config.get("query_compaction", 0.5)
         if mask is None or not frac:
             return list(query(pts))
@@ -299,7 +311,8 @@ class IntrinsicAvatar(nn.Module):
 
     def forward(self, statics, frame, cond, occ: OccGridState, rays_world,
                 step, flags: RenderFlags, t_idx=0.0, background_color=None,
-                intervals=None, draws=None, generator=None):
+                intervals=None, draws=None, generator=None,
+                emitter_state=None, albedo_align_ratio=None):
         """Render a batch of rays ``[R, 8]``.  Returns ``comp_rgb,
         comp_normal, opacity, depth, rays_valid, ... comp_rgb_full``, the
         budget counters under ``counters`` and, in training, the per-sample
@@ -310,26 +323,35 @@ class IntrinsicAvatar(nn.Module):
         ``intervals`` (from :meth:`sample_intervals`) skips the sampling
         stage.  ``draws`` may hold ``strat_u [R]``, the curvature
         subsample's lane indices ``lap_sub [n]`` and its directions' U[0, 1)
-        draws ``lap_u [n, 3]``; what it lacks is drawn from ``generator``.
-        Eval renders run without autograd; a training render is
-        differentiable in every parameter it reads.
+        draws ``lap_u [n, 3]``, and the PBR stage's draws
+        (:func:`render.pbr.pbr_forward`); what it lacks is drawn from
+        ``generator``.  With ``enable_phys`` the output adds the material
+        maps ``comp_albedo / comp_roughness / comp_metallic`` (the albedo
+        scaled by ``albedo_align_ratio [3]`` when given) and, unless
+        ``albedo_only``, ``comp_rgb_phys``, ``comp_demod_phys`` and
+        ``visibility``, each with its ``*_full`` map; ``emitter_state``
+        replaces the emitter's sampling tables.  Eval renders run without
+        autograd; a training render is differentiable in every parameter
+        it reads.
         """
-        if flags.enable_phys:
-            raise NotImplementedError("the PBR stage comes with a later "
-                                      "slice")
+        if flags.enable_phys and flags.training:
+            raise NotImplementedError("the phys training regime (PBR "
+                                      "losses, material jitter) comes with "
+                                      "a later slice")
         counters: dict = {}
         with torch.set_grad_enabled(flags.training
                                     and torch.is_grad_enabled()):
             out = self._forward_body(statics, frame, cond, occ, rays_world,
                                      step, flags, t_idx, background_color,
-                                     intervals, draws, generator, counters)
+                                     intervals, draws, generator, counters,
+                                     emitter_state, albedo_align_ratio)
         out["counters"] = {k: torch.as_tensor(v).to(torch.int32)
                            for k, v in counters.items()}
         return out
 
     def _forward_body(self, statics, frame, cond, occ, rays_world, step,
                       flags, t_idx, background_color, intervals, draws,
-                      generator, counters):
+                      generator, counters, emitter_state, albedo_align_ratio):
         dev = rays_world.device
         sched = self.schedules(step, dev)
         rays = self.deformer.rigid.transform_rays_w2s(frame, rays_world)
@@ -408,18 +430,39 @@ class IntrinsicAvatar(nn.Module):
         dirs_world = self.deformer.rigid.transform_dirs_s2w(frame, dirs_q)
         normal_world_q = self.deformer.rigid.transform_dirs_s2w(frame,
                                                                 sdf_grad)
-        rgbs, _ = self.radiance(pos_cano, feat, dirs_world, normal_world_q,
-                                level_mask=sched["rad_mask"],
-                                sh_mask=sched["sh_mask"])
+        rgbs, rgb_feat = self.radiance(pos_cano, feat, dirs_world,
+                                       normal_world_q,
+                                       level_mask=sched["rad_mask"],
+                                       sh_mask=sched["sh_mask"])
+
+        mats = None
+        if flags.enable_phys:
+            if self.material_feature == "geometry":
+                mat_feat = feat
+            elif self.material_feature == "radiance":
+                mat_feat = rgb_feat
+            else:
+                mat_feat = torch.cat([rgb_feat, feat], -1)
+            mats = self.material(mat_feat)
+            if albedo_align_ratio is not None:
+                # the fitted per-channel ratio aligns the albedo the relight
+                # uses (`models/intrinsic_avatar.py:1114-1115`)
+                mats = torch.cat([mats[:, :3] * albedo_align_ratio[None, :],
+                                  mats[:, 3:]], -1)
 
         if use_compact:
             # one packed row scatter back to the rectangular [R*S] layout
-            packed = torch.cat([rgbs, sdf_grad, sdf[:, None]], -1)
+            cols = [rgbs, sdf_grad, sdf[:, None]]
+            if mats is not None:
+                cols.append(mats)
+            packed = torch.cat(cols, -1)
             packed = torch.where(spicked[:, None], packed, 0.0)
             full = torch.zeros((Mfull, packed.shape[-1]), dtype=packed.dtype,
                                device=dev)
             full[sidx] = packed
             rgbs, sdf_grad, sdf = full[:, :3], full[:, 3:6], full[:, 6]
+            if mats is not None:
+                mats = full[:, 7:]
             picked_full = torch.zeros(Mfull, dtype=torch.bool, device=dev)
             picked_full[sidx] = spicked
             smask = smask & picked_full.reshape(R, S)
@@ -442,13 +485,39 @@ class IntrinsicAvatar(nn.Module):
             "opacity": acc_map,
             "depth": depth_map,
             "rays_valid": acc_map > 0,
-            "rays_valid_phys": torch.zeros_like(acc_map, dtype=torch.bool),
+            "rays_valid_phys": (acc_map > 0) if flags.enable_phys
+            else torch.zeros_like(acc_map, dtype=torch.bool),
             "num_samples": smask.sum(dtype=torch.int64),
             "beta": beta,
             "comp_rgb_bg": bg_rgb,
             "comp_rgb_full": torch.clamp(
                 linear_to_srgb(rgb_map + bg_rgb * (1.0 - acc_map)), 0.0, 1.0),
         }
+        if flags.enable_phys:
+            m = mats.reshape(R, S, -1)
+            acc = lambda v: V.accumulate_along_rays(weights, v, smask)
+            out_dict.update({"comp_albedo": acc(m[..., :3]),
+                             "comp_roughness": acc(m[..., 3:4]),
+                             "comp_metallic": acc(m[..., 4:])})
+            if not flags.albedo_only:
+                out_dict.update(PBR.pbr_forward(
+                    self, statics, frame, cond, occ, sched,
+                    rays_o.contiguous(), rays_d.contiguous(), t_starts,
+                    t_ends, smask, weights,
+                    sdf.reshape(R, S), mats,
+                    safe_normalize(sdf_grad).reshape(R, S, 3), step, flags,
+                    background_color, level_of(occ, t_idx),
+                    emitter_state=emitter_state, draws=draws,
+                    generator=generator, counters=counters))
+                for k in ("comp_rgb_phys", "comp_demod_phys"):
+                    out_dict[k + "_full"] = torch.clamp(
+                        linear_to_srgb(out_dict[k]), 0.0, 1.0)
+            bg_scalar = torch.mean(background_color)
+            out_dict["comp_albedo_full"] = out_dict["comp_albedo"]
+            for k in ("comp_metallic", "comp_roughness"):
+                out_dict[k + "_full"] = out_dict[k] + bg_scalar * (1.0
+                                                                  - acc_map)
+            out_dict["rays_valid_phys_full"] = out_dict["rays_valid_phys"]
         if flags.training:
             out_dict.update({
                 "sdf_samples": sdf,

@@ -1,6 +1,7 @@
-"""Validation rendering: per-frame test occupancy grid, chunked full-frame
-render and metrics (counterpart of the JAX package's ``train/evaluate.py``,
-radiance regime)."""
+"""Validation and test rendering: per-frame test occupancy grid, chunked
+full-frame render (with the PBR stage from ``phys_kick_in_step`` on), the
+albedo alignment pre-pass and metrics (counterpart of the JAX package's
+``train/evaluate.py``)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from intrinsicavatar_tpu_torch.render.renderer import RenderFlags
 from intrinsicavatar_tpu_torch.utils import metrics as M
 
 
-def eval_flags(model_cfg, step: int) -> RenderFlags:
+def eval_flags(model_cfg, step: int, albedo_only: bool = False
+               ) -> RenderFlags:
     """Render flags of an eval render at ``step`` (the JAX system's
     ``flags_for_step(step, training=False)``)."""
     return RenderFlags(
@@ -23,6 +25,8 @@ def eval_flags(model_cfg, step: int) -> RenderFlags:
         importance_sample=step > model_cfg.get(
             "importance_sample_kick_in_step", 1000),
         randomized=False,
+        render_mode=model_cfg.get("render_mode", "uniform_light"),
+        albedo_only=albedo_only,
         full_budget=False,
     )
 
@@ -53,19 +57,49 @@ def build_test_occ_grid(model, statics, batch, step, resolution=64,
 
 
 KEEP = ("comp_rgb_full", "comp_normal", "opacity", "depth", "rays_valid")
+# the maps of the physically based regime (without ``visibility`` in the
+# render modes other than uniform_light, and only the material maps in the
+# albedo-only pre-pass)
+KEEP_PHYS = ("comp_rgb_phys_full", "comp_demod_phys_full",
+             "comp_albedo_full", "comp_roughness_full", "comp_metallic_full",
+             "visibility")
 
 
 @torch.no_grad()
 def render_frame(model, statics, batch, step, flags: RenderFlags,
                  ray_chunk: int = 4096, occ=None, frame=None, cond=None,
-                 occ_resolution: int = 64, occ_jitter=None, generator=None):
+                 occ_resolution: int = 64, occ_jitter=None, generator=None,
+                 draws=None, emitter_state=None, albedo_align_ratio=None):
     """Chunked full-frame render; returns the stitched output maps (numpy)
     and the summed budget counters under ``counters``.
 
     ``batch`` holds tensors on the render device.  Without ``occ`` the
     per-frame test grid is built first, with jitter ``occ_jitter`` or drawn
-    from ``generator``.
+    from ``generator``.  ``draws``, a list with one dict per chunk, holds
+    the chunks' PBR draws (``IntrinsicAvatar.forward``); what it lacks is
+    drawn from ``generator``.  A batch with an ``hdri [H, W, 3]`` relights:
+    it replaces an image emitter's ``base`` for this frame and its sampling
+    tables are rebuilt (`models/intrinsic_avatar.py:292-305`; an SG emitter
+    has no image to replace).
     """
+    if "hdri" in batch:
+        hdri = batch["hdri"]
+        batch = {k: v for k, v in batch.items() if k != "hdri"}
+        base = getattr(model.emitter, "base", None)
+        saved = None if base is None else base.data
+        if base is not None:
+            base.data = torch.as_tensor(hdri, dtype=torch.float32,
+                                        device=saved.device)
+        try:
+            if flags.enable_phys and emitter_state is None:
+                emitter_state = model.emitter.update_pdf()
+            return render_frame(model, statics, batch, step, flags,
+                                ray_chunk, occ, frame, cond, occ_resolution,
+                                occ_jitter, generator, draws, emitter_state,
+                                albedo_align_ratio)
+        finally:
+            if base is not None:
+                base.data = saved
     if occ is None:
         occ, frame, cond = build_test_occ_grid(
             model, statics, batch, step, resolution=occ_resolution,
@@ -75,26 +109,70 @@ def render_frame(model, statics, batch, step, flags: RenderFlags,
     bg = torch.ones(3, device=rays.device)
     pad = (-R) % ray_chunk
     rays_p = torch.cat([rays, rays.new_zeros((pad, rays.shape[1]))])
+    keep = KEEP + (KEEP_PHYS if flags.enable_phys else ())
     outs, counters = [], {}
-    for i in range(0, R + pad, ray_chunk):
+    for n, i in enumerate(range(0, R + pad, ray_chunk)):
         o = model(statics, frame, cond, occ, rays_p[i:i + ray_chunk], step,
-                  flags, t_idx=0.0, background_color=bg)
-        outs.append({k: o[k] for k in KEEP})
+                  flags, t_idx=0.0, background_color=bg,
+                  draws=None if draws is None else draws[n],
+                  generator=generator, emitter_state=emitter_state,
+                  albedo_align_ratio=albedo_align_ratio)
+        outs.append({k: o[k] for k in keep if k in o})
         for k, v in o["counters"].items():
             counters[k] = counters.get(k, 0) + v
     stitched = {k: torch.cat([o[k] for o in outs])[:R].cpu().numpy()
-                for k in KEEP}
+                for k in outs[0]}
     stitched["counters"] = {k: int(v) for k, v in counters.items()}
     return stitched
 
 
-def frame_metrics(out: dict, batch: dict) -> dict:
+def fit_albedo_ratio(model, statics, batch, step, flags: RenderFlags,
+                     ray_chunk: int = 4096, occ=None, frame=None, cond=None,
+                     generator=None) -> torch.Tensor:
+    """The relighting protocol's albedo-only pre-pass: the material maps
+    without the secondary rays, then one least-squares ratio per channel
+    against the batch's ``albedo`` over its foreground (`systems/
+    intrinsic_avatar.py:598-611`, `models/utils.py:268-277`).  Returns
+    ``[3]`` on the render device."""
+    pre = render_frame(model, statics, batch, step,
+                       flags._replace(albedo_only=True), ray_chunk=ray_chunk,
+                       occ=occ, frame=frame, cond=cond, generator=generator)
+    host = lambda k: batch[k].cpu().numpy() if torch.is_tensor(batch[k]) \
+        else np.asarray(batch[k])
+    gt = host("albedo").reshape(-1, 3)
+    m = host("alpha").reshape(-1) > 0.5
+    if "valid_mask" in batch:
+        m &= host("valid_mask").reshape(-1).astype(bool)
+    p = pre["comp_albedo_full"].reshape(-1, 3)[m]
+    g = gt[m]
+    scale = (g * p).sum(0) / np.maximum((p * p).sum(0), 1e-12)
+    return torch.as_tensor(scale, dtype=torch.float32,
+                           device=batch["rays"].device)
+
+
+def frame_metrics(out: dict, batch: dict,
+                  albedo_prealigned: bool = False) -> dict:
     """PSNR of the white-background composite against the GT (composited
-    over white by its alpha)."""
+    over white by its alpha), of the physically based composite
+    (``psnr_phys``), and of the albedo where the batch has one: plain when
+    the render applied the pre-pass ratio (``albedo_prealigned``), else
+    after a per-channel least-squares alignment."""
     gt = np.asarray(batch["rgb"])
     if "alpha" in batch:
         a = np.clip(np.asarray(batch["alpha"]).reshape(-1, 1), 0.0, 1.0)
         gt = gt * a + 1.0 * (1.0 - a)
     mask = np.asarray(batch.get("valid_mask",
                                 np.ones(gt.shape[0], bool))).astype(bool)
-    return {"psnr": M.masked_psnr(out["comp_rgb_full"], gt, mask)}
+    m = {"psnr": M.masked_psnr(out["comp_rgb_full"], gt, mask)}
+    if "comp_rgb_phys_full" in out:
+        m["psnr_phys"] = M.masked_psnr(out["comp_rgb_phys_full"], gt, mask)
+    if "albedo" in batch and "comp_albedo_full" in out:
+        fg = mask & (np.asarray(batch["alpha"]) > 0)
+        if albedo_prealigned:
+            m["albedo_psnr"] = M.masked_psnr(
+                np.clip(out["comp_albedo_full"], 0.0, 1.0),
+                np.asarray(batch["albedo"]), fg)
+        else:
+            m["albedo_psnr"], _ = M.albedo_aligned_metrics(
+                out["comp_albedo_full"], np.asarray(batch["albedo"]), fg)
+    return m

@@ -1,21 +1,20 @@
 """Carry a parameter tree of the JAX package into the port's modules.
 
 ``IntrinsicAvatar.init`` of the JAX package returns a nested dict of arrays
-(`render/renderer.py:115-131`): ``{v, g, b}`` weight-normed layers and
-``{w, b}`` layers in lists under ``mlp``, hash tables ``[L, T, F]`` under
-``table``, the density ``beta``, the pose corrections, and empty groups for
-the deformer and the pose encoder.  Weights are ``[in, out]`` on both sides.
-Groups this slice does not run (material, scatterer, emitter) are held as
-plain tensors in ``model.later_slices``.  :func:`to_jax_tree` is the inverse
-of :func:`from_jax_params`: the port's parameters as a JAX-shaped tree.
+(`render/renderer.py:115-131`): ``{v, g, b}`` weight-normed layers,
+``{w, b}`` layers and the material head's ``{w, b, c}`` layers in lists
+under ``mlp``, hash tables ``[L, T, F]`` under ``table``, the density
+``beta``, the emitter's lobes (``axes, sharpness, amplitude``) or image
+(``base``), the pose corrections, and empty groups for the deformer, the
+pose encoder and the scatterer.  Weights are ``[in, out]`` on both sides.
+:func:`to_jax_tree` is the inverse of :func:`from_jax_params`: the port's
+parameters as a JAX-shaped tree.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from intrinsicavatar_tpu_torch.render.renderer import LATER_SLICE_GROUPS
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -63,15 +62,12 @@ def unflatten(flat: dict) -> dict:
 
 def to_jax_tree(model, grads: bool = False) -> dict:
     """The port's parameters (or, with ``grads``, their ``.grad``, zeros
-    where unset) as numpy arrays in the JAX tree's layout, the held
-    later-slice groups included."""
+    where unset) as numpy arrays in the JAX tree's layout."""
     flat = {}
     for name, p in model.named_parameters():
         t = p if not grads else (p.grad if p.grad is not None
                                  else torch.zeros_like(p))
         flat[jax_key(name)] = t.detach().cpu().numpy()
-    for key, t in model.later_slices.items():
-        flat[key] = (torch.zeros_like(t) if grads else t).cpu().numpy()
     return unflatten(flat)
 
 
@@ -86,11 +82,6 @@ def from_jax_params(model, tree) -> dict:
     flat = flatten_tree(tree)
     landed, unset = {}, set(state)
     for key, arr in flat.items():
-        group = key.split(".", 1)[0]
-        if group in LATER_SLICE_GROUPS:
-            model.later_slices[key] = torch.from_numpy(np.array(arr))
-            landed[key] = f"later_slices[{key!r}]"
-            continue
         pk = port_key(key)
         if pk not in state:
             raise KeyError(f"JAX parameter {key!r} has no counterpart "

@@ -1,17 +1,20 @@
-"""Worked-out bounds on an H100 for the hot ops the port has not ported yet.
+"""Worked-out bound on an H100 for the hot op the port has not ported yet.
 
     python3 queued_bounds.py      # prints one JSON line
 
-K10-K13 run only in the PBR stage and with the eval seed grid, which the
-port does not run yet, so nothing can be measured for them.  This works out,
-from the code of the JAX package and the shapes of :func:`default_config`,
-what one frame of 16,384 rays in 4,096-ray chunks would give each op: its
-launches per frame (one per call), the bytes each call must move (each
-input read once, each output written once; a gathered table counted at most
-at its size) and its float32 operations, and from them the least time the
-card could take (the larger of bytes over 3.35 TB/s and operations over
+K13's grid half (``anim/seedgrid.py:173`` ``gather_from_grid`` and ``:252``
+``seed_from_grid``) runs only with the eval seed grid, which the port does
+not run yet, so nothing can be measured for it.  This works out, from the
+code of the JAX package and the shapes of :func:`default_config`, what one
+frame of 16,384 rays in 4,096-ray chunks would give it: its launches per
+frame (one per call: the coarse gather and the fine seed of each 32,768-ray
+shader chunk), the bytes each call must move (each input read once, each
+output written once; the 96^3 six-channel corner-packed grid counted at
+most at its size) and its float32 operations, and from them the least time
+the card could take (the larger of bytes over 3.35 TB/s and operations over
 67 TFLOP/s).  The operation counts are estimates from the code, a few
-operations per element; the bytes follow from the shapes alone.
+operations per element; the bytes follow from the shapes alone.  K13's
+polish half is kernel KL, measured by ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -28,41 +31,22 @@ def queued_ops(cfg=None) -> list:
     m = (cfg or default_config()).model
     R = int(m.ray_chunk)                            # rays per chunk
     chunks = FRAME_RAYS // R
-    # shading intervals per ray after the importance rounds
-    S = int(m.num_samples_per_ray) + int(m.get("n_importance_rounds", 2)) \
-        * int(m.get("n_importance_samples", 16))
     spp = int(m.samples_per_pixel)                  # scatter points per ray
     S2 = int(m.num_samples_per_secondary_ray)
     sub = int(m.get("secondary_shader_chunk", 32768))
-    subs = R * spp // sub                           # secondary sub-chunks
+    subs = R * spp // sub                           # shader chunks
     coarse = int(sub * S2 * float(m.secondary_query_compaction))
     fine = int(sub * 4 * float(m.get("secondary_fine_query_compaction", 0.5)))
     res = int(m.seed_grid_resolution)
     grid_bytes = res ** 3 * 8 * 6 * 4               # corner-packed, 6 ch
-    iters = int(m.seed_grid_polish_iters)
-    voxel_j = 32 * 128 * 128 * 12 * 4               # skinning transforms
     ops = [
-        # ops/resample.py:62 cdf_resample over [R, S] -> spp draws per ray
-        ("K10", "intrinsicavatar_tpu/ops/resample.py:62", chunks,
-         R * S * (4 * 4 + 1) + R * spp * (4 + 4 + 4 + 1) + R * S * 4 + R * 8,
-         R * (S * 12 + spp * 30)),
-        # ops/resample.py:282 sdf_fine_resample over [sub, S2] -> 4 intervals
-        ("K11", "intrinsicavatar_tpu/ops/resample.py:282", chunks * subs,
-         sub * S2 * (4 * 4 + 1) + sub * 4 * (4 + 4 + 1),
-         sub * (S2 * 15 + 5 * 20)),
-        # render/pbr.py:194 the secondary march of each sub-chunk (K6 at
-        # S2 steps, then the cap of 8 occupied samples)
-        ("K12", "intrinsicavatar_tpu/render/pbr.py:194", chunks * subs,
-         sub * (24 + 8) + 64 ** 3 + sub * (S2 + 1) * 7 + sub * S2,
-         sub * S2 * 35),
-        # anim/seedgrid.py:173 gather at the coarse budget, then :252 +
-        # anim/broyden.py:464 seed and polish at the fine budget
-        ("K13", "intrinsicavatar_tpu/anim/seedgrid.py:173, :252; "
-                "intrinsicavatar_tpu/anim/broyden.py:464", 2 * chunks * subs,
+        # the gather at the coarse budget, then the seed at the fine budget
+        # (12 B point in, 17 B seed + sdf out; a corner row of 192 B)
+        ("K13 grid", "intrinsicavatar_tpu/anim/seedgrid.py:173, :252",
+         2 * chunks * subs,
          (coarse * (12 + 17) + min(grid_bytes, coarse * 192)
-          + fine * (12 + 12 + 36 + 1) + min(grid_bytes, fine * 192)
-          + min(voxel_j, fine * iters * 8 * 48)) / 2,
-         (coarse * 150 + fine * (150 + iters * 300)) / 2),
+          + fine * (12 + 13) + min(grid_bytes, fine * 192)) / 2,
+         (coarse + fine) * 150 / 2),
     ]
     rows = []
     for name, replaces, launches, nbytes, flops in ops:

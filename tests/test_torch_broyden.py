@@ -119,7 +119,8 @@ def test_broyden_twin_matches_jax_single_phase(deformers):
         shape_dhw=jd.spec.shape_dhw, two_phase=False)
     out = TB.broyden_search(
         torch.as_tensor(xd_rep), torch.as_tensor(bones),
-        torch.as_tensor(np.array(voxel_J)), torch.as_tensor(np.array(jf.tfs)),
+        torch.as_tensor(np.array(voxel_J).transpose(1, 2, 3, 0).copy()),
+        torch.as_tensor(np.array(jf.tfs)),
         jd.spec.offset, jd.spec.scale_kernel)
     valid = np.asarray(ref.valid)
     assert 0.1 < valid.mean() < 0.9

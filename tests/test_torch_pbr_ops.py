@@ -1,0 +1,306 @@
+"""The plain twins of the relight path's kernels against the JAX package on
+the CPU: KI (``cdf_resample_rays``), KJ (``sdf_fine_resample_rays`` and
+``fine_resample_rays``), KK (the secondary march: ``occupancy_sampling`` +
+``intervals_to_samples`` + the active mask + the cap of
+``render/pbr.py:197-219``) and KL (``broyden_polish``), with their edge
+cases, and the seeded canonicalization ``FastSNARF.deform_seeded``.
+
+Integer and bool outputs must be equal; floats within 1e-5 (f32 on both
+sides; the twins sum their CDFs in double and round to float, JAX sums in
+float).  The kernels themselves: ``test_torch_kernels.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from intrinsicavatar_tpu.anim import broyden as JB
+from intrinsicavatar_tpu.anim import deformer as JD
+from intrinsicavatar_tpu.anim import lbs_voxel as JL
+from intrinsicavatar_tpu.ops import grid_traversal as JG
+from intrinsicavatar_tpu.ops import resample as JR
+from intrinsicavatar_tpu.utils.config import wrap as jwrap
+from intrinsicavatar_tpu_torch.anim import broyden as TB
+from intrinsicavatar_tpu_torch.anim import deformer as TD
+from intrinsicavatar_tpu_torch.ops import grid_traversal as TG
+from intrinsicavatar_tpu_torch.ops import resample as TR
+from intrinsicavatar_tpu_torch.utils.config import wrap as twrap
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Tier-1 runs six test workers on one host: keep each worker's torch
+    pool small so it does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+T = torch.as_tensor
+
+
+def _rows(rng, R, S, n_valid=None, gaps=False):
+    """``[R, S]`` left-packed samples: ascending t, nonnegative weights
+    (some rows over unit mass), SDF falling through zero."""
+    n = rng.integers(0, S + 1, R) if n_valid is None else np.full(R, n_valid)
+    mask = np.arange(S)[None] < n[:, None]
+    dt = rng.uniform(0.01, 0.05, (R, S)).astype(np.float32)
+    t0 = np.cumsum(dt, 1) + rng.uniform(0.0, 1.0, (R, 1))
+    t_starts = t0.astype(np.float32)
+    t_ends = (t0 + (dt * rng.uniform(0.3, 1.0, (R, S)) if gaps
+                    else np.roll(dt, -1, 1))).astype(np.float32)
+    # no near-empty interval: a draw's t moves by (one ulp of the CDF) /
+    # (the interval's weight) x its length, and the two packages round
+    # their CDF sums apart by an ulp
+    w = rng.uniform(0.02, 1.0, (R, S))
+    w = w / w.sum(1, keepdims=True) * rng.uniform(0.2, 1.3, (R, 1))
+    sdf = (rng.uniform(0.1, 0.6, (R, 1)) - np.cumsum(
+        rng.uniform(0.0, 0.05, (R, S)), 1)).astype(np.float32)
+    z = lambda a: np.where(mask, a, 0.0).astype(np.float32)
+    return z(t_starts), z(t_ends), z(w), sdf, mask
+
+
+def _cdf_both(args, B):
+    ref = JR.cdf_resample_rays(*(jnp.asarray(a) for a in args), B)
+    out = TR.cdf_resample_rays(*(T(a) for a in args), B)
+    return ref, out
+
+
+def _check_cdf(ref, out):
+    for name in ("indices", "is_bg", "fg_counts", "bg_count",
+                 "surface_idx"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    for name in ("ts", "offsets"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("B", [1, 64, 512])
+def test_cdf_resample_twin_matches_jax(B):
+    rng = np.random.default_rng(B)
+    args = _rows(rng, 300, 40)
+    ref, out = _cdf_both(args, B)
+    _check_cdf(ref, out)
+    # the data reach every branch: background draws, pinned draws, and
+    # surfaces both recorded and not
+    assert out.is_bg.any() and (~out.is_bg).any()
+    surf = out.surface_idx.numpy()
+    assert (surf >= 0).any() and (surf < 0).any()
+
+
+def test_cdf_resample_edge_cases():
+    rng = np.random.default_rng(5)
+    S, B = 12, 32
+    ts, te, w, sdf, mask = _rows(rng, 6, S, n_valid=8)
+    mask[0] = False                      # no valid sample
+    w[1] = 0.0                           # all mass in the background
+    sdf[2] = np.where(np.arange(S) == 0, 1e-3, -1.0)  # crossing in slot 0:
+    w[2] = np.where(mask[2], 0.12, 0.0)               # no unpinned draw
+    sdf[3] = np.where(np.arange(S) < 7, 0.2, -0.1)    # crossing in the last
+    w[3] = np.where(mask[3], 0.125, 0.0)              # valid interval
+    w[4] = np.where(np.arange(S) == 0, 1.0, 0.0)      # one interval, B = 32
+    w, mask = w.astype(np.float32), mask
+    ref, out = _cdf_both((ts, te, w, sdf, mask), B)
+    _check_cdf(ref, out)
+    assert out.is_bg[0].all() and out.is_bg[1].all()
+    # every foreground draw of row 2 is pinned to t_starts[idx[0]]
+    fg = ~out.is_bg[2].numpy()
+    assert fg.sum() > 20
+    np.testing.assert_allclose(out.ts[2].numpy()[fg], ts[2, 0], **TOL)
+    assert int(out.surface_idx[3]) in (-1, 6)
+
+
+@pytest.mark.parametrize("S", [16, 64])
+def test_sdf_fine_resample_twin_matches_jax(S):
+    rng = np.random.default_rng(S)
+    ts, te, _, sdf, mask = _rows(rng, 400, S, gaps=True)
+    alphas = np.where(mask, rng.uniform(0.0, 1.0, mask.shape) ** 2,
+                      0.0).astype(np.float32)
+    sdf[:5] = np.abs(sdf[:5])                        # no crossing
+    sdf[5] = np.where(np.arange(S) == 0, 0.3, -0.2)  # crossing in slot 0
+    mask[5, :3] = True
+    sdf[6] = np.where(np.arange(S) < S - 1, 0.3, -0.2)  # in the last one
+    mask[6] = True
+    alphas[5:7] = 0.9
+    args = (ts, te, alphas, sdf, mask)
+    ref = JR.sdf_fine_resample_rays(*(jnp.asarray(a) for a in args), 4)
+    out = TR.sdf_fine_resample_rays(*(T(a) for a in args), 4)
+    np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
+    for name in ("t_starts", "t_ends"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   err_msg=name, **TOL)
+    m = out.mask.numpy()
+    assert not m[:5].any() and m.any() and m[5].any() and m[6].any()
+
+
+def test_fine_resample_twin_matches_jax():
+    rng = np.random.default_rng(3)
+    ts, te, w, _, mask = _rows(rng, 400, 64, gaps=True)
+    mask[0] = False
+    args = (ts, te, w, mask)
+    ref = JR.fine_resample_rays(*(jnp.asarray(a) for a in args), 4)
+    out = TR.fine_resample_rays(*(T(a) for a in args), 4)
+    np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
+    for name in ("t_starts", "t_ends"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   err_msg=name, **TOL)
+    assert not out.mask[0].any() and out.mask.any() and (~out.mask).any()
+
+
+def _jax_march(o, d, grid, aabb, step, S, near, far, active, cap):
+    iv = JG.occupancy_sampling(jnp.asarray(o), jnp.asarray(d),
+                               jnp.asarray(grid), jnp.asarray(aabb), step,
+                               S, near=jnp.asarray(near),
+                               far=jnp.asarray(far))
+    ts, te, m = JG.intervals_to_samples(iv)
+    m = m & jnp.asarray(active)[:, None]
+    if 0 < cap < S:
+        m = m & (jnp.cumsum(m.astype(jnp.int32), axis=1) <= cap)
+    return np.asarray(ts), np.asarray(te), np.asarray(m)
+
+
+@pytest.mark.parametrize("cap", [8, 0])
+def test_secondary_march_twin_matches_jax(cap):
+    rng = np.random.default_rng(cap)
+    M, S, res = 600, 64, 16
+    # a sparse grid: occupied steps with empty ones between (masked gaps)
+    grid = rng.random((res, res, res)) < 0.35
+    aabb = np.asarray([-1.0, -1.2, -1.0, 1.0, 0.8, 1.0], np.float32)
+    o = rng.uniform(-0.6, 0.6, (M, 3)).astype(np.float32)
+    d = rng.normal(size=(M, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[:3] = 1.0                          # the padded rays' direction
+    near, far = np.zeros(M, np.float32), np.full(M, 1.5, np.float32)
+    active = rng.random(M) < 0.8
+    step = 1.5 / (S - 1)
+    ref = _jax_march(o, d, grid, aabb, step, S, near, far, active, cap)
+    out = TG.secondary_march(T(o), T(d), T(grid), T(aabb), step, S, T(near),
+                             T(far), T(active), cap)
+    np.testing.assert_array_equal(out[2].numpy(), ref[2])
+    for a, b in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(a.numpy(), b, **TOL)
+    m = ref[2]
+    assert m.any() and not m[~active].any()
+    if cap:
+        assert m.sum(1).max() == cap
+    # some ray has a masked gap between two of its samples
+    first = np.argmax(m, 1)
+    last = S - 1 - np.argmax(m[:, ::-1], 1)
+    assert any(m[r].any() and not m[r, first[r]:last[r] + 1].all()
+               for r in range(M))
+
+
+POSE = np.zeros(69, np.float32)
+POSE[2], POSE[5] = 0.4, -0.4
+POSE[(18 - 1) * 3 + 1] = 0.9
+RIGID = {"name": "fast-snarf", "model_path": "synthetic",
+         "deformer_config": {"resolution": 32, "cano_pose": "a_pose",
+                             "global_scale": 1.2, "use_j_inv": False,
+                             "optimize_betas": False, "max_candidates": 4}}
+
+
+def _smpl_params(lib):
+    z = lambda n: lib.zeros((1, n)) if lib is jnp else torch.zeros(1, n)
+    a = lambda v: lib.asarray(v) if lib is jnp else torch.as_tensor(v)
+    return {"betas": a(np.zeros(10, np.float32)), "body_pose": a(POSE),
+            "global_orient": a(np.zeros(3, np.float32)),
+            "transl": a(np.asarray([0.0, 0.3, 2.0], np.float32)),
+            "betas_correction": z(10), "pose_correction": z(69),
+            "global_orient_correction": z(3), "transl_correction": z(3)}
+
+
+@pytest.fixture(scope="module")
+def deformers():
+    jd = JD.FastSNARF(jwrap(RIGID))
+    js = jd.initialize(np.zeros(10))
+    jf = jd.prepare(js, _smpl_params(jnp))
+    td = TD.FastSNARF(twrap(RIGID))
+    ts = td.initialize(np.zeros(10), "cpu")
+    lbs = torch.as_tensor(np.array(js.lbs_voxel))   # identical inputs
+    ts = ts._replace(lbs_voxel=lbs, lbs_cl=TB.channel_last(lbs))
+    tf = td.prepare(ts, _smpl_params(torch))
+    return jd, js, jf, td, ts, tf
+
+
+def _seeds(deformers, n, seed):
+    """Targets skinned from canonical points, seeds near the points (most
+    converge in the polish, far ones do not), ``seed_ok`` mostly set."""
+    jd, js, jf = deformers[:3]
+    vc = np.asarray(js.vs_template)
+    rng = np.random.default_rng(seed)
+    pts = (vc[rng.choice(len(vc), n)]
+           + rng.normal(scale=0.02, size=(n, 3))).astype(np.float32)
+    w = JB.grid_sample_3d(js.lbs_voxel, jd.spec.normalize(jnp.asarray(pts)),
+                          padding="border")
+    xd, _ = JB.forward_skinning(jnp.asarray(pts), w, jf.tfs)
+    scale = np.where(rng.random(n) < 0.8, 0.01, 0.25)[:, None]
+    seed_xc = (pts + rng.normal(size=(n, 3)) * scale).astype(np.float32)
+    ok = rng.random(n) < 0.9
+    return np.asarray(xd), seed_xc, ok
+
+
+def test_broyden_polish_twin_matches_jax(deformers):
+    jd, js, jf, td, ts, tf = deformers
+    xd, seed_xc, ok = _seeds(deformers, 2000, 0)
+    _, voxel_J = JL.precompute_transform_voxels(js.lbs_voxel, jf.tfs, jd.spec)
+    ref = JB.broyden_polish(
+        jnp.asarray(xd), *(jnp.asarray(seed_xc[:, i]) for i in range(3)),
+        jnp.asarray(ok), jf.voxel_J_packed, jnp.asarray(jd.spec.offset),
+        jnp.asarray(jd.spec.scale_kernel), shape_dhw=jd.spec.shape_dhw,
+        max_iters=4)
+    out = TB.broyden_polish(T(xd), T(seed_xc), T(ok),
+                            T(np.array(voxel_J).transpose(1, 2, 3, 0).copy()),
+                            jd.spec.offset,
+                            jd.spec.scale_kernel, max_iters=4)
+    valid = np.asarray(ref.valid)
+    np.testing.assert_array_equal(out.valid.numpy(), valid)
+    # seed_ok false stays invalid; far seeds fail within 4 iterations
+    assert not valid[~ok].any()
+    assert 0.5 < valid[ok].mean() < 0.99
+    np.testing.assert_allclose(out.x.numpy(), np.asarray(ref.xc_array()),
+                               atol=1e-5)
+    # J^-1 is path-dependent (tests/test_torch_broyden.py): each rank-1
+    # update divides by c . dg, which can be tiny, so a rounding apart in
+    # one step grows with the later ones
+    d_j = np.abs(out.j_inv.numpy()
+                 - np.asarray(ref.jinv_array()).reshape(-1, 9))[valid]
+    assert np.mean(d_j.max(-1) < 1e-4) > 0.75 and d_j.max() < 0.1
+    assert not out.x.numpy()[~valid].any()
+
+
+def test_deform_seeded_matches_jax(deformers):
+    """The seeded canonicalization with a sphere SDF as the field."""
+    jd, js, jf, td, ts, tf = deformers
+    xd, seed_xc, ok = _seeds(deformers, 1500, 1)
+
+    def jfn(xc):
+        sdf = jnp.sqrt(jnp.sum(xc ** 2, -1)) - 0.3
+        grad = xc / jnp.sqrt(jnp.sum(xc ** 2, -1, keepdims=True))
+        return (sdf, grad, jnp.concatenate([sdf[:, None], xc], -1)), None
+
+    def tfn(xc):
+        sdf = torch.sqrt(torch.sum(xc ** 2, -1)) - 0.3
+        grad = xc / torch.sqrt(torch.sum(xc ** 2, -1, keepdim=True))
+        return (sdf, grad, torch.cat([sdf[:, None], xc], -1)), None
+
+    from intrinsicavatar_tpu.utils import diag
+    with diag.collect() as jc:
+        ref = jd.deform_seeded(js, jf, jnp.asarray(xd), jnp.asarray(seed_xc),
+                               jnp.asarray(ok), jfn, with_jac=True)
+    tc = {}
+    out = td.deform_seeded(ts, tf, T(xd), T(seed_xc), T(ok), tfn,
+                           counters=tc)
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
+    for name, a, b in zip(("pts_cano", "sdf", "valid", "grad_obs",
+                           "grad_cano", "feature"), out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   err_msg=name)
+    assert {k: int(v) for k, v in tc.items()} == \
+        {k: int(v) for k, v in jc.items()}
+    assert tc["sec_seed_polish_fail"] > 0

@@ -342,7 +342,10 @@ def test_fit_tracks_jax(setup):
 def test_step0_regime_trains():
     """The first regime of a run (full budgets, no importance rounds, 4 of
     8 levels, curvature on every shading lane's subsample): finite losses,
-    and every trainable leaf but the pose correction gets a gradient."""
+    and every trainable leaf that the radiance regime reads gets a
+    gradient: all but the pose correction, the emitter and the material
+    head (the PBR stage is off; the head's Lipschitz bounds enter the loss
+    with a weight of 0 before step 12,500)."""
     cfg = merge(tiny_config(), OVERRIDES)
     sys_ = IntrinsicAvatarSystem(cfg, "cpu").setup(np.zeros(10))
     flags = sys_.flags_for_step(0)
@@ -352,7 +355,9 @@ def test_step0_regime_trains():
     hist = sys_.fit(ds.train_iter(), 2, log_every=1)
     assert all(np.isfinite(s["total"]) for _, s in hist)
     for name, p in sys_.model.named_parameters():
-        if name.startswith("pose_correction"):
+        if name.startswith("material.") and name.endswith(".c"):
+            assert p.grad is not None, name
+        elif name.startswith(("pose_correction", "emitter.", "material.")):
             assert p.grad is None, name
         else:
             assert p.grad is not None and float(p.grad.abs().sum()) > 0, name
