@@ -5,26 +5,46 @@
 1. prints the card's name and power limit and builds the CUDA kernels from
    the sources in this checkout (one ``nvcc`` per source, in parallel);
 2. renders one chunk of a validation frame (its test grid included) at the
-   full width of the default model and records the inputs each kernel
-   wrapper got there;
+   full width of the default model by the searched path and records the
+   inputs each kernel wrapper got there; then bakes the frame's seed grid
+   and renders the chunk by the grid path, and records the bake's last
+   chunk of the search, its prologue and epilogue, and the grid-seeded
+   shading pass's fused SDF query;
 3. runs each kernel and its plain PyTorch twin on those inputs, holds them
-   to the stated tolerance and times both with CUDA events;
-4. serves: renders 2 frames x 16,384 rays of the synthetic val split through
-   ``render_frame`` (each with its own 64^3 test grid) with every launch
-   counter set to 0 just before and read just after; then renders one more
-   frame under ``torch.profiler`` to show where the device time goes;
-5. checks the output: finite maps, a surface (opacity > 0.5) in view, and a
+   to the stated tolerance and times both with CUDA events (the search,
+   its prologue and epilogue and the fused SDF query at both paths'
+   shapes);
+4. serves: bakes one frame's 96^3 seed grid alone (its time and launches),
+   then renders 2 frames x 16,384 rays of the synthetic val split through
+   ``render_frame`` (each with its own 64^3 test grid and seed grid, the
+   default eval path) with every launch counter set to 0 just before and
+   read just after and the seed-grid gather's plain twin set to fail if
+   called; renders one more frame under ``torch.profiler`` to show where
+   the device time goes; renders each frame again by the searched path
+   (``model.eval_seed_grid=false``): its rays/s, peak memory (the first
+   frame also under the profiler), its PSNR and its per-ray
+   agreement with the grid path's render and with the grid path's render
+   whose importance rounds are queried (``baked_importance: false``); and
+   counts the grid-seeded shading lanes whose polish fails, and of those
+   the ones a search canonicalizes; and times the two paths in turn, 3
+   times each frame;
+5. checks the output: finite maps, a surface (opacity > 0.5) in view, a
+   32^3 seed grid baked on the card and on the CPU twins agreeing, and a
    256-ray crop of the same frame rendered on the CPU with the plain twins
-   agreeing with the card's render;
+   (from the card's seed grid) agreeing with the card's render;
 6. relights (``relight_config()``, eval step 25,000, the PBR stage on at
    the published widths: 512 scattering points per ray, 64-step secondary
-   rays in 32,768-ray shader chunks): records the inputs of KI-KL in one
-   4,096-ray chunk, holds each against its twin and times both; then, with
-   every launch counter set to 0 just before and read just after and the
-   plain twins of KI-KL set to fail if called, renders one frame of 16,384
-   rays; profiles one chunk; and renders a 32-ray crop on the card and on
-   the CPU twins from the same draws, whose physically based maps must
-   agree;
+   rays in 32,768-ray shader chunks): records the inputs of KI-KM in one
+   4,096-ray chunk with the frame's seed grid, holds each against its twin
+   (KM also on a hand-built grid) and times both; then, with every launch
+   counter set to 0 just before and read just after and the plain twins of
+   KI-KM set to fail if called, renders one frame of 16,384 rays; profiles
+   one chunk; renders the frame by the searched path (its rays/s, peak
+   memory, a chunk's profile, PSNR and per-ray agreement with the grid
+   path's render) and times the two paths
+   in turn, twice each; and renders a 32-ray
+   crop on the card and on the CPU twins from the same draws and seed grid,
+   whose physically based maps must agree;
 7. trains: records the backward kernels' inputs in one full-width train
    step at step 2000, holds each backward kernel against its twin on them
    and times both; then, with every launch counter set to 0 just before and
@@ -119,6 +139,7 @@ def main():
 
     from intrinsicavatar_tpu_torch.anim import broyden as B
     from intrinsicavatar_tpu_torch.anim import deformer as DF
+    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
     from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
     from intrinsicavatar_tpu_torch.fields import geometry as GEO
     from intrinsicavatar_tpu_torch.fields import radiance as RAD
@@ -154,6 +175,8 @@ def main():
     flags = EV.eval_flags(cfg.model, step)
     if flags.enable_phys or not flags.importance_sample:
         fail(f"step {step} is not in the radiance regime")
+    if not cfg.model.eval_seed_grid:
+        fail("serve_config() does not render with the eval seed grid")
     chunk = int(cfg.model.get("ray_chunk", 4096))
     # the synthetic dataset draws new rays on every read: keep each frame's
     # host copy for its metrics
@@ -180,6 +203,8 @@ def main():
     gen = torch.Generator().manual_seed(SEED + 1)
     occ, frame, cond = EV.build_test_occ_grid(model, statics, batches[0],
                                               step, generator=gen)
+    # the searched path (eval_seed_grid: false) gives the search, its
+    # prologue and epilogue their largest calls
     with torch.no_grad():
         model(statics, frame, cond, occ, batches[0]["rays"][:chunk], step,
               flags, background_color=torch.ones(3, device=dev))
@@ -188,6 +213,25 @@ def main():
     ka = max(recs[:2], key=lambda r: r.best[0]).best
     kb, kc, kd_w, kd_c, ke, kf, kg, kh_pro, kh_epi, kh_rot = (
         r.best for r in recs[2:])
+    # on the grid path the search, its prologue and epilogue run only in
+    # the bake: keep its last chunk (padded with points at the origin);
+    # KB runs on the grid-seeded shading pass, one candidate a lane
+    order = iter(range(1 << 30))
+    recs = [Recorder(DF, "broyden_search", lambda a: next(order)),
+            Recorder(DF, "deform_prologue", lambda a: next(order)),
+            Recorder(DF, "deform_epilogue", lambda a: next(order))]
+    sgrid = EV.build_seed_grid(model, statics, frame, cond, step)
+    for r in reversed(recs):
+        r.restore()
+    kc_g, kh_pro_g, kh_epi_g = (r.best for r in recs)
+    recs = [Recorder(GEO, "encode_mlp_sdfgrad", lambda a: a[3].shape[0])]
+    with torch.no_grad():
+        model(statics, frame, cond, occ, batches[0]["rays"][:chunk], step,
+              flags, background_color=torch.ones(3, device=dev),
+              seed_grid=sgrid)
+    recs[0].restore()
+    kb_g = recs[0].best
+    del recs, sgrid
 
     # ---------------------------------------------------------- 3. kernels
     rows = []
@@ -205,6 +249,21 @@ def main():
         print(f"kernel {name} {shape}: max_abs_err={err:.3g} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={max(b_bytes, b_ops):.4f}",
               flush=True)
+
+    grid_shapes = []
+
+    def grid_shape(name, at, shape, err, ms, plain_ms, nbytes, flops):
+        """A kernel checked and timed at the grid path's call ``at``; its
+        row in the kernels line keeps the searched path's shape."""
+        b_bytes = nbytes / PEAK_BYTES * 1e3
+        b_ops = flops / PEAK_FP32 * 1e3
+        grid_shapes.append({
+            "name": name, "at": at, "shape": shape, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+        print(f"kernel {name} at the grid path's {at} {shape}: "
+              f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={max(b_bytes, b_ops):.4f}", flush=True)
 
     # KA hash encode
     table, x, spec, mask = ka[1][:4]
@@ -225,63 +284,75 @@ def main():
         N * L * (8 * (2 + 2 * F) + 12))
 
     # KB fused encode + SDF MLP + gradient
-    spec_b, mlp, table_b, xn = kb[1][:4]
-    mask_b = kb[1][4] if len(kb[1]) > 4 else kb[2].get("level_mask")
-    fk, gk = EG.encode_mlp_sdfgrad(spec_b, mlp, table_b, xn, mask_b)
-    fp, gp = EG.encode_mlp_sdfgrad_plain(spec_b, mlp, table_b, xn, mask_b,
-                                         mlp.effective_weights())
-    torch.cuda.synchronize()
-    err = max((fk - fp).abs().max().item(), (gk - gp).abs().max().item())
-    # reassociated sums (cuBLAS vs the kernel's serial dot products)
-    scale = max(1.0, fp.abs().max().item(), gp.abs().max().item())
-    if not err <= 1e-4 * scale:
-        fail(f"encode_mlp_sdfgrad disagrees with its twin: {err}")
-    Nb, (Lb, Tb, Fb) = xn.shape[0], table_b.shape
-    (W1, _), (W2, _) = mlp.effective_weights()
-    d_in, hid = W1.shape
-    d_out = W2.shape[1]
-    gathered = Nb * Lb * 8 * Fb * 4
+    def check_kb(rec):
+        spec_b, mlp, table_b, xn = rec[1][:4]
+        mask_b = rec[1][4] if len(rec[1]) > 4 else rec[2].get("level_mask")
+        fk, gk = EG.encode_mlp_sdfgrad(spec_b, mlp, table_b, xn, mask_b)
+        fp, gp = EG.encode_mlp_sdfgrad_plain(spec_b, mlp, table_b, xn,
+                                             mask_b, mlp.effective_weights())
+        torch.cuda.synchronize()
+        err = max((fk - fp).abs().max().item(), (gk - gp).abs().max().item())
+        # reassociated sums (cuBLAS vs the kernel's serial dot products)
+        scale = max(1.0, fp.abs().max().item(), gp.abs().max().item())
+        if not err <= 1e-4 * scale:
+            fail(f"encode_mlp_sdfgrad disagrees with its twin at "
+                 f"{list(xn.shape)}: {err}")
+        Nb, (Lb, Tb, Fb) = xn.shape[0], table_b.shape
+        (W1, _), (W2, _) = mlp.effective_weights()
+        d_in, hid = W1.shape
+        d_out = W2.shape[1]
+        gathered = Nb * Lb * 8 * Fb * 4
+        return (f"x{list(xn.shape)}", err,
+                time_ms(lambda: EG.encode_mlp_sdfgrad(spec_b, mlp, table_b,
+                                                      xn, mask_b)),
+                time_ms(lambda: EG.encode_mlp_sdfgrad_plain(
+                    spec_b, mlp, table_b, xn, mask_b,
+                    mlp.effective_weights()), 3),
+                xn.numel() * 4 + min(table_b.numel() * 4, gathered)
+                + (W1.numel() + W2.numel()) * 4 + Nb * (d_out + 3) * 4,
+                Nb * (Lb * 8 * (2 + 8 * Fb) + 2 * (2 * d_in * hid
+                                                   + hid * d_out)
+                      + 30 * hid))
+
     row("encode_mlp_sdfgrad", "cuda",
         "intrinsicavatar_tpu_torch/csrc/encode_grad.cu",
-        "intrinsicavatar_tpu/ops/encode_grad.py:166", f"x{list(xn.shape)}",
-        err,
-        time_ms(lambda: EG.encode_mlp_sdfgrad(spec_b, mlp, table_b, xn,
-                                              mask_b)),
-        time_ms(lambda: EG.encode_mlp_sdfgrad_plain(
-            spec_b, mlp, table_b, xn, mask_b, mlp.effective_weights()), 3),
-        xn.numel() * 4 + min(table_b.numel() * 4, gathered)
-        + (W1.numel() + W2.numel()) * 4 + Nb * (d_out + 3) * 4,
-        Nb * (Lb * 8 * (2 + 8 * Fb) + 2 * (2 * d_in * hid + hid * d_out)
-              + 30 * hid))
+        "intrinsicavatar_tpu/ops/encode_grad.py:166", *check_kb(kb))
+    grid_shape("encode_mlp_sdfgrad", "seeded shading pass", *check_kb(kb_g))
 
     # KC Broyden search
-    args, kw = kc[1], kc[2]
-    rk = B.broyden_search(*args, **kw)
-    lane_iters = []
-    rp = B.broyden_search_plain(*args, **kw, lane_iters=lane_iters)
-    torch.cuda.synchronize()
-    both = rk.valid & rp.valid
-    flip = (rk.valid != rp.valid).float().mean().item()
-    err = max((rk.x - rp.x)[both].abs().max().item(),
-              (rk.j_inv - rp.j_inv)[both].abs().max().item())
-    # roots within 1e-4 where both converged; a lane whose |g|^2 sits at
-    # the threshold may flip with the order of a sum: allow 1e-3 of lanes
-    if not (err <= 1e-4 and flip <= 1e-3):
-        fail(f"broyden_search disagrees with its twin: err={err} "
-             f"flipped={flip}")
-    M = args[0].shape[0]
-    steps = int(sum(int(a) for a in lane_iters))
-    print(f"broyden: {M} lanes, {steps} lane-iterations, "
-          f"{rk.valid.float().mean().item():.4f} valid, {flip:.2e} flipped",
-          flush=True)
+    def check_kc(rec, at):
+        args, kw = rec[1], rec[2]
+        rk = B.broyden_search(*args, **kw)
+        lane_iters = []
+        rp = B.broyden_search_plain(*args, **kw, lane_iters=lane_iters)
+        torch.cuda.synchronize()
+        both = rk.valid & rp.valid
+        flip = (rk.valid != rp.valid).float().mean().item()
+        err = max((rk.x - rp.x)[both].abs().max().item(),
+                  (rk.j_inv - rp.j_inv)[both].abs().max().item())
+        # roots within 1e-4 where both converged; a lane whose |g|^2 sits
+        # at the threshold may flip with the order of a sum: allow 1e-3 of
+        # lanes
+        if not (err <= 1e-4 and flip <= 1e-3):
+            fail(f"broyden_search disagrees with its twin at the {at}: "
+                 f"err={err} flipped={flip}")
+        M = args[0].shape[0]
+        steps = int(sum(int(a) for a in lane_iters))
+        print(f"broyden ({at}): {M} lanes, {steps} lane-iterations, "
+              f"{rk.valid.float().mean().item():.4f} valid, {flip:.2e} "
+              f"flipped", flush=True)
+        return (f"xd{list(args[0].shape)}", err,
+                time_ms(lambda: B.broyden_search(*args, **kw)),
+                time_ms(lambda: B.broyden_search_plain(*args, **kw), 2),
+                M * (12 + 4 + 12 + 36 + 1) + args[2].numel() * 4
+                + args[3].numel() * 4,
+                (M + steps) * (8 * 12 * 2 + 8 * 6 + 40) + steps * 80)
+
     row("broyden_search", "cuda", "intrinsicavatar_tpu_torch/csrc/broyden.cu",
         "intrinsicavatar_tpu/anim/broyden.py:351",
-        f"xd{list(args[0].shape)}", err,
-        time_ms(lambda: B.broyden_search(*args, **kw)),
-        time_ms(lambda: B.broyden_search_plain(*args, **kw), 2),
-        M * (12 + 4 + 12 + 36 + 1) + args[2].numel() * 4
-        + args[3].numel() * 4,
-        (M + steps) * (8 * 12 * 2 + 8 * 6 + 40) + steps * 80)
+        *check_kc(kc, "searched shading query"))
+    grid_shape("broyden_search", "bake's last chunk",
+               *check_kc(kc_g, "bake's last chunk"))
 
     # KD weights (importance rounds) and composite (final)
     alphas, amask = kd_w[1][:2]
@@ -388,39 +459,50 @@ def main():
         time_ms(lambda: torch.argsort(~flat, stable=True)[:budget]))
 
     # KH prologue (the test grid's points)
-    args = kh_pro[1]
-    sk = B.deform_prologue(*args)
-    sp = B.deform_prologue_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(sk, sp):
-        fail("deform_prologue differs from its twin")
-    N, n_all, n_init = args[0].shape[0], args[1].shape[0], args[3]
+    def check_kh_pro(rec):
+        args = rec[1]
+        sk = B.deform_prologue(*args)
+        sp = B.deform_prologue_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(sk, sp):
+            fail(f"deform_prologue differs from its twin at "
+                 f"{list(args[0].shape)}")
+        N, n_all, n_init = args[0].shape[0], args[1].shape[0], args[3]
+        return (f"pts{[N, 3]}", 0.0,
+                time_ms(lambda: B.deform_prologue(*args)),
+                time_ms(lambda: B.deform_prologue_plain(*args)),
+                N * 12 + n_all * (64 + 28) + N * n_init * 4,
+                N * n_all * (45 + n_init))
+
     row("deform_prologue", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
-        "intrinsicavatar_tpu/anim/deformer.py:264", f"pts{[N, 3]}", 0.0,
-        time_ms(lambda: B.deform_prologue(*args)),
-        time_ms(lambda: B.deform_prologue_plain(*args)),
-        N * 12 + n_all * (64 + 28) + N * n_init * 4,
-        N * n_all * (45 + n_init))
+        "intrinsicavatar_tpu/anim/deformer.py:264", *check_kh_pro(kh_pro))
+    grid_shape("deform_prologue", "bake's last chunk",
+               *check_kh_pro(kh_pro_g))
 
     # KH epilogue: filter + first-K (the test grid's lanes), without the
     # blend, which the next row times on a shading call
-    args = (*kh_epi[1][:3], False, *kh_epi[1][4:])
-    ek = B.deform_epilogue(*args)
-    ep = B.deform_epilogue_plain(*args)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(ek[:4], ep[:4])):
-        fail("deform_epilogue differs from its twin")
-    res, n_init, K = args[:3]
-    M = res.x.shape[0]
-    N = M // n_init
+    def check_kh_epi(rec):
+        args = (*rec[1][:3], False, *rec[1][4:])
+        ek = B.deform_epilogue(*args)
+        ep = B.deform_epilogue_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(ek[:4], ep[:4])):
+            fail(f"deform_epilogue differs from its twin at "
+                 f"{list(args[0].x.shape)}")
+        res, n_init, K = args[:3]
+        M = res.x.shape[0]
+        N = M // n_init
+        return (f"lanes[{M}] I={n_init} K={K}", 0.0,
+                time_ms(lambda: B.deform_epilogue(*args)),
+                time_ms(lambda: B.deform_epilogue_plain(*args), 3),
+                # x and valid of every lane; j_inv of the N*K kept lanes
+                M * (12 + 1) + N * K * (36 + 12 + 36 + 1) + 8,
+                N * (n_init * (n_init - 1) // 2 * 10 + n_init * 4))
+
     row("deform_epilogue", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
-        "intrinsicavatar_tpu/anim/broyden.py:518",
-        f"lanes[{M}] I={n_init} K={K}", 0.0,
-        time_ms(lambda: B.deform_epilogue(*args)),
-        time_ms(lambda: B.deform_epilogue_plain(*args), 3),
-        # x and valid of every lane; j_inv of the N*K kept lanes only
-        M * (12 + 1) + N * K * (36 + 12 + 36 + 1) + 8,
-        N * (n_init * (n_init - 1) // 2 * 10 + n_init * 4))
+        "intrinsicavatar_tpu/anim/broyden.py:518", *check_kh_epi(kh_epi))
+    grid_shape("deform_epilogue", "bake's last chunk",
+               *check_kh_epi(kh_epi_g))
 
     # KH skinning: LBS-weight sample + blend at a shading call's kept lanes
     if not kh_rot[1][3]:
@@ -449,6 +531,13 @@ def main():
             align_corners=True)))
 
     # ---------------------------------------------------------- 4. serve
+    # the seed grid's bake alone: one frame's 96^3 lattice searched
+    _, frame_b, cond_b = EV.build_test_occ_grid(
+        model, statics, batches[0], step,
+        generator=torch.Generator().manual_seed(100))
+    bake_line = bake_alone(model, statics, frame_b, cond_b, step)
+
+    trip = Tripwire(SG, "gather_from_grid_plain")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -465,10 +554,14 @@ def main():
     serve_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
+    trip.restore()
+    if trip.calls:
+        fail(f"the gather's plain twin ran on the card: {trip.calls} calls")
     names = {"hashgrid_encode", "encode_mlp_sdfgrad", "broyden_search",
              "volrend_weights", "volrend_composite", "occupancy_march",
              "merge_resample", "compact_indices", "deform_prologue",
-             "deform_epilogue", "deform_skinning"}
+             "deform_epilogue", "deform_skinning", "broyden_polish",
+             "seed_gather"}
     for r in rows:
         r["launches"] = int(launches.get(r["name"], 0))
     missing = [n for n in names if not launches.get(n)]
@@ -479,9 +572,17 @@ def main():
     n_rot = launches.get("deform_skinning", 0)
     if n_rot > n_chunks:
         fail(f"deform_skinning launched {n_rot} times for {n_chunks} chunks")
+    # KM: the importance rounds' gathers and the shading pass's seeds
+    n_km = n_chunks * (model.n_importance_rounds + 1)
+    n_seed = launches.get("seed_gather", 0)
+    if n_seed != n_km:
+        fail(f"seed_gather launched {n_seed} times, expected {n_km}")
+    print(f"serve launches per frame: "
+          f"{json.dumps({k: v / len(batches) for k, v in launches.items()})}",
+          flush=True)
 
     # where a frame's device time goes: one more frame under the profiler,
-    # its test-grid build timed on its own
+    # its test-grid build and its bake timed on their own
     grid = {}
 
     def profiled_frame():
@@ -490,21 +591,60 @@ def main():
             model, statics, batches[0], step,
             generator=torch.Generator().manual_seed(100))
         torch.cuda.synchronize()
-        grid["ms"] = (time.perf_counter() - tf) * 1e3
+        tb = time.perf_counter()
+        sgrid = EV.build_seed_grid(model, statics, frame_p, cond_p, step)
+        torch.cuda.synchronize()
+        grid["ms"] = (tb - tf) * 1e3
+        grid["bake_ms"] = (time.perf_counter() - tb) * 1e3
         EV.render_frame(model, statics, batches[0], step, flags,
                         ray_chunk=chunk, occ=occ_p, frame=frame_p,
-                        cond=cond_p)
+                        cond=cond_p, seed_grid=sgrid)
 
     wall_ms, by_kernel = profile_device(profiled_frame)
-    grid_ms = grid["ms"]
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    print(json.dumps({"profile": {
-        "frame_wall_ms": wall_ms, "test_grid_wall_ms": grid_ms,
-        "device_busy_ms": busy_ms,
+    serve_profile = {
+        "frame_wall_ms": wall_ms, "test_grid_wall_ms": grid["ms"],
+        "bake_wall_ms": grid["bake_ms"], "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(n for _, n in by_kernel.values()),
-        "top": [[k[:70], ms, n] for k, (ms, n) in top]}}), flush=True)
+        "top": [[k[:70], ms, n] for k, (ms, n) in top]}
+    print(json.dumps({"profile": serve_profile}), flush=True)
+
+    # the searched eval path, for comparison: each frame again, from the
+    # same test grid, its PSNR and its per-ray agreement with the grid
+    # path's render; and where the grid-seeded polish loses lanes
+    searched = []
+    for i, b in enumerate(batches):
+        line, out_s = searched_frame(
+            model, statics, b, step, flags, chunk,
+            torch.Generator().manual_seed(100 + i),
+            profile_batch=b if i == 0 else None)
+        line["psnr"] = EV.frame_metrics(out_s, frames_np[i])["psnr"]
+        line["grid_vs_searched"] = agreement(outs[i], out_s, EV.KEEP[:3],
+                                             "comp_rgb_full")
+        line["shading_lanes"] = polish_losses(
+            model, statics, b, step, flags, chunk,
+            torch.Generator().manual_seed(100 + i))
+        # the grid path with its importance rounds queried (seeded from the
+        # grid) in place of the grid's SDF: what the baked rounds move
+        model.config.baked_importance = False
+        try:
+            out_q = EV.render_frame(model, statics, b, step, flags,
+                                    ray_chunk=chunk,
+                                    generator=torch.Generator().manual_seed(
+                                        100 + i))
+        finally:
+            model.config.baked_importance = True
+        line["queried_importance_vs_searched"] = agreement(
+            out_q, out_s, EV.KEEP[:3], "comp_rgb_full")
+        print(f"frame {i}, grid vs searched: "
+              f"{json.dumps({k: line[k] for k in ('psnr', 'grid_vs_searched', 'queried_importance_vs_searched', 'shading_lanes')})}",
+              flush=True)
+        searched.append(line)
+        del out_s, out_q
+    in_turn = alternate(model, statics, batches, step, flags, chunk,
+                        [100 + i for i in range(len(batches))], 3)
 
     # ---------------------------------------------------------- 5. check
     n_rays = sum(b["rays"].shape[0] for b in batches)
@@ -524,20 +664,25 @@ def main():
                         "counters": out["counters"]})
         print(f"frame {i}: {json.dumps(metrics[-1])}", flush=True)
 
-    # the same frame's first 256 rays, on the CPU with the plain twins
+    # the same frame's first 256 rays, on the CPU with the plain twins, both
+    # from the seed grid baked on the card
     b0 = batches[0]
     occ0, frame0, cond0 = EV.build_test_occ_grid(
         model, statics, b0, step, generator=torch.Generator().manual_seed(7))
+    grid0 = EV.build_seed_grid(model, statics, frame0, cond0, step)
     crop = {k: v for k, v in b0.items()}
     crop["rays"] = b0["rays"][:256]
     gpu = EV.render_frame(model, statics, crop, step, flags, ray_chunk=256,
-                          occ=occ0, frame=frame0, cond=cond0)
+                          occ=occ0, frame=frame0, cond=cond0,
+                          seed_grid=grid0)
     to_cpu = lambda t: type(t)(*(v.cpu() for v in t))
     model_cpu = copy.deepcopy(model).cpu()
+    bake_check = bake_card_vs_cpu(model, model_cpu, statics, frame0, cond0,
+                                  step)
     cpu = EV.render_frame(
         model_cpu, to_cpu(statics), {k: v.cpu() for k, v in crop.items()},
         step, flags, ray_chunk=256, occ=to_cpu(occ0), frame=to_cpu(frame0),
-        cond=cond0.cpu())
+        cond=cond0.cpu(), seed_grid=grid0.to("cpu"))
     agree = min(float((np.abs(gpu[k] - cpu[k]).max(-1) < 1e-4).mean())
                 for k in ("comp_rgb_full", "opacity", "depth", "comp_normal"))
     print(f"card vs plain-twin render of 256 rays: {agree:.4f} of rays "
@@ -553,7 +698,15 @@ def main():
         "serve": {"frames": len(outs), "rays": n_rays,
                   "rays_per_s": n_rays / serve_s, "frame_s": frame_s,
                   "peak_mem_bytes": peak, "card": card,
-                  "psnr": [m["psnr"] for m in metrics]}}), flush=True)
+                  "psnr": [m["psnr"] for m in metrics],
+                  "launches_per_frame": {k: v / len(outs)
+                                         for k, v in launches.items()},
+                  "profile": {k: serve_profile[k] for k in (
+                      "frame_wall_ms", "bake_wall_ms", "device_busy_ms",
+                      "device_idle_share", "device_launches")},
+                  "bake": bake_line, "bake_cpu_check": bake_check,
+                  "grid_path_shapes": grid_shapes,
+                  "searched": searched, "in_turn": in_turn}}), flush=True)
     print(json.dumps({"relight": relight_line}), flush=True)
     print(json.dumps({"train": train_line}), flush=True)
     print(card, flush=True)
@@ -584,18 +737,20 @@ def profile_device(fn):
 
 
 RELIGHT_NAMES = ("cdf_resample", "fine_resample", "secondary_march",
-                 "broyden_polish")
+                 "broyden_polish", "seed_gather")
 
 
 def relight(rows, row, card, dev):
-    """Step 6: KI-KL against their twins at the relight path's shapes, one
-    relight frame with the launches counted, its profile and the card vs
-    CPU-twin crop.  Returns the relight line."""
+    """Step 6: KI-KM against their twins at the relight path's shapes, one
+    relight frame with the launches counted, its profile, a frame by the
+    searched path and the card vs CPU-twin crop.  Returns the relight
+    line."""
     import torch
 
     from intrinsicavatar_tpu_torch import kernels
     from intrinsicavatar_tpu_torch.anim import broyden as B
     from intrinsicavatar_tpu_torch.anim import deformer as DF
+    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
     from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
     from intrinsicavatar_tpu_torch.ops import grid_traversal as G
     from intrinsicavatar_tpu_torch.ops import resample as RS
@@ -619,24 +774,44 @@ def relight(rows, row, card, dev):
     occ, frame, cond = EV.build_test_occ_grid(
         model, statics, batch, step,
         generator=torch.Generator().manual_seed(SEED + 3))
+    sgrid = EV.build_seed_grid(model, statics, frame, cond, step)
+    if sgrid is None or not sgrid.has_sdf:
+        fail("relight_config() bakes no seed grid with an SDF channel")
 
     # ------------------------------------------------ capture one chunk
     # every shader chunk has the same shapes: keep the call with the most
     # work (masked samples, active rays, seeded lanes), not the first one,
     # whose rays may miss the body
+    sub = int(cfg.model.get("secondary_shader_chunk", 32768))
+    sec_n = -(-int(sub * model.num_samples_per_secondary_ray * float(
+        cfg.model.secondary_query_compaction)) // 128) * 128
+
+    def sec_inside(a):
+        """Points of a secondary coarse gather inside the lattice."""
+        if a[1].shape[0] != sec_n:
+            return -1
+        return int(((a[1] - a[0].center).abs() <= a[0].half).all(-1).sum())
+
     recs = [Recorder(RS, "cdf_resample_rays", lambda a: int(a[4].sum())),
             Recorder(RS, "sdf_fine_resample_rays",
                      lambda a: int(a[4].sum())),
             Recorder(PBR, "secondary_march", lambda a: int(a[8].sum())),
-            Recorder(DF, "broyden_polish", lambda a: int(a[2].sum()))]
+            Recorder(DF, "broyden_polish", lambda a: int(a[2].sum())),
+            # KM: the largest call (an importance round's edges) and the
+            # busiest secondary coarse gather
+            Recorder(SG, "gather_from_grid", lambda a: a[1].shape[0]),
+            Recorder(SG, "gather_from_grid", sec_inside)]
     with torch.no_grad():
         model(statics, frame, cond, occ, batch["rays"][:chunk], step, flags,
               background_color=torch.ones(3, device=dev),
-              generator=torch.Generator().manual_seed(SEED + 4))
+              generator=torch.Generator().manual_seed(SEED + 4),
+              seed_grid=sgrid)
     torch.cuda.synchronize()
     for r in reversed(recs):
         r.restore()
-    ki, kj, kk, kl = (r.best for r in recs)
+    ki, kj, kk, kl, km_big, km_sec = (r.best for r in recs)
+    if km_sec[0] < 0:
+        fail(f"no secondary coarse gather of {sec_n} points was recorded")
 
     def rel(a, b):
         """Largest error over the reference's largest entry."""
@@ -788,6 +963,7 @@ def relight(rows, row, card, dev):
           f"max_abs_err={f_err:.3g} ms={f_ms:.4f} plain_ms={f_plain:.4f} "
           f"bound_ms={max(f_bytes / PEAK_BYTES, f_ops / PEAK_FP32) * 1e3:.5f}",
           flush=True)
+    check_seed_gather(row, km_big, km_sec, dev)
     del ok_, op_, fk, fp, mk, mp, pk, pp, recs, ki, kj, kk, kl, roots
 
     # ------------------------------------------------ one relight frame
@@ -795,7 +971,8 @@ def relight(rows, row, card, dev):
              Tripwire(RS, "sdf_fine_resample_rays_plain"),
              Tripwire(RS, "fine_resample_rays_plain"),
              Tripwire(G, "secondary_march_plain"),
-             Tripwire(B, "broyden_polish_plain")]
+             Tripwire(B, "broyden_polish_plain"),
+             Tripwire(SG, "gather_from_grid_plain")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -823,6 +1000,15 @@ def relight(rows, row, card, dev):
                if not launches.get(n)]
     if missing:
         fail(f"kernels not launched in the relight frame: {missing}")
+    # KM per ray chunk: the importance rounds, the shading pass's seeds and
+    # one coarse gather per shader chunk (the fine pass seeds from it)
+    n_chunks = -(-batch["rays"].shape[0] // chunk)
+    n_km = n_chunks * (model.n_importance_rounds + 1
+                       + -(-chunk * model.samples_per_pixel // sub))
+    n_seed = launches.get("seed_gather", 0)
+    if n_seed != n_km:
+        fail(f"seed_gather launched {n_seed} times in the relight frame, "
+             f"expected {n_km}")
     n_rays = batch["rays"].shape[0]
     for k in EV.KEEP + EV.KEEP_PHYS:
         if not np.all(np.isfinite(out[k])):
@@ -849,7 +1035,7 @@ def relight(rows, row, card, dev):
     wall_ms, by_kernel = profile_device(lambda: EV.render_frame(
         model, statics, {**batch, "rays": batch["rays"][:chunk]}, step,
         flags, ray_chunk=chunk, occ=occ, frame=frame, cond=cond,
-        generator=torch.Generator().manual_seed(SEED + 6)))
+        generator=torch.Generator().manual_seed(SEED + 6), seed_grid=sgrid))
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     profile_line = {
@@ -859,6 +1045,26 @@ def relight(rows, row, card, dev):
         "device_launches": sum(n for _, n in by_kernel.values()),
         "top": [[k[:70], ms, n] for k, (ms, n) in top]}
     print(json.dumps({"relight_profile": profile_line}), flush=True)
+
+    # the searched eval path, for comparison: the same frame from the same
+    # test grid and draws, its PSNR and its per-ray agreement with the grid
+    # path's render
+    searched, out_s = searched_frame(
+        model, statics, batch, step, flags, chunk,
+        torch.Generator().manual_seed(SEED + 5), keys=EV.KEEP + EV.KEEP_PHYS,
+        profile_batch={**batch, "rays": batch["rays"][:chunk]}, occ=occ,
+        frame=frame, cond=cond)
+    m_s = EV.frame_metrics(out_s, batch_np)
+    searched["psnr"], searched["psnr_phys"] = m_s["psnr"], m_s["psnr_phys"]
+    searched["grid_vs_searched"] = agreement(
+        out, out_s, EV.KEEP[:3] + EV.KEEP_PHYS[:3], "comp_rgb_phys_full")
+    print(f"relight frame, grid vs searched: "
+          f"{json.dumps({k: searched[k] for k in ('psnr', 'psnr_phys', 'grid_vs_searched')})}",
+          flush=True)
+    del out_s
+    searched["in_turn"] = alternate(model, statics, [batch], step, flags,
+                                    chunk, [SEED + 5], 2, occ=occ,
+                                    frame=frame, cond=cond)
 
     # ------------------------------------------------ card vs CPU twins
     n_crop = 32
@@ -870,14 +1076,14 @@ def relight(rows, row, card, dev):
     crop = {**batch, "rays": batch["rays"][:n_crop]}
     gpu = EV.render_frame(model, statics, crop, step, flags,
                           ray_chunk=n_crop, occ=occ, frame=frame, cond=cond,
-                          draws=draws)
+                          draws=draws, seed_grid=sgrid)
     to_cpu = lambda t: type(t)(*(v.cpu() for v in t))
     model_cpu = copy.deepcopy(model).cpu()
     tc = time.perf_counter()
     cpu = EV.render_frame(
         model_cpu, to_cpu(statics), {k: v.cpu() for k, v in crop.items()},
         step, flags, ray_chunk=n_crop, occ=to_cpu(occ), frame=to_cpu(frame),
-        cond=cond.cpu(), draws=draws)
+        cond=cond.cpu(), draws=draws, seed_grid=sgrid.to("cpu"))
     cpu_s = time.perf_counter() - tc
     phys = ("comp_rgb_phys_full", "comp_demod_phys_full", "visibility",
             "comp_albedo_full", "comp_roughness_full", "comp_metallic_full")
@@ -896,7 +1102,335 @@ def relight(rows, row, card, dev):
             "profile": {k: profile_line[k] for k in (
                 "chunk_wall_ms", "device_busy_ms", "device_idle_share",
                 "device_launches")},
+            "searched": searched,
             "cpu_check": {"rays": n_crop, "agree_1e-3": agree}}
+
+
+def bake_alone(model, statics, frame, cond, step):
+    """One frame's seed grid baked alone, after a warm-up bake: its wall
+    time, its launches and its valid share.  Returns the bake line."""
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels
+    model.bake_seed_grid(statics, frame, cond, step)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    grid = model.bake_seed_grid(statics, frame, cond, step)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    g = grid.grid.reshape(-1, grid.channels)
+    line = {"resolution": grid.resolution, "nodes": g.shape[0],
+            "channels": grid.channels, "wall_ms": ms,
+            "launches": dict(kernels.launches),
+            "valid_share": float((g[:, 3] > 0.5).float().mean()),
+            "sdf_valid_share": float((g[:, 5] > 0.5).float().mean())}
+    print(f"bake: {json.dumps(line)}", flush=True)
+    if not 0.0 < line["sdf_valid_share"] <= line["valid_share"] < 1.0:
+        fail(f"the bake's valid shares are implausible: {line}")
+    return line
+
+
+def bake_card_vs_cpu(model, model_cpu, statics, frame, cond, step, res=32):
+    """A ``res``^3 seed grid baked on the card and on the CPU twins (one
+    chunk of the whole lattice on both): node validity equal on >= 99.9% of
+    nodes (a lane at a convergence threshold may flip, as KC's rule
+    allows); the roots, and the SDF, within 1e-4 at every node valid on
+    both."""
+    import torch
+    to_cpu = lambda t: type(t)(*(v.cpu() for v in t))
+    g = model.bake_seed_grid(statics, frame, cond, step, resolution=res,
+                             chunk=res ** 3)
+    c = model_cpu.bake_seed_grid(to_cpu(statics), to_cpu(frame), cond.cpu(),
+                                 step, resolution=res, chunk=res ** 3)
+    a = g.grid.reshape(-1, g.channels).cpu()
+    b = c.grid.reshape(-1, c.channels)
+    line = {"resolution": res}
+    bad = False
+    for name, okc, cols in (("roots", 3, slice(0, 3)), ("sdf", 5,
+                                                         slice(4, 5))):
+        ok_a, ok_b = a[:, okc] > 0.5, b[:, okc] > 0.5
+        both = ok_a & ok_b
+        d = (a[both][:, cols] - b[both][:, cols]).abs().amax(-1)
+        line[f"{name}_valid_agree"] = float((ok_a == ok_b).float().mean())
+        line[f"{name}_both_valid"] = int(both.sum())
+        line[f"{name}_apart_1e-4"] = int((d > 1e-4).sum())
+        line[f"{name}_max_err"] = float(d.max())
+        bad |= not (line[f"{name}_valid_agree"] >= 0.999
+                    and line[f"{name}_apart_1e-4"] == 0)
+    print(f"card vs plain-twin bake: {json.dumps(line)}", flush=True)
+    if bad:
+        fail(f"the card's bake disagrees with the CPU twins': {line}")
+    return line
+
+
+def searched_frame(model, statics, batch, step, flags, chunk, generator,
+                   keys=None, profile_batch=None, **kw):
+    """One frame by the searched eval path (``eval_seed_grid: false``), the
+    launches counted and the peak memory read: its rays/s beside the grid
+    path's; with ``profile_batch``, that batch rendered again the same way
+    under the profiler (its idle share).  The seed grid's gather must not
+    run there.  Returns its line and its render."""
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels
+    from intrinsicavatar_tpu_torch.train import evaluate as EV
+    model.config.eval_seed_grid = False
+    prof = None
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = EV.render_frame(model, statics, batch, step, flags,
+                              ray_chunk=chunk, generator=generator, **kw)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.launches)
+        if profile_batch is not None:
+            wall_ms, by_kernel = profile_device(lambda: EV.render_frame(
+                model, statics, profile_batch, step, flags, ray_chunk=chunk,
+                generator=torch.Generator().manual_seed(
+                    generator.initial_seed()), **kw))
+            busy_ms = sum(ms for ms, _ in by_kernel.values())
+            prof = {"rays": profile_batch["rays"].shape[0],
+                    "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                    "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+                    "device_launches": sum(n for _, n in by_kernel.values())}
+    finally:
+        model.config.eval_seed_grid = True
+    if launches.get("seed_gather"):
+        fail("the searched path launched the seed grid's gather")
+    for k in keys or EV.KEEP:
+        if not np.all(np.isfinite(out[k])):
+            fail(f"searched frame: {k} is not finite")
+    n = batch["rays"].shape[0]
+    line = {"rays": n, "frame_s": frame_s, "rays_per_s": n / frame_s,
+            "peak_mem_bytes": peak, "profile": prof,
+            "kernel_launches": sum(launches.values()),
+            "counters": {k: v for k, v in out["counters"].items()
+                         if k.startswith(("ovf_", "sec_"))}}
+    print(f"searched frame: {json.dumps(line)}", flush=True)
+    return line, out
+
+
+def alternate(model, statics, batches, step, flags, chunk, seeds, reps,
+              **kw):
+    """Each frame rendered by the grid path and by the searched path in
+    turn (grid, searched, grid, ...), ``reps`` times, so that the host's
+    drift over the run favours neither.  Returns each path's frame seconds
+    and its rays/s at the median frame."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.train import evaluate as EV
+    times = {"grid": [], "searched": []}
+    for _ in range(reps):
+        for b, seed in zip(batches, seeds):
+            for path in times:
+                model.config.eval_seed_grid = path == "grid"
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    EV.render_frame(model, statics, b, step, flags,
+                                    ray_chunk=chunk,
+                                    generator=torch.Generator().manual_seed(
+                                        seed), **kw)
+                    torch.cuda.synchronize()
+                    times[path].append(time.perf_counter() - t0)
+                finally:
+                    model.config.eval_seed_grid = True
+    n = batches[0]["rays"].shape[0]
+    line = {}
+    for path, t in times.items():
+        line[f"{path}_frame_s"] = t
+        line[f"{path}_rays_per_s"] = n / float(np.median(t))
+    print(f"grid and searched frames in turn: {json.dumps(line)}",
+          flush=True)
+    return line
+
+
+def agreement(grid_out, searched_out, keys, rgb_key):
+    """Per-ray agreement of the grid path's render of a frame with the
+    searched path's render of the same frame: for each map the share of
+    rays within 1e-3 and within 1e-2 on every channel and the largest
+    difference, and the PSNR of ``rgb_key``'s grid render against the
+    searched one."""
+    line = {}
+    for k in keys:
+        a = np.asarray(grid_out[k], np.float64).reshape(len(grid_out[k]), -1)
+        b = np.asarray(searched_out[k], np.float64).reshape(a.shape)
+        d = np.abs(a - b).max(-1)
+        line[k] = {"within_1e-3": float((d < 1e-3).mean()),
+                   "within_1e-2": float((d < 1e-2).mean()),
+                   "max": float(d.max())}
+    mse = float(np.mean((np.asarray(grid_out[rgb_key], np.float64)
+                         - np.asarray(searched_out[rgb_key], np.float64))
+                        ** 2))
+    line["psnr_vs_searched"] = -10.0 * np.log10(mse) if mse > 0 else None
+    return line
+
+
+def polish_losses(model, statics, batch, step, flags, chunk, generator):
+    """Renders a frame by the grid path with every grid-seeded polish call
+    (the shading pass's) also canonicalized by the search, and counts the
+    lanes: seeded by the grid, failed in the polish, and of those the ones
+    the search finds a root for (lost) or none (no root either way); the
+    unseeded lanes the search finds a root for; and of the lanes valid on
+    both paths, those whose canonical point or SDF differ by more than 1e-3
+    (the search keeps the least-SDF of its candidate roots, the polish the
+    root its seed leads to).  Returns the counts."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.train import evaluate as EV
+    rigid = model.deformer.rigid
+    seeded_fn = rigid.deform_seeded
+    counts = dict.fromkeys(("lanes", "seeded", "polish_valid", "polish_fail",
+                            "fail_search_valid", "fail_search_invalid",
+                            "unseeded_search_valid", "both_valid",
+                            "root_apart_1e-3", "sdf_apart_1e-3"), 0)
+
+    def deform_seeded(statics_, frame_, pts, seed_xc, seed_ok, geometry_fn,
+                      *a, with_jac=True, **kw):
+        out = seeded_fn(statics_, frame_, pts, seed_xc, seed_ok, geometry_fn,
+                        *a, with_jac=with_jac, **kw)
+        srch = rigid.deform(statics_, frame_, pts, geometry_fn,
+                            with_jac=with_jac)
+        pv, sv = out[2], srch[2]
+        fail_ = seed_ok & ~pv
+        both = pv & sv
+        for k, m in (("lanes", torch.ones_like(pv)), ("seeded", seed_ok),
+                     ("polish_valid", pv), ("polish_fail", fail_),
+                     ("fail_search_valid", fail_ & sv),
+                     ("fail_search_invalid", fail_ & ~sv),
+                     ("unseeded_search_valid", ~seed_ok & sv),
+                     ("both_valid", both),
+                     ("root_apart_1e-3",
+                      both & ((out[0] - srch[0]).abs().amax(-1) > 1e-3)),
+                     ("sdf_apart_1e-3",
+                      both & ((out[1] - srch[1]).abs() > 1e-3))):
+            counts[k] += int(m.sum())
+        return out
+
+    rigid.deform_seeded = deform_seeded
+    try:
+        EV.render_frame(model, statics, batch, step, flags, ray_chunk=chunk,
+                        generator=generator)
+    finally:
+        del rigid.deform_seeded
+    return counts
+
+
+def hand_seed_grid(dev, res=9):
+    """A small seed grid built by hand: two root branches (incoherent cells
+    along their seam), scattered invalid and SDF-invalid nodes, over a box
+    whose nodes and cell centres (all weights tied) are query points, with
+    points beyond the lattice's half-cell slack."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
+    rng = np.random.default_rng(SEED + 8)
+    # over [-1, 1]^3 with 2^k cells a side, nodes and cell centres map to
+    # lattice coordinates exactly, so the centres' 8 weights tie exactly
+    aabb = torch.tensor([[-1.0] * 3, [1.0] * 3], device=dev)
+    nodes = SG.lattice_points(aabb, res)
+    N = res ** 3
+    xc = 0.5 * nodes.cpu().numpy() + 0.01 * rng.normal(size=(N, 3))
+    xc[:, 0] += np.where(nodes[:, 0].cpu().numpy() > 0.0, 0.4, -0.4)
+    ok = rng.random(N) < 0.7
+    sdf = rng.normal(size=N)
+    sok = ok & (rng.random(N) < 0.7)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    ch = [t(xc[:, 0] * ok), t(xc[:, 1] * ok), t(xc[:, 2] * ok), t(ok),
+          t(sdf * sok), t(sok)]
+    lo, hi = aabb[0], aabb[1]
+    grid = SG.SeedGrid(grid=torch.stack(ch, -1).reshape(res, res, res, 6)
+                       .contiguous(), center=0.5 * (lo + hi),
+                       half=0.5 * (hi - lo))
+    cell = (hi - lo) / (res - 1)
+    centres = SG.lattice_points(torch.stack([lo + 0.5 * cell,
+                                             hi - 0.5 * cell]), res - 1)
+    span = (hi - lo).cpu().numpy()
+    pts = torch.cat([nodes, centres, t(rng.uniform(
+        lo.cpu().numpy() - 0.3 * span, hi.cpu().numpy() + 0.3 * span,
+        (20000, 3)))]).contiguous()
+    return grid, pts
+
+
+def check_seed_gather(row, km_big, km_sec, dev):
+    """KM against its twin: at the largest call of a relight chunk (an
+    importance round), at its busiest secondary coarse gather (timed: the
+    kernel row) and on a hand-built grid, at two coherence factors.
+    ``seed_ok`` and the background 1e5 equal; the coherent / nearest choice
+    (a wrong one moves a seed by a cell's roots) and every float within
+    1e-5 of max(|ref|, 1), entry by entry."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
+
+    def compare(name, grid, pts, coh):
+        ok_, op_ = (f(grid, pts, coh) for f in (SG.gather_from_grid,
+                                                  SG.gather_from_grid_plain))
+        torch.cuda.synchronize()
+        if not torch.equal(ok_[1], op_[1]):
+            fail(f"seed_gather {name}: seed_ok differs from the twin at "
+                 f"{int((ok_[1] != op_[1]).sum())} points")
+        if not torch.equal(ok_[2] == 1e5, op_[2] == 1e5):
+            fail(f"seed_gather {name}: the background sdf differs")
+        err = 0.0
+        for a, b in ((ok_[0], op_[0]), (ok_[2], op_[2])):
+            d = (a - b).abs()
+            bad = d > 1e-5 * b.abs().clamp(min=1.0)
+            if bool(bad.any()):
+                fail(f"seed_gather {name}: {int(bad.sum())} entries differ "
+                     f"from the twin, max {d.max().item()}")
+            err = max(err, d.max().item())
+        print(f"seed_gather {name} (coh {coh}): {pts.shape[0]} points, "
+              f"{int(op_[1].sum())} seeded, max_abs_err={err:.3g}",
+              flush=True)
+        return err
+
+    errs = []
+    def call(rec):
+        """``(grid, pts, coh_factor)`` of a recorded call."""
+        args, kw = rec[1], rec[2]
+        return (*args[:2], args[2] if len(args) > 2
+                else kw.get("coh_factor", 3.0))
+
+    for name, rec in (("importance call", km_big),
+                      ("secondary coarse call", km_sec)):
+        errs.append(compare(name, *call(rec)))
+    hgrid, hpts = hand_seed_grid(dev)
+    for coh in (3.0, 0.1):
+        errs.append(compare("hand-built grid", hgrid, hpts, coh))
+    grid, pts, coh = call(km_sec)
+    N, C = pts.shape[0], grid.channels
+    res = grid.resolution
+    # the grid's rows this call reads: its points' 8 corners, each row once
+    i0, _ = SG._corner_setup((pts - grid.center) / grid.half, res)
+    corners = [((torch.clamp(i0[:, 2] + dz, max=res - 1) * res
+                 + torch.clamp(i0[:, 1] + dy, max=res - 1)) * res
+                + torch.clamp(i0[:, 0] + dx, max=res - 1))
+               for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+    rows_read = int(torch.unique(torch.cat(corners)).numel())
+    print(f"seed_gather secondary coarse call: {rows_read} of {res ** 3} "
+          f"grid rows read", flush=True)
+    # the library call: F.grid_sample's trilinear blend of the 4 root
+    # channels (no coherence test, no nearest corner, no SDF policy)
+    vox5 = grid.grid[..., :4].permute(3, 0, 1, 2)[None].contiguous()
+    g5 = ((pts - grid.center) / grid.half).reshape(1, N, 1, 1, 3)
+    row("seed_gather", "cuda", "intrinsicavatar_tpu_torch/csrc/seedgrid.cu",
+        "intrinsicavatar_tpu/anim/seedgrid.py:173", f"pts[{N}, 3] "
+        f"grid[{res}^3, {C}]", max(errs),
+        time_ms(lambda: SG.gather_from_grid(grid, pts, coh)),
+        time_ms(lambda: SG.gather_from_grid_plain(grid, pts, coh), 3),
+        # 12 B in and 17 B out a point; each grid row the points' corners
+        # touch once; center and half
+        N * (12 + 17) + rows_read * C * 4 + 24,
+        N * 300,
+        time_ms(lambda: torch.nn.functional.grid_sample(
+            vox5, g5, mode="bilinear", padding_mode="border",
+            align_corners=True)))
 
 
 class Tripwire:

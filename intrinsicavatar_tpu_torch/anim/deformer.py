@@ -9,9 +9,10 @@ search (kernel KC) over them, filters duplicate roots and keeps the first
 rotation where a gradient query reads it), queries the canonical field on
 them and reduces by min-SDF (`snarf_deformer.py:187-255`).  Gradients of
 the field outputs pass through the candidate compaction's scatter and the
-min-SDF gather.  A seeded query (:meth:`FastSNARF.deform_seeded`, the
-secondary fine pass) replaces the search with one polish lane per point
-started at a known root (kernel KL).
+min-SDF gather.  A seeded query (:meth:`FastSNARF.deform_seeded`: the
+secondary fine pass, and at eval every query the seed grid answers)
+replaces the search with one polish lane per point started at a known root
+(kernel KL).
 """
 
 from __future__ import annotations
@@ -268,24 +269,31 @@ class FastSNARF(nn.Module):
 
     def deform_seeded(self, statics: DeformerStatics, frame: FrameState, pts,
                       seed_xc, seed_ok, geometry_fn: Callable,
-                      boost: int = 0, counters=None):
+                      with_jac: bool = True, boost: int = 0, counters=None,
+                      seed_iters=None):
         """Eval-mode canonicalization warm-started at known nearby roots
         ``seed_xc [N, 3]`` (``seed_ok [N]`` marks the usable ones): one
         polish lane per point (kernel KL) replaces the search, its filter
-        and its top-K; outputs as :meth:`deform` with ``with_jac`` (the
-        secondary fine pass, its one caller, reads gradients).  Lanes whose
-        polish fails despite a usable seed are counted
-        (``sec_seed_polish_fail``)."""
+        and its top-K; outputs as :meth:`deform`.  The polish runs
+        ``seed_iters`` iterations (None: ``seed_polish_iters``; the seed
+        grid's callers pass ``seed_grid_polish_iters``).  Lanes whose polish
+        fails despite a usable seed are counted (``sec_seed_polish_fail``)."""
         N = pts.shape[0]
         res = broyden_polish(
             pts.contiguous(), seed_xc.contiguous(), seed_ok.contiguous(),
             frame.voxel_J, self.spec.offset, self.spec.scale_kernel,
             cvg_thresh=self.cvg_thresh, dvg_thresh=self.dvg_thresh,
-            max_iters=self.seed_polish_iters)
+            max_iters=(self.seed_polish_iters if seed_iters is None
+                       else int(seed_iters)))
         record(counters, "sec_seed_polish_fail",
                (seed_ok & ~res.valid).sum(dtype=torch.int64))
-        c2w = res.j_inv if self.use_j_inv else deform_skinning(
-            res.x, statics.lbs_cl, self.spec, frame.tfs.contiguous())
+        if self.use_j_inv:
+            c2w = res.j_inv
+        elif with_jac:
+            c2w = deform_skinning(res.x, statics.lbs_cl, self.spec,
+                                  frame.tfs.contiguous())
+        else:
+            c2w = None
         # the lanes were compacted by the caller and are mostly valid: no
         # candidate-level budget (`anim/deformer.py:424-429` of the JAX
         # package)
@@ -361,9 +369,11 @@ class SNARFDeformer(nn.Module):
 
     def forward(self, statics, frame, points, cond, geometry_fn,
                 with_jac=False, eval_mode=True, global_step=0, boost=0,
-                counters=None, seed=None):
+                counters=None, seed=None, seed_iters=None):
         """Canonicalize ``points``; with ``seed = (seed_xc, seed_ok)`` by
-        the seeded polish (eval mode only), else by the search."""
+        the seeded polish of ``seed_iters`` iterations (None: the
+        deformer's ``seed_polish_iters``; eval mode only), else by the
+        search."""
         def composed_geometry_fn(x):
             x_nr, j_inv_nr = self.non_rigid(x, cond=cond, with_jac=with_jac,
                                             global_step=global_step)
@@ -375,7 +385,8 @@ class SNARFDeformer(nn.Module):
                                           "only in the port")
             return self.rigid.deform_seeded(
                 statics, frame, points, seed[0], seed[1],
-                composed_geometry_fn, boost=boost, counters=counters)
+                composed_geometry_fn, with_jac=with_jac, boost=boost,
+                counters=counters, seed_iters=seed_iters)
         return self.rigid.deform(statics, frame, points, composed_geometry_fn,
                                  with_jac=with_jac, eval_mode=eval_mode,
                                  boost=boost, counters=counters)

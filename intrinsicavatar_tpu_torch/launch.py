@@ -20,6 +20,8 @@ YAML is merged onto the default config (validate, test, predict; eval step
 otherwise) or onto :func:`train_config` (train).  An eval run at a step
 from ``model.phys_kick_in_step`` (10,000) on renders the PBR maps; a test
 run whose frames carry an ``albedo`` fits the albedo alignment ratio first.
+Every eval frame bakes its seed grid once (``model.eval_seed_grid``, on by
+default; ``model.eval_seed_grid=false`` renders by the searched path).
 Training runs the radiance regime from step 0 and prints the losses every
 ``trainer.log_every_n_steps`` steps.  ``--params`` loads an ``.npz`` of the
 JAX parameter tree flattened to dotted keys (as :func:`weights.flatten_tree`
@@ -99,20 +101,23 @@ def main(argv=None):
         batch_np = dataset[i]
         batch = EV.batch_to_device(batch_np, device)
         gen = torch.Generator().manual_seed(seed + i)
-        occ = frame = cond = ratio = None
+        occ = frame = cond = ratio = grid = None
         if args.mode == "test" and flags.enable_phys and "albedo" in batch:
             # the relighting protocol: one alignment ratio per frame from an
-            # albedo-only pre-pass on the frame's own test grid
+            # albedo-only pre-pass on the frame's own test grid and seed
+            # grid, both shared with the full render
             occ, frame, cond = EV.build_test_occ_grid(model, statics, batch,
                                                       step, generator=gen)
+            grid = EV.build_seed_grid(model, statics, frame, cond, step)
             ratio = EV.fit_albedo_ratio(model, statics, batch, step, flags,
                                         ray_chunk=chunk, occ=occ,
                                         frame=frame, cond=cond,
-                                        generator=gen)
+                                        generator=gen, seed_grid=grid)
+        # otherwise render_frame builds both grids for the frame
         out = EV.render_frame(model, statics, batch, step, flags,
                               ray_chunk=chunk, occ=occ, frame=frame,
                               cond=cond, generator=gen,
-                              albedo_align_ratio=ratio)
+                              albedo_align_ratio=ratio, seed_grid=grid)
         ovf = {k: v for k, v in out["counters"].items()
                if k.startswith("ovf_") and v}
         if ovf:

@@ -4,10 +4,12 @@
 - :func:`sample_volume_interaction` draws ``spp`` scattering points per ray
   (kernel KI) and reuses the primary pass's normals and materials there;
 - :func:`compute_indirect_radiance` marches secondary rays in shader chunks:
-  the march with its cap of occupied samples (kernel KK), the coarse SDF by
-  the inverse-skinning search, the zero-crossing fine resampling (kernel
-  KJ), the fine query seeded from the nearest converged coarse root (kernel
-  KL), radiance and compositing -> per-ray (transmittance, indirect rgb);
+  the march with its cap of occupied samples (kernel KK), the coarse SDF
+  (with the eval seed grid, by default: one compacted gather of the grid,
+  kernel KM; without it, by the inverse-skinning search), the zero-crossing
+  fine resampling (kernel KJ), the fine query seeded from the nearest
+  valid coarse root (kernel KL), radiance and compositing -> per-ray
+  (transmittance, indirect rgb);
 - :func:`pbr_forward` assembles ``comp_rgb_phys`` / ``comp_demod_phys``
   (and ``visibility``) in the four render modes: ``uniform_light`` (16 x 32
   stratified sphere, shuffled per ray), ``light`` (emitter sampling),
@@ -15,8 +17,7 @@
 
 The whole stage runs without gradient, as the eval render does.  Its
 randomness comes through ``draws`` (see :func:`pbr_forward`) or from a
-``torch.Generator``.  The baked seed grid and the bf16 scopes are not
-ported yet.
+``torch.Generator``.  The bf16 scopes are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
+from intrinsicavatar_tpu_torch.ops.compact import compact_apply
 from intrinsicavatar_tpu_torch.ops.grid_traversal import secondary_march
 from intrinsicavatar_tpu_torch.ops.math import safe_normalize
 from intrinsicavatar_tpu_torch.pbr.envlight import (
@@ -84,16 +86,20 @@ def secondary_budget(model, smask, fine: bool = False, boost: int = 0):
 
 def compute_indirect_radiance(model, statics, frame, cond, sched, binaries,
                               aabb, rays_o, rays_d, step, flags, active,
-                              counters=None):
+                              counters=None, seed_grid=None):
     """Secondary rays ``[M, 3]`` (SMPL space) -> ``(transmittance [M], rgb
     [M, 3])``, in chunks of ``secondary_shader_chunk`` rays (the last one
     padded with inactive rays of direction 1); the chunks' counters are
-    summed (`models/intrinsic_avatar.py:396-545` of the reference)."""
+    summed (`models/intrinsic_avatar.py:396-545` of the reference).
+    ``seed_grid`` is the frame's eval seed grid, or None."""
     if float(model.config.get("secondary_active_compaction", 0.0)):
         raise NotImplementedError(
             "secondary_active_compaction is not ported yet")
-    for key, default in (("secondary_coarse_dtype", "bfloat16"),
-                         ("secondary_fine_dtype", "float32")):
+    scopes = [("secondary_fine_dtype", "float32")]
+    if not _baked(model, seed_grid):
+        # the baked coarse pass runs no field query, so has no scope
+        scopes.append(("secondary_coarse_dtype", "bfloat16"))
+    for key, default in scopes:
         if model.config.get(key, default) != "float32":
             raise ValueError(f"the bf16 secondary scopes are not ported "
                              f"yet: set model.{key}=float32")
@@ -102,7 +108,7 @@ def compute_indirect_radiance(model, statics, frame, cond, sched, binaries,
     if M <= chunk:
         return _indirect_impl(model, statics, frame, cond, sched, binaries,
                               aabb, rays_o, rays_d, step, flags, active,
-                              counters)
+                              counters, seed_grid)
     pad = -M % chunk
     ro = torch.cat([rays_o, rays_o.new_zeros((pad, 3))])
     rd = torch.cat([rays_d, rays_d.new_ones((pad, 3))])
@@ -112,14 +118,21 @@ def compute_indirect_radiance(model, statics, frame, cond, sched, binaries,
         tr, rgb = _indirect_impl(model, statics, frame, cond, sched,
                                  binaries, aabb, ro[i:i + chunk],
                                  rd[i:i + chunk], step, flags,
-                                 act[i:i + chunk], counters)
+                                 act[i:i + chunk], counters, seed_grid)
         trs.append(tr)
         rgbs.append(rgb)
     return torch.cat(trs)[:M], torch.cat(rgbs)[:M]
 
 
+def _baked(model, seed_grid) -> bool:
+    """The secondary coarse pass reads its SDF from the seed grid."""
+    return (seed_grid is not None and seed_grid.has_sdf
+            and bool(model.config.get("baked_secondary_coarse", True)))
+
+
 def _indirect_impl(model, statics, frame, cond, sched, binaries, aabb,
-                   rays_o, rays_d, step, flags, active, counters):
+                   rays_o, rays_d, step, flags, active, counters,
+                   seed_grid=None):
     M = rays_o.shape[0]
     S = model.num_samples_per_secondary_ray
     near_p, far_p = model.secondary_near_plane, model.secondary_far_plane
@@ -134,18 +147,34 @@ def _indirect_impl(model, statics, frame, cond, sched, binaries, aabb,
     record(counters, "sec_total_samples", torch.tensor(M * S))
 
     importance = model.secondary_importance_sample
+    baked = _baked(model, seed_grid)
+    s_iters = model.grid_iters()
     if importance:
         # coarse SDF at interval starts: it only places the fine samples
         pos = (rays_o[:, None, :] + rays_d[:, None, :] * t_starts[..., None]
                ).reshape(-1, 3)
-        out = model._deform_query(
-            statics, frame, cond, pos, sched, with_grad=False,
-            global_step=step, mask=smask.reshape(-1), mask2d=smask,
-            budget=secondary_budget(model, smask, boost=flags.budget_boost),
-            counters=counters)
-        sdf = out[1].reshape(M, S)
-        xc_coarse = out[0].reshape(M, S, 3)
-        ok_coarse = out[2].reshape(M, S) & smask
+        budget = secondary_budget(model, smask, boost=flags.budget_boost)
+        if baked:
+            # one gather of the grid at the occupied slots, compacted to
+            # the queried pass's budget; the other slots keep the searched
+            # path's fills (sdf 1e5, root 0, invalid)
+            record(counters, "ovf_query",
+                   torch.relu(smask.sum(dtype=torch.int64) - budget))
+            xc_coarse, ok_full, sdf = compact_apply(
+                lambda p: model._grid_gather(seed_grid, p), pos,
+                smask.reshape(-1), budget, (0.0, False, 1e5), mask2d=smask)
+            sdf = sdf.reshape(M, S)
+            xc_coarse = xc_coarse.reshape(M, S, 3)
+            ok_coarse = ok_full.reshape(M, S) & smask
+        else:
+            out = model._deform_query(
+                statics, frame, cond, pos, sched, with_grad=False,
+                global_step=step, mask=smask.reshape(-1), mask2d=smask,
+                budget=budget, counters=counters,
+                seed=model._grid_seed(seed_grid, pos), seed_iters=s_iters)
+            sdf = out[1].reshape(M, S)
+            xc_coarse = out[0].reshape(M, S, 3)
+            ok_coarse = out[2].reshape(M, S) & smask
         alphas = torch.where(smask, model.get_alpha(sdf, t_ends - t_starts,
                                                     step), 0.0)
         t_coarse = t_starts
@@ -163,9 +192,12 @@ def _indirect_impl(model, statics, frame, cond, sched, binaries, aabb,
     mids = 0.5 * (t_starts + t_ends)
     pos = (rays_o[:, None, :] + rays_d[:, None, :] * mids[..., None]
            ).reshape(-1, 3)
-    # seed each fine sample's inverse skinning with the converged root of
-    # the nearest valid coarse sample on its ray (first one on ties)
-    seed = None
+    # seed each fine sample's inverse skinning with the root of the nearest
+    # valid coarse sample on its ray (first one on ties): a converged root
+    # polishes for the deformer's seed_polish_iters, a raw grid root of the
+    # baked pass for seed_grid_polish_iters; with no coarse pass to seed
+    # from, the grid seeds the fine samples itself
+    seed, fine_iters = None, None
     if importance and bool(model.config.get("secondary_seed_fine", True)):
         d = torch.abs(mids[:, :, None] - t_coarse[:, None, :])   # [M, Sf, S]
         d = torch.where(ok_coarse[:, None, :], d, torch.inf)
@@ -174,12 +206,16 @@ def _indirect_impl(model, statics, frame, cond, sched, binaries, aabb,
                                j[..., None].expand(-1, -1, 3)).reshape(-1, 3)
         seed_ok = (torch.gather(ok_coarse, 1, j) & smask).reshape(-1)
         seed = (seed_xc, seed_ok)
+        fine_iters = s_iters if baked else None
+    elif seed_grid is not None:
+        seed = model._grid_seed(seed_grid, pos)
+        fine_iters = s_iters
     out = model._deform_query(
         statics, frame, cond, pos, sched, with_grad=True, global_step=step,
         mask=smask.reshape(-1), mask2d=smask,
         budget=secondary_budget(model, smask, fine=importance,
                                 boost=flags.budget_boost),
-        counters=counters, seed=seed)
+        counters=counters, seed=seed, seed_iters=fine_iters)
     pos_cano, sdf, _, sdf_grad, _, feat = out[:6]
     rigid = model.deformer.rigid
     normal_world = rigid.transform_dirs_s2w(frame, sdf_grad)
@@ -208,7 +244,7 @@ def get_draw(draws, key, shape, generator, device):
 def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
                 t_starts, t_ends, smask, weights, sdf, mats, normals_smpl,
                 step, flags, background_color, lvl, emitter_state=None,
-                draws=None, generator=None, counters=None):
+                draws=None, generator=None, counters=None, seed_grid=None):
     """``comp_rgb_phys`` / ``comp_demod_phys`` ``[R, 3]`` (and, in
     ``uniform_light``, ``visibility [R, 1]``) for a chunk of primary rays.
 
@@ -242,7 +278,8 @@ def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
     def light_terms(dirs, active):
         tr, ind_rgb = compute_indirect_radiance(
             model, statics, frame, cond, sched, occ.binaries[lvl],
-            occ.aabbs[lvl], pos_i, dirs, step, flags, active, counters)
+            occ.aabbs[lvl], pos_i, dirs, step, flags, active, counters,
+            seed_grid)
         tr = torch.clamp(tr, 0.0, 1.0)[:, None]
         em = emitter(rigid.transform_dirs_s2w(frame, dirs))
         em = torch.where((active & (tr[:, 0] > 0.0))[:, None], em, 0.0)

@@ -10,8 +10,15 @@ In training the shading pass, the curvature proxy and the composite are
 differentiated (kernels KB', KA', KD' in the backward).  With
 ``enable_phys`` (eval) the material field shades the same samples, the
 albedo / roughness / metallic maps are composited, and ``render/pbr.py``
-renders the physically based maps.  The phys training regime, the seed
-grid and the bf16 scopes come with later slices.
+renders the physically based maps.
+
+At eval a per-frame seed grid (:meth:`IntrinsicAvatar.bake_seed_grid`,
+``anim/seedgrid.py``; on by default, ``eval_seed_grid``) answers the
+importance rounds' SDF from its gather (kernel KM, ``baked_importance``) and
+seeds the shading pass's inverse skinning, polished by kernel KL for
+``seed_grid_polish_iters`` in place of the multi-init search;
+``eval_seed_grid: false`` gives the searched path.  The phys training
+regime and the bf16 scopes come with later slices.
 
 Randomness is passed in through ``draws`` (a dict; see :meth:`forward`) or
 drawn from a ``torch.Generator``, so a caller can reproduce another
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from intrinsicavatar_tpu_torch.anim import seedgrid as SG
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
 from intrinsicavatar_tpu_torch.ops.compact import (
@@ -157,15 +165,17 @@ class IntrinsicAvatar(nn.Module):
 
     def _deform_query(self, statics, frame, cond, pts, sched, with_grad,
                       global_step=0, mask=None, budget=None, mask2d=None,
-                      boost=0, counters=None, eval_mode=True, seed=None):
+                      boost=0, counters=None, eval_mode=True, seed=None,
+                      seed_iters=None):
         """Canonicalize + query geometry; returns the deformer outputs.
 
         With ``mask`` and query compaction, only a fixed budget of valid
         points runs the search + field query; the rest get neutral fills
         (sdf = 1e5 -> alpha 0).  ``mask2d`` selects sample-major order.
         ``seed = (xc [M, 3], ok [M])`` warm-starts each point's root search
-        at a known canonical root (the seeded polish, eval only); the seeds
-        ride along as extra point columns through the compaction.
+        at a known canonical root (the seeded polish of ``seed_iters``
+        iterations, eval only); the seeds ride along as extra point columns
+        through the compaction.
         """
         geo = self.geometry
 
@@ -182,7 +192,7 @@ class IntrinsicAvatar(nn.Module):
             return tuple(self.deformer(
                 statics, frame, p, cond, geometry_fn, with_jac=with_grad,
                 eval_mode=eval_mode, global_step=global_step, boost=boost,
-                counters=counters, seed=s))
+                counters=counters, seed=s, seed_iters=seed_iters))
 
         if seed is not None:
             pts = torch.cat([pts, seed[0], seed[1].to(pts.dtype)[:, None]],
@@ -203,6 +213,46 @@ class IntrinsicAvatar(nn.Module):
         return list(compact_apply(query, pts, mask, budget, fills,
                                   mask2d=mask2d))
 
+    # ---------------------------------------------------------- seed grid
+
+    @torch.no_grad()
+    def bake_seed_grid(self, statics, frame, cond, step, resolution=None,
+                       chunk=65536) -> SG.SeedGrid:
+        """The frame's seed grid (`render/renderer.py:390-415` of the JAX
+        package): one chunked pass of the searched canonicalization, without
+        features or mask, over a ``seed_grid_resolution``^3 lattice spanning
+        the forward-skinned voxel's bbox, with the canonical SDF baked as a
+        channel."""
+        if resolution is None:
+            resolution = int(self.config.get("seed_grid_resolution", 96))
+        sched = self.schedules(step, frame.tfs.device)
+        aabb = self.deformer.rigid.get_bbox_deformed(frame)
+
+        def deform_fn(p):
+            out = self._deform_query(statics, frame, cond, p, sched,
+                                     with_grad=False, global_step=step)
+            return out[0], out[2], out[1]
+
+        return SG.bake_seed_grid(deform_fn, aabb, resolution, chunk)
+
+    def _grid_gather(self, seed_grid, pts):
+        """``(seed_xc, seed_ok, sdf | None)`` of ``pts`` from the seed grid
+        (kernel KM), or None without a grid."""
+        if seed_grid is None:
+            return None
+        return SG.gather_from_grid(
+            seed_grid, pts.contiguous(),
+            coh_factor=float(self.config.get("seed_grid_coh_factor", 3.0)))
+
+    def _grid_seed(self, seed_grid, pts):
+        """``(seed_xc, seed_ok)`` of ``pts`` from the seed grid, or None."""
+        gth = self._grid_gather(seed_grid, pts)
+        return None if gth is None else gth[:2]
+
+    def grid_iters(self) -> int:
+        """Polish iterations of a seed from the grid."""
+        return int(self.config.get("seed_grid_polish_iters", 6))
+
     def get_alpha(self, sdf, dists, step):
         return V.alpha_from_sdf(sdf, dists, self.density.get_beta(step))
 
@@ -220,19 +270,30 @@ class IntrinsicAvatar(nn.Module):
 
     def _coarse_sdf_at_edges(self, statics, frame, cond, sched, rays_o,
                              rays_d, iv: RayIntervals, step, prev_sdf=None,
-                             is_new=None, boost=0, counters=None):
-        """SDF at (new) edge values; invalid slots get 1e10."""
+                             is_new=None, boost=0, counters=None,
+                             seed_grid=None):
+        """SDF at (new) edge values; invalid slots get 1e10.  With a seed
+        grid that has the SDF channel (and ``baked_importance``) every edge
+        reads it from the grid's gather: the rounds only place the shading
+        samples, which re-query their midpoints.  Otherwise the new edges
+        are queried, seeded from the grid when there is one."""
         R, E = iv.vals.shape
         t = torch.where(iv.valid, iv.vals, 0.0)
         pos = (rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
                ).reshape(-1, 3)
+        gth = self._grid_gather(seed_grid, pos)
+        if (gth is not None and gth[2] is not None
+                and bool(self.config.get("baked_importance", True))):
+            return torch.where(iv.valid, gth[2].reshape(R, E), 1e10)
         qmask = iv.valid if is_new is None else (iv.valid & is_new)
         nb = None if is_new is None else R * self.n_importance_samples
         out = self._deform_query(statics, frame, cond, pos, sched,
                                  with_grad=False, global_step=step,
                                  mask=qmask.reshape(-1), budget=nb,
                                  mask2d=qmask, boost=boost,
-                                 counters=counters)
+                                 counters=counters,
+                                 seed=None if gth is None else gth[:2],
+                                 seed_iters=self.grid_iters())
         sdf = out[1].reshape(R, E)
         if prev_sdf is not None:
             sdf = torch.where(is_new, sdf, prev_sdf)
@@ -251,13 +312,14 @@ class IntrinsicAvatar(nn.Module):
 
     def _importance_resample(self, statics, frame, cond, sched, rays_o,
                              rays_d, iv: RayIntervals, step, boost=0,
-                             counters=None):
+                             counters=None, seed_grid=None):
         """Merge-resampling rounds; each round after the first queries only
         the new edges (cached SDF carried through ``gather_idx``)."""
         n_new = self.n_importance_samples
         sdf = self._coarse_sdf_at_edges(statics, frame, cond, sched, rays_o,
                                         rays_d, iv, step, boost=boost,
-                                        counters=counters)
+                                        counters=counters,
+                                        seed_grid=seed_grid)
         for r in range(self.n_importance_rounds):
             alphas = self._edge_alphas_min_sdf(iv, sdf, step)
             weights, _ = V.render_weight_from_alpha(alphas, iv.valid)
@@ -274,7 +336,7 @@ class IntrinsicAvatar(nn.Module):
             sdf = self._coarse_sdf_at_edges(
                 statics, frame, cond, sched, rays_o, rays_d, iv, step,
                 prev_sdf=carried, is_new=merged.is_new, boost=boost,
-                counters=counters)
+                counters=counters, seed_grid=seed_grid)
         return iv
 
     # ------------------------------------------------------------ forward
@@ -282,11 +344,13 @@ class IntrinsicAvatar(nn.Module):
     @torch.no_grad()
     def sample_intervals(self, statics, frame, cond, occ: OccGridState,
                          rays_world, step, flags: RenderFlags, t_idx=0.0,
-                         draws=None, generator=None, counters=None):
+                         draws=None, generator=None, counters=None,
+                         seed_grid=None):
         """Ray transform, occupancy marching, importance rounds ->
         ``(t_starts, t_ends, smask)`` rectangular ``[R, S]``, without
         gradient.  ``draws["strat_u"] [R]`` holds the stratified offsets
-        (drawn from ``generator`` when absent and ``flags.randomized``)."""
+        (drawn from ``generator`` when absent and ``flags.randomized``);
+        ``seed_grid`` serves the importance rounds (eval)."""
         sched = self.schedules(step, rays_world.device)
         rays = self.deformer.rigid.transform_rays_w2s(frame, rays_world)
         R = rays.shape[0]
@@ -306,13 +370,14 @@ class IntrinsicAvatar(nn.Module):
             iv = self._importance_resample(statics, frame, cond, sched,
                                            rays_o, rays_d, iv, step,
                                            boost=flags.budget_boost,
-                                           counters=counters)
+                                           counters=counters,
+                                           seed_grid=seed_grid)
         return intervals_to_samples(iv)
 
     def forward(self, statics, frame, cond, occ: OccGridState, rays_world,
                 step, flags: RenderFlags, t_idx=0.0, background_color=None,
                 intervals=None, draws=None, generator=None,
-                emitter_state=None, albedo_align_ratio=None):
+                emitter_state=None, albedo_align_ratio=None, seed_grid=None):
         """Render a batch of rays ``[R, 8]``.  Returns ``comp_rgb,
         comp_normal, opacity, depth, rays_valid, ... comp_rgb_full``, the
         budget counters under ``counters`` and, in training, the per-sample
@@ -330,28 +395,36 @@ class IntrinsicAvatar(nn.Module):
         scaled by ``albedo_align_ratio [3]`` when given) and, unless
         ``albedo_only``, ``comp_rgb_phys``, ``comp_demod_phys`` and
         ``visibility``, each with its ``*_full`` map; ``emitter_state``
-        replaces the emitter's sampling tables.  Eval renders run without
-        autograd; a training render is differentiable in every parameter
-        it reads.
+        replaces the emitter's sampling tables.  ``seed_grid`` (from
+        :meth:`bake_seed_grid`, eval only) answers the importance rounds and
+        the secondary coarse pass and seeds the shading and fine passes.
+        Eval renders run without autograd; a training render is
+        differentiable in every parameter it reads.
         """
         if flags.enable_phys and flags.training:
             raise NotImplementedError("the phys training regime (PBR "
                                       "losses, material jitter) comes with "
                                       "a later slice")
+        if flags.training and seed_grid is not None:
+            raise NotImplementedError("the seed grid serves eval renders "
+                                      "only (train_seed_grid is not "
+                                      "ported)")
         counters: dict = {}
         with torch.set_grad_enabled(flags.training
                                     and torch.is_grad_enabled()):
             out = self._forward_body(statics, frame, cond, occ, rays_world,
                                      step, flags, t_idx, background_color,
                                      intervals, draws, generator, counters,
-                                     emitter_state, albedo_align_ratio)
+                                     emitter_state, albedo_align_ratio,
+                                     seed_grid)
         out["counters"] = {k: torch.as_tensor(v).to(torch.int32)
                            for k, v in counters.items()}
         return out
 
     def _forward_body(self, statics, frame, cond, occ, rays_world, step,
                       flags, t_idx, background_color, intervals, draws,
-                      generator, counters, emitter_state, albedo_align_ratio):
+                      generator, counters, emitter_state, albedo_align_ratio,
+                      seed_grid):
         dev = rays_world.device
         sched = self.schedules(step, dev)
         rays = self.deformer.rigid.transform_rays_w2s(frame, rays_world)
@@ -365,7 +438,7 @@ class IntrinsicAvatar(nn.Module):
         if intervals is None:
             intervals = self.sample_intervals(
                 statics, frame, cond, occ, rays_world, step, flags, t_idx,
-                draws, generator, counters)
+                draws, generator, counters, seed_grid)
         t_starts, t_ends, smask = intervals
         S = t_starts.shape[1]
         mids = 0.5 * (t_starts + t_ends)
@@ -395,10 +468,13 @@ class IntrinsicAvatar(nn.Module):
             pos_q, dirs_q = pos, dirs
             qmask = None if flags.full_budget else smask.reshape(-1)
 
+        # at eval the grid seeds the shading pass's inverse skinning
         out = self._deform_query(statics, frame, cond, pos_q, sched,
                                  with_grad=True, global_step=step, mask=qmask,
                                  boost=flags.budget_boost, counters=counters,
-                                 eval_mode=not flags.training)
+                                 eval_mode=not flags.training,
+                                 seed=self._grid_seed(seed_grid, pos_q),
+                                 seed_iters=self.grid_iters())
         pos_cano, sdf, valid, sdf_grad, sdf_grad_cano, feat = out[:6]
 
         # curvature on a with-replacement subsample of the shading lanes
@@ -508,7 +584,8 @@ class IntrinsicAvatar(nn.Module):
                     safe_normalize(sdf_grad).reshape(R, S, 3), step, flags,
                     background_color, level_of(occ, t_idx),
                     emitter_state=emitter_state, draws=draws,
-                    generator=generator, counters=counters))
+                    generator=generator, counters=counters,
+                    seed_grid=seed_grid))
                 for k in ("comp_rgb_phys", "comp_demod_phys"):
                     out_dict[k + "_full"] = torch.clamp(
                         linear_to_srgb(out_dict[k]), 0.0, 1.0)

@@ -1,7 +1,7 @@
-"""Validation and test rendering: per-frame test occupancy grid, chunked
-full-frame render (with the PBR stage from ``phys_kick_in_step`` on), the
-albedo alignment pre-pass and metrics (counterpart of the JAX package's
-``train/evaluate.py``)."""
+"""Validation and test rendering: per-frame test occupancy grid and seed
+grid, chunked full-frame render (with the PBR stage from
+``phys_kick_in_step`` on), the albedo alignment pre-pass and metrics
+(counterpart of the JAX package's ``train/evaluate.py``)."""
 
 from __future__ import annotations
 
@@ -56,6 +56,16 @@ def build_test_occ_grid(model, statics, batch, step, resolution=64,
     return occ, frame, cond
 
 
+@torch.no_grad()
+def build_seed_grid(model, statics, frame, cond, step):
+    """The frame's eval seed grid (``anim/seedgrid.py``), or None when
+    ``eval_seed_grid`` is off or the deformer has no rigid part."""
+    if not bool(model.config.get("eval_seed_grid", True)) \
+            or not hasattr(model.deformer, "rigid"):
+        return None
+    return model.bake_seed_grid(statics, frame, cond, step)
+
+
 KEEP = ("comp_rgb_full", "comp_normal", "opacity", "depth", "rays_valid")
 # the maps of the physically based regime (without ``visibility`` in the
 # render modes other than uniform_light, and only the material maps in the
@@ -69,15 +79,18 @@ KEEP_PHYS = ("comp_rgb_phys_full", "comp_demod_phys_full",
 def render_frame(model, statics, batch, step, flags: RenderFlags,
                  ray_chunk: int = 4096, occ=None, frame=None, cond=None,
                  occ_resolution: int = 64, occ_jitter=None, generator=None,
-                 draws=None, emitter_state=None, albedo_align_ratio=None):
+                 draws=None, emitter_state=None, albedo_align_ratio=None,
+                 seed_grid=None):
     """Chunked full-frame render; returns the stitched output maps (numpy)
     and the summed budget counters under ``counters``.
 
     ``batch`` holds tensors on the render device.  Without ``occ`` the
     per-frame test grid is built first, with jitter ``occ_jitter`` or drawn
-    from ``generator``.  ``draws``, a list with one dict per chunk, holds
-    the chunks' PBR draws (``IntrinsicAvatar.forward``); what it lacks is
-    drawn from ``generator``.  A batch with an ``hdri [H, W, 3]`` relights:
+    from ``generator``; without ``seed_grid`` the frame's seed grid is baked
+    next (:func:`build_seed_grid`: None when ``eval_seed_grid`` is off).
+    ``draws``, a list with one dict per chunk, holds the chunks' PBR draws
+    (``IntrinsicAvatar.forward``); what it lacks is drawn from
+    ``generator``.  A batch with an ``hdri [H, W, 3]`` relights:
     it replaces an image emitter's ``base`` for this frame and its sampling
     tables are rebuilt (`models/intrinsic_avatar.py:292-305`; an SG emitter
     has no image to replace).
@@ -96,7 +109,7 @@ def render_frame(model, statics, batch, step, flags: RenderFlags,
             return render_frame(model, statics, batch, step, flags,
                                 ray_chunk, occ, frame, cond, occ_resolution,
                                 occ_jitter, generator, draws, emitter_state,
-                                albedo_align_ratio)
+                                albedo_align_ratio, seed_grid)
         finally:
             if base is not None:
                 base.data = saved
@@ -104,6 +117,8 @@ def render_frame(model, statics, batch, step, flags: RenderFlags,
         occ, frame, cond = build_test_occ_grid(
             model, statics, batch, step, resolution=occ_resolution,
             jitter=occ_jitter, generator=generator)
+    if seed_grid is None:
+        seed_grid = build_seed_grid(model, statics, frame, cond, step)
     rays = batch["rays"]
     R = rays.shape[0]
     bg = torch.ones(3, device=rays.device)
@@ -116,7 +131,7 @@ def render_frame(model, statics, batch, step, flags: RenderFlags,
                   flags, t_idx=0.0, background_color=bg,
                   draws=None if draws is None else draws[n],
                   generator=generator, emitter_state=emitter_state,
-                  albedo_align_ratio=albedo_align_ratio)
+                  albedo_align_ratio=albedo_align_ratio, seed_grid=seed_grid)
         outs.append({k: o[k] for k in keep if k in o})
         for k, v in o["counters"].items():
             counters[k] = counters.get(k, 0) + v
@@ -128,7 +143,7 @@ def render_frame(model, statics, batch, step, flags: RenderFlags,
 
 def fit_albedo_ratio(model, statics, batch, step, flags: RenderFlags,
                      ray_chunk: int = 4096, occ=None, frame=None, cond=None,
-                     generator=None) -> torch.Tensor:
+                     generator=None, seed_grid=None) -> torch.Tensor:
     """The relighting protocol's albedo-only pre-pass: the material maps
     without the secondary rays, then one least-squares ratio per channel
     against the batch's ``albedo`` over its foreground (`systems/
@@ -136,7 +151,8 @@ def fit_albedo_ratio(model, statics, batch, step, flags: RenderFlags,
     ``[3]`` on the render device."""
     pre = render_frame(model, statics, batch, step,
                        flags._replace(albedo_only=True), ray_chunk=ray_chunk,
-                       occ=occ, frame=frame, cond=cond, generator=generator)
+                       occ=occ, frame=frame, cond=cond, generator=generator,
+                       seed_grid=seed_grid)
     host = lambda k: batch[k].cpu().numpy() if torch.is_tensor(batch[k]) \
         else np.asarray(batch[k])
     gt = host("albedo").reshape(-1, 3)

@@ -309,12 +309,14 @@ def serve_config() -> ConfigNode:
     """The eval render this package serves: the default model at its
     published widths, rendered at step 5000 (importance sampling on, PBR
     off), on the seeded synthetic body and dataset, in float32 (the
-    secondary pass's too, at eval steps with PBR) and without the eval seed
-    grid.  Built in Python so that no YAML parser is needed to run it."""
+    secondary coarse pass's too, where it is queried at eval steps with
+    PBR), with the default eval seed grid (a 96^3 bake per frame; set
+    ``model.eval_seed_grid=false`` for the searched path).  Built in Python
+    so that no YAML parser is needed to run it."""
     cfg = default_config()
     return merge(cfg, {
         "dataset": {"name": "synthetic", "n_rays": 16384, "n_frames": 2},
-        "model": {"eval_seed_grid": False, "primary_dtype": "float32",
+        "model": {"primary_dtype": "float32",
                   "secondary_coarse_dtype": "float32"},
         "trainer": {"eval_step": 5000},
     })
@@ -324,7 +326,8 @@ def relight_config() -> ConfigNode:
     """The physically based (relight) render: :func:`serve_config` at eval
     step 25,000, where the PBR stage is on (512 scattering points per ray,
     64-step secondary rays, ``uniform_light``, the SG emitter and the
-    multi-lobe BRDF at their published widths).  25,000 is the step the JAX
+    multi-lobe BRDF at their published widths), with the eval seed grid
+    answering the secondary coarse pass.  25,000 is the step the JAX
     launcher evaluates at without a checkpoint."""
     return merge(serve_config(), {"trainer": {"eval_step": 25000}})
 

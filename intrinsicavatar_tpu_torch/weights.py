@@ -8,13 +8,16 @@ under ``mlp``, hash tables ``[L, T, F]`` under ``table``, the density
 (``base``), the pose corrections, and empty groups for the deformer, the
 pose encoder and the scatterer.  Weights are ``[in, out]`` on both sides.
 :func:`to_jax_tree` is the inverse of :func:`from_jax_params`: the port's
-parameters as a JAX-shaped tree.
+parameters as a JAX-shaped tree.  :func:`seed_grid_from_jax` carries a seed
+grid baked by the JAX package across.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from intrinsicavatar_tpu_torch.anim.seedgrid import SeedGrid
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -96,3 +99,18 @@ def from_jax_params(model, tree) -> dict:
         raise KeyError(f"port parameters not set by the tree: "
                        f"{sorted(unset)}")
     return landed
+
+
+def seed_grid_from_jax(grid):
+    """A seed grid baked by the JAX package (its ``SeedGrid``: ``packed
+    [res^3, 8*C]`` corner-packed with "border" padding, ``center``,
+    ``half``) as the port's channel-last
+    :class:`SeedGrid`.  Corner 0 of
+    a border-packed row is the node itself, so the grid is ``packed[:,
+    :C]``."""
+    packed = np.asarray(grid.packed, np.float32)
+    C = packed.shape[1] // 8
+    res = round(packed.shape[0] ** (1.0 / 3.0))
+    as_t = lambda a: torch.as_tensor(np.array(a, np.float32))
+    return SeedGrid(grid=as_t(packed[:, :C].reshape(res, res, res, C)),
+                    center=as_t(grid.center), half=as_t(grid.half))

@@ -2,19 +2,31 @@
 
     python3 queued_bounds.py      # prints one JSON line
 
-K13's grid half (``anim/seedgrid.py:173`` ``gather_from_grid`` and ``:252``
-``seed_from_grid``) runs only with the eval seed grid, which the port does
-not run yet, so nothing can be measured for it.  This works out, from the
-code of the JAX package and the shapes of :func:`default_config`, what one
-frame of 16,384 rays in 4,096-ray chunks would give it: its launches per
-frame (one per call: the coarse gather and the fine seed of each 32,768-ray
-shader chunk), the bytes each call must move (each input read once, each
-output written once; the 96^3 six-channel corner-packed grid counted at
-most at its size) and its float32 operations, and from them the least time
-the card could take (the larger of bytes over 3.35 TB/s and operations over
-67 TFLOP/s).  The operation counts are estimates from the code, a few
-operations per element; the bytes follow from the shapes alone.  K13's
-polish half is kernel KL, measured by ``chip_smoke.py``.
+The K5 backward with respect to ``tfs`` (``anim/deformer.py:396-412``, the
+implicit-function correction of a train-mode query, through
+``anim/broyden.py:550`` ``forward_skinning_soa``) runs only when the pose
+carries a gradient (``pose_correction.enable_pose_correction`` or
+``optimize_betas``; both off by default), which the port does not train
+yet, so nothing can be measured for it.  This works out, from the code of
+the JAX package and the shapes of :func:`default_config`, what one train
+step of 4,096 rays at step 2000 would give it:
+
+- launches: one per train step.  The correction runs in the one deform call
+  of a step that carries the pose gradient, the compacted shading query
+  (the importance rounds run without gradient, the curvature proxy queries
+  canonical points and does not deform);
+- lanes: that query's points (``query_compaction`` 0.5 + 1/16 of 4,096 x
+  (128 + 2 x 16) samples, rounded up to 128) times ``max_candidates`` (4);
+- bytes: per lane the root (12 B), the cotangents of the skinned point
+  (12 B) and of the blended rotation (36 B), the lane's validity (1 B) and
+  its 24 LBS weights (96 B, sampled from the 50 MB weight voxel, counted
+  once per lane); the 24 x 3 x 4 cotangent of ``tfs`` once;
+- operations: per lane the weight sample (8 corners x 24 x 2) and the
+  outer products into 24 x 12 entries (24 x 12 x 2), ~1,000 float32 ops.
+
+The least time the card could take is the larger of bytes over 3.35 TB/s
+and operations over 67 TFLOP/s.  K13's grid half, queued here before, is
+kernel KM, measured by ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -24,40 +36,35 @@ import json
 from chip_smoke import PEAK_BYTES, PEAK_FP32
 from intrinsicavatar_tpu_torch.utils.default_config import default_config
 
-FRAME_RAYS = 16384
+STEP_RAYS = 4096
 
 
 def queued_ops(cfg=None) -> list:
     m = (cfg or default_config()).model
-    R = int(m.ray_chunk)                            # rays per chunk
-    chunks = FRAME_RAYS // R
-    spp = int(m.samples_per_pixel)                  # scatter points per ray
-    S2 = int(m.num_samples_per_secondary_ray)
-    sub = int(m.get("secondary_shader_chunk", 32768))
-    subs = R * spp // sub                           # shader chunks
-    coarse = int(sub * S2 * float(m.secondary_query_compaction))
-    fine = int(sub * 4 * float(m.get("secondary_fine_query_compaction", 0.5)))
-    res = int(m.seed_grid_resolution)
-    grid_bytes = res ** 3 * 8 * 6 * 4               # corner-packed, 6 ch
+    S = int(m.num_samples_per_ray) + int(m.get("n_importance_rounds", 2)) \
+        * int(m.get("n_importance_samples", 16))
+    frac = float(m.get("query_compaction", 0.5)) + 0.0625
+    points = -(-int(STEP_RAYS * S * frac) // 128) * 128
+    K = int(m.deformer.rigid_deformer.deformer_config.get("max_candidates",
+                                                          4))
+    lanes = points * K
     ops = [
-        # the gather at the coarse budget, then the seed at the fine budget
-        # (12 B point in, 17 B seed + sdf out; a corner row of 192 B)
-        ("K13 grid", "intrinsicavatar_tpu/anim/seedgrid.py:173, :252",
-         2 * chunks * subs,
-         (coarse * (12 + 17) + min(grid_bytes, coarse * 192)
-          + fine * (12 + 13) + min(grid_bytes, fine * 192)) / 2,
-         (coarse + fine) * 150 / 2),
+        ("K5 bwd wrt tfs",
+         "intrinsicavatar_tpu/anim/deformer.py:396-412, "
+         "anim/broyden.py:550", 1,
+         lanes * (12 + 12 + 36 + 1 + 96) + 24 * 12 * 4,
+         lanes * (8 * 24 * 2 + 24 * 12 * 2 + 40)),
     ]
     rows = []
     for name, replaces, launches, nbytes, flops in ops:
         b_bytes = nbytes / PEAK_BYTES * 1e3
         b_ops = flops / PEAK_FP32 * 1e3
         rows.append({"name": name, "replaces": replaces,
-                     "launches_per_frame": launches,
+                     "launches_per_step": launches, "lanes": lanes,
                      "bytes_per_launch": nbytes, "flops_per_launch": flops,
                      "bound_ms_per_launch": max(b_bytes, b_ops),
                      "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                     "bound_ms_per_frame": launches * max(b_bytes, b_ops)})
+                     "bound_ms_per_step": launches * max(b_bytes, b_ops)})
     return rows
 
 

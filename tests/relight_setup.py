@@ -25,7 +25,9 @@ from intrinsicavatar_tpu_torch.render.renderer import IntrinsicAvatar
 from intrinsicavatar_tpu_torch.train import evaluate as TE
 from intrinsicavatar_tpu_torch.utils.config import merge
 from intrinsicavatar_tpu_torch.utils.default_config import tiny_config
-from intrinsicavatar_tpu_torch.weights import from_jax_params
+from intrinsicavatar_tpu_torch.weights import (
+    from_jax_params, seed_grid_from_jax,
+)
 
 
 STEP = 25000         # PBR on (the JAX launcher's step without a checkpoint)
@@ -143,29 +145,34 @@ def compare(jo, to, keys):
                       if tc.get(k) != jc.get(k)}
 
 
-def render(s, mode, key, ratio=RATIO):
+def render(s, mode, key, ratio=RATIO, jgrid=None, system=None):
     """``render_frame`` of both packages in ``mode`` with the albedo
-    alignment ``ratio``; returns ``(jax out, port out)``."""
+    alignment ``ratio`` and the JAX seed grid ``jgrid`` (carried across to
+    the port), on ``system`` (default ``s["system"]``; the JAX render keeps
+    one jit per system); returns ``(jax out, port out)``."""
     jflags = JFlags(training=False, enable_phys=True, importance_sample=True,
                     randomized=False, render_mode=mode)
-    jo = JE.render_frame(s["system"], s["jp"], s["jb"], STEP, key, jflags,
-                         ray_chunk=CHUNK, occ=s["jocc"], frame=s["jframe"],
-                         cond=s["jcond"],
-                         albedo_align_ratio=jnp.asarray(ratio))
+    jo = JE.render_frame(system or s["system"], s["jp"], s["jb"], STEP, key,
+                         jflags, ray_chunk=CHUNK, occ=s["jocc"],
+                         frame=s["jframe"], cond=s["jcond"],
+                         albedo_align_ratio=jnp.asarray(ratio),
+                         seed_grid=jgrid)
     flags = TE.eval_flags(s["cfg"].model, STEP)._replace(render_mode=mode)
     to = TE.render_frame(
         s["model"], s["statics"], s["tb"], STEP, flags, ray_chunk=CHUNK,
         occ=s["occ"], frame=s["frame"], cond=s["cond"],
         draws=chunk_draws(key, mode, R // CHUNK,
                           s["model"].samples_per_pixel),
-        albedo_align_ratio=torch.as_tensor(np.asarray(ratio)))
+        albedo_align_ratio=torch.as_tensor(np.asarray(ratio)),
+        seed_grid=None if jgrid is None else seed_grid_from_jax(jgrid))
     return jo, to
 
 
-def check_mode(s, mode):
+def check_mode(s, mode, jgrid=None, system=None):
     """One render mode end to end: the phys maps (and ``visibility`` in
     uniform_light) within TOL on MIN_FRACTION of rays, equal counters."""
-    jo, to = render(s, mode, jax.random.PRNGKey(3))
+    jo, to = render(s, mode, jax.random.PRNGKey(3), jgrid=jgrid,
+                    system=system)
     keys = PHYS + (("visibility",) if mode == "uniform_light" else ())
     assert set(keys) <= set(to)
     assert float(np.mean(to["opacity"] > 0.5)) > 0.2
@@ -173,5 +180,6 @@ def check_mode(s, mode):
     assert to["counters"]["sec_valid_samples"] > 0
     assert np.ptp(to["comp_rgb_phys_full"]) > 1e-3
     compare(jo, to, keys + ("comp_rgb_full", "opacity"))
+    return to
 
 

@@ -15,6 +15,7 @@ import torch
 
 from intrinsicavatar_tpu_torch import kernels
 from intrinsicavatar_tpu_torch.anim import broyden as TB
+from intrinsicavatar_tpu_torch.anim import seedgrid as SG
 from intrinsicavatar_tpu_torch.anim.deformer import FastSNARF
 from intrinsicavatar_tpu_torch.anim.lbs_voxel import VoxelSpec
 from intrinsicavatar_tpu_torch.nets.mlp import VanillaMLP
@@ -330,6 +331,19 @@ def _close(a, b, tol=1e-5, rtol=1e-4):
                                atol=tol * max(float(b.abs().max()), 1e-30))
 
 
+def _row_terms(x, spec, T):
+    """``[L, T, 1]``: how many (point, corner) terms each table row sums."""
+    counts = torch.zeros((spec.n_levels, T, 1), device=x.device)
+    for lvl in range(spec.n_levels):
+        c0, _ = zip(*(HG.level_coords(x[:, a], float(spec.scales[lvl]))
+                      for a in range(3)))
+        rows = HG.corner_rows(c0, int(spec.resolutions[lvl]),
+                              bool(spec.dense_levels[lvl]), T)
+        counts[lvl].index_add_(0, rows.reshape(-1),
+                               torch.ones((rows.numel(), 1), device=x.device))
+    return counts
+
+
 @pytest.mark.parametrize("include_xyz", [False, True])
 def test_hashgrid_bwd_kernel_matches_twin(cuda, include_xyz):
     spec, table, x, mask = _grid(include_xyz, 200_000, seed=11)
@@ -338,13 +352,23 @@ def test_hashgrid_bwd_kernel_matches_twin(cuda, include_xyz):
     g = rng.normal(size=(x.shape[0], spec.n_output_dims)).astype(np.float32)
     table, x, mask, g = (torch.as_tensor(a, device=cuda)
                          for a in (table, x, mask, g))
+    # the table cotangent: the kernel and the twin (index_add_) each sum a
+    # row's n terms w * g in an order that changes from run to run, so
+    # they differ by at most twice the summation error bound
+    # (n - 1) u sum |w g| of each (u = eps / 2): c = n - 1 with eps, plus 1
+    # for the terms' own rounding, so c = n, the row's term count
+    c = _row_terms(x, spec, table.shape[1])
+    eps = torch.finfo(torch.float32).eps
     for need_x in (True, False):
         before = kernels.launches["hashgrid_encode_bwd"]
         dt, dx = HG.hashgrid_encode_bwd(table, x, spec, g, mask, need_x)
         assert kernels.launches["hashgrid_encode_bwd"] == before + 1
         dt_r, dx_r = HG.hashgrid_encode_bwd_plain(table, x, spec, g, mask,
                                                   need_x)
-        _close(dt, dt_r)
+        abs_terms = HG.hashgrid_encode_bwd_plain(table, x, spec, g.abs(),
+                                                 mask, False)[0]
+        excess = (dt - dt_r).abs() - c * eps * abs_terms
+        assert float(excess.max()) <= 0.0, float(excess.max())
         assert not dt[14:].any()              # levels masked off
         if need_x:
             _close(dx, dx_r)
@@ -719,3 +743,74 @@ def test_relight_wrappers_refuse_bad_input(cuda):
         TB.broyden_polish(o, o, near.int(), vox, [0.0] * 3, [1.0] * 3)
     with pytest.raises(ValueError):
         TB.broyden_polish(o, o[:4], near > 0, vox, [0.0] * 3, [1.0] * 3)
+
+
+def _seed_grid(cuda, C, res=96, seed=16):
+    """A seed grid as a bake packs it: a smooth root field over a body-like
+    blob of valid nodes, dilated, with a second root branch in one half of
+    the blob (incoherent cells along the seam), SDF-invalid margin nodes and
+    a 96^3 lattice over a 2 m box."""
+    rng = np.random.default_rng(seed)
+    n = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    z, y, x = np.meshgrid(n, n, n, indexing="ij")
+    pts = np.stack([x, y, z], -1).reshape(-1, 3)
+    r = np.linalg.norm(pts * [1.0, 0.5, 1.5], axis=-1)
+    ok = (r < 0.7) & (rng.random(len(pts)) < 0.97)
+    xc = 0.4 * pts + 0.01 * rng.normal(size=pts.shape)
+    xc[:, 0] += np.where(pts[:, 0] > 0.1, 0.3, 0.0)
+    sdf = (r - 0.6).astype(np.float32) if C == 6 else None
+    aabb = torch.tensor([[-1.0, -1.1, -0.9], [1.0, 0.9, 1.1]], device=cuda)
+    return SG.pack_seed_grid(
+        torch.as_tensor(xc, dtype=torch.float32, device=cuda),
+        torch.as_tensor(ok, device=cuda),
+        None if sdf is None else torch.as_tensor(sdf, device=cuda),
+        aabb, res), aabb
+
+
+@pytest.mark.parametrize("C", [6, 4])
+def test_seed_gather_kernel_matches_twin(cuda, C):
+    grid, aabb = _seed_grid(cuda, C)
+    rng = np.random.default_rng(17)
+    lo, hi = aabb.cpu().numpy()
+    span = hi - lo
+    nodes = SG.lattice_points(aabb, grid.resolution)
+    pts = torch.cat([
+        nodes[torch.as_tensor(rng.choice(len(nodes), 20_000),
+                              device=cuda)],
+        torch.as_tensor(rng.uniform(lo - 0.1 * span, hi + 0.1 * span,
+                                    (300_000, 3)), dtype=torch.float32,
+                        device=cuda)]).contiguous()
+    before = kernels.launches["seed_gather"]
+    out = SG.gather_from_grid(grid, pts, 3.0)
+    assert kernels.launches["seed_gather"] == before + 1
+    ref = SG.gather_from_grid_plain(grid, pts, 3.0)
+    # the kernel sums the corners in the twin's order (-fmad=false): bools
+    # equal, floats within 1e-5 of max(|ref|, 1) entry by entry
+    assert torch.equal(out[1], ref[1])
+    assert 0.05 < ref[1].float().mean().item() < 0.95
+    _close_where(out[0], ref[0], torch.ones_like(ref[0], dtype=torch.bool))
+    if C == 6:
+        assert torch.equal(out[2] == 1e5, ref[2] == 1e5)
+        _close_where(out[2], ref[2], torch.ones_like(ref[2],
+                                                     dtype=torch.bool))
+    else:
+        assert out[2] is None and ref[2] is None
+    # a tight coherence factor makes most cells incoherent: the nearest
+    # corner's root is taken unblended, the same one on both
+    out, ref = (f(grid, pts, 0.05) for f in (SG.gather_from_grid,
+                                              SG.gather_from_grid_plain))
+    assert torch.equal(out[0], ref[0])
+
+
+def test_seedgrid_wrapper_refuses_bad_input(cuda):
+    grid, _ = _seed_grid(cuda, 6, res=8)
+    pts = torch.zeros((16, 3), device=cuda)
+    with pytest.raises(ValueError):
+        SG.gather_from_grid(grid, pts.double())
+    with pytest.raises(ValueError):
+        SG.gather_from_grid(grid, pts.T.contiguous().T)
+    with pytest.raises(ValueError):
+        SG.gather_from_grid(grid._replace(grid=grid.grid[..., :5]
+                                          .contiguous()), pts)
+    with pytest.raises(ValueError):
+        SG.gather_from_grid(grid._replace(half=grid.half.cpu()), pts)
