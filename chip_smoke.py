@@ -48,13 +48,26 @@
 7. trains: records the backward kernels' inputs in one full-width train
    step at step 2000, holds each backward kernel against its twin on them
    and times both; then, with every launch counter set to 0 just before and
-   read just after, runs ``fit`` for 5 steps from step 0 (full budgets, no
+   read just after, runs ``fit`` for 3 steps from step 0 (full budgets, no
    importance rounds, an occupancy update) and 10 from step 2000 (2 x 16
    importance samples, compacted shading, curvature on a 25% subsample),
    with the plain backward twins set to fail if called; profiles one step;
    and runs one 256-ray step on the card and on the CPU twins from the same
    parameters and draws, whose loss and gradients must agree;
-8. prints the ``kernels`` line, the serve, relight and train lines, and
+8. trains with the pose correction on (``enable_pose_correction``): records
+   KN's inputs in one full-width step at step 4,001, holds KN against its
+   twin (and two calls against each other, bit for bit) and times it
+   beside the twin and ``W.t() @ U``; with every launch counter set to 0
+   just before and read just after and the plain backward twins (KN's
+   included) set to fail if called, runs ``fit`` for 10 steps from step
+   4,001 (one KN launch a step; the pose corrections of the frames seen
+   move) and 3 from step 10,000, the phys regime at full width (512
+   scattering points, 64-step secondary rays in 32,768-ray shader chunks,
+   ``uniform_light``, with the PBR kernels' twins set to fail too);
+   profiles one phys step; and runs a 256-ray step at step 4,001 and a
+   32-ray phys step at step 10,000 on the card and on the CPU twins, whose
+   losses and gradients (the pose's included) must agree;
+9. prints the ``kernels`` line, the serve, relight and train lines, and
    last the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
@@ -72,6 +85,7 @@ import time
 import numpy as np
 
 SEED = 0
+T0 = time.perf_counter()
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -692,6 +706,7 @@ def main():
 
     relight_line = relight(rows, row, card, dev)
     train_line = train(rows, row, card, dev)
+    pose_phys_line = train_pose_phys(rows, row, card, dev)
 
     # ---------------------------------------------------------- 7. report
     print(json.dumps({
@@ -709,6 +724,9 @@ def main():
                   "searched": searched, "in_turn": in_turn}}), flush=True)
     print(json.dumps({"relight": relight_line}), flush=True)
     print(json.dumps({"train": train_line}), flush=True)
+    print(json.dumps({"train_pose_phys": pose_phys_line}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
+          file=sys.stderr, flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1463,8 +1481,171 @@ def check_step_sizes(mcfg, R):
     return nq, nsub, S
 
 
-# norm-relative tolerance of the card-vs-CPU step's gradients, by leaf
+# norm-relative tolerance of the card-vs-CPU step's gradients, by leaf: 1%,
+# but 5% for the geometry table (the curvature proxy)
 GRAD_TOL = {"geometry.table": 5e-2}
+# The pose's gradient sums every shading lane's cotangent, second-order
+# pullbacks included, which jump where a lane crosses a hash cell's face: a
+# move of the rays by rounding moves it by up to tens of percent at 256
+# rays.  It is held, within 1%, to the gradient that the card step's own KN
+# inputs give on the CPU (the twin's d tfs pulled back through the CPU
+# frame's tfs), where no lane can jump; the step-to-step reading is printed.
+CHAINED = ("pose_correction.pose",)
+# zero but for rounding: the global orient and translation corrections
+# cancel in tfs = A_0^-1 A_j tfs_inv_t (the frame is pelvis-aligned);
+# held to 1e-4 of the pose's gradient on both sides
+CANCELLED = ("pose_correction.global_orient", "pose_correction.transl")
+
+
+def pose_pullback(system, batch, step, kn_args):
+    """The pose corrections' gradients that KN's inputs ``kn_args`` give on
+    the CPU ``system``: the twin's d tfs pulled back through the tfs of the
+    frame that its train step at ``step`` prepares."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    d_tfs = B.deform_skinning_bwd_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in kn_args))
+    params = {n: p for n, p in system.model.named_parameters()
+              if n.startswith("pose_correction.")}
+    with torch.enable_grad():
+        frame, _ = system.model.prepare(system.statics,
+                                        system.to_device(batch), step,
+                                        training=True)
+        grads = torch.autograd.grad(frame.tfs, list(params.values()), d_tfs,
+                                    allow_unused=True)
+    return {n: g for n, g in zip(params, grads) if g is not None}
+
+
+def check_draws(cfg, step, R, phys, g):
+    """The draws of a train step of ``R`` rays at ``step`` past the
+    importance kick-in (the phys regime's too with ``phys``), from the CPU
+    generator ``g``; ``(draws, shading samples)``."""
+    import torch
+    nq, nsub, S = check_step_sizes(cfg.model, R)
+    compact = R * S >= 4096
+    if not compact:
+        nq = R * S
+        nsub = min(int(np.ceil(nq * float(cfg.model.get(
+            "curvature_subsample", 0.25)) / 128)) * 128, nq)
+    draws = {"bg": torch.rand(3, generator=g),
+             "strat_u": torch.rand(R, generator=g),
+             "lap_sub": torch.randint(0, nq, (nsub,), generator=g),
+             "lap_u": torch.rand(nsub, 3, generator=g)}
+    if phys:
+        spp = int(cfg.model.samples_per_pixel)
+        n1 = max(spp // 32, 1)
+        if compact:
+            draws["jit_sub"] = torch.randint(0, nq, (nsub,), generator=g)
+        draws.update({
+            "jit_noise": torch.randn(nsub if compact else nq, 3,
+                                     generator=g),
+            "sphere_u": torch.rand(2, n1, spp // n1, generator=g),
+            "strata_u": torch.rand(R, spp, generator=g)})
+    return draws, R * S
+
+
+def card_vs_cpu_step(cfg_s, step, dev, skip=("pose_correction", "emitter.",
+                                             "material.")):
+    """One train step at ``step`` on the card and on the CPU twins from the
+    same parameters, grid and draws: the loss within 1e-4, each leaf's
+    gradient within 1% of its norm (``GRAD_TOL``), the pose's against the
+    pullback of the card step's KN inputs (``CHAINED``).  Leaves starting
+    with ``skip`` are not read at that step; the material head's Lipschitz
+    parameters enter the loss with weight 0 before step 12,500."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import deformer as DF
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+
+    ds_s = SyntheticDataset(cfg_s.dataset, rng=np.random.default_rng(SEED))
+    gpu = IntrinsicAvatarSystem(cfg_s, dev).setup(ds_s.betas)
+    # noise on the SDF MLP's rows of the hash features, zero at the sphere
+    # init (the geometry table would get no gradient)
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        v = gpu.model.geometry.mlp.layers[0].v
+        v[3:] += 0.05 * torch.randn(v[3:].shape, generator=gen).to(dev)
+    b = ds_s[0]
+    t_idx = b.pop("t_idx")
+    gpu.step = step
+    gpu.occ_update_step(gpu.to_device(b), t_idx)
+    cpu = IntrinsicAvatarSystem(cfg_s, "cpu").setup(ds_s.betas)
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in gpu.model.state_dict().items()})
+    cpu.step = step
+    cpu.occ = type(gpu.occ)(*(a.cpu() for a in gpu.occ))
+    R = b["rays"].shape[0]
+    flags = gpu.flags_for_step(step)
+    draws, n_samples = check_draws(cfg_s, step, R, flags.enable_phys,
+                                   torch.Generator().manual_seed(SEED + 2))
+    rec = Recorder(DF, "deform_skinning_bwd", lambda a: a[0].shape[0])
+    try:
+        lg = gpu.train_step(gpu.to_device(b), t_idx, flags, draws)
+    finally:
+        rec.restore()
+    # before the CPU step moves the parameters
+    chained = pose_pullback(cpu, b, step, rec.best[1]) if rec.best else {}
+    tc = time.perf_counter()
+    lc = cpu.train_step(cpu.to_device(b), t_idx, cpu.flags_for_step(step),
+                        draws)
+    cpu_s = time.perf_counter() - tc
+    if int(lg["shading_total_samples"]) != n_samples:
+        fail(f"the check step at {step} has "
+             f"{int(lg['shading_total_samples'])} samples, expected "
+             f"{n_samples}")
+    loss_rel = abs(float(lg["total"]) - float(lc["total"])) \
+        / abs(float(lc["total"]))
+    grads, cancelled, step_rel = {}, {}, {}
+    cpu_params = dict(cpu.model.named_parameters())
+    gpu_params = dict(gpu.model.named_parameters())
+    for name, p in gpu_params.items():
+        if name.startswith(skip) or (name.startswith("material.")
+                                     and name.endswith(".c")):
+            continue
+        gc, gp = p.grad, cpu_params[name].grad
+        if name in CANCELLED:
+            ref = gpu_params["pose_correction.pose"].grad
+            cancelled[name] = [float(g.norm() / ref.norm())
+                               for g in (gc, gp)]
+            continue
+        if gc is None or gp is None or not torch.isfinite(gc).all() \
+                or float(gc.abs().max()) == 0.0:
+            fail(f"card step at {step}: {name} has no finite nonzero "
+                 f"gradient")
+        if name in CHAINED:
+            if name not in chained:
+                fail(f"card step at {step}: no KN call gave {name}")
+            step_rel[name] = float((gc.cpu() - gp).norm() / gp.norm())
+            gp = chained[name]
+        grads[name] = float((gc.cpu() - gp).norm() / gp.norm())
+    print(f"card vs CPU-twin step of {R} rays at step {step} (CPU "
+          f"{cpu_s:.1f} s): loss {float(lg['total']):.7g} vs "
+          f"{float(lc['total']):.7g} (rel {loss_rel:.2e}); gradient rel "
+          f"errors {json.dumps(grads)} (the pose's against the pullback of "
+          f"the card's KN inputs; against the CPU step's, not held: "
+          f"{json.dumps(step_rel)}); cancelled leaves {cancelled}",
+          flush=True)
+    # the loss within 1e-4; each leaf's gradient within 1% of its norm
+    # (atomics and cuBLAS sum in other orders), the geometry table's
+    # within 5% (GRAD_TOL): near the initial sphere the curvature proxy,
+    # arccos of a dot within ~1e-6 of 1, dominates the table's gradient
+    # and its f32 rounding moves with every reordered sum (2.6% between
+    # the CPU twins and JAX too, tests/test_torch_train.py)
+    if not loss_rel <= 1e-4:
+        fail(f"card and CPU-twin losses disagree at step {step}: "
+             f"{loss_rel}")
+    bad = {k: v for k, v in grads.items()
+           if not v <= GRAD_TOL.get(k, 1e-2)}
+    bad.update({k: v for k, v in cancelled.items() if max(v) > 1e-4})
+    if bad:
+        fail(f"card and CPU-twin gradients disagree at step {step}: {bad}")
+    return {"rays": R, "step": step, "loss_rel": loss_rel,
+            "grad_rel": grads, "pose_step_rel": step_rel,
+            "cancelled_rel": cancelled, "cpu_s": cpu_s}
+
+
 BWD_NAMES = ("hashgrid_encode_bwd", "encode_mlp_sdfgrad_bwd_gather",
              "encode_mlp_sdfgrad_bwd_scatter", "volrend_composite_bwd")
 
@@ -1618,14 +1799,11 @@ def train(rows, row, card, dev):
 
     # ------------------------------------------------ train phase
     system.setup(ds.betas)
-    trips = [Tripwire(HG, "hashgrid_encode_bwd_plain"),
-             Tripwire(EG, "encode_mlp_sdfgrad_bwd_gather_plain"),
-             Tripwire(EG, "encode_mlp_sdfgrad_bwd_scatter_plain"),
-             Tripwire(V, "composite_bwd_plain")]
+    trips = tripwires(TWINS)
     regimes = []
     torch.cuda.synchronize()
     kernels.reset_launches()
-    for start, n_steps in ((0, 5), (2000, 10)):
+    for start, n_steps in ((0, 3), (2000, 10)):
         system.step = start
         stamps = [time.perf_counter()]
         torch.cuda.reset_peak_memory_stats()
@@ -1678,75 +1856,251 @@ def train(rows, row, card, dev):
     print(json.dumps({"train_profile": profile_line}), flush=True)
 
     # ------------------------------------------------ card vs CPU twins
-    cfg_s = merge(cfg, {"dataset": {"n_rays": 256}})
-    ds_s = SyntheticDataset(cfg_s.dataset, rng=np.random.default_rng(SEED))
-    gpu = IntrinsicAvatarSystem(cfg_s, dev).setup(ds_s.betas)
-    # noise on the SDF MLP's rows of the hash features, zero at the sphere
-    # init (the geometry table would get no gradient)
-    gen = torch.Generator().manual_seed(SEED)
-    with torch.no_grad():
-        v = gpu.model.geometry.mlp.layers[0].v
-        v[3:] += 0.05 * torch.randn(v[3:].shape, generator=gen).to(dev)
-    cpu = IntrinsicAvatarSystem(cfg_s, "cpu").setup(ds_s.betas)
-    cpu.model.load_state_dict(gpu.model.state_dict())
-    b = ds_s[0]
-    t_idx = b.pop("t_idx")
-    gpu.step = cpu.step = 2000
-    gpu.occ_update_step(gpu.to_device(b), t_idx)
-    cpu.occ = type(gpu.occ)(*(a.cpu() for a in gpu.occ))
-    R = b["rays"].shape[0]
-    nq, nsub, S = check_step_sizes(cfg_s.model, R)
-    g = torch.Generator().manual_seed(SEED + 2)
-    draws = {"bg": torch.rand(3, generator=g),
-             "strat_u": torch.rand(R, generator=g),
-             "lap_sub": torch.randint(0, nq, (nsub,), generator=g),
-             "lap_u": torch.rand(nsub, 3, generator=g)}
-    lg = gpu.train_step(gpu.to_device(b), t_idx, gpu.flags_for_step(2000),
-                        draws)
-    tc = time.perf_counter()
-    lc = cpu.train_step(cpu.to_device(b), t_idx, cpu.flags_for_step(2000),
-                        draws)
-    cpu_s = time.perf_counter() - tc
-    if int(lg["shading_total_samples"]) != R * S:
-        fail(f"the check step has {int(lg['shading_total_samples'])} "
-             f"samples, expected {R * S}")
-    loss_rel = abs(float(lg["total"]) - float(lc["total"])) \
-        / abs(float(lc["total"]))
-    grads = {}
-    cpu_params = dict(cpu.model.named_parameters())
-    for name, p in gpu.model.named_parameters():
-        # the radiance regime reads neither the emitter nor the material
-        # head (its Lipschitz bounds enter the loss with weight 0 until
-        # step 12,500)
-        if name.startswith(("pose_correction", "emitter.", "material.")):
-            continue
-        gc, gp = p.grad, cpu_params[name].grad
-        if gc is None or gp is None or not torch.isfinite(gc).all() \
-                or float(gc.abs().max()) == 0.0:
-            fail(f"card step: {name} has no finite nonzero gradient")
-        grads[name] = float((gc.cpu() - gp).norm() / gp.norm())
-    print(f"card vs CPU-twin step of {R} rays (CPU {cpu_s:.1f} s): loss "
-          f"{float(lg['total']):.7g} vs {float(lc['total']):.7g} "
-          f"(rel {loss_rel:.2e}); gradient rel errors {json.dumps(grads)}",
-          flush=True)
-    # the loss within 1e-4; each leaf's gradient within 1% of its norm
-    # (atomics and cuBLAS sum in other orders), the geometry table's within
-    # 5%: near the initial sphere the curvature proxy, arccos of a dot
-    # within ~1e-6 of 1, dominates that gradient and its f32 rounding moves
-    # with every reordered sum (2.6% between the CPU twins and JAX too,
-    # tests/test_torch_train.py)
-    if not loss_rel <= 1e-4:
-        fail(f"card and CPU-twin losses disagree: {loss_rel}")
-    bad = {k: v for k, v in grads.items()
-           if not v <= GRAD_TOL.get(k, 1e-2)}
-    if bad:
-        fail(f"card and CPU-twin gradients disagree: {bad}")
+    cpu_check = card_vs_cpu_step(merge(cfg, {"dataset": {"n_rays": 256}}),
+                                 2000, dev)
     return {"regimes": regimes, "launches": launches, "card": card,
             "profile": {k: profile_line[k] for k in (
                 "step_wall_ms", "device_busy_ms", "device_idle_share",
                 "device_launches")},
-            "cpu_check": {"rays": R, "loss_rel": loss_rel,
-                          "grad_rel": grads}}
+            "cpu_check": cpu_check}
+
+
+POSE_START = 4001    # the first step the pose corrections move
+PHYS_START = 10000   # phys_kick_in_step of the default config
+TWINS = (("hashgrid", "hashgrid_encode_bwd_plain"),
+         ("encode_grad", "encode_mlp_sdfgrad_bwd_gather_plain"),
+         ("encode_grad", "encode_mlp_sdfgrad_bwd_scatter_plain"),
+         ("volrend", "composite_bwd_plain"),
+         ("broyden", "deform_skinning_bwd_plain"))
+PBR_TWINS = (("resample", "cdf_resample_rays_plain"),
+             ("resample", "sdf_fine_resample_rays_plain"),
+             ("resample", "fine_resample_rays_plain"),
+             ("grid_traversal", "secondary_march_plain"),
+             ("broyden", "broyden_polish_plain"))
+
+
+def tripwires(pairs):
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import grid_traversal as G
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    from intrinsicavatar_tpu_torch.ops import resample as RS
+    from intrinsicavatar_tpu_torch.ops import volrend as V
+    mods = {"hashgrid": HG, "encode_grad": EG, "volrend": V, "broyden": B,
+            "resample": RS, "grid_traversal": G}
+    return [Tripwire(mods[m], name) for m, name in pairs]
+
+
+def check_kn(rows, row, system, data, dev):
+    """KN's inputs from one full-width train step at step 4,001 with the
+    pose correction on; KN against its function summed in float64, each
+    entry within the rounding bound of KN's summation order
+    (``deform_skinning_bwd_exact``), two calls bit for bit, each planted
+    fault refused; timed beside its twin and beside ``W.t() @ U``, the
+    product that is its reduction.  Returns KN's row."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    from intrinsicavatar_tpu_torch.anim import deformer as DF
+
+    rec = Recorder(DF, "deform_skinning_bwd", lambda a: a[0].shape[0])
+    batch, t_idx = next(data)
+    batch = system.to_device(batch)
+    system.step = POSE_START
+    system.occ_update_step(batch, t_idx)
+    system.train_step(batch, t_idx, system.flags_for_step(POSE_START))
+    torch.cuda.synchronize()
+    rec.restore()
+    if rec.best is None:
+        fail("no deform_skinning_bwd call in a train step with the pose "
+             "correction on")
+    args = rec.best[1]
+    xc, valid, jinv, g_xc, g_rot, lbs_cl, spec = args
+    M = xc.shape[0]
+    out_k = B.deform_skinning_bwd(*args)
+    out_k2 = B.deform_skinning_bwd(*args)
+    out_p = B.deform_skinning_bwd_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, out_k2):
+        fail("deform_skinning_bwd differs between two calls")
+    exact, limit = B.deform_skinning_bwd_exact(*args)
+    ratio = lambda o: ((o.double() - exact)[:, :3].abs()
+                       / limit[:, :3].clamp(min=1e-300)).max().item()
+    if B.deform_skinning_bwd_refused(out_k, exact, limit):
+        fail(f"deform_skinning_bwd is off its float64 sum by more than "
+             f"its rounding bound: worst error / bound {ratio(out_k)}")
+    faults = {k: ratio(v) for k, v in B.deform_skinning_bwd_faults(
+        *args, out_k, limit).items()}
+    passed = [k for k, v in faults.items() if not v > 1.0]
+    if passed:
+        fail(f"the KN check passes planted faults: {passed}")
+    err = (out_k - out_p).abs().max().item()
+    W, U, _ = B.skin_bwd_terms(*args)
+    W, U = W.float().contiguous(), U.float().contiguous()
+    # the weight voxel's rows the lanes' 8 corners touch, each once
+    D, H, W_ = spec.shape_dhw
+    c = spec.normalize(xc)
+    i0 = [torch.floor(torch.clamp((c[:, k] + 1.0) * 0.5 * (n - 1), 0.0,
+                                  n - 1.0)).long()
+          for k, n in enumerate((W_, H, D))]
+    corners = [((torch.clamp(i0[2] + dz, max=D - 1) * H
+                 + torch.clamp(i0[1] + dy, max=H - 1)) * W_
+                + torch.clamp(i0[0] + dx, max=W_ - 1))
+               for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+    rows_read = int(torch.unique(torch.cat(corners)).numel())
+    row("deform_skinning_bwd", "cuda",
+        "intrinsicavatar_tpu_torch/csrc/deform.cu",
+        "intrinsicavatar_tpu/anim/deformer.py:396", f"xc[{M}, 3]", err,
+        time_ms(lambda: B.deform_skinning_bwd(*args)),
+        time_ms(lambda: B.deform_skinning_bwd_plain(*args), 3),
+        # root, validity, J^-1 and the two cotangents read once, the
+        # weight voxel's touched rows once, d tfs written once
+        M * (12 + 1 + 36 + 12 + (36 if g_rot is not None else 0))
+        + rows_read * 24 * 4 + 24 * 16 * 4,
+        M * (8 * 24 * 2 + 24 * 12 * 2 + 40),
+        # the reduction alone, on the gathered weights
+        time_ms(lambda: W.t() @ U))
+    print(f"KN at {M} lanes ({rows_read} of {D * H * W_} weight rows "
+          f"read): worst error / rounding bound {ratio(out_k):.3g} "
+          f"(the twin {ratio(out_p):.3g}); planted faults' worst error / "
+          f"bound {json.dumps(faults)}; bit-equal over two calls",
+          flush=True)
+    return rows[-1]
+
+
+def run_regime(system, data, start, n_steps, cfg):
+    """``fit`` for ``n_steps`` from ``start``: step seconds, rays/s, peak
+    memory, the losses, and the frames seen."""
+    import torch
+    seen = set()
+
+    def frames():
+        for batch, t_idx in data:
+            seen.add(int(np.asarray(batch["index"]).reshape(-1)[0]))
+            yield batch, t_idx
+
+    system.step = start
+    stamps = [time.perf_counter()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = system.fit(frames(), start + n_steps, log_every=1,
+                      callback=lambda s, sc: stamps.append(
+                          time.perf_counter()))
+    torch.cuda.synchronize()
+    steps_s = np.diff(stamps).tolist()
+    keys = ["total", "rgb_l1", "eikonal", "mask_bce", "curvature"]
+    if "rgb_phys_l1" in hist[-1][1]:
+        keys += ["rgb_phys_l1", "rgb_demodulated", "normal_orientation",
+                 "albedo_smoothness"]
+    line = {"from_step": start, "steps": n_steps, "step_s": steps_s,
+            "rays_per_s": cfg.dataset.n_rays * n_steps / sum(steps_s),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "losses": {k: [h[1][k] for h in hist] for k in keys},
+            "counters": {k: v for k, v in hist[-1][1].items()
+                         if k.startswith(("ovf_", "shading_", "sec_"))}}
+    for k, v in line["losses"].items():
+        if not np.all(np.isfinite(v)):
+            fail(f"train from step {start}: {k} is not finite: {v}")
+    return line, sorted(seen)
+
+
+def train_pose_phys(rows, row, card, dev):
+    """Step 8: pose-correction and phys-regime training.  KN against its
+    twin; 10 steps from step 4,001 and 3 from step 10,000 at full width
+    with the pose correction on and the plain backward (and PBR) twins set
+    to fail if called, with the launches counted, one phys step profiled;
+    the card-vs-CPU steps at 4,001 (256 rays) and 10,000 (32 rays).
+    Returns the line."""
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils.config import merge
+    from intrinsicavatar_tpu_torch.utils.default_config import train_config
+
+    cfg = merge(train_config(), {"model": {"pose_correction": {
+        "enable_pose_correction": True}}})
+    ds = SyntheticDataset(cfg.dataset, rng=np.random.default_rng(SEED))
+    data = ds.train_iter(np.random.default_rng(SEED + 1))
+    system = IntrinsicAvatarSystem(cfg, dev).setup(ds.betas)
+    kn_row = check_kn(rows, row, system, data, dev)
+
+    # ------------------------------------------------ pose regime
+    system.setup(ds.betas)
+    trips = tripwires(TWINS)
+    kernels.reset_launches()
+    pose, seen = run_regime(system, data, POSE_START, 10, cfg)
+    launches = dict(kernels.launches)
+    for t in trips:
+        t.restore()
+    if any(t.calls for t in trips):
+        fail(f"plain backward twins ran on the card: "
+             f"{[(t.name, t.calls) for t in trips if t.calls]}")
+    kn_row["launches"] = int(launches.get("deform_skinning_bwd", 0))
+    if kn_row["launches"] != 10:
+        fail(f"deform_skinning_bwd launched {kn_row['launches']} times in "
+             f"10 steps")
+    missing = [n for n in BWD_NAMES if not launches.get(n)]
+    if missing:
+        fail(f"backward kernels not launched in the pose regime: {missing}")
+    corr = system.model.pose_correction.pose.detach()
+    moved = {i: float(corr[i].abs().max()) for i in seen}
+    if not all(v > 0 for v in moved.values()):
+        fail(f"pose corrections of the frames seen did not move: {moved}")
+    pose.update({"launches": launches, "frames_seen": seen,
+                 "pose_correction_max_abs": moved})
+    print(json.dumps({"pose_regime": pose}), flush=True)
+
+    # ------------------------------------------------ phys regime
+    system.setup(ds.betas)
+    trips = tripwires(TWINS + PBR_TWINS)
+    kernels.reset_launches()
+    try:
+        phys, _ = run_regime(system, data, PHYS_START, 3, cfg)
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"a full-width phys step does not fit on the card "
+             f"({torch.cuda.max_memory_allocated()} bytes allocated at "
+             f"the peak): {e}")
+    launches = dict(kernels.launches)
+    for t in trips:
+        t.restore()
+    if any(t.calls for t in trips):
+        fail(f"plain twins ran on the card in the phys regime: "
+             f"{[(t.name, t.calls) for t in trips if t.calls]}")
+    need = BWD_NAMES + ("deform_skinning_bwd", "cdf_resample",
+                        "fine_resample", "secondary_march", "broyden_polish")
+    missing = [n for n in need if not launches.get(n)]
+    if missing:
+        fail(f"kernels not launched in the phys regime: {missing}")
+    phys["launches"] = launches
+    print(json.dumps({"phys_regime": phys}), flush=True)
+    wall_ms, by_kernel = profile_device(
+        lambda: system.fit(data, system.step + 1, log_every=1))
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    phys_profile = {
+        "step": system.step - 1, "step_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_launches": sum(cnt for _, cnt in by_kernel.values()),
+        "top": [[k[:70], ms, cnt] for k, (ms, cnt) in top]}
+    print(json.dumps({"phys_profile": phys_profile}), flush=True)
+    del system
+
+    # ------------------------------------------------ card vs CPU twins
+    checks = [
+        card_vs_cpu_step(merge(cfg, {"dataset": {"n_rays": 256}}),
+                         POSE_START, dev, skip=("emitter.", "material.",
+                                                "pose_correction.betas")),
+        card_vs_cpu_step(merge(cfg, {"dataset": {"n_rays": 32}}),
+                         PHYS_START, dev, skip=("pose_correction.betas",))]
+    return {"pose_regime": pose, "phys_regime": phys, "card": card,
+            "phys_profile": {k: phys_profile[k] for k in (
+                "step_wall_ms", "device_busy_ms", "device_idle_share",
+                "device_launches")},
+            "cpu_checks": checks}
+
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ for CUDA tensors and takes its plain twin only for CPU tensors:
   started at a seed root, KC's loop body for a few iterations;
 - :func:`deform_epilogue` (kernel KH): duplicate filter, overflow count and
   first-K survivors, then, where asked, :func:`deform_skinning` (KH's second
-  stage): the LBS-weight sample and the forward-skinning rotation.
+  stage): the LBS-weight sample and the forward-skinning rotation;
+- :func:`deform_skinning_bwd` (kernel KN, ``csrc/deform.cu``): the
+  cotangent of ``tfs`` from the train-mode correction and the rotation.
 
 Nothing here copies the TPU layouts (SoA state, corner-packed tables, lane
 compaction).
@@ -32,6 +34,9 @@ INIT_BONES = np.array([0, 1, 2, 4, 5, 10, 11, 12, 15, 16, 17, 18, 19],
                       dtype=np.int64)
 N_BONES = 24
 MAX_INIT = 16   # kMaxInit of csrc/deform.cu
+SKIN_BWD_TILE = N_BONES * 12   # kTile of csrc/deform.cu: lanes a tile
+SKIN_BWD_BLOCKS = 4 * 132      # KN's pass-1 blocks: 4 a streaming
+#                                multiprocessor of an H100
 
 
 def grid_sample_3d(vox_cl: torch.Tensor, shape_dhw, coords: torch.Tensor,
@@ -450,3 +455,186 @@ def deform_skinning(xc, lbs_cl, spec, tfs) -> torch.Tensor:
     kernels.check(err, "deform_skinning")
     kernels.launches["deform_skinning"] += 1
     return rot
+
+
+def skin_bwd_blocks(M: int) -> int:
+    """KN's pass-1 block count for ``M`` lanes: fixed for a given ``M``,
+    so that its sums run in one order."""
+    return max(1, min(-(-M // SKIN_BWD_TILE), SKIN_BWD_BLOCKS))
+
+
+def deform_skinning_bwd_plain(xc, valid, jinv, g_xc, g_rot, lbs_cl,
+                              spec) -> torch.Tensor:
+    """Plain twin of :func:`deform_skinning_bwd`: autograd through
+    :func:`forward_skinning` of the JAX correction (`anim/deformer.py:
+    396-412` of the JAX package).  The function is linear in ``tfs``, so
+    its cotangent does not depend on where it is taken."""
+    with torch.enable_grad():
+        tfs = torch.zeros((N_BONES, 4, 4), dtype=xc.dtype, device=xc.device,
+                          requires_grad=True)
+        weights = grid_sample_3d(lbs_cl, spec.shape_dhw, spec.normalize(xc),
+                                 padding="border")
+        xd, rot = forward_skinning(xc, weights, tfs)
+        r = xd - xd.detach()
+        vf = valid.to(xc.dtype)[:, None]
+        corr = -vf * torch.einsum("mab,mb->ma", jinv.reshape(-1, 3, 3), r)
+        loss = torch.sum(corr * g_xc)
+        if g_rot is not None:
+            loss = loss + torch.sum(rot * g_rot)
+        (d_tfs,) = torch.autograd.grad(loss, tfs)
+    return d_tfs
+
+
+def deform_skinning_bwd(xc, valid, jinv, g_xc, g_rot, lbs_cl,
+                        spec) -> torch.Tensor:
+    """Cotangent ``d_tfs [24, 4, 4]`` of the train-mode correction
+    ``x_c - v J^-1 (x_d(x_c, tfs) - sg(x_d))`` and of the blended rotation
+    rows (:func:`deform_skinning`) at the detached roots ``xc [M, 3]``, for
+    the cotangents ``g_xc [M, 3]`` of the corrected roots and ``g_rot [M,
+    9]`` (or None) of the rotation; ``valid [M]``, ``jinv [M, 9]``
+    row-major, ``lbs_cl`` and ``spec`` as :func:`deform_skinning`.  Kernel
+    KN (``csrc/deform.cu``) for CUDA tensors, its plain twin for CPU
+    tensors."""
+    if xc.device.type == "cpu":
+        return deform_skinning_bwd_plain(xc, valid, jinv, g_xc, g_rot,
+                                         lbs_cl, spec)
+    dev = xc.device
+    M = xc.shape[0]
+    D, H, W = spec.shape_dhw
+    kernels.require(xc, "xc", torch.float32, dev, (M, 3))
+    kernels.require(valid, "valid", torch.bool, dev, (M,))
+    kernels.require(jinv, "jinv", torch.float32, dev, (M, 9))
+    kernels.require(g_xc, "g_xc", torch.float32, dev, (M, 3))
+    if g_rot is not None:
+        kernels.require(g_rot, "g_rot", torch.float32, dev, (M, 9))
+    kernels.require(lbs_cl, "lbs_cl", torch.float32, dev,
+                    (D * H * W, N_BONES))
+    if lbs_cl.data_ptr() % 16:
+        raise ValueError("lbs_cl must be 16-byte aligned")
+    G = skin_bwd_blocks(M)
+    partial = torch.empty((G, SKIN_BWD_TILE), dtype=torch.float32,
+                          device=dev)
+    d_tfs = torch.empty((N_BONES, 4, 4), dtype=torch.float32, device=dev)
+    err = kernels.lib("deform").deform_skinning_bwd(
+        xc.data_ptr(), valid.data_ptr(), jinv.data_ptr(), g_xc.data_ptr(),
+        g_rot.data_ptr() if g_rot is not None else None, lbs_cl.data_ptr(),
+        M, D, H, W, *(float(v) for v in spec.offset), float(spec.scale),
+        float(spec.ratio), partial.data_ptr(), G, d_tfs.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check(err, "deform_skinning_bwd")
+    kernels.launches["deform_skinning_bwd"] += 1
+    return d_tfs
+
+
+def skin_bwd_terms(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec):
+    """``(W [M, 24], U [M, 12], |U| bound [M, 12])`` of KN's function in
+    float64: the weights are the float32 sample that KN takes (the twin's
+    blend, each coordinate divided by the scale as the kernel divides it);
+    ``Uabs = |J^-1|^T |g| |x^| + |R|`` bounds the magnitudes that KN's
+    float32 U rounds."""
+    M, f64 = xc.shape[0], torch.float64
+    off = torch.as_tensor(np.asarray(spec.offset, np.float32),
+                          device=xc.device)
+    coords = (xc - off) / torch.full_like(xc, float(spec.scale))
+    coords = coords * torch.tensor([1.0, 1.0, spec.ratio],
+                                   dtype=torch.float32, device=xc.device)
+    W = grid_sample_3d(lbs_cl, spec.shape_dhw, coords,
+                       padding="border").to(f64)
+    J = jinv.to(f64).reshape(M, 3, 3)
+    g = g_xc.to(f64)
+    v = valid.to(f64)[:, None]
+    xh = torch.cat([xc.to(f64), torch.ones((M, 1), dtype=f64,
+                                           device=xc.device)], -1)
+    U = (-v * torch.einsum("mba,mb->ma", J, g))[:, :, None] \
+        * xh[:, None, :]
+    Uabs = (v * torch.einsum("mba,mb->ma", J.abs(), g.abs()))[:, :, None] \
+        * xh.abs()[:, None, :]
+    if g_rot is not None:
+        R = g_rot.to(f64).reshape(M, 3, 3)
+        U[:, :, :3] += R
+        Uabs[:, :, :3] += R.abs()
+    return W, U.reshape(M, 12), Uabs.reshape(M, 12)
+
+
+def deform_skinning_bwd_exact(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec):
+    """KN's function summed in float64, and each entry's bound on KN's
+    float32 rounding: ``(d_tfs [24, 4, 4], limit [24, 4, 4])``, float64.
+
+    KN rounds each term ``w U`` (its U within 5 eps of ``Uabs``, the
+    product within 1 eps) and sums the terms in a fixed order: block ``g``
+    of :func:`skin_bwd_blocks` takes tiles ``g, g + G, ...`` of
+    ``SKIN_BWD_TILE`` lanes and adds their terms lane by lane, then one
+    thread adds the ``G`` block sums in turn.  A recursive sum rounds by at
+    most eps times the sum of its running sums' magnitudes (Higham,
+    *Accuracy and Stability of Numerical Algorithms*, section 4.2), so
+
+        limit = eps (1.01 sum_k |S_k| + 32 sum_m |w_m| Uabs_m)
+
+    over KN's running sums ``S_k`` of both passes (1.01: the computed
+    running sums for the exact ones); 32 eps per term also covers a weight
+    that differs from the twin's by rounding."""
+    W, U, Uabs = skin_bwd_terms(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec)
+    M, E = xc.shape[0], N_BONES * 12
+    T, G = SKIN_BWD_TILE, skin_bwd_blocks(M)
+    dev, f64 = xc.device, torch.float64
+    run = torch.zeros((G, E), dtype=f64, device=dev)
+    run_abs = torch.zeros(E, dtype=f64, device=dev)
+    lane = torch.arange(G * T, device=dev)
+    for lo in range(0, M, G * T):
+        # one tile a block: lane g T + l of this round is in block g's tile
+        n = min(G * T, M - lo)
+        terms = torch.zeros((G * T, E), dtype=f64, device=dev)
+        terms[:n] = (W[lo:lo + n, :, None] * U[lo:lo + n, None, :]
+                     ).reshape(n, E)
+        chain = run[:, None, :] + terms.reshape(G, T, E).cumsum(1)
+        # the padding's zero terms add nothing and round nothing
+        run_abs += (chain.abs() * (lane < n).reshape(G, T, 1)).sum((0, 1))
+        run = chain[:, -1]
+    run_abs += run.cumsum(0).abs().sum(0)
+    mag = (W.abs().t() @ Uabs).reshape(E)
+    limit = 2.0 ** -24 * (1.01 * run_abs + 32.0 * mag)
+    d_tfs = torch.zeros((N_BONES, 4, 4), dtype=f64, device=dev)
+    d_tfs[:, :3] = (W.t() @ U).reshape(N_BONES, 3, 4)
+    lim = torch.zeros_like(d_tfs)
+    lim[:, :3] = limit.reshape(N_BONES, 3, 4)
+    return d_tfs, lim
+
+
+def deform_skinning_bwd_faults(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec,
+                               out, limit):
+    """Wrong answers that a check of KN against
+    :func:`deform_skinning_bwd_exact` must refuse, by name: all zeros, bone
+    0 alone, KN without its position term, without its rotation term (when
+    it has a nonzero one), and without the tile of ``SKIN_BWD_TILE`` lanes
+    that moves an entry most against its ``limit``."""
+    M, T = xc.shape[0], SKIN_BWD_TILE
+    args = (xc, valid, jinv, g_xc, g_rot, lbs_cl, spec)
+    faults = {"zeros": torch.zeros_like(out),
+              "bone 0 alone": torch.cat([out[:1],
+                                         torch.zeros_like(out[1:])])}
+    faults["no position term"] = deform_skinning_bwd(
+        xc, valid, jinv, torch.zeros_like(g_xc), g_rot, lbs_cl, spec)
+    if g_rot is not None and bool(g_rot.any()):
+        faults["no rotation term"] = deform_skinning_bwd(
+            xc, valid, jinv, g_xc, None, lbs_cl, spec)
+    W, U, _ = skin_bwd_terms(*args)
+    n_tiles = -(-M // T)
+    pad = n_tiles * T - M
+    Wt = torch.nn.functional.pad(W, (0, 0, 0, pad)).reshape(n_tiles, T, -1)
+    Ut = torch.nn.functional.pad(U, (0, 0, 0, pad)).reshape(n_tiles, T, -1)
+    per_tile = (Wt.transpose(1, 2) @ Ut).reshape(n_tiles, -1)
+    lim = limit[:, :3].reshape(-1).clamp(min=1e-300)
+    tile = int((per_tile.abs() / lim).amax(1).argmax())
+    keep = torch.ones(M, dtype=torch.bool, device=xc.device)
+    keep[tile * T:(tile + 1) * T] = False
+    faults[f"tile {tile} dropped"] = deform_skinning_bwd(
+        *(a[keep] if a is not None else None for a in args[:5]), lbs_cl,
+        spec)
+    return faults
+
+
+def deform_skinning_bwd_refused(out, exact, limit) -> bool:
+    """Whether ``out`` is refused: an entry of rows 0-2 off ``exact`` by
+    more than ``limit``, or row 3 not zero."""
+    err = (out.to(torch.float64) - exact)[:, :3].abs()
+    return bool((err > limit[:, :3]).any()) or bool(out[:, 3].any())

@@ -1,5 +1,5 @@
 """Articulated deformers: Fast-SNARF rigid inverse skinning + facade
-(counterpart of the JAX package's ``anim/deformer.py``, eval mode).
+(counterpart of the JAX package's ``anim/deformer.py``).
 
 Once-per-sequence state lives in :class:`DeformerStatics`, per-frame state
 in :class:`FrameState` (from :meth:`FastSNARF.prepare`).  A point query
@@ -12,7 +12,11 @@ the field outputs pass through the candidate compaction's scatter and the
 min-SDF gather.  A seeded query (:meth:`FastSNARF.deform_seeded`: the
 secondary fine pass, and at eval every query the seed grid answers)
 replaces the search with one polish lane per point started at a known root
-(kernel KL).
+(kernel KL).  In train mode, with a pose that carries a gradient (pose
+correction or optimized betas), the roots take the implicit-function
+correction of the JAX package (`anim/deformer.py:396-412`): their value is
+unchanged, and their cotangent, with that of the blended rotation, reaches
+``tfs`` through kernel KN (:class:`_SkinningCorrection`).
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from torch import nn
 
 from intrinsicavatar_tpu_torch.anim.broyden import (
     INIT_BONES, broyden_polish, broyden_search, channel_last,
-    deform_epilogue, deform_prologue, deform_skinning, segment_table,
+    deform_epilogue, deform_prologue, deform_skinning, deform_skinning_bwd,
+    segment_table,
 )
 from intrinsicavatar_tpu_torch.anim.lbs_voxel import (
     make_voxel_spec, make_weight_voxel, precompute_transform_voxels,
@@ -58,7 +63,9 @@ class FrameState(NamedTuple):
     """Per-frame tensors produced by ``prepare``."""
 
     tfs: torch.Tensor         # [24, 4, 4] canonical -> SMPL-space transforms
-    w2s: torch.Tensor         # [4, 4] world -> SMPL (pelvis-aligned)
+    #                           (with the pose's autograd graph, if any)
+    w2s: torch.Tensor         # [4, 4] world -> SMPL (pelvis-aligned); the
+    #                           transforms below read it detached
     voxel_d: torch.Tensor     # [3, D, H, W] forward-skinned voxel centers
     voxel_J: torch.Tensor     # [D, H, W, 12] blended 3x4 transform voxel,
     #                           channel-last for the Broyden kernels
@@ -131,7 +138,12 @@ class FastSNARF(nn.Module):
 
     def prepare(self, statics: DeformerStatics,
                 smpl_params: dict) -> FrameState:
-        """SMPL forward + transform baking (`snarf_deformer.py:81-126`)."""
+        """SMPL forward + transform baking (`snarf_deformer.py:81-126`).
+
+        Under autograd ``tfs`` carries the graph from the pose corrections;
+        the baked voxels are built from it detached, since the search reads
+        them without gradient (`anim/deformer.py:245-296` of the JAX
+        package)."""
         betas = smpl_params["betas"].reshape(-1)[:10]
         if self.optimize_betas:
             betas = betas + smpl_params["betas_correction"].reshape(-1)[:10]
@@ -145,7 +157,8 @@ class FastSNARF(nn.Module):
                            transl)
         w2s = rigid_inverse(out.A[0, 0])
         tfs = torch.einsum("ab,jbc,jcd->jad", w2s, out.A[0], statics.tfs_inv_t)
-        voxel_d, voxel_J = precompute_transform_voxels(statics.lbs_voxel, tfs,
+        voxel_d, voxel_J = precompute_transform_voxels(statics.lbs_voxel,
+                                                       tfs.detach(),
                                                        self.spec)
         verts = out.vertices[0] @ w2s[:3, :3].T + w2s[:3, 3]
         joints = out.joints[0] @ w2s[:3, :3].T + w2s[:3, 3]
@@ -159,18 +172,19 @@ class FastSNARF(nn.Module):
     # ---------------------------------------------------------- transforms
 
     def transform_rays_w2s(self, frame: FrameState, rays):
-        """World rays ``[R, 8]`` -> SMPL-space rays; near/far = ||o|| -+ 1."""
-        w2s = frame.w2s
+        """World rays ``[R, 8]`` -> SMPL-space rays; near/far = ||o|| -+ 1.
+        The transform is detached (`snarf_deformer.py:128-143`)."""
+        w2s = frame.w2s.detach()
         o = rays[:, :3] @ w2s[:3, :3].T + w2s[:3, 3]
         d = rays[:, 3:6] @ w2s[:3, :3].T
         dist = torch.linalg.vector_norm(o, dim=-1, keepdim=True)
         return torch.cat([o, d, dist - 1.0, dist + 1.0], dim=-1)
 
     def transform_dirs_w2s(self, frame: FrameState, d):
-        return safe_normalize(d @ frame.w2s[:3, :3].T)
+        return safe_normalize(d @ frame.w2s.detach()[:3, :3].T)
 
     def transform_dirs_s2w(self, frame: FrameState, d):
-        return safe_normalize(d @ frame.w2s[:3, :3])
+        return safe_normalize(d @ frame.w2s.detach()[:3, :3])
 
     def get_bbox_deformed(self, frame: FrameState):
         """SMPL-space bbox of the forward-skinned voxel grid, ``[2, 3]``."""
@@ -185,9 +199,12 @@ class FastSNARF(nn.Module):
         N = pts.shape[0]
         I = self.n_init
         n_all = len(INIT_BONES)
+        # all without gradient (`anim/deformer.py:245-296` of the JAX
+        # package)
+        pts = pts.detach()
         xd = torch.repeat_interleave(pts, I, dim=0)
         init_bones = torch.as_tensor(INIT_BONES, device=pts.device)
-        tfs_table = frame.tfs[init_bones].contiguous()           # [13, 4, 4]
+        tfs_table = frame.tfs.detach()[init_bones].contiguous()  # [13, 4, 4]
         if I >= n_all:
             slot = torch.arange(n_all, dtype=torch.int32,
                                 device=pts.device).repeat(N)
@@ -241,17 +258,12 @@ class FastSNARF(nn.Module):
         feature)`` (the last three when ``geometry_fn`` returns them), with
         invalid points carrying sdf = 1e5.  A ``geometry_fn`` that returns
         gradients needs ``with_jac``: the rotation that takes them to
-        observation space is blended only then.
+        observation space is blended only then.  In train mode with a
+        ``frame.tfs`` that requires a gradient the roots and the rotation
+        carry it (:class:`_SkinningCorrection`); otherwise the correction is
+        zero in value and in gradient, so train mode gives the eval-mode
+        outputs.
         """
-        if not eval_mode and frame.tfs.requires_grad:
-            # the implicit-function correction (`anim/deformer.py:396-412`
-            # of the JAX package) carries gradient to the pose only
-            raise NotImplementedError(
-                "train-mode deform with a pose that requires a gradient "
-                "(pose correction or optimized betas) needs the backward of "
-                "the LBS blend with respect to tfs (K5), which is queued")
-        # without a pose gradient the correction is zero in value and in
-        # gradient, so train mode gives the eval-mode outputs
         N = pts.shape[0]
         I, K = self.n_init, min(self.max_candidates, self.n_init)
         res = self.search(statics, frame, pts)
@@ -259,12 +271,20 @@ class FastSNARF(nn.Module):
         record(counters, "ovf_broyden_phase2",
                torch.zeros((), dtype=torch.int64, device=pts.device))
         # the blended rotation is read only by a gradient query without J^-1
-        ep = deform_epilogue(res, I, K, with_jac and not self.use_j_inv,
+        need_rot = with_jac and not self.use_j_inv
+        pose_grad = not eval_mode and frame.tfs.requires_grad \
+            and torch.is_grad_enabled()
+        ep = deform_epilogue(res, I, K, need_rot and not pose_grad,
                              statics.lbs_cl, self.spec,
-                             frame.tfs.contiguous())
+                             frame.tfs.detach().contiguous())
         record(counters, "ovf_candidates", ep.overflow)
-        c2w = ep.j_inv if self.use_j_inv else ep.fwd_rot          # [M, 9]
-        return self._finish_query(N, K, ep.xc, c2w, ep.valid, geometry_fn,
+        xc, rot = ep.xc, ep.fwd_rot
+        if pose_grad:
+            xc, rot = _SkinningCorrection.apply(
+                ep.xc, ep.j_inv, ep.valid, frame.tfs, statics.lbs_cl,
+                self.spec, need_rot)
+        c2w = ep.j_inv if self.use_j_inv else rot                 # [M, 9]
+        return self._finish_query(N, K, xc, c2w, ep.valid, geometry_fn,
                                   boost, counters)
 
     def deform_seeded(self, statics: DeformerStatics, frame: FrameState, pts,
@@ -291,7 +311,7 @@ class FastSNARF(nn.Module):
             c2w = res.j_inv
         elif with_jac:
             c2w = deform_skinning(res.x, statics.lbs_cl, self.spec,
-                                  frame.tfs.contiguous())
+                                  frame.tfs.detach().contiguous())
         else:
             c2w = None
         # the lanes were compacted by the caller and are mostly valid: no
@@ -330,6 +350,35 @@ class FastSNARF(nn.Module):
             feat = torch.where(valid_flat[:, None], ret[2], 0.0)
             out.append(feat[sel])
         return out
+
+
+class _SkinningCorrection(torch.autograd.Function):
+    """``(xc [M, 3], jinv [M, 9], valid [M], tfs [24, 4, 4]) -> (xc,
+    rot [M, 9])``: the detached roots unchanged in value, and, with
+    ``need_rot``, the blended LBS rotation rows (kernel KH's skinning).
+    The backward gives ``tfs`` the cotangent of the correction ``xc - v
+    J^-1 (x_d(xc, tfs) - sg(x_d))`` and of the rotation (kernel KN); the
+    roots, ``jinv`` and ``valid`` get none, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, xc, jinv, valid, tfs, lbs_cl, spec, need_rot):
+        ctx.spec, ctx.need_rot = spec, need_rot
+        ctx.save_for_backward(xc, jinv, valid, lbs_cl)
+        rot = (deform_skinning(xc, lbs_cl, spec, tfs.detach().contiguous())
+               if need_rot else None)
+        return xc.clone(), rot
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_xc, g_rot):
+        xc, jinv, valid, lbs_cl = ctx.saved_tensors
+        d_tfs = None
+        if ctx.needs_input_grad[3]:
+            d_tfs = deform_skinning_bwd(
+                xc, valid, jinv, g_xc.contiguous(),
+                g_rot.contiguous() if ctx.need_rot and g_rot is not None
+                else None, lbs_cl, ctx.spec)
+        return None, None, None, d_tfs, None, None, None
 
 
 def _fill_for(i, o):

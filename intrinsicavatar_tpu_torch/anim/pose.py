@@ -39,9 +39,14 @@ class PoseCorrection(nn.Module):
         self.transl = nn.Parameter(torch.zeros(n, 3))
         self.betas = nn.Parameter(torch.zeros(1, 10))
 
+    def active(self, global_step) -> bool:
+        """The corrections enter the pose (and get a gradient) at this
+        step: enabled and past ``pose_correction_start_step``."""
+        return bool(self.enable) and global_step > self.start_step
+
     def forward(self, index, global_step=0):
         idx = torch.as_tensor(index, device=self.pose.device).reshape(-1)[:1]
-        on = float(self.enable) * float(global_step > self.start_step)
+        on = float(self.active(global_step))
         return {
             "betas_correction": self.betas * on,
             "global_orient_correction": self.global_orient[idx] * on,

@@ -62,11 +62,15 @@ class VolumeRefDirRadiance(BBoxNormalized):
         return sh_band_mask(global_step, 4, self.sh_start_step,
                             self.sh_full_band_step, device=device)
 
+    def encode(self, points, level_mask=None):
+        """The xyz features alone (the JAX ``feature_only`` call)."""
+        return hashgrid_encode(self.table,
+                               self._normalize(points).contiguous(),
+                               self.spec, level_mask)
+
     def forward(self, points, features, dirs, normals, level_mask=None,
                 sh_mask=None):
-        xyz_embd = hashgrid_encode(self.table,
-                                   self._normalize(points).contiguous(),
-                                   self.spec, level_mask)
+        xyz_embd = self.encode(points, level_mask)
         ref = reflect(-dirs, normals)
         dirs_embd = spherical_harmonics(ref, self.sh_degree)
         if sh_mask is not None:

@@ -78,7 +78,9 @@ SIGNATURES = {
         "deform_prologue_fwd": (P, P, P, I64, I32, I32, P, P),
         "deform_epilogue_fwd": (P, P, P, I64, I32, I32, F32, P, P, P, P, P),
         "deform_skinning_fwd": (P, P, P, I64, I32, I32, I32, F32, F32, F32,
-                                F32, F32, P, P)},
+                                F32, F32, P, P),
+        "deform_skinning_bwd": (P, P, P, P, P, P, I64, I32, I32, I32, F32,
+                                F32, F32, F32, F32, P, I32, P, P)},
     "seedgrid": {
         "seed_gather_fwd": (P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P)},
 }

@@ -17,15 +17,19 @@ the physically based maps are rendered) and a train run
 :func:`train_config` (the same model, 4096 rays per step); a ``--config``
 YAML is merged onto the default config (validate, test, predict; eval step
 5000, or 25,000 for test and predict, unless ``trainer.eval_step`` says
-otherwise) or onto :func:`train_config` (train).  An eval run at a step
+otherwise; in float32, said on stderr, since the bf16 scopes are not ported)
+or onto :func:`train_config` (train).  An eval run at a step
 from ``model.phys_kick_in_step`` (10,000) on renders the PBR maps; a test
 run whose frames carry an ``albedo`` fits the albedo alignment ratio first.
 Every eval frame bakes its seed grid once (``model.eval_seed_grid``, on by
 default; ``model.eval_seed_grid=false`` renders by the searched path).
-Training runs the radiance regime from step 0 and prints the losses every
-``trainer.log_every_n_steps`` steps.  ``--params`` loads an ``.npz`` of the
-JAX parameter tree flattened to dotted keys (as :func:`weights.flatten_tree`
-names them); without it the parameters are random, drawn from the config's
+Training runs from step 0 to ``trainer.max_steps`` (25,000; the phys
+regime from ``model.phys_kick_in_step``) and prints the losses every
+``trainer.log_every_n_steps`` steps;
+``model.pose_correction.enable_pose_correction=true`` trains the per-frame
+pose corrections from ``pose_correction_start_step`` (4,000) on.
+``--params`` loads an ``.npz`` of the JAX parameter tree flattened to
+dotted keys (as :func:`weights.flatten_tree` names them); without it the parameters are random, drawn from the config's
 seed.  The run is on ``cuda`` unless ``--device`` names another device.
 """
 
@@ -76,6 +80,14 @@ def main(argv=None):
     if args.config:
         cfg = merge(train_config() if train else default_config(),
                     load_yaml(args.config))
+        if not train:
+            # the bf16 scopes are not ported: the YAML's model runs in
+            # float32 (an explicit override to bfloat16 still raises)
+            cfg = merge(cfg, {"model": {"primary_dtype": "float32",
+                                        "secondary_coarse_dtype": "float32"}})
+            print("--config: the bf16 scopes are not ported yet; this run "
+                  "sets model.primary_dtype=float32 and "
+                  "model.secondary_coarse_dtype=float32", file=sys.stderr)
     if args.overrides:
         cfg = apply_dotlist(cfg, args.overrides)
     cfg = resolve(cfg)

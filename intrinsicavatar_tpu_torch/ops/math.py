@@ -3,6 +3,8 @@ package's ``ops/math.py`` that the path runs)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -72,3 +74,29 @@ def rigid_inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
     ti = -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3])
     return transform_mat(Rt, ti)
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luminance of linear RGB, ``[..., 3] -> [..., 1]``."""
+    w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=rgb.dtype,
+                     device=rgb.device)
+    return torch.sum(rgb * w, -1, keepdim=True)
+
+
+def luma(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.601 luma of the demodulated radiance, ``[..., 3] -> [..., 1]``."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype,
+                     device=rgb.device)
+    return torch.sum(rgb * w, -1, keepdim=True)
+
+
+def gaussian_histogram(x: torch.Tensor, bins: int, lo: float, hi: float,
+                       sigma: torch.Tensor) -> torch.Tensor:
+    """Soft (Gaussian-kernel) histogram ``[bins]`` of ``x`` flattened."""
+    delta = float(hi - lo) / float(bins)
+    centers = lo + delta * (torch.arange(bins, dtype=x.dtype,
+                                         device=x.device) + 0.5)
+    d = x.reshape(-1)[None, :] - centers[:, None]
+    k = torch.exp(-0.5 * (d / sigma) ** 2) \
+        / (sigma * math.sqrt(2.0 * math.pi)) * delta
+    return torch.sum(k, 1)

@@ -1,5 +1,5 @@
 """Physically based shading: scattering points and secondary rays
-(counterpart of the JAX package's ``render/pbr.py``, eval mode).
+(counterpart of the JAX package's ``render/pbr.py``).
 
 - :func:`sample_volume_interaction` draws ``spp`` scattering points per ray
   (kernel KI) and reuses the primary pass's normals and materials there;
@@ -15,7 +15,11 @@
   stratified sphere, shuffled per ray), ``light`` (emitter sampling),
   ``mats`` (BRDF sampling) and ``mis`` (both, MIS-weighted).
 
-The whole stage runs without gradient, as the eval render does.  Its
+The scattering-point draw and the secondary rays run without autograd (the
+JAX package's ``stop_gradient``, the reference's ``torch.no_grad``); in
+training gradients reach the materials and normals through
+``scatterer.eval``, the emitter through its radiance, and the primary
+weights through the Monte-Carlo weights and the kd/ks composition.  Its
 randomness comes through ``draws`` (see :func:`pbr_forward`) or from a
 ``torch.Generator``.  The bf16 scopes are not ported yet.
 """
@@ -53,8 +57,9 @@ def sample_volume_interaction(rays_o, rays_d, t_starts, t_ends, smask,
                               spp: int) -> VolumeInteractions:
     """`models/pbr/utils.py:70-229` of the reference, rectangular."""
     out = RS.cdf_resample_rays(t_starts.contiguous(), t_ends.contiguous(),
-                               weights.contiguous(), sdf.contiguous(),
-                               smask.contiguous(), spp)
+                               weights.detach().contiguous(),
+                               sdf.detach().contiguous(), smask.contiguous(),
+                               spp)
     idx = out.indices.long()
     take = lambda a: torch.gather(a, 1, idx)
     w_fg = take(weights) / torch.clamp(take(out.fg_counts).to(weights.dtype),
@@ -257,6 +262,10 @@ def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
     R, S = t_starts.shape
     B = model.samples_per_pixel
     dev = rays_o.device
+    mode = flags.render_mode
+    if flags.training and mode != "uniform_light":
+        raise NotImplementedError(f"render_mode {mode!r} in training is not "
+                                  f"ported yet (uniform_light is)")
     trans_map = 1.0 - V.accumulate_along_rays(weights, None, smask)[..., 0]
     vi = sample_volume_interaction(rays_o, rays_d, t_starts, t_ends, smask,
                                    weights, sdf, normals_smpl,
@@ -271,15 +280,15 @@ def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
     fg = ~vi.is_bg.reshape(-1)
     emitter, scatterer = model.emitter, model.scatterer
     rigid = model.deformer.rigid
-    mode = flags.render_mode
     brdf = (n_i, wi)
     mat_args = (rough, rough, alb, metal, atten)
 
     def light_terms(dirs, active):
-        tr, ind_rgb = compute_indirect_radiance(
-            model, statics, frame, cond, sched, occ.binaries[lvl],
-            occ.aabbs[lvl], pos_i, dirs, step, flags, active, counters,
-            seed_grid)
+        with torch.no_grad():
+            tr, ind_rgb = compute_indirect_radiance(
+                model, statics, frame, cond, sched, occ.binaries[lvl],
+                occ.aabbs[lvl], pos_i.detach(), dirs.detach(), step, flags,
+                active, counters, seed_grid)
         tr = torch.clamp(tr, 0.0, 1.0)[:, None]
         em = emitter(rigid.transform_dirs_s2w(frame, dirs))
         em = torch.where((active & (tr[:, 0] > 0.0))[:, None], em, 0.0)

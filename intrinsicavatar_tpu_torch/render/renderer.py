@@ -12,13 +12,18 @@ differentiated (kernels KB', KA', KD' in the backward).  With
 albedo / roughness / metallic maps are composited, and ``render/pbr.py``
 renders the physically based maps.
 
+In the phys training regime the material head also shades a jittered clone
+of (a subsample of) the shading lanes for the smoothness losses, and the
+normal-orientation map is composited; the PBR stage's secondary pass runs
+without autograd (the JAX package's ``stop_gradient``).
+
 At eval a per-frame seed grid (:meth:`IntrinsicAvatar.bake_seed_grid`,
 ``anim/seedgrid.py``; on by default, ``eval_seed_grid``) answers the
 importance rounds' SDF from its gather (kernel KM, ``baked_importance``) and
 seeds the shading pass's inverse skinning, polished by kernel KL for
 ``seed_grid_polish_iters`` in place of the multi-init search;
-``eval_seed_grid: false`` gives the searched path.  The phys training
-regime and the bf16 scopes come with later slices.
+``eval_seed_grid: false`` gives the searched path.  The bf16 scopes come
+with a later slice.
 
 Randomness is passed in through ``draws`` (a dict; see :meth:`forward`) or
 drawn from a ``torch.Generator``, so a caller can reproduce another
@@ -145,15 +150,22 @@ class IntrinsicAvatar(nn.Module):
 
     # ------------------------------------------------------------- frame
 
-    @torch.no_grad()
-    def prepare(self, statics, batch, global_step=0):
-        """Pose correction + SMPL forward + transform baking + pose cond."""
-        corr = self.pose_correction(batch["index"], global_step)
-        smpl_params = {k: batch[k] for k in
-                       ("betas", "body_pose", "global_orient", "transl")}
-        smpl_params.update(corr)
-        frame = self.deformer.prepare(statics, smpl_params)
-        cond = self.pose_encoder(frame.rot_mats, frame.joints[None])
+    def prepare(self, statics, batch, global_step=0, training=False):
+        """Pose correction + SMPL forward + transform baking + pose cond.
+
+        With ``training`` and the pose correction active at ``global_step``
+        the frame's ``tfs`` carries the autograd graph from the corrections
+        (the JAX train step prepares inside its ``value_and_grad``);
+        otherwise the frame is built without autograd."""
+        grad = (training and torch.is_grad_enabled()
+                and self.pose_correction.active(global_step))
+        with torch.set_grad_enabled(grad):
+            corr = self.pose_correction(batch["index"], global_step)
+            smpl_params = {k: batch[k] for k in
+                           ("betas", "body_pose", "global_orient", "transl")}
+            smpl_params.update(corr)
+            frame = self.deformer.prepare(statics, smpl_params)
+            cond = self.pose_encoder(frame.rot_mats, frame.joints[None])
         return frame, cond
 
     def schedules(self, step, device):
@@ -388,23 +400,22 @@ class IntrinsicAvatar(nn.Module):
         ``intervals`` (from :meth:`sample_intervals`) skips the sampling
         stage.  ``draws`` may hold ``strat_u [R]``, the curvature
         subsample's lane indices ``lap_sub [n]`` and its directions' U[0, 1)
-        draws ``lap_u [n, 3]``, and the PBR stage's draws
-        (:func:`render.pbr.pbr_forward`); what it lacks is drawn from
-        ``generator``.  With ``enable_phys`` the output adds the material
-        maps ``comp_albedo / comp_roughness / comp_metallic`` (the albedo
-        scaled by ``albedo_align_ratio [3]`` when given) and, unless
-        ``albedo_only``, ``comp_rgb_phys``, ``comp_demod_phys`` and
-        ``visibility``, each with its ``*_full`` map; ``emitter_state``
-        replaces the emitter's sampling tables.  ``seed_grid`` (from
+        draws ``lap_u [n, 3]``, the jittered material clone's lane
+        subsample ``jit_sub [n]`` and N(0, 1) offsets ``jit_noise [n, 3]``,
+        and the PBR stage's draws (:func:`render.pbr.pbr_forward`); what it
+        lacks is drawn from ``generator``.  With ``enable_phys`` the output
+        adds the material maps ``comp_albedo / comp_roughness /
+        comp_metallic`` (the albedo scaled by ``albedo_align_ratio [3]``
+        when given) and, unless ``albedo_only``, ``comp_rgb_phys``,
+        ``comp_demod_phys`` and ``visibility``, each with its ``*_full``
+        map (in training also the ``*_loss_map`` outputs of the smoothness
+        and normal-orientation losses); ``emitter_state`` replaces the
+        emitter's sampling tables.  ``seed_grid`` (from
         :meth:`bake_seed_grid`, eval only) answers the importance rounds and
         the secondary coarse pass and seeds the shading and fine passes.
         Eval renders run without autograd; a training render is
         differentiable in every parameter it reads.
         """
-        if flags.enable_phys and flags.training:
-            raise NotImplementedError("the phys training regime (PBR "
-                                      "losses, material jitter) comes with "
-                                      "a later slice")
         if flags.training and seed_grid is not None:
             raise NotImplementedError("the seed grid serves eval renders "
                                       "only (train_seed_grid is not "
@@ -511,26 +522,44 @@ class IntrinsicAvatar(nn.Module):
                                        level_mask=sched["rad_mask"],
                                        sh_mask=sched["sh_mask"])
 
-        mats = None
+        mats = mats_q = mats_jitter = jsub = None
         if flags.enable_phys:
-            if self.material_feature == "geometry":
-                mat_feat = feat
-            elif self.material_feature == "radiance":
-                mat_feat = rgb_feat
-            else:
-                mat_feat = torch.cat([rgb_feat, feat], -1)
-            mats = self.material(mat_feat)
+            mats = self.material(self._material_features(feat, rgb_feat))
             if albedo_align_ratio is not None:
                 # the fitted per-channel ratio aligns the albedo the relight
                 # uses (`models/intrinsic_avatar.py:1114-1115`)
                 mats = torch.cat([mats[:, :3] * albedo_align_ratio[None, :],
                                   mats[:, 3:]], -1)
+            mats_q = mats
+            if flags.training and flags.jitter_materials:
+                # the jittered clone for the smoothness losses, on the
+                # compacted path on a with-replacement subsample of the
+                # lanes (an unbiased estimator of the means they read;
+                # `render/renderer.py:674-713` of the JAX package)
+                nq = pos_cano.shape[0]
+                frac_j = float(self.config.get("smoothness_subsample", 0.25))
+                if use_compact and frac_j < 1.0:
+                    nsub = min(max(int(np.ceil(nq * frac_j / 128.0)) * 128,
+                                   128), nq)
+                    jsub = get_draw(draws, "jit_sub",
+                                    lambda g: torch.randint(0, nq, (nsub,),
+                                                            generator=g),
+                                    generator, dev).to(torch.int64)
+                    mats_jitter = self._jitter_materials(
+                        pos_cano[jsub], sched, draws, generator)
+                else:
+                    mats_jitter = self._jitter_materials(pos_cano, sched,
+                                                         draws, generator)
 
+        n_mat = 0 if mats is None else mats.shape[-1]
+        pack_jitter = mats_jitter is not None and jsub is None
         if use_compact:
             # one packed row scatter back to the rectangular [R*S] layout
             cols = [rgbs, sdf_grad, sdf[:, None]]
             if mats is not None:
                 cols.append(mats)
+            if pack_jitter:
+                cols.append(mats_jitter)
             packed = torch.cat(cols, -1)
             packed = torch.where(spicked[:, None], packed, 0.0)
             full = torch.zeros((Mfull, packed.shape[-1]), dtype=packed.dtype,
@@ -538,7 +567,9 @@ class IntrinsicAvatar(nn.Module):
             full[sidx] = packed
             rgbs, sdf_grad, sdf = full[:, :3], full[:, 3:6], full[:, 6]
             if mats is not None:
-                mats = full[:, 7:]
+                mats = full[:, 7:7 + n_mat]
+            if pack_jitter:
+                mats_jitter = full[:, 7 + n_mat:]
             picked_full = torch.zeros(Mfull, dtype=torch.bool, device=dev)
             picked_full[sidx] = spicked
             smask = smask & picked_full.reshape(R, S)
@@ -608,4 +639,73 @@ class IntrinsicAvatar(nn.Module):
             if laplace is not None:
                 out_dict["sdf_laplace_samples"] = laplace
                 out_dict["laplace_mask"] = laplace_mask
+            if flags.enable_phys:
+                jit = None if jsub is None else (
+                    jsub, mats_q, mats_jitter, sidx, spicked)
+                out_dict.update(self._phys_loss_maps(
+                    rays_d, safe_normalize(sdf_grad).reshape(R, S, 3),
+                    weights, smask, mats,
+                    mats_jitter if jsub is None else None, jit))
         return out_dict
+
+    def _material_features(self, feat, rgb_feat):
+        if self.material_feature == "geometry":
+            return feat
+        if self.material_feature == "radiance":
+            return rgb_feat
+        return torch.cat([rgb_feat, feat], -1)
+
+    def _jitter_materials(self, pos, sched, draws, generator):
+        """The material head at ``pos`` moved by N(0, 0.01^2) offsets
+        (``draws["jit_noise"]``), from its own geometry and radiance
+        encodes."""
+        noise = get_draw(draws, "jit_noise",
+                         lambda g: torch.randn(pos.shape, generator=g),
+                         generator, pos.device)
+        pos_j = pos + noise * 0.01
+        feat_j = self.geometry.features(pos_j, sched["geo_mask"])
+        rgb_feat_j = None
+        if self.material_feature != "geometry":
+            rgb_feat_j = self.radiance.encode(pos_j, sched["rad_mask"])
+        return self.material(self._material_features(feat_j, rgb_feat_j))
+
+    @staticmethod
+    def _phys_loss_maps(rays_d, normals, weights, smask, mats, mats_jitter,
+                        jit):
+        """The per-ray maps of the normal-orientation and smoothness losses
+        (`render/renderer.py:809-861` of the JAX package): ``mats_jitter``
+        ``[R*S, C]`` beside ``mats``, or the subsampled clone ``jit = (jsub,
+        compacted mats, clone, sidx, spicked)``, whose estimator of the
+        per-ray mean is a scalar; no clone, zero maps."""
+        R = rays_d.shape[0]
+        orient = torch.clamp(torch.sum(rays_d[:, None, :] * normals, -1,
+                                       keepdim=True), min=0.0)
+        out = {"normals_orientation_loss_map":
+               V.accumulate_along_rays(weights, orient, smask)}
+
+        def smooth(v, vj):
+            base = torch.clamp(torch.maximum(v, vj), min=1e-6)
+            return torch.sum(((v - vj) / base) ** 2, -1, keepdim=True)
+
+        parts = (("albedo", slice(0, 3)), ("roughness", slice(3, 4)),
+                 ("metallic", slice(4, None)))
+        if jit is not None:
+            # (lanes / R) x the subset's mean of weight x smoothness
+            jsub, mats_q, clone, sidx, spicked = jit
+            w_sub = weights.reshape(-1)[sidx[jsub]][:, None] \
+                * spicked[jsub][:, None].to(weights.dtype)
+            scale = mats_q.shape[0] / R
+            for k, sl in parts:
+                out[f"{k}_smoothness_loss_map"] = scale * torch.mean(
+                    w_sub * smooth(mats_q[jsub][:, sl], clone[:, sl]))
+        elif mats_jitter is not None:
+            m = mats.reshape(R, -1, mats.shape[-1])
+            mj = mats_jitter.reshape(R, -1, mats.shape[-1])
+            for k, sl in parts:
+                out[f"{k}_smoothness_loss_map"] = V.accumulate_along_rays(
+                    weights, smooth(m[..., sl], mj[..., sl]), smask)
+        else:
+            z = torch.zeros((R, 1), dtype=weights.dtype,
+                            device=weights.device)
+            out.update({f"{k}_smoothness_loss_map": z for k, _ in parts})
+        return out

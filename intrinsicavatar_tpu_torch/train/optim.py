@@ -58,3 +58,18 @@ def make_optimizer(model, optimizer_cfg, scheduler_cfg,
         opt, lambda k: lr_schedule(k, 1.0, warmup_steps, start, milestones,
                                    gamma))
     return opt, sched
+
+
+def step_every_leaf(optimizer) -> None:
+    """``optimizer.step()`` as optax updates: every leaf each step, a leaf
+    without a gradient (one the loss did not read) with a zero one, so its
+    Adam count and moments run on (a leaf first read at a later step, the
+    pose corrections at 4,001 or the material head at the phys kick-in,
+    then sees JAX's bias correction).  ``.grad`` stays None for it."""
+    unread = [p for g in optimizer.param_groups for p in g["params"]
+              if p.grad is None]
+    for p in unread:
+        p.grad = torch.zeros_like(p)
+    optimizer.step()
+    for p in unread:
+        p.grad = None

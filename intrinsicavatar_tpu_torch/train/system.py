@@ -1,6 +1,8 @@
 """The training system: loss assembly, the train step, the occupancy cadence
-and the training loop (counterpart of the JAX package's ``train/system.py``,
-radiance regime).
+and the training loop (counterpart of the JAX package's ``train/system.py``):
+the radiance regime, and from ``phys_kick_in_step`` the phys regime in
+``uniform_light``; with pose correction the per-frame corrections train from
+``pose_correction_start_step`` on (kernel KN in the backward).
 
 One step (``train_step``): the sampling stage without gradient, then the
 differentiated shading pass, the losses, ``loss.backward()`` (kernels KA',
@@ -10,8 +12,10 @@ functional ``TrainState``, the parameters, the optimizer and the occupancy
 grid live on the system and are updated in place.
 
 Randomness is passed in through ``draws`` (``bg`` [3], ``strat_u`` [R],
-``lap_sub`` [n], ``lap_u`` [n, 3] for a step; ``occ_u`` [res^3, 1, 3] for an
-occupancy update) or drawn from the system's ``torch.Generator``.
+``lap_sub`` [n], ``lap_u`` [n, 3] for a step, in the phys regime also
+``jit_sub``, ``jit_noise``, ``sphere_u`` and ``strata_u`` (see
+:meth:`IntrinsicAvatar.forward`); ``occ_u`` [res^3, 1, 3] for an occupancy
+update) or drawn from the system's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import time
 import numpy as np
 import torch
 
-from intrinsicavatar_tpu_torch.ops.math import linear_to_srgb
+from intrinsicavatar_tpu_torch.ops.math import (
+    gaussian_histogram, linear_to_srgb, luma, luminance,
+)
 from intrinsicavatar_tpu_torch.ops.volrend import distortion_loss
 from intrinsicavatar_tpu_torch.registry import register
 from intrinsicavatar_tpu_torch.render.occupancy import (
@@ -31,7 +37,9 @@ from intrinsicavatar_tpu_torch.render.occupancy import (
 from intrinsicavatar_tpu_torch.render.renderer import (
     IntrinsicAvatar, RenderFlags, get_draw,
 )
-from intrinsicavatar_tpu_torch.train.optim import make_optimizer
+from intrinsicavatar_tpu_torch.train.optim import (
+    make_optimizer, step_every_leaf,
+)
 from intrinsicavatar_tpu_torch.train.schedules import C, lr_schedule_host
 from intrinsicavatar_tpu_torch.utils.device import resolve_device
 from intrinsicavatar_tpu_torch.weights import from_jax_params
@@ -121,6 +129,9 @@ class IntrinsicAvatarSystem:
                 "importance_sample_kick_in_step", 1000),
             randomized=training and mcfg.get("randomized", True),
             with_curvature_loss=C(self.loss_cfg.lambda_curvature, step) > 0,
+            jitter_materials=C(self.loss_cfg.lambda_albedo_smoothness,
+                               step) > 0,
+            render_mode=mcfg.get("render_mode", "uniform_light"),
             # full query budgets while the grid is still mostly occupied
             full_budget=training and step < mcfg.get(
                 "compaction_warmup_steps", 512),
@@ -129,19 +140,23 @@ class IntrinsicAvatarSystem:
     # ------------------------------------------------------------ losses
 
     def compute_losses(self, out, batch, step: int, flags: RenderFlags):
-        """The radiance-regime terms of `systems/intrinsic_avatar.py:
-        160-301` (masked, rectangular); ``(loss, {name: value})``."""
-        if flags.enable_phys:
-            raise NotImplementedError("the PBR losses come with a later "
-                                      "slice")
+        """The terms of `systems/intrinsic_avatar.py:160-301` (masked,
+        rectangular), the PBR ones in the phys regime; ``(loss, {name:
+        value})``."""
         L = self.loss_cfg
         losses = {}
+        loss = 0.0
         valid = out["rays_valid"][..., 0]
-        diff = out["comp_rgb_full"] - batch["rgb"]
-        losses["rgb_mse"] = masked_mean(diff ** 2, valid)
-        losses["rgb_l1"] = masked_mean(torch.abs(diff), valid)
-        loss = losses["rgb_mse"] * C(L.lambda_rgb_mse, step) \
-            + losses["rgb_l1"] * C(L.lambda_rgb_l1, step)
+        if not (self.config.system.get("pbr_loss_only", False)
+                and flags.enable_phys):
+            diff = out["comp_rgb_full"] - batch["rgb"]
+            losses["rgb_mse"] = masked_mean(diff ** 2, valid)
+            losses["rgb_l1"] = masked_mean(torch.abs(diff), valid)
+            loss = losses["rgb_mse"] * C(L.lambda_rgb_mse, step) \
+                + losses["rgb_l1"] * C(L.lambda_rgb_l1, step)
+        if flags.enable_phys and self.config.model.get("learn_material",
+                                                        True):
+            loss = loss + self._phys_image_losses(out, batch, step, losses)
 
         # Eikonal over all marching samples (deformer-invalid samples carry
         # the unit fill gradient and contribute 0)
@@ -188,10 +203,78 @@ class IntrinsicAvatarSystem:
         losses["lipshitz_bound"] = self.model.lipschitz_bound()
         loss = loss + losses["lipshitz_bound"] * C(L.lambda_lipshitz_bound,
                                                    step)
+        if flags.enable_phys:
+            loss = loss + self._phys_regularizers(out, step, losses)
         losses.update(out.get("counters", {}))
         losses["beta"] = out["beta"]
         losses["total"] = loss
         return loss, losses
+
+    def _phys_image_losses(self, out, batch, step, losses):
+        """The physically based image terms (`train/system.py:178-204` of
+        the JAX package): the rendered image against the target (over
+        every ray with ``add_emitter``, whose target is the unmasked
+        image), its demodulated luma against the target's max channel, and
+        the albedo where the frames carry one."""
+        L = self.loss_cfg
+        vphys = out["rays_valid_phys_full"][..., 0]
+        add_emitter = self.model.add_emitter
+        target = batch.get("rgb_wo_mask", batch["rgb"]) if add_emitter \
+            else batch["rgb"]
+        dphys = out["comp_rgb_phys_full"] - target
+        if add_emitter:
+            losses["rgb_phys_mse"] = torch.mean(dphys ** 2)
+            losses["rgb_phys_l1"] = torch.mean(torch.abs(dphys))
+        else:
+            losses["rgb_phys_mse"] = masked_mean(dphys ** 2, vphys)
+            losses["rgb_phys_l1"] = masked_mean(torch.abs(dphys), vphys)
+        loss = losses["rgb_phys_mse"] * C(L.lambda_rgb_phys_mse, step) \
+            + losses["rgb_phys_l1"] * C(L.lambda_rgb_phys_l1, step)
+        demod = torch.abs(luma(out["comp_demod_phys_full"])
+                          - torch.amax(batch["rgb"], -1, keepdim=True))
+        losses["rgb_demodulated"] = masked_mean(demod, vphys)
+        loss = loss + losses["rgb_demodulated"] * C(L.lambda_rgb_demodulated,
+                                                    step)
+        if C(L.lambda_albedo, step) > 0 and "albedo" in batch:
+            losses["albedo"] = masked_mean(
+                torch.abs(out["comp_albedo_full"] - batch["albedo"]), vphys)
+            loss = loss + losses["albedo"] * C(L.lambda_albedo, step)
+        return loss
+
+    def _phys_regularizers(self, out, step, losses):
+        """Normal orientation, the three smoothness terms, the albedo
+        entropy and the energy conservation (`train/system.py:247-286` of
+        the JAX package)."""
+        L = self.loss_cfg
+        loss = 0.0
+        for k in ("normal_orientation", "albedo_smoothness",
+                  "roughness_smoothness", "metallic_smoothness"):
+            key = "normals_orientation" if k == "normal_orientation" else k
+            losses[k] = torch.mean(out[f"{key}_loss_map"])
+            loss = loss + losses[k] * C(getattr(L, f"lambda_{k}"), step)
+        vphys = out["rays_valid_phys_full"][..., 0]
+        n_valid = torch.clamp(vphys.sum(), min=1).to(torch.float32)
+        if C(L.lambda_albedo_entropy, step) > 0:
+            alb = torch.log(out["comp_albedo_full"] + 1e-6)
+            ent = 0.0
+            for i in range(3):
+                ch = torch.where(vphys, alb[..., i], 0.0)
+                mean = torch.sum(ch) / n_valid
+                var = torch.sum(torch.where(vphys, (alb[..., i] - mean) ** 2,
+                                            0.0)) / n_valid
+                h = gaussian_histogram(ch, 15, 0.0, 1.0,
+                                       torch.clamp(var, min=1e-4))
+                h = h / torch.clamp(h.sum(), min=1e-6) + 1e-6
+                ent = ent + torch.sum(-h * torch.log(h))
+            losses["albedo_entropy"] = ent
+            loss = loss + ent * C(L.lambda_albedo_entropy, step)
+        if out["comp_metallic_full"].shape[-1] == 3:
+            ec = torch.relu(luminance(out["comp_albedo_full"])
+                            + luminance(out["comp_metallic_full"]) - 1.0)
+            losses["energy_conservation"] = masked_mean(ec, vphys)
+            loss = loss + losses["energy_conservation"] * C(
+                L.lambda_energy_conservation, step)
+        return loss
 
     # ------------------------------------------------------------ steps
 
@@ -213,7 +296,8 @@ class IntrinsicAvatarSystem:
         fg = batch["alpha"][..., None]
         rgb = batch["rgb"] * fg + linear_to_srgb(bg)[None, :] * (1.0 - fg)
         batch = {**batch, "rgb_wo_mask": batch["rgb"], "rgb": rgb}
-        frame, cond = self.model.prepare(self.statics, batch, step)
+        frame, cond = self.model.prepare(self.statics, batch, step,
+                                         training=flags.training)
         s_counters: dict = {}
         intervals = self.model.sample_intervals(
             self.statics, frame, cond, self.occ, batch["rays"], step, flags,
@@ -225,7 +309,7 @@ class IntrinsicAvatarSystem:
                          generator=self.generator)
         loss, losses = self.compute_losses(out, batch, step, flags)
         loss.backward()
-        self.optimizer.step()
+        step_every_leaf(self.optimizer)
         self.scheduler.step()
         self.step = step + 1
         losses = {k: torch.as_tensor(v).detach() for k, v in losses.items()}

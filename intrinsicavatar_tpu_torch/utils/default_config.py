@@ -335,11 +335,11 @@ def relight_config() -> ConfigNode:
 def train_config() -> ConfigNode:
     """The training this package runs: the default model at its published
     widths on the seeded synthetic body and dataset, 4096 rays per step
-    (the published sampler's ``num_sample``), in float32 and without the
-    eval seed grid.  The radiance regime (steps below
-    ``phys_kick_in_step``) is what the port trains."""
+    (the published sampler's ``num_sample``), in float32 (the phys
+    regime's secondary coarse pass too) and without the eval seed grid."""
     cfg = default_config()
     return merge(cfg, {
         "dataset": {"name": "synthetic", "n_rays": 4096, "n_frames": 8},
-        "model": {"eval_seed_grid": False, "primary_dtype": "float32"},
+        "model": {"eval_seed_grid": False, "primary_dtype": "float32",
+                  "secondary_coarse_dtype": "float32"},
     })

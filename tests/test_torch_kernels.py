@@ -506,6 +506,95 @@ def test_train_step_gradients_match_cpu_twins(cuda):
         assert err <= tol * float(gp.norm()), (name, err, float(gp.norm()))
 
 
+def _kn_check(args):
+    """KN against its function summed in float64: each entry within the
+    rounding bound of KN's own summation order
+    (``deform_skinning_bwd_exact``), row 3 zero, two calls bit for bit, one
+    launch a call, and each planted fault (zeros, bone 0 alone, a term or
+    the heaviest tile dropped) refused.  The twin sums in cuBLAS's order:
+    within n eps sum_m |w_m[b]| Uabs_m[a, c] over its n lanes."""
+    M = args[0].shape[0]
+    before = kernels.launches["deform_skinning_bwd"]
+    out = TB.deform_skinning_bwd(*args)
+    again = TB.deform_skinning_bwd(*args)
+    assert kernels.launches["deform_skinning_bwd"] == before + 2
+    assert torch.equal(out, again)
+    exact, limit = TB.deform_skinning_bwd_exact(*args)
+    assert float(exact.abs().max()) > 0
+    ratio = lambda o: float(((o.double() - exact)[:, :3].abs()
+                             / limit[:, :3].clamp(min=1e-300)).max())
+    assert not TB.deform_skinning_bwd_refused(out, exact, limit), ratio(out)
+    for name, bad in TB.deform_skinning_bwd_faults(*args, out,
+                                                   limit).items():
+        assert TB.deform_skinning_bwd_refused(bad, exact, limit), name
+    W, _, Uabs = TB.skin_bwd_terms(*args)
+    mag = (W.abs().t() @ Uabs).reshape(24, 3, 4)
+    ref = TB.deform_skinning_bwd_plain(*args)
+    assert bool(((ref.double() - exact)[:, :3].abs()
+                 <= M * 2.0 ** -24 * mag).all())
+
+
+@pytest.mark.parametrize("with_rot", [False, True])
+def test_skinning_bwd_kernel_matches_twin(cuda, with_rot):
+    """KN on random lanes (a count that is no multiple of its 288-lane
+    tile), some invalid and some outside the weight voxel (border
+    padding), with and without a rotation cotangent."""
+    lbs_cl, spec, _ = _skin_inputs(cuda)
+    rng = np.random.default_rng(13)
+    M = 300_001
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    args = (f(rng.uniform(-1.2, 1.2, (M, 3))),
+            torch.as_tensor(rng.random(M) < 0.7, device=cuda),
+            f(rng.normal(size=(M, 9))), f(rng.normal(size=(M, 3))),
+            f(rng.normal(size=(M, 9))) if with_rot else None, lbs_cl, spec)
+    _kn_check(args)
+
+
+def test_skinning_bwd_kernel_on_recorded_inputs(cuda, monkeypatch):
+    """KN on the inputs of a full-width train step at step 4,001 with the
+    pose correction on (128 rays): the roots, validities, J^-1 and the
+    cotangents the step's backward gives it."""
+    from intrinsicavatar_tpu_torch.anim import deformer as DF
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils.default_config import train_config
+    cfg = merge(train_config(), {
+        "dataset": {"n_rays": 128},
+        "model": {"pose_correction": {"enable_pose_correction": True}}})
+    ds = SyntheticDataset(cfg.dataset)
+    card = IntrinsicAvatarSystem(cfg, cuda).setup(ds.betas)
+    roughen(card.model, torch.Generator().manual_seed(3))
+    seen = []
+    fn = DF.deform_skinning_bwd
+    monkeypatch.setattr(DF, "deform_skinning_bwd",
+                        lambda *a: (seen.append(a), fn(*a))[1])
+    batch = ds[1]
+    t_idx = batch.pop("t_idx")
+    card.step = 4001
+    card.train_step(card.to_device(batch), t_idx, card.flags_for_step(4001))
+    assert len(seen) == 1
+    assert float(card.model.pose_correction.pose.grad.abs().max()) > 0
+    _kn_check(seen[0])
+
+
+def test_skinning_bwd_wrapper_refuses_bad_input(cuda):
+    lbs_cl, spec, _ = _skin_inputs(cuda)
+    M = 64
+    xc = torch.zeros((M, 3), device=cuda)
+    valid = torch.ones(M, dtype=torch.bool, device=cuda)
+    jinv = torch.zeros((M, 9), device=cuda)
+    g = torch.zeros((M, 3), device=cuda)
+    good = (xc, valid, jinv, g, None, lbs_cl, spec)
+    TB.deform_skinning_bwd(*good)
+    for i, bad in ((0, xc.double()), (1, valid.float()), (2, jinv[:, :8]),
+                   (3, g.cpu()), (4, torch.zeros((M, 3), device=cuda)),
+                   (5, lbs_cl[:, :12].contiguous())):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            TB.deform_skinning_bwd(*args)
+
+
 def test_wrappers_refuse_bad_input(cuda):
     spec, table, x, mask = _grid(False, 16)
     table = torch.as_tensor(table, device=cuda)

@@ -405,20 +405,62 @@ def test_gradients_pass_compaction_and_candidate_reduce():
     torch.testing.assert_close(g, expect)
 
 
-def test_deform_train_mode_refuses_a_pose_gradient():
-    """With ``tfs`` requiring a gradient the correction term would carry it
-    to the pose; that needs the queued K5 backward, so train mode raises."""
-    cfg = merge(tiny_config(), OVERRIDES)
-    sys_ = IntrinsicAvatarSystem(cfg, "cpu").setup(np.zeros(10))
-    ds = SyntheticDataset(cfg.dataset)
-    batch = sys_.to_device(ds[0])
-    frame, _ = sys_.model.prepare(sys_.statics, batch, 0)
-    frame = frame._replace(tfs=frame.tfs.clone().requires_grad_())
+def test_deform_train_mode_refuses_a_pose_gradient(setup):
+    """Train-mode ``deform`` with a ``tfs`` that requires a gradient (it
+    raised before the K5 backward was ported; the name is kept): the
+    implicit-function correction and the blended rotation give ``tfs`` the
+    JAX package's gradient for the same downstream loss, on a smooth
+    analytic canonical field (so no hash cell's face takes a branch
+    apart), at a bent pose, within 1e-4 of its norm: the roots come from
+    each package's own search, which agree to ~1e-6 (2e-5 here)."""
+    jsys, state = setup["jsys"], setup["state"]
+    ds = SyntheticDataset(setup["cfg"].dataset)
+    batch = ds[1]                       # frame 1 bends its joints
+    batch.pop("t_idx")
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jframe, _ = jsys.model.prepare(state.params, jsys.statics, jb, STEP)
+    sys_ = _port(setup)
+    frame, _ = sys_.model.prepare(sys_.statics, sys_.to_device(batch), STEP)
+    rng = np.random.default_rng(8)
     rigid = sys_.model.deformer.rigid
-    pts = batch["rays"][:8, :3] + batch["rays"][:8, 3:6] * 2.0
-    with pytest.raises(NotImplementedError, match="K5"):
-        rigid.deform(sys_.statics, frame, pts,
-                     lambda x: ((x[:, 0],), None), eval_mode=False)
+    # 256 points on the rays in SMPL space, between near and far
+    rays = rigid.transform_rays_w2s(frame, torch.as_tensor(np.repeat(
+        batch["rays"], 4, 0))).numpy()
+    t = rng.uniform(rays[:, 6:7], rays[:, 7:8])
+    pts = (rays[:, :3] + rays[:, 3:6] * t).astype(np.float32)
+    a = rng.normal(size=3).astype(np.float32)
+    c_x, c_g = (rng.normal(size=pts.shape).astype(np.float32)
+                for _ in range(2))
+
+    def field(x, xp):
+        sdf = x @ xp.asarray(a) + 0.5 * xp.sum(x * x, -1)
+        feat = xp.concatenate([x, sdf[:, None]], -1)
+        return (sdf, xp.asarray(a)[None, :] + x, feat), None
+
+    def loss(out, xp):
+        x_c, sdf, valid, g_obs = out[:4]
+        return xp.sum(x_c * xp.asarray(c_x)) + xp.sum(
+            xp.where(valid, sdf, 0.0)) + xp.sum(g_obs * xp.asarray(c_g))
+
+    jrigid = jsys.model.deformer.rigid
+
+    def jloss(tfs):
+        out = jrigid.deform(jsys.statics, jframe._replace(tfs=tfs),
+                            jnp.asarray(pts), lambda x: field(x, jnp),
+                            with_jac=True, eval_mode=False)
+        return loss(out, jnp), out[2]
+
+    (_, jvalid), ref = jax.value_and_grad(jloss, has_aux=True)(jframe.tfs)
+    tfs = frame.tfs.clone().requires_grad_()
+    out = rigid.deform(sys_.statics, frame._replace(tfs=tfs),
+                       torch.as_tensor(pts), lambda x: field(x, torch),
+                       with_jac=True, eval_mode=False)
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(jvalid))
+    assert 0.2 < float(out[2].float().mean()) < 1.0
+    (got,) = torch.autograd.grad(loss(out, torch), tfs)
+    ref = np.asarray(ref)
+    assert np.linalg.norm(ref) > 0
+    assert np.linalg.norm(got.numpy() - ref) <= 1e-4 * np.linalg.norm(ref)
 
 
 def test_launcher_trains_on_the_cpu(capsys):
