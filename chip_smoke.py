@@ -13,7 +13,11 @@
 3. runs each kernel and its plain PyTorch twin on those inputs, holds them
    to the stated tolerance and times both with CUDA events (the search,
    its prologue and epilogue and the fused SDF query at both paths'
-   shapes);
+   shapes); KB also with noise on every weight (the sphere init zeroes
+   the weights of its hash features), at the tiny config's widths and at
+   a relight fine pass, with its device time and its bound at the FP32
+   and at the TF32 rate; KM's and ``F.grid_sample``'s device times; KB's
+   and KM's registers, stack frame and spills from ``ptxas``;
 4. serves: bakes one frame's 96^3 seed grid alone (its time and launches),
    then renders 2 frames x 16,384 rays of the synthetic val split through
    ``render_frame`` (each with its own 64^3 test grid and seed grid, the
@@ -67,8 +71,9 @@
    profiles one phys step; and runs a 256-ray step at step 4,001 and a
    32-ray phys step at step 10,000 on the card and on the CPU twins, whose
    losses and gradients (the pose's included) must agree;
-9. prints the ``kernels`` line, the serve, relight and train lines, and
-   last the device line.
+9. prints the ``kernels`` line, the serve, relight and train lines (each
+   profile with KB's and KM's device ms and share, ``kb_km``), and last
+   the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -89,6 +94,15 @@ T0 = time.perf_counter()
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+# KB and KM before their redesign (PERF.md section 6, same card, 700 W):
+# KB at the searched shading query's 552,960 points, KM at a relight
+# chunk's busiest secondary coarse gather
+EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
+              "0.0513-0.0740"}
+# the profiler's names of the two kernels redesigned for the card
+REDESIGNED = {"encode_mlp_sdfgrad": "encode_mlp_sdfgrad_kernel",
+              "seed_gather": "seed_gather_kernel"}
 
 
 def fail(msg: str):
@@ -175,6 +189,10 @@ def main():
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    for name in ("encode_grad", "seedgrid"):
+        for fn, info in ptxas_info(logs.get(name, "")).items():
+            if any(k in fn for k in REDESIGNED.values()):
+                print(f"ptxas {fn}: {info} ({card})", flush=True)
 
     # ---------------------------------------------------------- model
     cfg = serve_config()
@@ -298,40 +316,18 @@ def main():
         N * L * (8 * (2 + 2 * F) + 12))
 
     # KB fused encode + SDF MLP + gradient
-    def check_kb(rec):
-        spec_b, mlp, table_b, xn = rec[1][:4]
-        mask_b = rec[1][4] if len(rec[1]) > 4 else rec[2].get("level_mask")
-        fk, gk = EG.encode_mlp_sdfgrad(spec_b, mlp, table_b, xn, mask_b)
-        fp, gp = EG.encode_mlp_sdfgrad_plain(spec_b, mlp, table_b, xn,
-                                             mask_b, mlp.effective_weights())
-        torch.cuda.synchronize()
-        err = max((fk - fp).abs().max().item(), (gk - gp).abs().max().item())
-        # reassociated sums (cuBLAS vs the kernel's serial dot products)
-        scale = max(1.0, fp.abs().max().item(), gp.abs().max().item())
-        if not err <= 1e-4 * scale:
-            fail(f"encode_mlp_sdfgrad disagrees with its twin at "
-                 f"{list(xn.shape)}: {err}")
-        Nb, (Lb, Tb, Fb) = xn.shape[0], table_b.shape
-        (W1, _), (W2, _) = mlp.effective_weights()
-        d_in, hid = W1.shape
-        d_out = W2.shape[1]
-        gathered = Nb * Lb * 8 * Fb * 4
-        return (f"x{list(xn.shape)}", err,
-                time_ms(lambda: EG.encode_mlp_sdfgrad(spec_b, mlp, table_b,
-                                                      xn, mask_b)),
-                time_ms(lambda: EG.encode_mlp_sdfgrad_plain(
-                    spec_b, mlp, table_b, xn, mask_b,
-                    mlp.effective_weights()), 3),
-                xn.numel() * 4 + min(table_b.numel() * 4, gathered)
-                + (W1.numel() + W2.numel()) * 4 + Nb * (d_out + 3) * 4,
-                Nb * (Lb * 8 * (2 + 8 * Fb) + 2 * (2 * d_in * hid
-                                                   + hid * d_out)
-                      + 30 * hid))
+    def kb_row(rec, where):
+        r = kb_reading(rec, where, card)
+        return (r["shape"], r["max_abs_err"], r["ms"], r["plain_ms"],
+                r["bytes"], r["flops"])
 
     row("encode_mlp_sdfgrad", "cuda",
         "intrinsicavatar_tpu_torch/csrc/encode_grad.cu",
-        "intrinsicavatar_tpu/ops/encode_grad.py:166", *check_kb(kb))
-    grid_shape("encode_mlp_sdfgrad", "seeded shading pass", *check_kb(kb_g))
+        "intrinsicavatar_tpu/ops/encode_grad.py:166",
+        *kb_row(kb, "searched shading query"))
+    grid_shape("encode_mlp_sdfgrad", "seeded shading pass",
+               *kb_row(kb_g, "seeded shading pass"))
+    kb_tiny_widths(dev, card)
 
     # KC Broyden search
     def check_kc(rec, at):
@@ -622,6 +618,7 @@ def main():
         "bake_wall_ms": grid["bake_ms"], "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(n for _, n in by_kernel.values()),
+        "kb_km": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, n] for k, (ms, n) in top]}
     print(json.dumps({"profile": serve_profile}), flush=True)
 
@@ -718,7 +715,7 @@ def main():
                                          for k, v in launches.items()},
                   "profile": {k: serve_profile[k] for k in (
                       "frame_wall_ms", "bake_wall_ms", "device_busy_ms",
-                      "device_idle_share", "device_launches")},
+                      "device_idle_share", "device_launches", "kb_km")},
                   "bake": bake_line, "bake_cpu_check": bake_check,
                   "grid_path_shapes": grid_shapes,
                   "searched": searched, "in_turn": in_turn}}), flush=True)
@@ -754,6 +751,134 @@ def profile_device(fn):
     return wall_ms, by_kernel
 
 
+def device_ms(fn, substr, reps=10):
+    """The device time a launch of the kernels whose names hold ``substr``
+    when ``fn`` runs, from the profiler (``time_ms`` also counts the host's
+    launch work where it is longer than the kernel)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    _, by_kernel = profile_device(lambda: [fn() for _ in range(reps)])
+    hits = [(ms, n) for k, (ms, n) in by_kernel.items() if substr in k]
+    n = sum(c for _, c in hits)
+    return sum(ms for ms, _ in hits) / n if n else None
+
+
+def kernel_shares(by_kernel, busy_ms):
+    """KB's and KM's device ms, launches and share of the busy time in a
+    profile."""
+    out = {}
+    for name, sub in REDESIGNED.items():
+        hits = [v for k, v in by_kernel.items() if sub in k]
+        ms = sum(m for m, _ in hits)
+        out[name] = {"device_ms": ms, "launches": sum(c for _, c in hits),
+                     "share": ms / busy_ms if busy_ms else 0.0}
+    return out
+
+
+def ptxas_info(log):
+    """``{kernel's mangled name: its registers, stack frame and spill
+    bytes}`` from an ``nvcc -Xptxas -v`` log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif fn and ("stack frame" in line or "registers" in line):
+            out[fn] = (out.get(fn, "") + " " + line.strip()
+                       .replace("ptxas info    : ", "")).strip()
+    return out
+
+
+def kb_reading(rec, where, card):
+    """KB against its twin on a recorded call, within 1e-4 of max(1, |feat|,
+    |grad|), with the model's weights and with noise on every weight;
+    timed beside the twin; its bound both ways.  Returns the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    spec_b, mlp, table_b, xn = rec[1][:4]
+    mask_b = rec[1][4] if len(rec[1]) > 4 else rec[2].get("level_mask")
+    # the sphere init zeroes the first layer's rows of the hash features, so
+    # the model's own weights hide the encode from feat and grad: hold KB
+    # also with noise on every weight
+    noisy = copy.deepcopy(mlp)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    with torch.no_grad():
+        for p in noisy.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=gen).to(p.device))
+    errs = []
+    for m in (mlp, noisy):
+        fk, gk = EG.encode_mlp_sdfgrad(spec_b, m, table_b, xn, mask_b)
+        fp, gp = EG.encode_mlp_sdfgrad_plain(spec_b, m, table_b, xn, mask_b,
+                                             m.effective_weights())
+        torch.cuda.synchronize()
+        err = max((fk - fp).abs().max().item(),
+                  (gk - gp).abs().max().item())
+        # reassociated sums (cuBLAS vs the kernel's 3xTF32 tensor-core
+        # products)
+        scale = max(1.0, fp.abs().max().item(), gp.abs().max().item())
+        if not err <= 1e-4 * scale:
+            fail(f"encode_mlp_sdfgrad disagrees with its twin at "
+                 f"{list(xn.shape)} ({where}, "
+                 f"{'noisy' if m is noisy else 'model'} weights): {err} "
+                 f"> {1e-4 * scale}")
+        errs.append((err, 1e-4 * scale))
+    (err, tol), (err_noisy, tol_noisy) = errs
+    del noisy, fk, gk, fp, gp
+    Nb, (Lb, Tb, Fb) = xn.shape[0], table_b.shape
+    (W1, _), (W2, _) = mlp.effective_weights()
+    d_in, hid = W1.shape
+    d_out = W2.shape[1]
+    gathered = Nb * Lb * 8 * Fb * 4
+    nbytes = (xn.numel() * 4 + min(table_b.numel() * 4, gathered)
+              + (W1.numel() + W2.numel()) * 4 + Nb * (d_out + 3) * 4)
+    products = Nb * 2 * (2 * d_in * hid + hid * d_out)
+    rest = Nb * (Lb * 8 * (2 + 8 * Fb) + 30 * hid)
+    call = lambda: EG.encode_mlp_sdfgrad(spec_b, mlp, table_b, xn, mask_b)
+    r = {"where": where, "shape": f"x{list(xn.shape)}", "max_abs_err": err,
+         "tolerance": tol, "noisy_weights_err": err_noisy,
+         "noisy_weights_tolerance": tol_noisy, "ms": time_ms(call),
+         "device_ms": device_ms(call, REDESIGNED["encode_mlp_sdfgrad"]),
+         "plain_ms": time_ms(lambda: EG.encode_mlp_sdfgrad_plain(
+             spec_b, mlp, table_b, xn, mask_b, mlp.effective_weights()), 3),
+         "bytes": nbytes, "flops": products + rest,
+         "bound_fp32_ms": max(nbytes / PEAK_BYTES,
+                              (products + rest) / PEAK_FP32) * 1e3,
+         "bound_tf32_ms": max(nbytes / PEAK_BYTES, 3 * products / PEAK_TF32
+                              + rest / PEAK_FP32) * 1e3,
+         "card": card}
+    if Nb == 552_960:
+        r["prs_1_6_ms"] = EARLIER_MS["encode_mlp_sdfgrad"]
+    print(f"kernel encode_mlp_sdfgrad ({where}): {json.dumps(r)}",
+          flush=True)
+    return r
+
+
+def kb_tiny_widths(dev, card):
+    """KB once at the tiny config's widths (8 levels x 2 features, 2^13
+    tables, 19 -> 64 -> 13) through the same tiles, against its twin."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.nets.mlp import VanillaMLP
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    spec = HG.HashGridSpec(n_levels=8, n_features_per_level=2,
+                           log2_hashmap_size=13, include_xyz=True)
+    rng = np.random.default_rng(SEED + 9)
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (8, 1 << 13, 2)),
+                            dtype=torch.float32, device=dev)
+    x = torch.as_tensor(rng.uniform(-0.15, 1.15, (10_007, 3)),
+                        dtype=torch.float32, device=dev)
+    mask = torch.ones(16, device=dev)
+    mlp = VanillaMLP(19, 13, n_neurons=64, n_hidden_layers=1,
+                     sphere_init=True, weight_norm=True).to(dev)
+    mlp.init(torch.Generator().manual_seed(SEED + 9))
+    with torch.no_grad():
+        kb_reading(((), (spec, mlp, table, x, mask), {}), "tiny widths", card)
+
+
 RELIGHT_NAMES = ("cdf_resample", "fine_resample", "secondary_march",
                  "broyden_polish", "seed_gather")
 
@@ -770,6 +895,7 @@ def relight(rows, row, card, dev):
     from intrinsicavatar_tpu_torch.anim import deformer as DF
     from intrinsicavatar_tpu_torch.anim import seedgrid as SG
     from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.fields import geometry as GEO
     from intrinsicavatar_tpu_torch.ops import grid_traversal as G
     from intrinsicavatar_tpu_torch.ops import resample as RS
     from intrinsicavatar_tpu_torch.render import pbr as PBR
@@ -803,6 +929,10 @@ def relight(rows, row, card, dev):
     sub = int(cfg.model.get("secondary_shader_chunk", 32768))
     sec_n = -(-int(sub * model.num_samples_per_secondary_ray * float(
         cfg.model.secondary_query_compaction)) // 128) * 128
+    # a fine pass's static budget: 4 zero-crossing samples a secondary ray
+    # (render/pbr.py), secondary_fine_query_compaction of them
+    fine_n = -(-int(sub * 4 * float(cfg.model.get(
+        "secondary_fine_query_compaction", 0.5))) // 128) * 128
 
     def sec_inside(a):
         """Points of a secondary coarse gather inside the lattice."""
@@ -818,7 +948,10 @@ def relight(rows, row, card, dev):
             # KM: the largest call (an importance round's edges) and the
             # busiest secondary coarse gather
             Recorder(SG, "gather_from_grid", lambda a: a[1].shape[0]),
-            Recorder(SG, "gather_from_grid", sec_inside)]
+            Recorder(SG, "gather_from_grid", sec_inside),
+            # KB: a secondary fine pass's fixed budget
+            Recorder(GEO, "encode_mlp_sdfgrad",
+                     lambda a: 0 if a[3].shape[0] == fine_n else -1)]
     with torch.no_grad():
         model(statics, frame, cond, occ, batch["rays"][:chunk], step, flags,
               background_color=torch.ones(3, device=dev),
@@ -827,9 +960,13 @@ def relight(rows, row, card, dev):
     torch.cuda.synchronize()
     for r in reversed(recs):
         r.restore()
-    ki, kj, kk, kl, km_big, km_sec = (r.best for r in recs)
+    ki, kj, kk, kl, km_big, km_sec, kb_f = (r.best for r in recs)
     if km_sec[0] < 0:
         fail(f"no secondary coarse gather of {sec_n} points was recorded")
+    if kb_f is None or kb_f[0] < 0:
+        fail(f"no secondary fine pass of {fine_n} points was recorded")
+    with torch.no_grad():
+        kb_fine = kb_reading(kb_f, "relight fine pass", card)
 
     def rel(a, b):
         """Largest error over the reference's largest entry."""
@@ -1061,6 +1198,7 @@ def relight(rows, row, card, dev):
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(n for _, n in by_kernel.values()),
+        "kb_km": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, n] for k, (ms, n) in top]}
     print(json.dumps({"relight_profile": profile_line}), flush=True)
 
@@ -1119,7 +1257,8 @@ def relight(rows, row, card, dev):
             "launches": launches,
             "profile": {k: profile_line[k] for k in (
                 "chunk_wall_ms", "device_busy_ms", "device_idle_share",
-                "device_launches")},
+                "device_launches", "kb_km")},
+            "kb_fine_pass": kb_fine,
             "searched": searched,
             "cpu_check": {"rays": n_crop, "agree_1e-3": agree}}
 
@@ -1362,8 +1501,8 @@ def hand_seed_grid(dev, res=9):
     ch = [t(xc[:, 0] * ok), t(xc[:, 1] * ok), t(xc[:, 2] * ok), t(ok),
           t(sdf * sok), t(sok)]
     lo, hi = aabb[0], aabb[1]
-    grid = SG.SeedGrid(grid=torch.stack(ch, -1).reshape(res, res, res, 6)
-                       .contiguous(), center=0.5 * (lo + hi),
+    grid = SG.SeedGrid(grid=SG.node_records(
+        torch.stack(ch, -1).reshape(res, res, res, 6)), center=0.5 * (lo + hi),
                        half=0.5 * (hi - lo))
     cell = (hi - lo) / (res - 1)
     centres = SG.lattice_points(torch.stack([lo + 0.5 * cell,
@@ -1437,18 +1576,21 @@ def check_seed_gather(row, km_big, km_sec, dev):
     # channels (no coherence test, no nearest corner, no SDF policy)
     vox5 = grid.grid[..., :4].permute(3, 0, 1, 2)[None].contiguous()
     g5 = ((pts - grid.center) / grid.half).reshape(1, N, 1, 1, 3)
+    km = lambda: SG.gather_from_grid(grid, pts, coh)
+    lib = lambda: torch.nn.functional.grid_sample(
+        vox5, g5, mode="bilinear", padding_mode="border", align_corners=True)
+    ms, lib_ms = time_ms(km), time_ms(lib)
     row("seed_gather", "cuda", "intrinsicavatar_tpu_torch/csrc/seedgrid.cu",
         "intrinsicavatar_tpu/anim/seedgrid.py:173", f"pts[{N}, 3] "
-        f"grid[{res}^3, {C}]", max(errs),
-        time_ms(lambda: SG.gather_from_grid(grid, pts, coh)),
+        f"grid[{res}^3, {C}]", max(errs), ms,
         time_ms(lambda: SG.gather_from_grid_plain(grid, pts, coh), 3),
         # 12 B in and 17 B out a point; each grid row the points' corners
-        # touch once; center and half
+        # touch once (its C channels; the kernel reads them as 32 B
+        # records); center and half
         N * (12 + 17) + rows_read * C * 4 + 24,
-        N * 300,
-        time_ms(lambda: torch.nn.functional.grid_sample(
-            vox5, g5, mode="bilinear", padding_mode="border",
-            align_corners=True)))
+        N * 300, lib_ms)
+    print(f"seed_gather secondary coarse call: {json.dumps({'ms': ms, 'device_ms': device_ms(km, REDESIGNED['seed_gather']), 'library_ms': lib_ms, 'library_device_ms': device_ms(lib, 'grid_sampler'), 'prs_5_6_ms': EARLIER_MS['seed_gather']})}",
+          flush=True)
 
 
 class Tripwire:
@@ -1852,6 +1994,7 @@ def train(rows, row, card, dev):
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(cnt for _, cnt in by_kernel.values()),
+        "kb_km": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, cnt] for k, (ms, cnt) in top]}
     print(json.dumps({"train_profile": profile_line}), flush=True)
 
@@ -2084,6 +2227,7 @@ def train_pose_phys(rows, row, card, dev):
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(cnt for _, cnt in by_kernel.values()),
+        "kb_km": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, cnt] for k, (ms, cnt) in top]}
     print(json.dumps({"phys_profile": phys_profile}), flush=True)
     del system
@@ -2098,7 +2242,7 @@ def train_pose_phys(rows, row, card, dev):
     return {"pose_regime": pose, "phys_regime": phys, "card": card,
             "phys_profile": {k: phys_profile[k] for k in (
                 "step_wall_ms", "device_busy_ms", "device_idle_share",
-                "device_launches")},
+                "device_launches", "kb_km")},
             "cpu_checks": checks}
 
 

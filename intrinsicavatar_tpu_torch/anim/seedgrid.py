@@ -15,9 +15,11 @@ agree to within ``coh_factor`` cell diagonals their validity-masked
 trilinear blend is the seed, else the nearest valid corner's root (a blend
 across a root-branch boundary would be no root at all).
 
-The grid is channel-last, ``[res, res, res, C]`` indexed ``(z, y, x)``: the
-JAX package's corner packing (8 copies of each node, one gather row per
-cell) is a TPU layout and is not copied.
+The grid is channel-last, ``[res, res, res, C]`` indexed ``(z, y, x)``,
+a view of 32-byte node records (:func:`node_records`: the C channels
+zero-padded to 8 floats, so KM reads a corner in one or two vector loads
+within one 32 B sector).  The JAX package's corner packing (8 copies of
+each node, one gather row per cell) is a TPU layout and is not copied.
 """
 
 from __future__ import annotations
@@ -29,6 +31,28 @@ import torch
 
 from intrinsicavatar_tpu_torch import kernels
 
+RECORD = 8  # floats a node record: the channels, then zeros
+
+
+def node_records(channels: torch.Tensor) -> torch.Tensor:
+    """``channels [res, res, res, C]`` as a view of 32-byte node records:
+    the same values, stored ``[res, res, res, 8]`` with zeros after the C
+    channels, the layout kernel KM reads."""
+    *lead, C = channels.shape
+    rec = channels.new_zeros((*lead, RECORD))
+    rec[..., :C] = channels
+    return rec[..., :C]
+
+
+def is_node_records(t: torch.Tensor) -> bool:
+    """Whether ``t [res, res, res, C]`` is a view of :func:`node_records`
+    (8-float records, channel 0 first, 16 B aligned).  KM reads channels
+    0..C-1 of each record only, all inside the view's own extent."""
+    res = t.shape[0]
+    return t.dim() == 4 and t.shape[1] == t.shape[2] == res \
+        and t.stride() == (res * res * RECORD, res * RECORD, RECORD, 1) \
+        and t.data_ptr() % 16 == 0
+
 
 class SeedGrid(NamedTuple):
     """Correspondence lattice over the deformed-space bbox.
@@ -37,10 +61,11 @@ class SeedGrid(NamedTuple):
     with an SDF channel (C == 6), ``(sdf*sdf_ok, sdf_ok)``.  ``sdf_ok`` is
     the search's validity before dilation: adopted margin nodes give seeds
     but never an SDF.  ``center`` / ``half`` map SMPL-space points into the
-    lattice's [-1, 1]^3 frame per axis.
+    lattice's [-1, 1]^3 frame per axis.  ``grid`` is a view of
+    :func:`node_records`.
     """
 
-    grid: torch.Tensor     # [res, res, res, C], C in (4, 6)
+    grid: torch.Tensor     # [res, res, res, C], C in (4, 6), 8-float records
     center: torch.Tensor   # [3]
     half: torch.Tensor     # [3]
 
@@ -57,7 +82,11 @@ class SeedGrid(NamedTuple):
         return self.channels >= 5
 
     def to(self, device) -> "SeedGrid":
-        return SeedGrid(*(t.to(device) for t in self))
+        """The grid on ``device``, its nodes in 8-float records there."""
+        grid = self.grid
+        if grid.device != torch.device(device):
+            grid = node_records(grid.to(device))
+        return SeedGrid(grid, self.center.to(device), self.half.to(device))
 
 
 def lattice_points(aabb: torch.Tensor, resolution: int) -> torch.Tensor:
@@ -117,8 +146,8 @@ def pack_seed_grid(xc, ok, sdf, aabb, resolution: int) -> SeedGrid:
         okf0 = ok.to(xc.dtype)
         chans += [sdf * okf0, okf0]
     lo, hi = aabb[0], aabb[1]
-    return SeedGrid(grid=torch.stack(chans, -1).reshape(res, res, res, -1)
-                    .contiguous(),
+    return SeedGrid(grid=node_records(torch.stack(chans, -1)
+                                      .reshape(res, res, res, -1)),
                     center=0.5 * (lo + hi),
                     half=torch.clamp(0.5 * (hi - lo), min=1e-6))
 
@@ -231,25 +260,34 @@ def gather_from_grid(grid: SeedGrid, pts: torch.Tensor,
     plain twin for CPU ones."""
     if pts.device.type == "cpu":
         return gather_from_grid_plain(grid, pts, coh_factor)
+    g, center, half = grid
     dev = pts.device
-    res, C, N = grid.resolution, grid.channels, pts.shape[0]
-    if C not in (4, 6):
-        raise ValueError(f"a seed grid has 4 or 6 channels, not {C}")
-    kernels.require(pts, "pts", torch.float32, dev, (N, 3))
-    kernels.require(grid.grid, "grid", torch.float32, dev, (res, res, res, C))
-    kernels.require(grid.center, "center", torch.float32, dev, (3,))
-    kernels.require(grid.half, "half", torch.float32, dev, (3,))
-    seed_xc = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    seed_ok = torch.empty((N,), dtype=torch.bool, device=dev)
-    sdf = (torch.empty((N,), dtype=torch.float32, device=dev)
-           if C == 6 else None)
+    res, C, N = g.shape[0], g.shape[-1], pts.shape[0]
+    # the checks in as few tensor calls as will do: at this size the
+    # wrapper's host time is as long as the kernel's time on the card
+    if not (C in (4, 6) and is_node_records(g) and pts.shape == (N, 3)
+            and center.shape == half.shape == (3,) and pts.is_contiguous()
+            and center.is_contiguous() and half.is_contiguous()
+            and all(t.device == dev and t.dtype == torch.float32
+                    for t in (pts, g, center, half))):
+        raise ValueError(
+            f"KM takes float32 pts [N, 3], contiguous center and half [3] "
+            f"and a grid of 4 or 6 channels in node records "
+            f"(node_records), all on {dev}; got pts {pts.dtype} "
+            f"{tuple(pts.shape)} on {pts.device}, grid {g.dtype} "
+            f"{tuple(g.shape)} strides {g.stride()} on {g.device}, center "
+            f"{tuple(center.shape)} on {center.device}, half "
+            f"{tuple(half.shape)} on {half.device}")
+    # new_empty: the cheapest allocation for the host
+    seed_xc = pts.new_empty((N, 3))
+    seed_ok = pts.new_empty((N,), dtype=torch.bool)
+    sdf = pts.new_empty((N,)) if C == 6 else None
+    # ctypes rounds the two floats to float32 as the twin's scalars round
     err = kernels.lib("seedgrid").seed_gather_fwd(
-        pts.data_ptr(), grid.grid.data_ptr(), grid.center.data_ptr(),
-        grid.half.data_ptr(), N, res, C,
-        float(np.float32(1.0 + 1.0 / max(res - 1, 1))),
-        float(np.float32(coh_factor * coh_factor)), seed_xc.data_ptr(),
-        seed_ok.data_ptr(), None if sdf is None else sdf.data_ptr(),
-        kernels.stream_ptr(dev))
+        pts.data_ptr(), g.data_ptr(), center.data_ptr(), half.data_ptr(), N,
+        res, C, 1.0 + 1.0 / max(res - 1, 1), coh_factor * coh_factor,
+        seed_xc.data_ptr(), seed_ok.data_ptr(),
+        None if sdf is None else sdf.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "seed_gather")
     kernels.launches["seed_gather"] += 1
     return seed_xc, seed_ok, sdf

@@ -9,32 +9,111 @@
 // coordinates.
 //
 // What bounds it on an H100: the table gathers (N * L * 8 * F * 4 B at random
-// addresses, as for KA) against 3.35 TB/s; the MLP adds about
-// 2 * (35*64 + 64*13 + 35*64) ~ 10.6 kflop per point of FP32 work, which at
-// 67 TFLOP/s is well below the gather time.
+// addresses, as for KA) against 3.35 TB/s, and the MLP's three products,
+// 2 * (35*64 + 64*13 + 64*35) ~ 10.6 kflop per point, which in FP32 at 67
+// TFLOP/s are the larger of the two at the published widths; on the tensor
+// cores (TF32, 495 TFLOP/s, three passes) they cost less than the gather.
 //
-// Design: one thread per point.  The MLP weights (at most 64 inputs, 64
-// hidden units and 16 outputs) sit in shared memory for the whole block.
-// Each level's 8 corner rows are read once: the same loop accumulates the
-// encode value and its 3-vector derivative per feature (d enc / d pos), so
-// the gradient needs no second gather.  The derivative is contracted with
-// the MLP's input gradient after the MLP runs.  Per-thread arrays live in
-// local memory (L1); a warp-per-point or tensor-core MLP is later work.
+// Design: a tile of 128 points per block, 8 warps, persistent blocks that
+// keep the MLP's weights in shared memory for their whole life.
+//  1. Gather: one thread per (point, level), levels fastest as in KA, with
+//     the index rules of common.cuh:corner_row.  Each level's 8 corner rows
+//     are read once; the same loop sums the encode value and its 3-vector
+//     derivative (d enc / d pos), written to shared memory as the tile's
+//     enc [128 x 40] (inputs zero-padded to 40) and jac [128 x L*F x 3].
+//  2. MLP: each warp takes 16 points through three products on the tensor
+//     cores with mma.sync m16n8k8 TF32, every operand split into a TF32 high
+//     and low part (3xTF32: hi*lo + lo*hi + hi*hi, FP32 accumulators), which
+//     keeps about FP32's precision where one TF32 pass keeps three digits:
+//       H = enc [16 x 40] . W1 [40 x 64],
+//       out = softplus100(H + b1) [16 x 64] . W2 [64 x 16],
+//       g_enc = (sigmoid(100 (H + b1)) * W2[:, 0]) [16 x 64] . W1^T [64 x 40].
+//     The accumulator fragment of H is the A fragment of the next two
+//     products once their K index is permuted within each 8-wide step
+//     (position t <-> unit 2t, t + 4 <-> 2t + 1); the weights are stored in
+//     shared memory in that fragment order, so H never leaves registers.
+//     Widths up to 40 inputs, 64 hidden units and 16 outputs run through
+//     the same tiles, zero-padded (a padded hidden unit has W2 row 0).
+//  3. Epilogue: out + b2, and the gradient g_enc . (xyz_scale | mask * jac)
+//     summed over the quad of lanes that share a point, staged in shared
+//     memory and written out coalesced.
 #include "common.cuh"
 
 namespace {
 
-constexpr int MAX_IN = 64;
-constexpr int MAX_HIDDEN = 64;
-constexpr int MAX_OUT = 16;
+constexpr int MAX_IN = 40;      // MLP inputs (L*F <= 32, plus xyz), 5 k-steps
+constexpr int MAX_HIDDEN = 64;  // 8 n-tiles of the first product
+constexpr int MAX_OUT = 16;     // 2 n-tiles of the second
 constexpr int MAX_LF = 32;
+constexpr int MAX_L = 32;
+constexpr int TILE = 128;       // points a block tile
+constexpr int WARPS = TILE / 16;
+constexpr int THREADS = WARPS * 32;
+constexpr int KS_IN = MAX_IN / 8, NT_HID = MAX_HIDDEN / 8,
+              NT_OUT = MAX_OUT / 8;
+constexpr int ESTRIDE = MAX_IN + 4;  // enc rows: conflict-free A fragments
+
+// shared memory, in floats
+constexpr int SM_W1A = 0;                                   // [5][8][32] x2
+constexpr int SM_W2 = SM_W1A + KS_IN * NT_HID * 64;         // [8][2][32] x2
+constexpr int SM_W1C = SM_W2 + NT_HID * NT_OUT * 64;        // [8][5][32] x2
+constexpr int SM_B1 = SM_W1C + NT_HID * KS_IN * 64;
+constexpr int SM_W20 = SM_B1 + MAX_HIDDEN;
+constexpr int SM_B2 = SM_W20 + MAX_HIDDEN;
+constexpr int SM_MASK = SM_B2 + MAX_OUT;
+constexpr int SM_SCALE = SM_MASK + MAX_LF;
+constexpr int SM_RES = SM_SCALE + MAX_L;
+constexpr int SM_X = SM_RES + MAX_L;
+constexpr int SM_ENC = SM_X + TILE * 3;
+constexpr int SM_JAC = SM_ENC + TILE * ESTRIDE;
+constexpr int SM_FLOATS = SM_JAC + TILE * MAX_LF * 3;
+constexpr int SM_BYTES = SM_FLOATS * 4;
 
 __device__ __forceinline__ float softplus100(float h) {
   float y = 100.f * h;
   return (fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)))) / 100.f;
 }
 
-__global__ void encode_mlp_sdfgrad_kernel(
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in 3xTF32 (a split by the caller): the two small cross terms
+// first, then hi * hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float2 b) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b.x, bh0, bl0);
+  split(b.y, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+}
+
+__global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
     const float* __restrict__ table, const float* __restrict__ x,
     const float* __restrict__ scales, const int* __restrict__ res,
     const float* __restrict__ level_mask, const float* __restrict__ W1,
@@ -43,116 +122,238 @@ __global__ void encode_mlp_sdfgrad_kernel(
     float* __restrict__ grad, int64_t N, int L, int T, int F,
     int include_xyz, int d_in, int hidden, int d_out, float xyz_scale,
     float xyz_offset) {
-  __shared__ float sW1[MAX_IN * MAX_HIDDEN];
-  __shared__ float sb1[MAX_HIDDEN];
-  __shared__ float sW2[MAX_HIDDEN * MAX_OUT];
-  __shared__ float sb2[MAX_OUT];
-  for (int i = threadIdx.x; i < d_in * hidden; i += blockDim.x) sW1[i] = W1[i];
-  for (int i = threadIdx.x; i < hidden; i += blockDim.x) sb1[i] = b1[i];
-  for (int i = threadIdx.x; i < hidden * d_out; i += blockDim.x)
-    sW2[i] = W2[i];
-  for (int i = threadIdx.x; i < d_out; i += blockDim.x) sb2[i] = b2[i];
-  __syncthreads();
+  extern __shared__ float sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int off = include_xyz ? 3 : 0;
+  const int LF = L * F;
 
-  int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const float* p = x + n * 3;
-  float px = p[0], py = p[1], pz = p[2];
-  int off = include_xyz ? 3 : 0;
-
-  float enc[MAX_IN];
-  float jac[MAX_LF][3];  // d enc_level / d pos_level (before the scale s_l)
-  if (include_xyz) {
-    enc[0] = __fadd_rn(__fmul_rn(px, xyz_scale), xyz_offset);
-    enc[1] = __fadd_rn(__fmul_rn(py, xyz_scale), xyz_offset);
-    enc[2] = __fadd_rn(__fmul_rn(pz, xyz_scale), xyz_offset);
+  // weights in B-fragment order, zero-padded: b0 at k position tig, b1 at
+  // tig + 4, n = gid.  The first product's K is the input index; the other
+  // two take the hidden unit 8j + 2t at position t and 8j + 2t + 1 at t + 4.
+  float2* w1a = reinterpret_cast<float2*>(sm + SM_W1A);
+  float2* w2f = reinterpret_cast<float2*>(sm + SM_W2);
+  float2* w1c = reinterpret_cast<float2*>(sm + SM_W1C);
+  auto w1 = [&](int i, int u) {
+    return (i < d_in && u < hidden) ? W1[i * hidden + u] : 0.f;
+  };
+  auto w2 = [&](int u, int o) {
+    return (u < hidden && o < d_out) ? W2[u * d_out + o] : 0.f;
+  };
+  for (int e = tid; e < KS_IN * NT_HID * 32; e += THREADS) {
+    const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_HID,
+              ks = (e >> 5) / NT_HID;
+    w1a[e] = make_float2(w1(ks * 8 + t, nt * 8 + g), w1(ks * 8 + t + 4,
+                                                        nt * 8 + g));
   }
-  uint32_t tmask = (uint32_t)(T - 1);
-  for (int l = 0; l < L; ++l) {
-    float s = scales[l];
-    int r = res[l];
-    bool dense = level_is_dense(r, T);
-    float pos[3] = {__fadd_rn(__fmul_rn(px, s), 0.5f),
-                    __fadd_rn(__fmul_rn(py, s), 0.5f),
-                    __fadd_rn(__fmul_rn(pz, s), 0.5f)};
-    int c0[3];
-    float f[3];
-    for (int a = 0; a < 3; ++a) {
-      float fl = floorf(pos[a]);
-      c0[a] = (int)fl;
-      f[a] = pos[a] - fl;
+  for (int e = tid; e < NT_HID * NT_OUT * 32; e += THREADS) {
+    const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_OUT,
+              j = (e >> 5) / NT_OUT;
+    w2f[e] = make_float2(w2(j * 8 + 2 * t, nt * 8 + g),
+                         w2(j * 8 + 2 * t + 1, nt * 8 + g));
+  }
+  for (int e = tid; e < NT_HID * KS_IN * 32; e += THREADS) {
+    const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % KS_IN,
+              j = (e >> 5) / KS_IN;
+    w1c[e] = make_float2(w1(nt * 8 + g, j * 8 + 2 * t),
+                         w1(nt * 8 + g, j * 8 + 2 * t + 1));
+  }
+  for (int u = tid; u < MAX_HIDDEN; u += THREADS) {
+    sm[SM_B1 + u] = u < hidden ? b1[u] : 0.f;
+    sm[SM_W20 + u] = w2(u, 0);
+  }
+  for (int o = tid; o < MAX_OUT; o += THREADS)
+    sm[SM_B2 + o] = o < d_out ? b2[o] : 0.f;
+  for (int q = tid; q < MAX_LF; q += THREADS)
+    sm[SM_MASK + q] = q < LF ? level_mask[q] : 0.f;
+  for (int l = tid; l < L; l += THREADS) {
+    sm[SM_SCALE + l] = scales[l];
+    reinterpret_cast<int*>(sm + SM_RES)[l] = res[l];
+  }
+
+  float* sx = sm + SM_X;
+  float* enc = sm + SM_ENC;
+  float* jac = sm + SM_JAC;
+  const uint32_t tmask = (uint32_t)(T - 1);
+  const int64_t n_tiles = (N + TILE - 1) / TILE;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t n0 = tile * TILE;
+    const int rows = N - n0 < TILE ? (int)(N - n0) : TILE;
+    __syncthreads();  // the previous tile's epilogue is done with enc
+    for (int e = tid; e < TILE * 3; e += THREADS)
+      sx[e] = e < rows * 3 ? x[n0 * 3 + e] : 0.f;
+    __syncthreads();
+    // ---- 1. gather: xyz columns and padding, then (point, level) items
+    for (int p = tid; p < TILE; p += THREADS) {
+      float* ep = enc + p * ESTRIDE;
+      for (int a = 0; a < off; ++a)
+        ep[a] = __fadd_rn(__fmul_rn(sx[p * 3 + a], xyz_scale), xyz_offset);
+      for (int i = d_in; i < MAX_IN; ++i) ep[i] = 0.f;
     }
-    float e[4] = {0.f, 0.f, 0.f, 0.f};
-    float j[4][3] = {};
-    const float* tab = table + (int64_t)l * T * F;
-    for (int k = 0; k < 8; ++k) {
-      int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-      float wx = dx ? f[0] : 1.f - f[0];
-      float wy = dy ? f[1] : 1.f - f[1];
-      float wz = dz ? f[2] : 1.f - f[2];
-      float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f, sz = dz ? 1.f : -1.f;
-      float w = wx * wy * wz;
-      float dwx = sx * wy * wz, dwy = wx * sy * wz, dwz = wx * wy * sz;
-      int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r, dense,
-                               tmask);
-      const float* tr = tab + row * F;
-      for (int c = 0; c < F; ++c) {
-        float v = __ldg(tr + c);
-        e[c] += w * v;
-        j[c][0] += dwx * v;
-        j[c][1] += dwy * v;
-        j[c][2] += dwz * v;
+    for (int it = tid; it < TILE * L; it += THREADS) {
+      const int p = it / L, l = it - p * L;
+      const float s = sm[SM_SCALE + l];
+      const int r = reinterpret_cast<const int*>(sm + SM_RES)[l];
+      const bool dense = level_is_dense(r, T);
+      int c0[3];
+      float f[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float pos = __fadd_rn(__fmul_rn(sx[p * 3 + a], s), 0.5f);
+        const float fl = floorf(pos);
+        c0[a] = (int)fl;
+        f[a] = pos - fl;
+      }
+      float e4[4] = {0.f, 0.f, 0.f, 0.f};
+      float j4[4][3] = {};
+      const float* tab = table + (int64_t)l * T * F;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+        const float wx = dx ? f[0] : 1.f - f[0];
+        const float wy = dy ? f[1] : 1.f - f[1];
+        const float wz = dz ? f[2] : 1.f - f[2];
+        const float sx_ = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f,
+                    sz = dz ? 1.f : -1.f;
+        const float w = wx * wy * wz;
+        const float dwx = sx_ * wy * wz, dwy = wx * sy * wz,
+                    dwz = wx * wy * sz;
+        const int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r,
+                                       dense, tmask);
+        const float* tr = tab + row * F;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c < F) {
+            const float v = __ldg(tr + c);
+            e4[c] += w * v;
+            j4[c][0] += dwx * v;
+            j4[c][1] += dwy * v;
+            j4[c][2] += dwz * v;
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c < F) {
+          const int q = l * F + c;
+          enc[p * ESTRIDE + off + q] = e4[c] * sm[SM_MASK + q];
+          float* jq = jac + (p * MAX_LF + q) * 3;
+          jq[0] = j4[c][0] * s;
+          jq[1] = j4[c][1] * s;
+          jq[2] = j4[c][2] * s;
+        }
       }
     }
-    for (int c = 0; c < F; ++c) {
-      int q = l * F + c;
-      enc[off + q] = e[c] * level_mask[q];
-      jac[q][0] = j[c][0] * s;
-      jac[q][1] = j[c][1] * s;
-      jac[q][2] = j[c][2] * s;
-    }
-  }
+    __syncthreads();
 
-  // MLP forward, keeping the hidden pre-activations for the reverse pass
-  float h[MAX_HIDDEN];
-  for (int u = 0; u < hidden; ++u) h[u] = 0.f;
-  for (int i = 0; i < d_in; ++i) {
-    float ei = enc[i];
-    const float* wrow = sW1 + i * hidden;
-    for (int u = 0; u < hidden; ++u) h[u] += ei * wrow[u];
-  }
-  float* fo = feat + n * d_out;
-  for (int o = 0; o < d_out; ++o) fo[o] = 0.f;
-  for (int u = 0; u < hidden; ++u) {
-    h[u] += sb1[u];
-    float a = softplus100(h[u]);
-    const float* wrow = sW2 + u * d_out;
-    for (int o = 0; o < d_out; ++o) fo[o] += a * wrow[o];
-  }
-  for (int o = 0; o < d_out; ++o) fo[o] += sb2[o];
-
-  // reverse pass of output channel 0: softplus(100 h)' = sigmoid(100 h)
-  for (int u = 0; u < hidden; ++u)
-    h[u] = sW2[u * d_out] * (1.f / (1.f + expf(-100.f * h[u])));
-  float g[3] = {0.f, 0.f, 0.f};
-  for (int i = 0; i < d_in; ++i) {
-    const float* wrow = sW1 + i * hidden;
-    float gi = 0.f;
-    for (int u = 0; u < hidden; ++u) gi += h[u] * wrow[u];
-    if (i < off) {
-      g[i] += gi * xyz_scale;
-    } else {
-      int q = i - off;
-      float gq = gi * level_mask[q];
-      g[0] += gq * jac[q][0];
-      g[1] += gq * jac[q][1];
-      g[2] += gq * jac[q][2];
+    // ---- 2. the MLP: this warp's 16 points on the tensor cores
+    const int r0 = warp * 16;
+    const float* e0 = enc + (r0 + gid) * ESTRIDE;
+    const float* e8 = e0 + 8 * ESTRIDE;
+    float h[NT_HID][4];
+#pragma unroll
+    for (int j = 0; j < NT_HID; ++j)
+      h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS_IN; ++ks) {
+      const float a[4] = {e0[ks * 8 + tig], e8[ks * 8 + tig],
+                          e0[ks * 8 + tig + 4], e8[ks * 8 + tig + 4]};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+#pragma unroll
+      for (int j = 0; j < NT_HID; ++j)
+        mma3(h[j], ah, al, w1a[(ks * NT_HID + j) * 32 + lane]);
     }
+    float o[NT_OUT][4], gi[KS_IN][4];
+#pragma unroll
+    for (int t = 0; t < NT_OUT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < KS_IN; ++t)
+      gi[t][0] = gi[t][1] = gi[t][2] = gi[t][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT_HID; ++j) {
+      // accumulator (row, unit): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
+      // c3 (g+8, 2t+1) -> A fragment {c0, c2, c1, c3}
+      const int u = j * 8 + 2 * tig;
+      const float bb0 = sm[SM_B1 + u], bb1 = sm[SM_B1 + u + 1];
+      const float v0 = sm[SM_W20 + u], v1 = sm[SM_W20 + u + 1];
+      const float hh[4] = {h[j][0] + bb0, h[j][2] + bb0, h[j][1] + bb1,
+                           h[j][3] + bb1};
+      const float wv[4] = {v0, v0, v1, v1};
+      float act[4], rev[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        act[i] = softplus100(hh[i]);
+        rev[i] = wv[i] * (1.f / (1.f + expf(-100.f * hh[i])));
+      }
+      uint32_t ah[4], al[4];
+      split4(act, ah, al);
+#pragma unroll
+      for (int t = 0; t < NT_OUT; ++t)
+        mma3(o[t], ah, al, w2f[(j * NT_OUT + t) * 32 + lane]);
+      split4(rev, ah, al);
+#pragma unroll
+      for (int t = 0; t < KS_IN; ++t)
+        mma3(gi[t], ah, al, w1c[(j * KS_IN + t) * 32 + lane]);
+    }
+
+    // ---- 3. epilogue: out + b2 and the point gradient, staged in this
+    // warp's enc rows (the MLP is done with them)
+    __syncwarp();
+    float* st = enc + r0 * ESTRIDE;  // [16 x d_out] then [16 x 3]
+#pragma unroll
+    for (int t = 0; t < NT_OUT; ++t) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = gid + (i >> 1) * 8, oc = t * 8 + 2 * tig + (i & 1);
+        if (oc < d_out) st[row * d_out + oc] = o[t][i] + sm[SM_B2 + oc];
+      }
+    }
+    float g[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int t = 0; t < KS_IN; ++t) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int hf = i >> 1, row = r0 + gid + hf * 8;
+        const int col = t * 8 + 2 * tig + (i & 1);
+        if (t == 0 && col < off) {
+          const float v = gi[t][i] * xyz_scale;
+          g[hf][0] += col == 0 ? v : 0.f;
+          g[hf][1] += col == 1 ? v : 0.f;
+          g[hf][2] += col == 2 ? v : 0.f;
+        } else if (col - off < LF) {
+          const int q = col - off;
+          const float gq = gi[t][i] * sm[SM_MASK + q];
+          const float* jq = jac + (row * MAX_LF + q) * 3;
+          g[hf][0] += gq * jq[0];
+          g[hf][1] += gq * jq[1];
+          g[hf][2] += gq * jq[2];
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float v = g[hf][a];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        g[hf][a] = v;
+      }
+    float* sg = st + 16 * d_out;
+    if (tig == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) sg[(gid + hf * 8) * 3 + a] = g[hf][a];
+    }
+    __syncwarp();
+    const int wrows = max(0, min(16, rows - r0));
+    float* fo = feat + (n0 + r0) * d_out;
+    for (int e = lane; e < wrows * d_out; e += 32) fo[e] = st[e];
+    float* go = grad + (n0 + r0) * 3;
+    for (int e = lane; e < wrows * 3; e += 32) go[e] = sg[e];
   }
-  float* go = grad + n * 3;
-  go[0] = g[0];
-  go[1] = g[1];
-  go[2] = g[2];
 }
 
 // KB': the backward of KB, two launches around the MLP's vector-Jacobian
@@ -356,13 +557,37 @@ extern "C" int encode_mlp_sdfgrad_fwd(
     const float* W2, const float* b2, float* feat, float* grad, long long N,
     int L, int T, int F, int include_xyz, int d_in, int hidden, int d_out,
     float xyz_scale, float xyz_offset, void* stream) {
-  if (d_in > MAX_IN || hidden > MAX_HIDDEN || d_out > MAX_OUT ||
-      L * F > MAX_LF || F > 4)
+  if (d_in > MAX_IN || hidden > MAX_HIDDEN || d_out > MAX_OUT || d_out < 1 ||
+      L * F > MAX_LF || F > 4 || d_in != L * F + (include_xyz ? 3 : 0))
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  const int threads = 128;
-  unsigned blocks = (unsigned)((N + threads - 1) / threads);
-  encode_mlp_sdfgrad_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  // once per device: the dynamic shared memory above 48 KB, and as many
+  // persistent blocks as fit on the card at once
+  constexpr int MAX_DEVICES = 64;
+  static int max_blocks[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (max_blocks[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(encode_mlp_sdfgrad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SM_BYTES);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, encode_mlp_sdfgrad_kernel, THREADS, SM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    max_blocks[dev] = sms * per_sm;
+  }
+  const long long tiles = (N + TILE - 1) / TILE;
+  const unsigned blocks =
+      (unsigned)(tiles < max_blocks[dev] ? tiles : max_blocks[dev]);
+  encode_mlp_sdfgrad_kernel<<<blocks, THREADS, SM_BYTES,
+                              (cudaStream_t)stream>>>(
       table, x, scales, res, level_mask, W1, b1, W2, b2, feat, grad, N, L, T,
       F, include_xyz, d_in, hidden, d_out, xyz_scale, xyz_offset);
   return launch_status();

@@ -164,8 +164,15 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream.  The private
+    binding takes ~0.2 us of host time where ``torch.cuda.current_stream(
+    device).cuda_stream``, which builds a Stream object, takes ~6 us: more
+    than a small kernel's time on the card."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require(t, name, dtype, device, shape=None):

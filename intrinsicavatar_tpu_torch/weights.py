@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from intrinsicavatar_tpu_torch.anim.seedgrid import SeedGrid
+from intrinsicavatar_tpu_torch.anim.seedgrid import SeedGrid, node_records
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -105,12 +105,13 @@ def seed_grid_from_jax(grid):
     """A seed grid baked by the JAX package (its ``SeedGrid``: ``packed
     [res^3, 8*C]`` corner-packed with "border" padding, ``center``,
     ``half``) as the port's channel-last
-    :class:`SeedGrid`.  Corner 0 of
+    :class:`SeedGrid` in node records.  Corner 0 of
     a border-packed row is the node itself, so the grid is ``packed[:,
     :C]``."""
     packed = np.asarray(grid.packed, np.float32)
     C = packed.shape[1] // 8
     res = round(packed.shape[0] ** (1.0 / 3.0))
     as_t = lambda a: torch.as_tensor(np.array(a, np.float32))
-    return SeedGrid(grid=as_t(packed[:, :C].reshape(res, res, res, C)),
+    return SeedGrid(grid=node_records(as_t(packed[:, :C]
+                                           .reshape(res, res, res, C))),
                     center=as_t(grid.center), half=as_t(grid.half))

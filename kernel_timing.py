@@ -1,0 +1,259 @@
+"""Time kernels KB (fused encode + SDF MLP + gradient) and KM (seed grid
+gather) of the PyTorch/CUDA port on one card, three ways.
+
+    python3 kernel_timing.py                      # the port in this checkout
+    python3 kernel_timing.py --port-root DIR      # the port under DIR
+
+``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
+(e.g. a parent commit unpacked with ``git archive``), so that two versions
+are timed on the same card in one session: run parent, change, change,
+parent.  For each call it prints one JSON line:
+
+- ``event_ms``: CUDA events around 20 back-to-back wrapper calls, as
+  ``chip_smoke.py`` times a kernel (the wrapper's host work included
+  wherever it is longer than the kernel);
+- ``device_ms``: the kernel's own device time a launch, from
+  ``torch.profiler``;
+- ``host_us``: the wrapper's host time a call (200 calls, no sync between);
+  for KM also the pieces of it (an allocation, the stream pointer, the
+  ``ctypes`` call with N = 0, which launches nothing).
+
+The inputs are made from a seed at the serve path's shapes: KB at 552,960
+points (the searched shading query of a 4,096-ray chunk) and 65,536 (a
+relight fine pass), 16 levels x 2 features, 2^19 tables, a 35 -> 64 -> 13
+sphere-init MLP with noise on every weight (the init zeroes the first
+layer's rows of the hash features); KM at 262,144 points (4,096 rays x 64 samples in ray
+order) on a 96^3 grid with 6 and with 4 channels, beside
+``F.grid_sample`` on the 4 root channels.  Each result is held to its
+plain twin (KB 1e-4 of max(1, |feat|, |grad|), KM seed_ok equal and floats
+within 1e-5 of max(|ref|, 1)); a disagreement is printed, the timings go on,
+and the script exits nonzero at the end.  The card's name and power limit
+come first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def timings(fn, kernel_substr, reps=20):
+    """``(event_ms, device_ms, host_us)`` of ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA and kernel_substr in e.name]
+    device_ms = sum(dev) / len(dev) / 1e3 if dev else None
+    return event_ms, device_ms, host_us
+
+
+def seed_grid(SG, torch, dev, C, res=96, seed=0):
+    """A 96^3 grid over a 2 m box: a blob of valid nodes whose roots break
+    across a seam, SDF channels when C == 6, packed by the port itself."""
+    rng = np.random.default_rng(seed)
+    n = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    z, y, x = np.meshgrid(n, n, n, indexing="ij")
+    pts = np.stack([x, y, z], -1).reshape(-1, 3)
+    r = np.linalg.norm(pts * [1.0, 0.5, 1.5], axis=-1)
+    ok = (r < 0.7) & (rng.random(len(pts)) < 0.97)
+    xc = 0.4 * pts + 0.01 * rng.normal(size=pts.shape)
+    xc[:, 0] += np.where(pts[:, 0] > 0.1, 0.3, 0.0)
+    sdf = (r - 0.6).astype(np.float32) if C == 6 else None
+    aabb = torch.tensor([[-1.0, -1.1, -0.9], [1.0, 0.9, 1.1]], device=dev)
+    return SG.pack_seed_grid(
+        torch.as_tensor(xc, dtype=torch.float32, device=dev),
+        torch.as_tensor(ok, device=dev),
+        None if sdf is None else torch.as_tensor(sdf, device=dev), aabb, res)
+
+
+def ray_points(torch, dev, rays=4096, samples=64, seed=1):
+    """``[rays * samples, 3]`` points in ray order: rays from inside the
+    blob outwards, 64 samples each over 1.5 m, as a secondary coarse pass
+    lays them out."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5, 0.5, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(0.0, 1.5, samples)[None, :, None]
+    return torch.as_tensor((o + t * d).reshape(-1, 3), dtype=torch.float32,
+                           device=dev).contiguous()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--port-root", default=None)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_timing: needs a CUDA card")
+    if args.port_root:
+        sys.path.insert(0, args.port_root)
+    from intrinsicavatar_tpu_torch import kernels
+    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
+    from intrinsicavatar_tpu_torch.nets.mlp import VanillaMLP
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    root = args.port_root or "."
+    logs = kernels.build_all(("encode_grad", "seedgrid"), verbose=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if ("registers" in line or "stack frame" in line
+                    or "spill" in line):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+
+    def report(line):
+        print(json.dumps({"root": root, "card": card, **line}), flush=True)
+
+    failed = []
+
+    # KM
+    pts = ray_points(torch, dev)
+    for C in (6, 4):
+        grid = seed_grid(SG, torch, dev, C)
+        out = SG.gather_from_grid(grid, pts, 3.0)
+        ref = SG.gather_from_grid_plain(grid, pts, 3.0)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in ((out[0], ref[0]), (out[2], ref[2])):
+            if a is None:
+                continue
+            d = (a - b).abs()
+            if bool((d > 1e-5 * b.abs().clamp(min=1.0)).any()):
+                failed.append(f"seed_gather C={C}")
+            err = max(err, d.max().item())
+        if not torch.equal(out[1], ref[1]):
+            failed.append(f"seed_gather C={C} seed_ok")
+        ev, dv, hu = timings(lambda: SG.gather_from_grid(grid, pts, 3.0),
+                             "seed_gather")
+        line = {"kernel": "seed_gather", "C": C, "points": pts.shape[0],
+                "seeded": int(ref[1].sum()), "max_abs_err": err,
+                "event_ms": ev, "device_ms": dv, "host_us": hu}
+        if C == 4:
+            N = pts.shape[0]
+            vox5 = grid.grid[..., :4].permute(3, 0, 1, 2)[None].contiguous()
+            g5 = ((pts - grid.center) / grid.half).reshape(1, N, 1, 1, 3)
+            lev, ldv, lhu = timings(
+                lambda: torch.nn.functional.grid_sample(
+                    vox5, g5, mode="bilinear", padding_mode="border",
+                    align_corners=True), "grid_sampler")
+            line.update(library_event_ms=lev, library_device_ms=ldv,
+                        library_host_us=lhu)
+        report(line)
+        del grid, out, ref
+
+    # where KM's wrapper spends its host time, piece by piece
+    grid = seed_grid(SG, torch, dev, 6)
+    g, center, half = grid
+    fn = kernels.lib("seedgrid").seed_gather_fwd
+    pdev = pts.device
+    N = pts.shape[0]
+    null = (pts.data_ptr(), g.data_ptr(), center.data_ptr(),
+            half.data_ptr(), 0, 96, 6, 1.0, 9.0, 0, 0, 0, 0)
+    pieces = {
+        "wrapper": lambda: SG.gather_from_grid(grid, pts, 3.0),
+        "new_empty": lambda: pts.new_empty((N, 3)),
+        "torch_empty": lambda: torch.empty((N, 3), dtype=torch.float32,
+                                           device=pdev),
+        "stream_ptr": lambda: kernels.stream_ptr(pdev),
+        "current_stream": lambda: torch.cuda.current_stream(
+            pdev).cuda_stream,
+        "ctypes_call_n0": lambda: fn(*null),
+    }
+    host = {}
+    for name, f in pieces.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            f()
+        host[name] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    report({"kernel": "seed_gather", "host_us_by_piece": host})
+    del grid, g
+
+    # KB
+    spec = HG.HashGridSpec(n_levels=16, n_features_per_level=2,
+                           log2_hashmap_size=19, include_xyz=True)
+    rng = np.random.default_rng(2)
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)),
+                            dtype=torch.float32, device=dev)
+    mask = torch.ones(32, device=dev)
+    mlp = VanillaMLP(35, 13, n_neurons=64, n_hidden_layers=1,
+                     sphere_init=True, weight_norm=True).to(dev)
+    mlp.init(torch.Generator().manual_seed(0))
+    # noise on every weight: the sphere init zeroes the first layer's rows
+    # of the hash features, which would hide the encode from the check
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=gen).to(dev))
+    for N in (552_960, 65_536):
+        x = torch.as_tensor(rng.uniform(0.0, 1.0, (N, 3)),
+                            dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            fk, gk = EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
+            fp, gp = EG.encode_mlp_sdfgrad_plain(
+                spec, mlp, table, x, mask, mlp.effective_weights())
+            torch.cuda.synchronize()
+            err = max((fk - fp).abs().max().item(),
+                      (gk - gp).abs().max().item())
+            scale = max(1.0, fp.abs().max().item(), gp.abs().max().item())
+            if not err <= 1e-4 * scale:
+                print(f"kernel_timing: KB disagrees at {N}: {err}",
+                      flush=True)
+                failed.append(f"encode_mlp_sdfgrad at {N}")
+            ev, dv, hu = timings(
+                lambda: EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask),
+                "encode_mlp_sdfgrad_kernel")
+            # KA on the same points and table: the gather alone
+            kev, kdv, _ = timings(
+                lambda: HG.hashgrid_encode(table, x, spec, mask),
+                "hashgrid_encode_kernel")
+        report({"kernel": "encode_mlp_sdfgrad", "points": N,
+                "max_abs_err": err, "tolerance": 1e-4 * scale,
+                "event_ms": ev, "device_ms": dv, "host_us": hu,
+                "hashgrid_encode_event_ms": kev,
+                "hashgrid_encode_device_ms": kdv})
+    if failed:
+        sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
+
+
+if __name__ == "__main__":
+    main()

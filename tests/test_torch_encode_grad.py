@@ -81,6 +81,43 @@ def test_twin_matches_jax_fused(include_xyz, masked):
     np.testing.assert_allclose(grad.numpy(), np.asarray(grad_r), **GRAD_TOL)
 
 
+def test_twin_matches_jax_fused_at_published_widths():
+    """The plain twin against the JAX op at the default model's widths:
+    16 levels x 2 features, 2^19-row tables (dense and hashed levels), a
+    35 -> 64 -> 13 sphere-init MLP with noise on its hash-feature rows (so
+    every input reaches the gradient), a masked top level, 2,048 points
+    inside and beyond [0, 1]^3."""
+    kw = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+              include_xyz=True)
+    jspec, tspec = JSpec(**kw), TSpec(**kw)
+    jmlp = JMLP(35, 13, n_neurons=64, n_hidden_layers=1, sphere_init=True,
+                weight_norm=True)
+    params = _perturbed(jax.jit(jmlp.init)(jax.random.PRNGKey(9)), 10)
+    tmlp = TMLP(35, 13, n_neurons=64, n_hidden_layers=1, sphere_init=True,
+                weight_norm=True)
+    from_jax_params(_Holder(tmlp), {"f": {"mlp": params}})
+    rng = np.random.default_rng(11)
+    table = rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)).astype(np.float32)
+    x = rng.uniform(-0.15, 1.15, (2048, 3)).astype(np.float32)
+    mask = (np.arange(32) < 30).astype(np.float32)
+    feat_r, grad_r = j_fused(jspec, jmlp.value_and_input_grad,
+                             jnp.asarray(table),
+                             jax.tree.map(jnp.asarray, params),
+                             jnp.asarray(x), jnp.asarray(mask))
+    with torch.no_grad():
+        feat, grad = encode_mlp_sdfgrad(tspec, tmlp, torch.as_tensor(table),
+                                        torch.as_tensor(x),
+                                        torch.as_tensor(mask))
+    np.testing.assert_allclose(feat.numpy(), np.asarray(feat_r), **FEAT_TOL)
+    # the gradient sums terms up to s_l ~ 2,000 times a corner difference
+    # in f32, in another order than JAX: entries that cancel carry the
+    # rounding of the large terms, so each is held within 1e-5 of the
+    # largest entry (the sums' f32 rounding reads ~1e-6 of it)
+    grad_r = np.asarray(grad_r)
+    np.testing.assert_allclose(grad.numpy(), grad_r, rtol=1e-5,
+                               atol=1e-5 * np.abs(grad_r).max())
+
+
 def test_mlp_value_and_input_grad_matches_jax():
     _, _, jmlp, params, tmlp, _, _, _ = _setup(True, False)
     enc = np.random.default_rng(5).normal(size=(300, 15)).astype(np.float32)

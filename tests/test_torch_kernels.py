@@ -78,6 +78,66 @@ def test_encode_grad_kernel_matches_twin(cuda, include_xyz):
     torch.testing.assert_close(grad, grad_r, rtol=1e-4, atol=1e-4)
 
 
+def _kb_case(cuda, n_levels, log2_size, include_xyz, hidden, n, seed):
+    spec = HG.HashGridSpec(n_levels=n_levels, n_features_per_level=2,
+                           log2_hashmap_size=log2_size,
+                           include_xyz=include_xyz)
+    rng = np.random.default_rng(seed)
+    lf = 2 * n_levels
+    table = rng.uniform(-0.1, 0.1, (n_levels, 1 << log2_size, 2))
+    x = rng.uniform(-0.15, 1.15, (n, 3))
+    mask = (np.arange(lf) < lf - 4).astype(np.float32)
+    table, x, mask = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                      for a in (table, x, mask))
+    mlp = VanillaMLP(spec.n_output_dims, 13, n_neurons=hidden,
+                     n_hidden_layers=1, sphere_init=True,
+                     weight_norm=True).to(cuda)
+    mlp.init(torch.Generator().manual_seed(seed))
+    # the sphere init zeroes the first layer's rows of the hash features,
+    # which would hide the encode and its derivative from feat and grad:
+    # noise on every weight puts each input to work
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=gen).to(cuda))
+    return spec, mlp, table, x, mask
+
+
+# (levels, log2 table size, include_xyz, hidden units, points): the
+# published widths (35 -> 64 -> 13, or 32 without xyz), the tiny config's
+# (19 -> 64 -> 13) and 32 hidden units, each through the same 128-point
+# tiles: one point, and counts that leave the last tile ragged
+@pytest.mark.parametrize("n_levels,log2_size,include_xyz,hidden,n", [
+    (16, 19, True, 64, 1),
+    (16, 19, True, 64, 128 * 37 + 5),
+    (16, 19, False, 64, 129),
+    (8, 13, True, 64, 5003),
+    (16, 19, True, 32, 4099),
+    (8, 13, True, 32, 1),
+])
+def test_encode_grad_kernel_widths_and_ragged_tiles(cuda, n_levels,
+                                                    log2_size, include_xyz,
+                                                    hidden, n):
+    spec, mlp, table, x, mask = _kb_case(cuda, n_levels, log2_size,
+                                         include_xyz, hidden, n, seed=n)
+    before = kernels.launches["encode_mlp_sdfgrad"]
+    with torch.no_grad():
+        feat, grad = EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
+        feat_r, grad_r = EG.encode_mlp_sdfgrad_plain(spec, mlp, table, x,
+                                                     mask)
+    assert kernels.launches["encode_mlp_sdfgrad"] == before + 1
+    assert feat.shape == (n, 13) and grad.shape == (n, 3)
+    # the same tolerances as test_encode_grad_kernel_matches_twin
+    torch.testing.assert_close(feat, feat_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(grad, grad_r, rtol=1e-4, atol=1e-4)
+
+
+def test_encode_grad_kernel_refuses_widths_beyond_its_tile(cuda):
+    spec, mlp, table, x, mask = _kb_case(cuda, 8, 13, True, 96, 16, seed=3)
+    with torch.no_grad(), pytest.raises(RuntimeError):
+        EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
+
+
 def test_broyden_kernel_matches_twin(cuda):
     rigid = FastSNARF(wrap({"name": "fast-snarf", "model_path": "synthetic",
                             "deformer_config": {"resolution": 64}}))
@@ -891,6 +951,65 @@ def test_seed_gather_kernel_matches_twin(cuda, C):
     assert torch.equal(out[0], ref[0])
 
 
+def _hand_seed_grid(cuda, C, res=9, seed=23):
+    """A seed grid built node by node: two root branches (incoherent cells
+    along their seam), a corner block of invalid nodes (cells with no
+    valid corner), scattered invalid and SDF-invalid nodes, over [-1, 1]^3
+    with 2^k cells a side, so that nodes and cell centres (eight tied
+    weights) map to lattice coordinates exactly; the query points are the
+    nodes, the cell centres and points up to 30% beyond the box (past the
+    half-cell slack)."""
+    rng = np.random.default_rng(seed)
+    aabb = torch.tensor([[-1.0] * 3, [1.0] * 3], device=cuda)
+    nodes = SG.lattice_points(aabb, res)
+    nn_ = nodes.cpu().numpy()
+    N = res ** 3
+    xc = 0.5 * nn_ + 0.01 * rng.normal(size=(N, 3))
+    xc[:, 0] += np.where(nn_[:, 0] > 0.0, 0.4, -0.4)
+    ok = rng.random(N) < 0.7
+    ok &= ~((nn_[:, 0] < -0.5) & (nn_[:, 1] < -0.5))
+    sdf = rng.normal(size=N)
+    sok = ok & (rng.random(N) < 0.7)
+    ch = [xc[:, 0] * ok, xc[:, 1] * ok, xc[:, 2] * ok, ok]
+    if C == 6:
+        ch += [sdf * sok, sok]
+    g = torch.as_tensor(np.stack(ch, -1).reshape(res, res, res, C),
+                        dtype=torch.float32, device=cuda)
+    grid = SG.SeedGrid(grid=SG.node_records(g), center=torch.zeros(
+        3, device=cuda), half=torch.ones(3, device=cuda))
+    cell = 2.0 / (res - 1)
+    centres = SG.lattice_points(torch.tensor(
+        [[-1.0 + 0.5 * cell] * 3, [1.0 - 0.5 * cell] * 3], device=cuda),
+        res - 1)
+    pts = torch.cat([nodes, centres, torch.as_tensor(
+        rng.uniform(-1.3, 1.3, (20_000, 3)), dtype=torch.float32,
+        device=cuda)]).contiguous()
+    return grid, pts
+
+
+@pytest.mark.parametrize("C", [6, 4])
+@pytest.mark.parametrize("coh", [3.0, 0.1])
+def test_seed_gather_kernel_on_hand_built_cells(cuda, C, coh):
+    grid, pts = _hand_seed_grid(cuda, C)
+    before = kernels.launches["seed_gather"]
+    out = SG.gather_from_grid(grid, pts, coh)
+    assert kernels.launches["seed_gather"] == before + 1
+    ref = SG.gather_from_grid_plain(grid, pts, coh)
+    # the cases are there: outside the slack, cells with no valid corner,
+    # seeded points
+    inside = ((pts.abs() <= 1.0 + 1.0 / 8).all(-1))
+    assert bool((~inside).any()) and bool((inside & ~ref[1]).any())
+    assert bool(ref[1].any())
+    assert torch.equal(out[1], ref[1])
+    _close_where(out[0], ref[0], torch.ones_like(ref[0], dtype=torch.bool))
+    if C == 6:
+        assert torch.equal(out[2] == 1e5, ref[2] == 1e5)
+        _close_where(out[2], ref[2], torch.ones_like(ref[2],
+                                                     dtype=torch.bool))
+    else:
+        assert out[2] is None and ref[2] is None
+
+
 def test_seedgrid_wrapper_refuses_bad_input(cuda):
     grid, _ = _seed_grid(cuda, 6, res=8)
     pts = torch.zeros((16, 3), device=cuda)
@@ -903,3 +1022,6 @@ def test_seedgrid_wrapper_refuses_bad_input(cuda):
                                           .contiguous()), pts)
     with pytest.raises(ValueError):
         SG.gather_from_grid(grid._replace(half=grid.half.cpu()), pts)
+    # channels not in 8-float node records
+    with pytest.raises(ValueError):
+        SG.gather_from_grid(grid._replace(grid=grid.grid.contiguous()), pts)

@@ -250,6 +250,40 @@ def test_hand_built_cells_match_jax():
     assert not to.any() and bool((ts == 1e5).all())
 
 
+@pytest.mark.parametrize("C", [6, 4])
+def test_node_records_layout_and_twin_match_jax(C):
+    """The port's grid stores each node as a 32-byte record (its C
+    channels, then zeros), the layout kernel KM reads; a JAX grid carried
+    across, a packed one and one moved between devices are all records,
+    and the twin reading them equals JAX's ``gather_from_grid`` on
+    hand-built cells (two root branches, one SDF-invalid corner pair) at
+    both coherence factors, the cell centre's tied weights included."""
+    rng = np.random.default_rng(31)
+    nodes = rng.normal(size=(8, 6)).astype(np.float32)
+    nodes[:, 0] += np.where(np.arange(8) % 2, 0.8, -0.8)
+    nodes[:, 3] = (np.arange(8) != 5).astype(np.float32)
+    nodes[:, 5] = (np.arange(8) % 4 != 0).astype(np.float32)
+    nodes[:, :3] *= nodes[:, 3:4]
+    nodes[:, 4] *= nodes[:, 5]
+    jgrid = _hand_grid(nodes[:, :C])
+    grid = seed_grid_from_jax(jgrid)
+    for g in (grid, grid.to("cpu"), SG.SeedGrid(
+            SG.node_records(grid.grid.contiguous()), grid.center,
+            grid.half)):
+        assert SG.is_node_records(g.grid) and g.channels == C
+        rec = torch.as_strided(g.grid, (8, SG.RECORD), (SG.RECORD, 1))
+        np.testing.assert_array_equal(rec[:, :C].numpy(),
+                                      nodes[:, :C])
+        assert not bool(rec[:, C:].any())
+    assert not SG.is_node_records(grid.grid.contiguous())
+    pts = np.concatenate([
+        np.zeros((1, 3)), rng.uniform(-1.2, 1.2, (200, 3)),
+        SG.lattice_points(torch.tensor([[-1.0] * 3, [1.0] * 3]), 2).numpy(),
+    ]).astype(np.float32)
+    for coh in (0.1, 3.0):
+        _compare_gather(jgrid, pts, coh)
+
+
 def test_render_frame_bakes_when_eval_seed_grid(setup, monkeypatch):
     """``eval_seed_grid: true`` (the default) bakes one grid per frame and
     renders through it: the gather answers the importance rounds and seeds
