@@ -35,3 +35,35 @@ __device__ __forceinline__ bool level_is_dense(int r, int T) {
 }
 
 inline int launch_status() { return (int)cudaGetLastError(); }
+
+// The grid of a persistent kernel over `tiles` tiles of work: as many blocks
+// of `kernel` (`threads` threads, `smem` bytes of dynamic shared memory) as
+// fit on the current device at once, and no more than there are tiles.
+// Counted once per device into `cache`, where dynamic shared memory above
+// 48 KB is also allowed.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, int smem,
+                            long long tiles, int (&cache)[kMaxDevices],
+                            unsigned& blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = sms * per_sm;
+  }
+  blocks = (unsigned)(tiles < cache[dev] ? tiles : cache[dev]);
+  return cudaSuccess;
+}

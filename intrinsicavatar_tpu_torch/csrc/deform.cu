@@ -35,7 +35,9 @@
 // What bounds them on an H100: bytes.  The prologue reads 12 B and writes
 // 4 I B per point with ~40 flops per bone; the epilogue reads I x 13 B
 // (x and valid of every lane) and K x 36 B (j_inv of the kept lanes only)
-// and writes K x 49 B per point; the skinning reads 8 corners x 96 B of the
+// and writes K x 49 B per point, a copy of ~444 B a point at I = 8, K = 4,
+// so its time is set by how many sectors its loads and stores touch; the
+// skinning reads 8 corners x 96 B of the
 // 50 MB weight voxel per lane (counted once per lane, as the sample's
 // input), the 24 bones' 3 x 3 rotations once, and writes 36 B.  KN reads
 // 97 B a lane (root, validity, J^-1 and both cotangents) and the weight
@@ -45,9 +47,19 @@
 // Its order of sums is fixed, so a check can bound its rounding
 // (anim/broyden.py:deform_skinning_bwd_exact).
 //
-// Design: one thread per point for the prologue and for the filter and
-// first-K, with the I candidates in per-thread arrays (indexed at run time,
-// so they live in local memory); one thread per kept lane for
+// Design: one thread per point for the prologue, with the I nearest bones
+// in per-thread arrays.  The epilogue is lane-parallel, with no arrays: a
+// group of G lanes of one warp (G the power of two >= I) serves a point,
+// lane i its candidate i, so the loads of x and valid are coalesced and
+// j_inv is read only by the K lanes that fill a slot.  Lane i learns
+// whether a valid later lane lies within thresh by shuffles over its
+// group; `keep` is a ballot, and the slots come from population counts:
+// a kept lane's slot is the kept lanes below it, a dropped lane's is the
+// survivors plus the dropped lanes below it.  Persistent blocks walk over
+// tiles of 256 / G points, stage the tile's K slots of xc, j_inv and valid
+// in shared memory (they are contiguous in the outputs) and write them out
+// with 16-byte stores; the overflow is summed in the block and added with
+// one atomic a block.  One thread per kept lane for
 // the weight sample and blend, each corner read as 6 x float4 of the
 // channel-last voxel.  The arithmetic follows the plain versions' order,
 // so with -fmad=false the prologue's distances and the epilogue's filter
@@ -104,55 +116,99 @@ __global__ void prologue_kernel(const float* __restrict__ pts,
   for (int k = 0; k < I; ++k) slot[n * I + k] = idx[k];
 }
 
-__global__ void epilogue_kernel(const float* __restrict__ x,
-                                const float* __restrict__ jinv,
-                                const uint8_t* __restrict__ valid, int64_t N,
-                                int I, int K, float thresh2,
-                                float* __restrict__ xc,
-                                float* __restrict__ jinv_out,
-                                uint8_t* __restrict__ valid_out,
-                                unsigned long long* __restrict__ overflow) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+// The epilogue, lane-parallel: a group of G lanes (G, a power of two >= I)
+// of one warp serves one point, lane i of the group its candidate i.
+constexpr int EPI_THREADS = 256;
+
+// Copy n words of shared memory to dst with 16-byte stores, then the tail
+// (dst and src 16-byte aligned).
+template <typename W>
+__device__ __forceinline__ void copy_out(W* dst, const W* src, int n) {
+  constexpr int per = 16 / sizeof(W);
+  const int n4 = n / per;
+  for (int q = threadIdx.x; q < n4; q += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(src)[q];
+  for (int e = n4 * per + threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+}
+
+__global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(
+    const float* __restrict__ x, const float* __restrict__ jinv,
+    const uint8_t* __restrict__ valid, int64_t N, int I, int K, int G,
+    float thresh2, float* __restrict__ xc, float* __restrict__ jinv_out,
+    uint8_t* __restrict__ valid_out,
+    unsigned long long* __restrict__ overflow) {
+  // a tile is EPI_THREADS / G points; its K slots a point, staged (the
+  // slots of a tile never exceed EPI_THREADS)
+  __shared__ __align__(16) float s_xc[EPI_THREADS * 3];
+  __shared__ __align__(16) float s_j[EPI_THREADS * 9];
+  __shared__ __align__(16) uint8_t s_v[EPI_THREADS];
+  __shared__ unsigned long long s_ovf[EPI_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int i = lane & (G - 1), pt = tid / G, PB = EPI_THREADS / G;
+  const unsigned group = ((1u << G) - 1) << (lane & ~(G - 1));
+  const unsigned below = (1u << lane) - 1;
   unsigned long long ovf = 0;
-  if (n < N) {
-    float cx[kMaxInit], cy[kMaxInit], cz[kMaxInit];
-    bool v[kMaxInit], keep[kMaxInit];
-    for (int i = 0; i < I; ++i) {
-      const int64_t m = n * I + i;
-      cx[i] = x[m * 3];
-      cy[i] = x[m * 3 + 1];
-      cz[i] = x[m * 3 + 2];
-      v[i] = valid[m] != 0;
+  const int64_t n_tiles = (N + PB - 1) / PB;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t n0 = tile * PB, n = n0 + pt, m = n * I + i;
+    const bool live = n < N && i < I;
+    float cx = 0.f, cy = 0.f, cz = 0.f;
+    bool v = false;
+    if (live) {
+      cx = x[m * 3];
+      cy = x[m * 3 + 1];
+      cz = x[m * 3 + 2];
+      v = valid[m] != 0;
     }
-    int survivors = 0;
-    for (int i = 0; i < I; ++i) {
-      bool dup = false;
-      for (int j = i + 1; j < I; ++j) {
-        const float ax = cx[i] - cx[j], ay = cy[i] - cy[j],
-                    az = cz[i] - cz[j];
-        dup |= v[j] && (ax * ax + ay * ay + az * az < thresh2);
-      }
-      keep[i] = v[i] && !dup;
-      survivors += keep[i] ? 1 : 0;
-    }
-    ovf = survivors > K ? (unsigned long long)(survivors - K) : 0ull;
-    int k = 0;
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int i = 0; i < I && k < K; ++i) {
-        if (keep[i] != (pass == 0)) continue;
-        const int64_t m = n * I + i, q = n * K + k;
-        xc[q * 3] = cx[i];
-        xc[q * 3 + 1] = cy[i];
-        xc[q * 3 + 2] = cz[i];
-        for (int c = 0; c < 9; ++c) jinv_out[q * 9 + c] = jinv[m * 9 + c];
-        valid_out[q] = keep[i];
-        ++k;
+    // a duplicate: a valid later lane j of the group within thresh
+    bool dup = false;
+    for (int s = 1; s < I; ++s) {
+      const float ox = __shfl_down_sync(0xffffffffu, cx, s, G);
+      const float oy = __shfl_down_sync(0xffffffffu, cy, s, G);
+      const float oz = __shfl_down_sync(0xffffffffu, cz, s, G);
+      const int ov = __shfl_down_sync(0xffffffffu, (int)v, s, G);
+      if (i + s < I) {
+        const float ax = cx - ox, ay = cy - oy, az = cz - oz;
+        dup |= ov && (ax * ax + ay * ay + az * az < thresh2);
       }
     }
+    const bool keep = v && !dup;
+    // slots: the survivors in lane order, then the lanes that did not
+    // survive, in lane order
+    const unsigned kept = __ballot_sync(0xffffffffu, keep) & group;
+    const unsigned dropped = __ballot_sync(0xffffffffu, live && !keep) & group;
+    const int survivors = __popc(kept);
+    const int slot = keep ? __popc(kept & below)
+                          : survivors + __popc(dropped & below);
+    if (live && i == 0 && survivors > K)
+      ovf += (unsigned long long)(survivors - K);
+    if (live && slot < K) {
+      const int q = pt * K + slot;
+      s_xc[q * 3] = cx;
+      s_xc[q * 3 + 1] = cy;
+      s_xc[q * 3 + 2] = cz;
+#pragma unroll
+      for (int c = 0; c < 9; ++c) s_j[q * 9 + c] = jinv[m * 9 + c];
+      s_v[q] = keep;
+    }
+    __syncthreads();
+    // the tile's slots are contiguous in each output (n0 is a multiple of
+    // 16 points, so each region starts 16-byte aligned)
+    const int slots = (int)(N - n0 < PB ? N - n0 : PB) * K;
+    copy_out(xc + n0 * K * 3, s_xc, slots * 3);
+    copy_out(jinv_out + n0 * K * 9, s_j, slots * 9);
+    copy_out(valid_out + n0 * K, s_v, slots);
+    __syncthreads();
   }
-  for (int off = 16; off > 0; off >>= 1)
-    ovf += __shfl_down_sync(0xffffffffu, ovf, off);
-  if ((threadIdx.x & 31) == 0 && ovf) atomicAdd(overflow, ovf);
+  // the overflow: one atomic a block
+  for (int o = 16; o > 0; o >>= 1) ovf += __shfl_down_sync(0xffffffffu, ovf, o);
+  if (lane == 0) s_ovf[tid >> 5] = ovf;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long sum = 0;
+    for (int w = 0; w < EPI_THREADS / 32; ++w) sum += s_ovf[w];
+    if (sum) atomicAdd(overflow, sum);
+  }
 }
 
 // The 24 LBS weights at a canonical point: trilinear, border padding,
@@ -292,13 +348,23 @@ extern "C" int deform_epilogue_fwd(const float* x, const float* jinv,
                                    float* jinv_out, uint8_t* valid_out,
                                    unsigned long long* overflow,
                                    void* stream) {
-  if (N <= 0) return 0;
   if (I < 1 || I > kMaxInit || K < 1 || K > I)
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  unsigned blocks = (unsigned)((N + threads - 1) / threads);
-  epilogue_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      x, jinv, valid, N, I, K, thresh2, xc, jinv_out, valid_out, overflow);
+  // the 16-byte stores of the staged slots
+  if ((reinterpret_cast<uintptr_t>(xc) | reinterpret_cast<uintptr_t>(jinv_out)
+       | reinterpret_cast<uintptr_t>(valid_out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  if (N <= 0) return 0;
+  int G = 1;
+  while (G < I) G <<= 1;
+  static int resident[kMaxDevices] = {};
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_grid(
+      epilogue_kernel, EPI_THREADS, 0,
+      (N + EPI_THREADS / G - 1) / (EPI_THREADS / G), resident, blocks);
+  if (err != cudaSuccess) return (int)err;
+  epilogue_kernel<<<blocks, EPI_THREADS, 0, (cudaStream_t)stream>>>(
+      x, jinv, valid, N, I, K, G, thresh2, xc, jinv_out, valid_out, overflow);
   return launch_status();
 }
 

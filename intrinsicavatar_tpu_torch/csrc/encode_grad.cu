@@ -561,31 +561,12 @@ extern "C" int encode_mlp_sdfgrad_fwd(
       L * F > MAX_LF || F > 4 || d_in != L * F + (include_xyz ? 3 : 0))
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  // once per device: the dynamic shared memory above 48 KB, and as many
-  // persistent blocks as fit on the card at once
-  constexpr int MAX_DEVICES = 64;
-  static int max_blocks[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int resident[kMaxDevices] = {};
+  unsigned blocks = 0;
+  const cudaError_t err =
+      persistent_grid(encode_mlp_sdfgrad_kernel, THREADS, SM_BYTES,
+                      (N + TILE - 1) / TILE, resident, blocks);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (max_blocks[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(encode_mlp_sdfgrad_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SM_BYTES);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, encode_mlp_sdfgrad_kernel, THREADS, SM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    max_blocks[dev] = sms * per_sm;
-  }
-  const long long tiles = (N + TILE - 1) / TILE;
-  const unsigned blocks =
-      (unsigned)(tiles < max_blocks[dev] ? tiles : max_blocks[dev]);
   encode_mlp_sdfgrad_kernel<<<blocks, THREADS, SM_BYTES,
                               (cudaStream_t)stream>>>(
       table, x, scales, res, level_mask, W1, b1, W2, b2, feat, grad, N, L, T,

@@ -1,8 +1,10 @@
-"""Time kernels KB (fused encode + SDF MLP + gradient) and KM (seed grid
-gather) of the PyTorch/CUDA port on one card, three ways.
+"""Time kernels KA (hash encode forward), KB (fused encode + SDF MLP +
+gradient), the KH epilogue (duplicate filter, overflow count, first-K) and
+KM (seed grid gather) of the PyTorch/CUDA port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
+    python3 kernel_timing.py --kernels ka,kh      # some of ka, kb, kh, km
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -18,17 +20,30 @@ parent.  For each call it prints one JSON line:
   for KM also the pieces of it (an allocation, the stream pointer, the
   ``ctypes`` call with N = 0, which launches nothing).
 
-The inputs are made from a seed at the serve path's shapes: KB at 552,960
-points (the searched shading query of a 4,096-ray chunk) and 65,536 (a
-relight fine pass), 16 levels x 2 features, 2^19 tables, a 35 -> 64 -> 13
-sphere-init MLP with noise on every weight (the init zeroes the first
-layer's rows of the hash features); KM at 262,144 points (4,096 rays x 64 samples in ray
-order) on a 96^3 grid with 6 and with 4 channels, beside
-``F.grid_sample`` on the 4 root channels.  Each result is held to its
-plain twin (KB 1e-4 of max(1, |feat|, |grad|), KM seed_ok equal and floats
-within 1e-5 of max(|ref|, 1)); a disagreement is printed, the timings go on,
-and the script exits nonzero at the end.  The card's name and power limit
-come first.
+The inputs are made from a seed at the serve path's shapes, at the
+published widths (16 levels x 2 features, 2^19 tables, base 16, scale
+1.4473, with the xyz columns):
+
+- KA at 1,179,648 ray-ordered points (4,096 rays x 288 samples, the serve
+  path's largest call), 552,960 uniform random points (KB's shape below)
+  and 65,536 ray-ordered points (1,024 rays x 64 samples, a relight fine
+  pass), held to its twin within 1e-6 + 1e-5 max|ref|;
+- KB at 552,960 points (the searched shading query of a 4,096-ray chunk)
+  and 65,536 (a relight fine pass), a 35 -> 64 -> 13 sphere-init MLP with
+  noise on every weight (the init zeroes the first layer's rows of the
+  hash features), held within 1e-4 of max(1, |feat|, |grad|), and KA on
+  the same points;
+- the KH epilogue (I = 8 inits, K = 4 kept) at 6,291,456 lanes (a serve
+  chunk's search), 2,097,152 (the phys step's searched secondary coarse
+  call, 262,144 points) and 524,288 (the bake's last chunk): lanes with
+  0, 30% or all roots valid and planted near-duplicates, held bit-equal;
+- KM at 262,144 points (4,096 rays x 64 samples in ray order) on a 96^3
+  grid with 6 and with 4 channels, beside ``F.grid_sample`` on the 4 root
+  channels, seed_ok equal and floats within 1e-5 of max(|ref|, 1).
+
+A disagreement is printed, the timings go on, and the script exits nonzero
+at the end.  The card's name and power limit come first, then each
+kernel's registers, stack frame and spills from ``ptxas``.
 """
 
 from __future__ import annotations
@@ -111,39 +126,145 @@ def ray_points(torch, dev, rays=4096, samples=64, seed=1):
                            device=dev).contiguous()
 
 
+def ka_points(torch, dev, rays, samples, seed):
+    """``[rays * samples, 3]`` points in [0, 1]^3 in ray order: each ray's
+    samples over a third of the box, as a chunk's march lays them out."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.2, 0.8, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(-0.15, 0.15, samples)[None, :, None]
+    return torch.as_tensor((o + t * d).reshape(-1, 3), dtype=torch.float32,
+                           device=dev).contiguous()
+
+
+def search_result(B, torch, dev, N, I, seed):
+    """A search's result over ``N`` points of ``I`` lanes: a third of the
+    points with no root, a third with 30% of the lanes valid, a third with
+    all; 30% of the lanes moved within 2e-5 or 2e-4 of another lane; the
+    invalid lanes' x zeroed, as the search leaves them."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.3, 1.3, (N, I, 3)).astype(np.float32)
+    valid = rng.random((N, I)) < rng.choice([0.0, 0.3, 1.0], (N, 1))
+    src = rng.integers(0, I, (N, I))
+    near = x[np.arange(N)[:, None], src] + rng.normal(
+        scale=rng.choice([2e-5, 2e-4], (N, I, 1)), size=(N, I, 3)
+    ).astype(np.float32)
+    x = np.where((rng.random((N, I)) < 0.3)[..., None], near, x)
+    x[~valid] = 0.0
+    jinv = rng.normal(size=(N * I, 9)).astype(np.float32)
+    return B.BroydenResult(
+        x=torch.as_tensor(x.reshape(-1, 3), device=dev),
+        j_inv=torch.as_tensor(jinv, device=dev),
+        valid=torch.as_tensor(valid.reshape(-1), device=dev))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=None)
+    ap.add_argument("--kernels", default="ka,kb,kh,km",
+                    help="comma-separated, of ka, kb, kh, km")
     args = ap.parse_args()
+    which = set(args.kernels.split(","))
     import torch
     if not torch.cuda.is_available():
         sys.exit("kernel_timing: needs a CUDA card")
     if args.port_root:
         sys.path.insert(0, args.port_root)
+    from chip_smoke import ptxas_info
     from intrinsicavatar_tpu_torch import kernels
-    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
-    from intrinsicavatar_tpu_torch.nets.mlp import VanillaMLP
-    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
-    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
     root = args.port_root or "."
-    logs = kernels.build_all(("encode_grad", "seedgrid"), verbose=True)
+    sources = {"ka": "hashgrid", "kb": "encode_grad", "kh": "deform",
+               "km": "seedgrid"}
+    logs = kernels.build_all(tuple(sorted({sources[k] for k in which})),
+                             verbose=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if ("registers" in line or "stack frame" in line
-                    or "spill" in line):
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        for fn, info in ptxas_info(log).items():
+            print(f"ptxas {name} {fn}: {info}", flush=True)
 
     def report(line):
         print(json.dumps({"root": root, "card": card, **line}), flush=True)
 
     failed = []
+    if "km" in which:
+        time_km(torch, dev, kernels, report, failed)
+    if "ka" in which:
+        time_ka(torch, dev, report, failed)
+    if "kh" in which:
+        time_kh(torch, dev, report, failed)
+    if "kb" in which:
+        time_kb(torch, dev, report, failed)
+    if failed:
+        sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
-    # KM
+
+def time_ka(torch, dev, report, failed):
+    """KA at the serve path's largest call, on uniform random points and at
+    a relight fine pass."""
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    spec = HG.HashGridSpec(n_levels=16, n_features_per_level=2,
+                           log2_hashmap_size=19, include_xyz=True)
+    rng = np.random.default_rng(3)
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)),
+                            dtype=torch.float32, device=dev)
+    mask = torch.ones(32, device=dev)
+    shapes = (
+        ("ray-ordered", ka_points(torch, dev, 4096, 288, 4)),
+        ("uniform random", torch.as_tensor(
+            rng.uniform(0.0, 1.0, (552_960, 3)), dtype=torch.float32,
+            device=dev)),
+        ("ray-ordered", ka_points(torch, dev, 1024, 64, 5)))
+    for order, x in shapes:
+        with torch.no_grad():
+            out = HG.hashgrid_encode(table, x, spec, mask)
+            ref = HG.hashgrid_encode_plain(table, x, spec, mask)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-6 + 1e-5 * ref.abs().max().item()
+            if not err <= tol:
+                print(f"kernel_timing: KA disagrees at {x.shape[0]} "
+                      f"{order} points: {err}", flush=True)
+                failed.append(f"hashgrid_encode at {x.shape[0]}")
+            del out, ref
+            ev, dv, hu = timings(
+                lambda: HG.hashgrid_encode(table, x, spec, mask),
+                "hashgrid_encode_kernel")
+        report({"kernel": "hashgrid_encode", "points": x.shape[0],
+                "order": order, "max_abs_err": err, "tolerance": tol,
+                "event_ms": ev, "device_ms": dv, "host_us": hu})
+
+
+def time_kh(torch, dev, report, failed):
+    """The KH epilogue at a serve chunk's search, the phys step's secondary
+    coarse call and the bake's last chunk."""
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    I, K = 8, 4
+    for lanes in (6_291_456, 2_097_152, 524_288):
+        res = search_result(B, torch, dev, lanes // I, I, seed=lanes % 97)
+        args = (res, I, K, False, None, None, None)
+        out = B.deform_epilogue(*args)
+        ref = B.deform_epilogue_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out[:4], ref[:4])):
+            print(f"kernel_timing: the KH epilogue differs at {lanes} lanes",
+                  flush=True)
+            failed.append(f"deform_epilogue at {lanes}")
+        ev, dv, hu = timings(lambda: B.deform_epilogue(*args),
+                             "epilogue_kernel")
+        report({"kernel": "deform_epilogue", "lanes": lanes, "I": I, "K": K,
+                "overflow": int(ref.overflow), "kept_valid":
+                int(ref.valid.sum()), "event_ms": ev, "device_ms": dv,
+                "host_us": hu})
+        del res, out, ref
+
+
+def time_km(torch, dev, kernels, report, failed):
+    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
     pts = ray_points(torch, dev)
     for C in (6, 4):
         grid = seed_grid(SG, torch, dev, C)
@@ -208,7 +329,11 @@ def main():
     report({"kernel": "seed_gather", "host_us_by_piece": host})
     del grid, g
 
-    # KB
+
+def time_kb(torch, dev, report, failed):
+    from intrinsicavatar_tpu_torch.nets.mlp import VanillaMLP
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
     spec = HG.HashGridSpec(n_levels=16, n_features_per_level=2,
                            log2_hashmap_size=19, include_xyz=True)
     rng = np.random.default_rng(2)
@@ -251,8 +376,6 @@ def main():
                 "event_ms": ev, "device_ms": dv, "host_us": hu,
                 "hashgrid_encode_event_ms": kev,
                 "hashgrid_encode_device_ms": kdv})
-    if failed:
-        sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
 
 if __name__ == "__main__":

@@ -171,3 +171,54 @@ def test_epilogue_without_rotation(jax_deformer):
     assert a.fwd_rot is None and b.fwd_rot.shape == (64 * K, 9)
     for u, v in zip(a[:4], b[:4]):
         assert torch.equal(u, v)
+
+
+def _planted(N, I, seed):
+    """``I`` lanes a point, all valid: a pair within 0.99e-4, beyond
+    1.01e-4 or within 2e-5 of a later lane in most points, and chains (a
+    within 0.6e-4 of b, b of c, so that a and c lie 1.2e-4 apart)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.3, 1.3, (N, I, 3))
+    u = rng.normal(size=(N, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    a = rng.integers(0, I - 1, N)
+    b = a + 1 + rng.integers(0, I - 1 - a)
+    d = rng.choice([0.99e-4, 1.01e-4, 2e-5], N)
+    x[np.arange(N), b] = x[np.arange(N), a] + d[:, None] * u
+    chain = rng.random(N) < 0.5
+    c = rng.integers(0, I - 2, N)
+    for k in (1, 2):
+        x[chain, c[chain] + k] = x[chain, c[chain] + k - 1] + 0.6e-4 * u[chain]
+    valid = rng.random((N, I)) < 0.9
+    x[~valid] = 0.0
+    jinv = rng.normal(size=(N, I, 9))
+    return x.astype(np.float32), jinv.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("n_keep", [1, 16])
+def test_epilogue_matches_jax_at_16_inits(n_keep):
+    """I = 16 (a group of 16 lanes on the card), K = 1 and K = I, with
+    planted pairs at the threshold and duplicate chains."""
+    N, I_, K_ = 600, 16, n_keep
+    x, jinv, valid = _planted(N, I_, 5 + K_)
+    jv = JB.filter_duplicates_soa(*(jnp.asarray(x[..., c]) for c in range(3)),
+                                  jnp.asarray(valid))
+    j_ovf = jnp.sum(jax.nn.relu(jnp.sum(jv.astype(jnp.int32), -1) - K_))
+    order = stable_partition_rows(jv)[:, :K_]
+    lane = np.asarray((jnp.arange(N)[:, None] * I_ + order).reshape(-1))
+    res = TB.BroydenResult(x=torch.as_tensor(x.reshape(-1, 3)),
+                           j_inv=torch.as_tensor(jinv.reshape(-1, 9)),
+                           valid=torch.as_tensor(valid.reshape(-1)))
+    out = TB.deform_epilogue(res, I_, K_, False, None, None, None)
+    np.testing.assert_array_equal(out.xc.numpy(), x.reshape(-1, 3)[lane])
+    np.testing.assert_array_equal(out.j_inv.numpy(),
+                                  jinv.reshape(-1, 9)[lane])
+    np.testing.assert_array_equal(out.valid.numpy(),
+                                  np.asarray(jv).reshape(-1)[lane])
+    assert int(out.overflow) == int(j_ovf)
+    # the planted pairs fall on both sides of the threshold, and the chains
+    # drop their first two links
+    dropped = valid & ~np.asarray(jv)
+    assert 0 < dropped.sum() < valid.sum()
+    if K_ == 1:
+        assert int(j_ovf) > 0

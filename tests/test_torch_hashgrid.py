@@ -141,3 +141,27 @@ def test_autograd_function_matches_autograd_of_twin():
     out = TH.hashgrid_encode(t, p.detach(), spec, m)
     (d_t,) = torch.autograd.grad(out, (t,), g)
     torch.testing.assert_close(d_t, d_fn[0])
+
+
+@pytest.mark.parametrize("include_xyz", [False, True])
+def test_twin_matches_jax_at_published_widths(include_xyz):
+    """The published grid (16 levels x 2 features, 2^19 tables, base 16,
+    scale 1.4473: 5 dense and 11 hashed levels) on 4,096 points, a quarter
+    outside the unit box and a few far outside, with two levels masked."""
+    kw = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+              base_resolution=16, include_xyz=include_xyz)
+    jspec, tspec = JH.HashGridSpec(**kw), TH.HashGridSpec(**kw)
+    assert jspec.dense_levels.sum() == 5
+    rng = np.random.default_rng(4)
+    table = rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)).astype(np.float32)
+    x = rng.uniform(-0.15, 1.15, (4096, 3)).astype(np.float32)
+    x[:64] = rng.choice([-50.0, -2.0, 2.0, 50.0], (64, 3))
+    mask = np.ones(32, np.float32)
+    mask[[4, 5, 30, 31]] = 0.0
+    ref = JH.hashgrid_encode_raw(jnp.asarray(table), jnp.asarray(x), jspec,
+                                 jnp.asarray(mask))
+    out = TH.hashgrid_encode(torch.as_tensor(table), torch.as_tensor(x),
+                             tspec, torch.as_tensor(mask))
+    assert out.shape == (4096, 35 if include_xyz else 32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)

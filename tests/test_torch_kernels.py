@@ -1025,3 +1025,141 @@ def test_seedgrid_wrapper_refuses_bad_input(cuda):
     # channels not in 8-float node records
     with pytest.raises(ValueError):
         SG.gather_from_grid(grid._replace(grid=grid.grid.contiguous()), pts)
+
+
+# ---------------------------------------------------------------- KA tiles
+KA_TILE = 64  # points a tile of the encode kernel (csrc/hashgrid.cu)
+PUBLISHED = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+                 base_resolution=16)
+SMALL = dict(n_levels=6, n_features_per_level=2, log2_hashmap_size=10,
+             base_resolution=4, per_level_scale=1.9)
+
+
+@pytest.fixture(scope="module")
+def ka_tables():
+    """One table of each spec, made once (the published one is 64 MB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    rng = np.random.default_rng(21)
+    out = {}
+    for name, kw in (("published", PUBLISHED), ("small", SMALL)):
+        shape = (kw["n_levels"], 1 << kw["log2_hashmap_size"], 2)
+        out[name] = torch.as_tensor(rng.uniform(-0.1, 0.1, shape),
+                                    dtype=torch.float32, device="cuda")
+    return out
+
+
+def _ka_points(n, ordered, seed):
+    """``n`` points: rays of 16 samples through the unit box (consecutive
+    points share cells), a tenth of them outside [0, 1]^3 and a few at
+    |x| ~ 1e7, where the cell's float-to-int cast saturates; ``ordered``
+    False shuffles them."""
+    rng = np.random.default_rng(seed)
+    rays = -(-n // 16)
+    o = rng.uniform(-0.1, 1.1, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    x = (o + np.linspace(0.0, 0.3, 16)[None, :, None] * d).reshape(-1, 3)[:n]
+    far = rng.random(n) < 0.01
+    x[far] = rng.choice([-1e7, 1e7, -3.0, 3.0], (int(far.sum()), 3))
+    if not ordered:
+        x = x[rng.permutation(n)]
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+@pytest.mark.parametrize("include_xyz", [False, True])
+@pytest.mark.parametrize("n", [0, 1, KA_TILE - 1, KA_TILE + 1,
+                               3 * KA_TILE + 5, 20_011])
+@pytest.mark.parametrize("which", ["published", "small"])
+def test_hashgrid_kernel_tiles_and_orders(cuda, ka_tables, which, n,
+                                          include_xyz, ordered):
+    kw = PUBLISHED if which == "published" else SMALL
+    spec = HG.HashGridSpec(include_xyz=include_xyz, **kw)
+    table = ka_tables[which]
+    lf = kw["n_levels"] * 2
+    # zeroed levels: one coarse level, one fine level and the last two
+    mask = np.ones(lf, np.float32)
+    mask[[2, 3, lf - 6, lf - 5, lf - 2, lf - 1]] = 0.0
+    mask = torch.as_tensor(mask, device=cuda)
+    x = torch.as_tensor(_ka_points(n, ordered, seed=n + 7), device=cuda)
+    before = kernels.launches["hashgrid_encode"]
+    out = HG.hashgrid_encode(table, x, spec, mask)
+    assert kernels.launches["hashgrid_encode"] == before + 1
+    ref = HG.hashgrid_encode_plain(table, x, spec, mask)
+    assert out.shape == (n, spec.n_output_dims) == ref.shape
+    if n:
+        # the wrapper's tolerance in chip_smoke.py: the same f32 operations
+        # in the same order
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-6 + 1e-5 * ref.abs().max().item(), err
+        assert not out[:, -2:].any()
+
+
+def test_hashgrid_kernel_refuses_widths_beyond_its_tile(cuda):
+    # 33 levels: more than the 32 level slots of the tile's shared memory
+    spec = HG.HashGridSpec(n_levels=33, n_features_per_level=1,
+                           log2_hashmap_size=8)
+    table = torch.zeros((33, 256, 1), device=cuda)
+    x = torch.rand((16, 3), device=cuda)
+    with pytest.raises(RuntimeError):
+        HG.hashgrid_encode(table, x, spec)
+    # a table whose start is not 16-byte aligned (the pair loads)
+    spec = HG.HashGridSpec(n_levels=2, n_features_per_level=2,
+                           log2_hashmap_size=8)
+    table = torch.zeros(2 * 256 * 2 + 1, device=cuda)[1:].view(2, 256, 2)
+    with pytest.raises(RuntimeError):
+        HG.hashgrid_encode(table, x, spec)
+
+
+# ---------------------------------------------------------------- KH groups
+def _epilogue_case(cuda, N, I, share, seed):
+    """``N`` points of ``I`` lanes: a ``share`` of the lanes valid (their x
+    zeroed otherwise, as the search leaves them), a planted pair within
+    0.99e-4, beyond 1.01e-4 or within 2e-5 of a later lane in most points,
+    and chains (a within 0.6e-4 of b, b of c, a beyond 1e-4 of c)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.3, 1.3, (N, I, 3))
+    u = rng.normal(size=(N, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    if I >= 2:
+        a = rng.integers(0, I - 1, N)
+        b = a + 1 + rng.integers(0, I - 1 - a)
+        d = rng.choice([0.99e-4, 1.01e-4, 2e-5], N)
+        pick = rng.random(N) < 0.8
+        x[pick, b[pick]] = x[pick, a[pick]] + d[pick, None] * u[pick]
+    if I >= 3:
+        chain = rng.random(N) < 0.3
+        c = rng.integers(0, I - 2, N)
+        for k in (1, 2):
+            x[chain, c[chain] + k] = (x[chain, c[chain] + k - 1]
+                                      + 0.6e-4 * u[chain])
+    valid = rng.random((N, I)) < share
+    x[~valid] = 0.0
+    jinv = rng.normal(size=(N, I, 9))
+    f = lambda v: torch.as_tensor(v.reshape(N * I, -1).astype(np.float32),
+                                  device=cuda)
+    return TB.BroydenResult(x=f(x), j_inv=f(jinv),
+                            valid=torch.as_tensor(valid.reshape(-1),
+                                                  device=cuda))
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("I,K", [(1, 1), (3, 1), (3, 2), (3, 3), (8, 1),
+                                 (8, 4), (8, 8), (16, 1), (16, 8), (16, 16)])
+def test_deform_epilogue_kernel_groups(cuda, I, K, share):
+    # 20,011 points: no multiple of a tile's 256 / G points
+    N = 20_011
+    res = _epilogue_case(cuda, N, I, share, seed=I * 100 + K)
+    args = (res, I, K, False, None, None, None)
+    before = kernels.launches["deform_epilogue"]
+    out = TB.deform_epilogue(*args)
+    assert kernels.launches["deform_epilogue"] == before + 1
+    ref = TB.deform_epilogue_plain(*args)
+    for a, b in zip(out[:4], ref[:4]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    if share == 1.0 and K < I:
+        assert ref.overflow.item() > 0
+    if share == 0.0:
+        assert ref.overflow.item() == 0 and not ref.valid.any()
