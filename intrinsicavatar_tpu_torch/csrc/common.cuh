@@ -11,23 +11,34 @@ __device__ __forceinline__ uint32_t hash_corner(int x, int y, int z,
           ^ (uint32_t)z * 805459861u) & mask;
 }
 
-// Row of the [T, F] level table that corner (cx, cy, cz) of cell c0 reads:
-// dense levels (r^3 <= T) index the cell clamped to [0, r-1] with the +1
-// corner clamped to r-1; hashed levels clamp each corner, then hash.
+// Corner d (0 or 1) along one axis of cell c0 at a level of resolution r:
+// dense levels (r^3 <= T) clamp the cell to [0, r-1] and the +1 corner to
+// r-1; hashed levels clamp each corner to [0, r-1].  The hashed rule clamps
+// c0 to [-1, r-1] first, which changes no corner and keeps c0 + 1 from
+// overflowing where a far point saturated the float-to-int cast.
+__device__ __forceinline__ int axis_corner(int c0, int d, int r, bool dense) {
+  if (dense) {
+    const int c = min(max(c0, 0), r - 1);
+    return d ? min(c + 1, r - 1) : c;
+  }
+  const int c = min(max(c0, -1), r - 1);
+  return d ? max(min(c + 1, r - 1), 0) : max(c, 0);
+}
+
+// Row of the [T, F] level table at corner (x, y, z) of axis_corner: dense
+// levels put x fastest, hashed levels hash.
+__device__ __forceinline__ uint32_t corner_index(int x, int y, int z, int r,
+                                                 bool dense, uint32_t tmask) {
+  return dense ? (uint32_t)((z * r + y) * r + x) : hash_corner(x, y, z, tmask);
+}
+
+// Row that corner (dx, dy, dz) of cell c0 reads.
 __device__ __forceinline__ int64_t corner_row(int c0x, int c0y, int c0z,
                                               int dx, int dy, int dz, int r,
                                               bool dense, uint32_t tmask) {
-  if (dense) {
-    int x = min(max(c0x, 0), r - 1), y = min(max(c0y, 0), r - 1),
-        z = min(max(c0z, 0), r - 1);
-    x = min(x + dx, r - 1);
-    y = min(y + dy, r - 1);
-    z = min(z + dz, r - 1);
-    return ((int64_t)z * r + y) * r + x;
-  }
-  int x = min(max(c0x + dx, 0), r - 1), y = min(max(c0y + dy, 0), r - 1),
-      z = min(max(c0z + dz, 0), r - 1);
-  return (int64_t)hash_corner(x, y, z, tmask);
+  return (int64_t)corner_index(axis_corner(c0x, dx, r, dense),
+                               axis_corner(c0y, dy, r, dense),
+                               axis_corner(c0z, dz, r, dense), r, dense, tmask);
 }
 
 __device__ __forceinline__ bool level_is_dense(int r, int T) {

@@ -26,10 +26,11 @@
 // most dense cells and for every hashed cell with an even x; otherwise the
 // second row is a float2 of its own.  The corners are summed in the order
 // k = dx * 4 + dy * 2 + dz of the plain version, with the index rules of
-// common.cuh:corner_row.  The tile's [64, D] output is staged in shared
-// memory (rows at an odd stride, so the 32 points of one level write 32
-// banks) and written out with coalesced 16-byte stores; D = L * F, plus 3
-// with include_xyz, and a ragged last tile.
+// common.cuh (axis_corner, corner_index), which KA', KB and KB' share.
+// The tile's [64, D] output is staged in shared memory (rows at an odd
+// stride, so the 32 points of one level write 32 banks) and written out
+// with coalesced 16-byte stores; D = L * F, plus 3 with include_xyz, and a
+// ragged last tile.
 #include "common.cuh"
 
 namespace {
@@ -39,25 +40,6 @@ constexpr int KA_THREADS = 256;
 constexpr int KA_MAX_L = 32;
 constexpr int KA_MAX_LF = 64;
 constexpr int KA_MAX_SD = (KA_MAX_LF + 3) | 1;  // odd output row stride
-constexpr uint32_t kPrimeY = 2654435761u, kPrimeZ = 805459861u;
-
-// The two corner coordinates along one axis of cell c0 at a level, by the
-// rules of common.cuh:corner_row: dense levels clamp the cell to [0, r-1]
-// and the +1 corner to r-1; hashed levels clamp each corner.  The hashed
-// rule clamps c0 to [-1, r-1] first, which changes no corner and keeps
-// c0 + 1 from overflowing where a far point saturated the float-to-int cast.
-__device__ __forceinline__ void axis_corners(int c0, int r, bool dense,
-                                             int (&v)[2]) {
-  if (dense) {
-    const int c = min(max(c0, 0), r - 1);
-    v[0] = c;
-    v[1] = min(c + 1, r - 1);
-  } else {
-    const int c = min(max(c0, -1), r - 1);
-    v[0] = max(c, 0);
-    v[1] = max(min(c + 1, r - 1), 0);
-  }
-}
 
 // One (point, level) item: the trilinear blend of the level's 8 corner rows
 // at point p (x in shared memory), masked, into the output row o.
@@ -76,13 +58,14 @@ __device__ __forceinline__ void encode_item(const float* __restrict__ tab,
     f[a] = pos - fl;
   }
   int X[2], Y[2], Z[2];
-  axis_corners(c0[0], r, dense, X);
-  axis_corners(c0[1], r, dense, Y);
-  axis_corners(c0[2], r, dense, Z);
-  auto row = [&](int dx, int dy, int dz) -> uint32_t {
-    return dense ? (uint32_t)((Z[dz] * r + Y[dy]) * r + X[dx])
-                 : (((uint32_t)X[dx] ^ (uint32_t)Y[dy] * kPrimeY
-                     ^ (uint32_t)Z[dz] * kPrimeZ) & tmask);
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    X[d] = axis_corner(c0[0], d, r, dense);
+    Y[d] = axis_corner(c0[1], d, r, dense);
+    Z[d] = axis_corner(c0[2], d, r, dense);
+  }
+  auto row = [&](int dx, int dy, int dz) {
+    return corner_index(X[dx], Y[dy], Z[dz], r, dense, tmask);
   };
   float acc[F];
 #pragma unroll

@@ -1033,6 +1033,14 @@ PUBLISHED = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
                  base_resolution=16)
 SMALL = dict(n_levels=6, n_features_per_level=2, log2_hashmap_size=10,
              base_resolution=4, per_level_scale=1.9)
+# the kernel's other row widths: one feature, three, and four at 16 levels
+# (64 features, the widest row its tile holds)
+KA_SPECS = {
+    "published": PUBLISHED, "small": SMALL,
+    "f1": dict(SMALL, n_levels=8, n_features_per_level=1),
+    "f3": dict(SMALL, n_features_per_level=3),
+    "f4": dict(PUBLISHED, n_features_per_level=4, log2_hashmap_size=12),
+}
 
 
 @pytest.fixture(scope="module")
@@ -1042,8 +1050,9 @@ def ka_tables():
         pytest.skip("needs a CUDA card: the kernels run only there")
     rng = np.random.default_rng(21)
     out = {}
-    for name, kw in (("published", PUBLISHED), ("small", SMALL)):
-        shape = (kw["n_levels"], 1 << kw["log2_hashmap_size"], 2)
+    for name, kw in KA_SPECS.items():
+        shape = (kw["n_levels"], 1 << kw["log2_hashmap_size"],
+                 kw["n_features_per_level"])
         out[name] = torch.as_tensor(rng.uniform(-0.1, 0.1, shape),
                                     dtype=torch.float32, device="cuda")
     return out
@@ -1071,17 +1080,17 @@ def _ka_points(n, ordered, seed):
 @pytest.mark.parametrize("include_xyz", [False, True])
 @pytest.mark.parametrize("n", [0, 1, KA_TILE - 1, KA_TILE + 1,
                                3 * KA_TILE + 5, 20_011])
-@pytest.mark.parametrize("which", ["published", "small"])
+@pytest.mark.parametrize("which", list(KA_SPECS))
 def test_hashgrid_kernel_tiles_and_orders(cuda, ka_tables, which, n,
                                           include_xyz, ordered):
-    kw = PUBLISHED if which == "published" else SMALL
+    kw = KA_SPECS[which]
     spec = HG.HashGridSpec(include_xyz=include_xyz, **kw)
     table = ka_tables[which]
-    lf = kw["n_levels"] * 2
-    # zeroed levels: one coarse level, one fine level and the last two
-    mask = np.ones(lf, np.float32)
-    mask[[2, 3, lf - 6, lf - 5, lf - 2, lf - 1]] = 0.0
-    mask = torch.as_tensor(mask, device=cuda)
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    # zeroed levels: one coarse level, one fine level and the last
+    mask = np.ones((L, F), np.float32)
+    mask[[1, L - 3, L - 1]] = 0.0
+    mask = torch.as_tensor(mask.reshape(-1), device=cuda)
     x = torch.as_tensor(_ka_points(n, ordered, seed=n + 7), device=cuda)
     before = kernels.launches["hashgrid_encode"]
     out = HG.hashgrid_encode(table, x, spec, mask)
@@ -1093,7 +1102,75 @@ def test_hashgrid_kernel_tiles_and_orders(cuda, ka_tables, which, n,
         # in the same order
         err = (out - ref).abs().max().item()
         assert err <= 1e-6 + 1e-5 * ref.abs().max().item(), err
-        assert not out[:, -2:].any()
+        assert not out[:, -F:].any()
+
+
+@pytest.mark.parametrize("kernel", ["ka", "ka_bwd", "kb", "kb_bwd"])
+def test_corner_rule_at_saturated_cells(cuda, ka_tables, kernel):
+    """KA, KA', KB and KB' share one corner rule (csrc/common.cuh): where a
+    point's cell saturates the float-to-int cast (|x| ~ 1e7 at the finest
+    levels' scale of ~4,000), each reads and adds into the twin's rows."""
+    spec = HG.HashGridSpec(**PUBLISHED)
+    table = ka_tables["published"]
+    x = _ka_points(4099, True, seed=3)
+    x[:6] = [[1e7, 1e7, 1e7], [1e7, -1e7, 0.5], [0.5, 1e7, -1e7],
+             [-1e7, 0.5, 1e7], [-1e7, -1e7, -1e7], [1e7, 0.5, 0.5]]
+    x = torch.as_tensor(x, device=cuda)
+    rng = np.random.default_rng(5)
+    normal = lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32), device=cuda)
+    if kernel == "ka":
+        out = HG.hashgrid_encode(table, x, spec)
+        ref = HG.hashgrid_encode_plain(table, x, spec)
+        assert (out - ref).abs().max() <= 1e-6 + 1e-5 * ref.abs().max()
+    elif kernel == "ka_bwd":
+        g = normal(x.shape[0], spec.n_output_dims)
+        dt, dx = HG.hashgrid_encode_bwd(table, x, spec, g, None, True)
+        dt_r, dx_r = HG.hashgrid_encode_bwd_plain(table, x, spec, g, None,
+                                                  True)
+        # as test_hashgrid_bwd_kernel_matches_twin: twice the summation
+        # error bound of each row's terms
+        c = _row_terms(x, spec, table.shape[1])
+        abs_terms = HG.hashgrid_encode_bwd_plain(table, x, spec, g.abs(),
+                                                 None, False)[0]
+        eps = torch.finfo(torch.float32).eps
+        assert float(((dt - dt_r).abs() - c * eps * abs_terms).max()) <= 0.0
+        _close(dx, dx_r)
+    else:
+        mlp = VanillaMLP(spec.n_output_dims, 13, n_neurons=64,
+                         n_hidden_layers=1, sphere_init=True,
+                         weight_norm=True).to(cuda)
+        mlp.init(torch.Generator().manual_seed(6))
+        with torch.no_grad():
+            for p in mlp.parameters():
+                p.add_(0.3 * normal(*p.shape))
+        ones = torch.ones(spec.n_levels * 2, device=cuda)
+        if kernel == "kb":
+            with torch.no_grad():
+                feat, grad = EG.encode_mlp_sdfgrad(spec, mlp, table, x, ones)
+                feat_r, grad_r = EG.encode_mlp_sdfgrad_plain(spec, mlp,
+                                                             table, x, ones)
+            # as test_encode_grad_kernel_matches_twin
+            torch.testing.assert_close(feat, feat_r, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(grad, grad_r, rtol=1e-4, atol=1e-4)
+            return
+        # as test_encode_grad_bwd_kernels_match_twins
+        g_grad, g_feat = normal(x.shape[0], 3), normal(x.shape[0], 13)
+        weights = [(w.detach(), b.detach())
+                   for w, b in mlp.effective_weights()]
+        enc, gg = EG.encode_mlp_sdfgrad_bwd_gather(spec, table, x, ones,
+                                                   g_grad)
+        enc_r, gg_r = EG.encode_mlp_sdfgrad_bwd_gather_plain(spec, table, x,
+                                                             ones, g_grad)
+        _close(enc, enc_r, rtol=0)
+        _close(gg, gg_r, rtol=0)
+        _, d_enc, g_enc = mlp.pair_vjp(enc_r, weights, g_feat, gg_r)
+        dt, dx = EG.encode_mlp_sdfgrad_bwd_scatter(spec, table, x, ones,
+                                                   g_grad, d_enc, g_enc, True)
+        dt_r, dx_r = EG.encode_mlp_sdfgrad_bwd_scatter_plain(
+            spec, table, x, ones, g_grad, d_enc, g_enc, True)
+        _close(dt, dt_r)
+        _close(dx, dx_r)
 
 
 def test_hashgrid_kernel_refuses_widths_beyond_its_tile(cuda):
