@@ -16,11 +16,13 @@
    shapes); KB also with noise on every weight (the sphere init zeroes
    the weights of its hash features), at the tiny config's widths and at
    a relight fine pass, with its device time and its bound at the FP32
-   and at the TF32 rate; KM's and ``F.grid_sample``'s device times; KA's
-   and the KH epilogue's device times (KA also at a relight fine pass and
-   a train step and with noise on its table, the epilogue also at the
-   phys step's secondary coarse call); the registers, stack frame and spills of KA, KB, KH and KM from
-   ``ptxas``;
+   and at the TF32 rate; KM's and ``F.grid_sample``'s device times; KA's,
+   KC's and the KH epilogue's device times (KA also at a relight fine pass
+   and a train step and with noise on its table, the epilogue and KC also
+   at the phys step's secondary coarse call, KC with the histogram of its
+   lanes' iterations and the share of issued samples that do work,
+   ``lane_work``); the registers, stack frame and spills of KA, KB, KC,
+   KH, KL and KM from ``ptxas``;
 4. serves: bakes one frame's 96^3 seed grid alone (its time and launches),
    then renders 2 frames x 16,384 rays of the synthetic val split through
    ``render_frame`` (each with its own 64^3 test grid and seed grid, the
@@ -54,7 +56,11 @@
    whose physically based maps must agree;
 7. trains: records the backward kernels' inputs in one full-width train
    step at step 2000, holds each backward kernel against its twin on them
-   and times both; then, with every launch counter set to 0 just before and
+   and times both (KB' pass 2 at the step's shading call and its curvature
+   call, with its device time, the warps' merge hit rate by level, its
+   bound over the cotangent rows its corners touch, and ``index_add_`` of
+   the same adds, precomputed, as the library yardstick); then, with every
+   launch counter set to 0 just before and
    read just after, runs ``fit`` for 3 steps from step 0 (full budgets, no
    importance rounds, an occupancy update) and 10 from step 2000 (2 x 16
    importance samples, compacted shading, curvature on a 25% subsample),
@@ -76,8 +82,8 @@
    losses and gradients (the pose's included) must agree;
 9. prints the ``kernels`` line, the serve, relight and train lines (each
    profile with the device ms, launches and share of busy time of the
-   kernels redesigned for the card, KA, KB, the KH epilogue and KM,
-   ``redesigned``), and last the device line.
+   kernels redesigned for the card, KA, KB, KC, KB' pass 2, the KH
+   epilogue and KM, ``redesigned``), and last the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -103,16 +109,21 @@ PEAK_TF32 = 495e12
 # the kernels redesigned for the card, before their redesign (PERF.md
 # section 6, same card, 700 W): KB at the searched shading query's 552,960
 # points, KM at a relight chunk's busiest secondary coarse gather, KA at a
-# serve chunk's largest call (1,179,648 points), the KH epilogue at a serve
-# chunk's search (6,291,456 lanes)
+# serve chunk's largest call (1,179,648 points), the KH epilogue and KC at
+# a serve chunk's search (6,291,456 lanes; KC's events without the voxel
+# copy), KB' pass 2 at a train step's shading call (552,960 points)
 EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "0.0513-0.0740", "hashgrid_encode": "0.855",
-              "deform_epilogue": "0.852-0.857"}
+              "deform_epilogue": "0.852-0.857", "broyden_search": "0.501",
+              "encode_mlp_sdfgrad_bwd_scatter": "4.337-4.463"}
 # the profiler's names of the kernels redesigned for the card
 REDESIGNED = {"encode_mlp_sdfgrad": "encode_mlp_sdfgrad_kernel",
               "seed_gather": "seed_gather_kernel",
               "hashgrid_encode": "::hashgrid_encode_kernel",
-              "deform_epilogue": "::epilogue_kernel("}
+              "deform_epilogue": "::epilogue_kernel(",
+              "broyden_search": "broyden_search_kernel",
+              "encode_mlp_sdfgrad_bwd_scatter":
+                  "encode_mlp_sdfgrad_bwd_scatter_kernel"}
 
 
 def fail(msg: str):
@@ -198,10 +209,12 @@ def main():
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name in ("encode_grad", "seedgrid", "hashgrid", "deform"):
+    for name in ("encode_grad", "seedgrid", "hashgrid", "deform",
+                 "broyden"):
         for fn, info in ptxas_info(logs.get(name, "")).items():
             # the mangled names: no "::" or "(" around the kernel's name
-            if any(k.strip(":(") in fn for k in REDESIGNED.values()):
+            if name == "broyden" or any(k.strip(":(") in fn
+                                        for k in REDESIGNED.values()):
                 print(f"ptxas {fn}: {info} ({card})", flush=True)
 
     # ---------------------------------------------------------- model
@@ -333,39 +346,16 @@ def main():
     kb_tiny_widths(dev, card)
 
     # KC Broyden search
-    def check_kc(rec, at):
-        args, kw = rec[1], rec[2]
-        rk = B.broyden_search(*args, **kw)
-        lane_iters = []
-        rp = B.broyden_search_plain(*args, **kw, lane_iters=lane_iters)
-        torch.cuda.synchronize()
-        both = rk.valid & rp.valid
-        flip = (rk.valid != rp.valid).float().mean().item()
-        err = max((rk.x - rp.x)[both].abs().max().item(),
-                  (rk.j_inv - rp.j_inv)[both].abs().max().item())
-        # roots within 1e-4 where both converged; a lane whose |g|^2 sits
-        # at the threshold may flip with the order of a sum: allow 1e-3 of
-        # lanes
-        if not (err <= 1e-4 and flip <= 1e-3):
-            fail(f"broyden_search disagrees with its twin at the {at}: "
-                 f"err={err} flipped={flip}")
-        M = args[0].shape[0]
-        steps = int(sum(int(a) for a in lane_iters))
-        print(f"broyden ({at}): {M} lanes, {steps} lane-iterations, "
-              f"{rk.valid.float().mean().item():.4f} valid, {flip:.2e} "
-              f"flipped", flush=True)
-        return (f"xd{list(args[0].shape)}", err,
-                time_ms(lambda: B.broyden_search(*args, **kw)),
-                time_ms(lambda: B.broyden_search_plain(*args, **kw), 2),
-                M * (12 + 4 + 12 + 36 + 1) + args[2].numel() * 4
-                + args[3].numel() * 4,
-                (M + steps) * (8 * 12 * 2 + 8 * 6 + 40) + steps * 80)
+    def kc_row(rec, where):
+        r = kc_reading(rec, where, card)
+        return (r["shape"], r["max_abs_err"], r["ms"], r["plain_ms"],
+                r["bytes"], r["flops"])
 
     row("broyden_search", "cuda", "intrinsicavatar_tpu_torch/csrc/broyden.cu",
         "intrinsicavatar_tpu/anim/broyden.py:351",
-        *check_kc(kc, "searched shading query"))
+        *kc_row(kc, "searched shading query"))
     grid_shape("broyden_search", "bake's last chunk",
-               *check_kc(kc_g, "bake's last chunk"))
+               *kc_row(kc_g, "bake's last chunk"))
 
     # KD weights (importance rounds) and composite (final)
     alphas, amask = kd_w[1][:2]
@@ -966,6 +956,203 @@ def epilogue_reading(rec, where, card):
     return r
 
 
+def lane_work(counts, tile=512, threads=256):
+    """What the iterations ``counts [M]`` of a search's lanes (from the
+    twin, whose loop is the kernel's) cost in voxel samples (1 + the
+    iterations a lane): the histogram of iterations, the share of issued
+    samples that do work when 32 consecutive lanes share a warp and each
+    runs until its slowest lane ends (the one-lane-a-thread layout), and
+    the share when the threads of a tile take lanes as they finish
+    (refill; each tile counted at the larger of its slowest lane and its
+    samples over its threads)."""
+    import torch
+    M = counts.numel()
+    samples = counts.to(torch.int64) + 1
+    total = int(samples.sum())
+    pad = lambda n: torch.nn.functional.pad(samples, (0, -M % n))
+    warp_max = pad(32).reshape(-1, 32).max(1).values
+    per_tile = pad(tile).reshape(-1, tile)
+    tile_cost = torch.maximum(per_tile.max(1).values,
+                              -(-per_tile.sum(1) // threads))
+    return {
+        "lanes": M, "samples": total,
+        "iterations_hist": torch.bincount(counts.to(torch.int64))
+        .tolist(),
+        "warp_efficiency": total / (32 * int(warp_max.sum())),
+        "refill_efficiency_bound": total / (threads * int(tile_cost.sum())),
+        "tile": tile, "threads": threads}
+
+
+def kc_reading(rec, where, card, launches=None):
+    """KC against its twin on a recorded call (roots within 1e-4 where both
+    converged, at most 1e-3 of lanes flipped: a lane whose |g|^2 sits at
+    the threshold may flip with the order of a sum); timed with events and
+    on the device beside the twin; the lanes' iterations (``lane_work``);
+    its bound over this call's bytes.  Returns the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    args, kw = rec[1], rec[2]
+    rk = B.broyden_search(*args, **kw)
+    lane_iters, counts = [], []
+    rp = B.broyden_search_plain(*args, **kw, lane_iters=lane_iters,
+                                lane_counts=counts)
+    torch.cuda.synchronize()
+    both = rk.valid & rp.valid
+    flip = (rk.valid != rp.valid).float().mean().item()
+    err = max((rk.x - rp.x)[both].abs().max().item(),
+              (rk.j_inv - rp.j_inv)[both].abs().max().item())
+    if not (err <= 1e-4 and flip <= 1e-3):
+        fail(f"broyden_search disagrees with its twin at the {where}: "
+             f"err={err} flipped={flip}")
+    M = args[0].shape[0]
+    steps = int(sum(int(a) for a in lane_iters))
+    work = lane_work(counts[0])
+    valid = rk.valid.float().mean().item()
+    del rk, rp, both, counts
+    nbytes = (M * (12 + 4 + 12 + 36 + 1) + args[2].numel() * 4
+              + args[3].numel() * 4)
+    flops = (M + steps) * (8 * 12 * 2 + 8 * 6 + 40) + steps * 80
+    call = lambda: B.broyden_search(*args, **kw)
+    r = {"where": where, "shape": f"xd{list(args[0].shape)}",
+         "max_abs_err": err, "flipped": flip,
+         "valid": valid, "lane_iterations": steps, "work": work,
+         "ms": time_ms(call),
+         "device_ms": device_ms(call, REDESIGNED["broyden_search"]),
+         "plain_ms": time_ms(lambda: B.broyden_search_plain(*args, **kw), 2),
+         "bytes": nbytes, "flops": flops,
+         "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+         "card": card}
+    if launches is not None:
+        r["launches_per_step"] = launches
+    if M == 6_291_456:
+        r["before_redesign_ms"] = EARLIER_MS["broyden_search"]
+    print(f"kernel broyden_search ({where}): {json.dumps(r)}", flush=True)
+    return r
+
+
+def relerr(a, b, rtol=0.0):
+    """Largest error beyond ``rtol`` of each entry, over the largest
+    entry."""
+    excess = ((a - b).abs() - rtol * b.abs()).clamp(min=0.0)
+    return excess.max().item() / max(b.abs().max().item(), 1e-30)
+
+
+# float atomics (the kernels' and index_add_'s on the card) sum a dense
+# level's row of ~300 terms in changing order: 1e-4 of each entry
+ATOMIC_RTOL = 1e-4
+
+
+def warp_row_hits(x, spec, mask=None):
+    """By level, the share of the (point, corner) adds of KB' pass 2 that a
+    warp merges into another lane's: a warp takes 32 consecutive points of
+    one level (tiles of 64 start at multiples of 64), and at corner k the
+    lanes that add into one row issue one reduction.  A level masked off
+    adds nothing (None)."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    L, F, T = spec.n_levels, spec.n_features_per_level, spec.table_size
+    on = (torch.ones(L, dtype=torch.bool) if mask is None
+          else (mask.reshape(L, F) != 0).any(1).cpu())
+    N = x.shape[0]
+    warp = (torch.arange(N, device=x.device) // 32)[:, None] * 8 \
+        + torch.arange(8, device=x.device)[None, :]
+    out = []
+    for lvl in range(L):
+        hit = None
+        if on[lvl] and N:
+            c0, _ = zip(*(HG.level_coords(x[:, a], float(spec.scales[lvl]))
+                          for a in range(3)))
+            rows = HG.corner_rows(c0, int(spec.resolutions[lvl]),
+                                  bool(spec.dense_levels[lvl]), T)
+            keys = warp * T + rows.reshape(N, 8).to(torch.int64)
+            hit = 1.0 - torch.unique(keys).numel() / keys.numel()
+        out.append({"level": lvl, "resolution": int(spec.resolutions[lvl]),
+                    "dense": bool(spec.dense_levels[lvl]), "hit_rate": hit})
+    return out
+
+
+def scatter_terms(spec, table, xn, level_mask, g_grad, d_enc, g_enc):
+    """KB' pass 2's table adds as ``(rows [n] into table.view(-1, F),
+    values [n, F])``: every (point, level, corner) of the levels the mask
+    leaves on, as the twin computes them."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    N = xn.shape[0]
+    L, T, F = table.shape
+    off = 3 if spec.include_xyz else 0
+    de = (d_enc[:, off:] * level_mask[None, :]).reshape(N, L, F)
+    gl = (g_enc[:, off:] * level_mask[None, :]).reshape(N, L, F)
+    on = (level_mask.reshape(L, F) != 0).any(1).tolist()
+    idx, vals = [], []
+    for lvl, s, _, rows, _, w8, dw8 in EG._levels(spec, table, xn):
+        if not on[lvl]:
+            continue
+        u8 = s * sum(g_grad[:, a, None] * dw8[a] for a in range(3))
+        vals.append((w8[:, :, None] * de[:, lvl, None, :]
+                     + u8[:, :, None] * gl[:, lvl, None, :]).reshape(-1, F))
+        idx.append(rows.reshape(-1).to(torch.int64) + lvl * T)
+    return torch.cat(idx), torch.cat(vals)
+
+
+def kb2_reading(rec, where, card):
+    """KB' pass 2 against its twin on a recorded call (each entry within
+    1e-5 of the largest beyond ATOMIC_RTOL of itself); timed with events
+    and on the device beside the twin and beside ``index_add_`` of the same
+    adds, precomputed (the scatter alone); the warps' merge hit rate by
+    level; its bound over the cotangent rows its corners touch.  Returns
+    the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    args = rec[1]
+    spec, table, xn, mask, g_grad, d_enc, g_enc, need_x = args
+    dk = EG.encode_mlp_sdfgrad_bwd_scatter(*args)
+    dp = EG.encode_mlp_sdfgrad_bwd_scatter_plain(*args)
+    torch.cuda.synchronize()
+    pairs = list(zip(dk, dp))[:2 if need_x else 1]
+    errs = [relerr(a, b, ATOMIC_RTOL) for a, b in pairs]
+    if not max(errs) <= 1e-5:
+        fail(f"encode_mlp_sdfgrad_bwd_scatter disagrees with its twin at "
+             f"the {where}: {errs}")
+    abs_err = max((a - b).abs().max().item() for a, b in pairs)
+    del dk, dp, pairs
+    N, (L, T, F) = xn.shape[0], table.shape
+    D = d_enc.shape[1]
+    rows = hash_rows_touched(xn, spec, mask)
+    # x, g_grad, d_enc and g_enc read once; each cotangent row the corners
+    # touch read and written once; with d_xn each table row they touch
+    # read once and d_xn written
+    nbytes = (N * 24 + 2 * N * D * 4 + 2 * rows * F * 4
+              + (rows * F * 4 + N * 12 if need_x else 0))
+    flops = N * L * 8 * (30 + (6 * F + 30 if need_x else 0))
+    call = lambda: EG.encode_mlp_sdfgrad_bwd_scatter(*args)
+    idx, vals = scatter_terms(spec, table, xn, mask, g_grad, d_enc, g_enc)
+    d_lib = torch.zeros_like(table).view(-1, F)
+    lib = lambda: d_lib.index_add_(0, idx, vals)
+    r = {"where": where, "shape": f"x{list(xn.shape)}", "d_xn": bool(need_x),
+         "max_abs_err": abs_err, "relerr": errs, "rows_touched": rows,
+         "merge_hits": warp_row_hits(xn, spec, mask),
+         "ms": time_ms(call),
+         "device_ms": device_ms(call, REDESIGNED[
+             "encode_mlp_sdfgrad_bwd_scatter"]),
+         "plain_ms": time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_scatter_plain(
+             *args), 3),
+         "library_ms": time_ms(lib),
+         "library_device_ms": device_ms(lib, "index"),
+         "bytes": nbytes, "flops": flops,
+         "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+         "card": card}
+    del idx, vals, d_lib
+    if N == 552_960:
+        r["before_redesign_ms"] = EARLIER_MS["encode_mlp_sdfgrad_bwd_scatter"]
+    print(f"kernel encode_mlp_sdfgrad_bwd_scatter ({where}): "
+          f"{json.dumps(r)}", flush=True)
+    return r
+
+
 class MostFrequent:
     """A ``Recorder``'s ``size_of`` that ranks each call by how often its
     size has come so far, so that the recorder keeps a call of the size
@@ -1247,6 +1434,12 @@ def relight(rows, row, card, dev):
           f"{fk.valid.float().mean().item():.4f} valid, "
           f"max_abs_err={f_err:.3g} ms={f_ms:.4f} plain_ms={f_plain:.4f} "
           f"bound_ms={max(f_bytes / PEAK_BYTES, f_ops / PEAK_FP32) * 1e3:.5f}",
+          flush=True)
+    # KL shares KC's lane steps: its device time at both calls
+    kl_dev = {w: device_ms(lambda: B.broyden_polish(*a, **kw),
+                           "broyden_polish_kernel")
+              for w, a in (("fine_budget", args), ("all_seeded", full))}
+    print(f"broyden_polish device_ms: {json.dumps(kl_dev)} ({card})",
           flush=True)
     check_seed_gather(row, km_big, km_sec, dev)
     del ok_, op_, fk, fp, mk, mp, pk, pp, recs, ki, kj, kk, kl, roots
@@ -1975,16 +2168,6 @@ def train(rows, row, card, dev):
     ka_train = ka_reading(max((r.best for r in recs[5:] if r.best),
                               key=lambda b: b[0]), "train step at 2000", card)
 
-    def relerr(a, b, rtol=0.0):
-        """Largest error beyond ``rtol`` of each entry, over the largest
-        entry."""
-        excess = ((a - b).abs() - rtol * b.abs()).clamp(min=0.0)
-        return excess.max().item() / max(b.abs().max().item(), 1e-30)
-
-    # float atomics (the kernels' and index_add_'s on the card) sum a dense
-    # level's row of ~300 terms in changing order: 1e-4 of each entry
-    ATOMIC_RTOL = 1e-4
-
     # KA' (table only, as on the path: the radiance points carry no grad)
     table, x, spec, g, mask, need_x = ka[1]
     out_k = HG.hashgrid_encode_bwd(*ka[1])
@@ -2026,34 +2209,14 @@ def train(rows, row, card, dev):
         time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_gather(*kb1[1])),
         time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_gather_plain(*kb1[1]), 3),
         N * 24 + gathered + 2 * N * D * 4, N * L * 8 * (24 + 4 * F))
-    errs, abs_err = [], 0.0
-    for args in (kb2[1], kb2x[1]):
-        dk = EG.encode_mlp_sdfgrad_bwd_scatter(*args)
-        dp = EG.encode_mlp_sdfgrad_bwd_scatter_plain(*args)
-        torch.cuda.synchronize()
-        pairs = list(zip(dk, dp))[:2 if args[7] else 1]
-        errs += [relerr(a, b, ATOMIC_RTOL) for a, b in pairs]
-        abs_err = max([abs_err] + [(a - b).abs().max().item()
-                                   for a, b in pairs])
-    err = max(errs)
-    if not err <= 1e-5:
-        fail(f"encode_mlp_sdfgrad_bwd_scatter disagrees with its twin: "
-             f"{errs}")
-    _, table_b, xn, _, _, d_enc, _, need_x = kb2[1]
-    N = xn.shape[0]
-    print(f"KB' pass 2: {N} points (d_xn {need_x}), curvature call "
-          f"{kb2x[1][2].shape[0]} points (d_xn True)", flush=True)
+    kb2_reads = [kb2_reading(kb2, "shading call", card),
+                 kb2_reading(kb2x, "curvature call", card)]
+    r = kb2_reads[0]
     row("encode_mlp_sdfgrad_bwd_scatter", "cuda",
         "intrinsicavatar_tpu_torch/csrc/encode_grad.cu",
-        "intrinsicavatar_tpu/ops/encode_grad.py:288", f"x{list(xn.shape)}",
-        abs_err,
-        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_scatter(*kb2[1])),
-        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_scatter_plain(*kb2[1]),
-                3),
-        N * 24 + 2 * d_enc.numel() * 4
-        + min(N * L * 8 * F * 4, 2 * table_b.numel() * 4)
-        + (gathered + N * 12 if need_x else 0),
-        N * L * 8 * (30 + (6 * F + 30 if need_x else 0)))
+        "intrinsicavatar_tpu/ops/encode_grad.py:288", r["shape"],
+        max(k["max_abs_err"] for k in kb2_reads), r["ms"], r["plain_ms"],
+        r["bytes"], r["flops"], r["library_ms"])
 
     # KD'
     dk = V.composite_bwd(*kd[1])
@@ -2144,6 +2307,8 @@ def train(rows, row, card, dev):
                 "step_wall_ms", "device_busy_ms", "device_idle_share",
                 "device_launches", "redesigned")},
             "ka_train_step": ka_train,
+            "kb2_shading_call": kb2_reads[0],
+            "kb2_curvature_call": kb2_reads[1],
             "cpu_check": cpu_check}
 
 
@@ -2338,10 +2503,12 @@ def train_pose_phys(rows, row, card, dev):
     # ------------------------------------------------ phys regime
     system.setup(ds.betas)
     trips = tripwires(TWINS + PBR_TWINS)
-    # the epilogue of the searched secondary coarse pass: a shader chunk's
-    # call, the one that comes most often
+    # the search and its epilogue of the searched secondary coarse pass: a
+    # shader chunk's call, the one that comes most often
     rec = Recorder(DF, "deform_epilogue",
                    MostFrequent(lambda a: a[0].x.shape[0]))
+    rec_kc = Recorder(DF, "broyden_search",
+                      MostFrequent(lambda a: a[0].shape[0]))
     kernels.reset_launches()
     try:
         phys, _ = run_regime(system, data, PHYS_START, 3, cfg)
@@ -2350,6 +2517,7 @@ def train_pose_phys(rows, row, card, dev):
              f"({torch.cuda.max_memory_allocated()} bytes allocated at "
              f"the peak): {e}")
     launches = dict(kernels.launches)
+    rec_kc.restore()
     rec.restore()
     for t in trips:
         t.restore()
@@ -2365,7 +2533,9 @@ def train_pose_phys(rows, row, card, dev):
     print(json.dumps({"phys_regime": phys}), flush=True)
     epi_phys = epilogue_reading(rec.best, "phys step's secondary coarse call",
                                 card)
-    del rec
+    kc_phys = kc_reading(rec_kc.best, "phys step's secondary coarse call",
+                         card, launches.get("broyden_search", 0) / 3)
+    del rec, rec_kc
     wall_ms, by_kernel = profile_device(
         lambda: system.fit(data, system.step + 1, log_every=1))
     busy_ms = sum(ms for ms, _ in by_kernel.values())
@@ -2392,6 +2562,7 @@ def train_pose_phys(rows, row, card, dev):
                 "step_wall_ms", "device_busy_ms", "device_idle_share",
                 "device_launches", "redesigned")},
             "epilogue_secondary_coarse": epi_phys,
+            "search_secondary_coarse": kc_phys,
             "cpu_checks": checks}
 
 

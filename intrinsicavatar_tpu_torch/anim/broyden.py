@@ -151,7 +151,8 @@ class BroydenResult(NamedTuple):
 
 
 def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
-                   cvg_thresh, dvg_thresh, max_iters, lane_iters):
+                   cvg_thresh, dvg_thresh, max_iters, lane_iters,
+                   lane_counts=None):
     """The JAX loop (`anim/broyden.py:242-314`), vectorized over lanes, from
     canonical starts ``x, y, z [M]``; lanes ``done`` at entry stay invalid."""
     shape_dhw = tuple(voxel_J.shape[:3])
@@ -177,11 +178,14 @@ def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
     out_x = [torch.zeros_like(x) for _ in range(3)]
     out_J = [torch.zeros_like(x) for _ in range(9)]
     cvg2, dvg2 = cvg_thresh ** 2, dvg_thresh ** 2
+    steps = torch.zeros(xd.shape[0], dtype=torch.int32, device=xd.device)
     for _ in range(max_iters):
         J00, J01, J02, J10, J11, J12, J20, J21, J22 = Ji
         active = ~done
         if lane_iters is not None:
             lane_iters.append(active.sum())
+        if lane_counts is not None:
+            steps += active
         u0 = -(J00 * g0 + J01 * g1 + J02 * g2)
         u1 = -(J10 * g0 + J11 * g1 + J12 * g2)
         u2 = -(J20 * g0 + J21 * g1 + J22 * g2)
@@ -218,6 +222,8 @@ def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
         g1 = torch.where(cont, n1, g1)
         g2 = torch.where(cont, n2, g2)
         done = done | conv | dvg
+    if lane_counts is not None:
+        lane_counts.append(steps)
     vf = valid.to(xd.dtype)[:, None]
     return BroydenResult(x=torch.stack(out_x, -1) * vf,
                          j_inv=torch.stack(out_J, -1) * vf, valid=valid)
@@ -225,12 +231,14 @@ def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
 
 def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
                          cvg_thresh=1e-5, dvg_thresh=1e-1, max_iters=10,
-                         lane_iters: list | None = None) -> BroydenResult:
+                         lane_iters: list | None = None,
+                         lane_counts: list | None = None) -> BroydenResult:
     """Plain twin of kernel KC: the JAX single-phase loop, vectorized.
 
     ``lane_iters``, when given, receives the number of (lane, iteration)
     steps the lanes ran before converging or diverging (a measurement of
-    the work this data needs)."""
+    the work this data needs), one count per iteration; ``lane_counts``
+    receives an int32 ``[M]``: the iterations each lane ran."""
     tx, ty, tz = xd[:, 0], xd[:, 1], xd[:, 2]
     T = tfs[:, :3, :].reshape(tfs.shape[0], 12)[bone_idx]
     Tb = T.unbind(-1)
@@ -240,7 +248,8 @@ def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
     z = Tb[2] * dx_ + Tb[6] * dy_ + Tb[10] * dz_
     done = torch.zeros(xd.shape[0], dtype=torch.bool, device=xd.device)
     return _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
-                          cvg_thresh, dvg_thresh, max_iters, lane_iters)
+                          cvg_thresh, dvg_thresh, max_iters, lane_iters,
+                          lane_counts)
 
 
 def broyden_search(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,

@@ -1,6 +1,7 @@
 // KC: Broyden inverse-LBS root search (broyden_search_fwd); KL: its seeded
 // single-lane polish (broyden_polish_fwd), described above its kernel
-// below.  Both run the same per-lane body, broyden_lane.
+// below.  Both run the same per-lane steps (lane_start, lane_point,
+// lane_next), so a lane's arithmetic is one sequence of operations in both.
 //
 // KC:
 // Replaces intrinsicavatar_tpu/anim/broyden.py:351-460 broyden_search (body
@@ -16,48 +17,73 @@
 // lane compaction after 4 iterations is a workaround for gathers priced per
 // row, and no lane is dropped here.
 //
-// What bounds it on an H100: each iteration of each live lane reads 8
-// corners x 12 channels = 384 B of the 25 MB voxel, mostly from L2; the
-// math is ~250 flops per iteration.  Against the roofline the lane's
+// What bounds it on an H100: each sample of each live lane reads 8
+// corners x 12 channels = 384 B of the 25 MB voxel, mostly from L1 and L2;
+// the math is ~250 flops per sample.  Against the roofline the lane's
 // inputs and outputs (target 12 B, bone index 4 B, root 12 B, J^-1 36 B,
-// valid 1 B) are the bytes that must move, so the bound is set by bytes,
-// and the kernel's time is set by the latency of its dependent L2 reads.
+// valid 1 B) are the bytes that must move, so the bound is set by bytes.
+// The kernel's time is set by its 24 scattered 16-byte voxel loads a
+// sample (a serve chunk's 6.3 M lanes take 15 M samples): a lane that has
+// stopped issues none, so the idle lanes of a warp whose slowest lane runs
+// on cost no loads, and lanes whose loads fall on one cache line in the
+// same instruction share it.
 //
-// Design: one thread per lane with the whole state (x, g, J^-1 and the
-// outputs) in registers; the voxel is read channel-last ([D, H, W, 12]) so a
-// corner is 48 contiguous bytes.  A lane that converges or diverges exits
-// its loop; the warp keeps running until its last lane is done.
+// Design: one thread per lane, 128-thread blocks, so a warp is 4 points x 8
+// inits in the caller's point-major order: a point's inits converge on the
+// same roots and then load the same rows in the same instruction.  (Lane
+// refill within a tile, a tile staged through shared memory, lanes strided
+// so a warp holds one init of 32 points, and persistent blocks were each
+// slower on the card: they break that lockstep.)  The whole state (x, g,
+// J^-1) lives in registers; the voxel is read channel-last ([D, H, W, 12])
+// so a corner is 48 contiguous bytes.  A cell that reaches into the voxel
+// issues its 24 float4 corner loads without a branch: a corner outside
+// reads the clamped row with weight 0, which adds +-0 to a sum that starts
+// at +0 and so changes no bit of it.  A cell wholly outside (most lanes of
+// a chunk's empty space start there) loads nothing.
 #include "common.cuh"
 
 namespace {
+
+constexpr int KC_THREADS = 128;  // one lane a thread
 
 struct Sampler {
   const float* vox;  // [D, H, W, 12]
   int D, H, W;
   float ox, oy, oz, sx, sy, sz;
 
-  // 12 channels of the blended transform at canonical (x, y, z)
+  // 12 channels of the blended transform at canonical (x, y, z); the
+  // corners are summed in the order k = dx * 4 + dy * 2 + dz
   __device__ void sample(float x, float y, float z, float* J) const {
     float cx = sx * (x - ox), cy = sy * (y - oy), cz = sz * (z - oz);
     float ix = (cx + 1.f) * 0.5f * (float)(W - 1);
     float iy = (cy + 1.f) * 0.5f * (float)(H - 1);
     float iz = (cz + 1.f) * 0.5f * (float)(D - 1);
     float fx0 = floorf(ix), fy0 = floorf(iy), fz0 = floorf(iz);
-    int x0 = (int)fx0, y0 = (int)fy0, z0 = (int)fz0;
+    // cells clamped to [-2, n]: both corners of a cell beyond the voxel
+    // stay outside it, and x0 + 1 cannot overflow where the cast saturated
+    int x0 = min(max((int)fx0, -2), W), y0 = min(max((int)fy0, -2), H),
+        z0 = min(max((int)fz0, -2), D);
     float fx = ix - fx0, fy = iy - fy0, fz = iz - fz0;
+#pragma unroll
     for (int c = 0; c < 12; ++c) J[c] = 0.f;
+    // a cell wholly outside the voxel adds nothing: no loads
+    if (x0 < -1 || x0 >= W || y0 < -1 || y0 >= H || z0 < -1 || z0 >= D)
+      return;
+#pragma unroll
     for (int k = 0; k < 8; ++k) {
       int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
       int px = x0 + dx, py = y0 + dy, pz = z0 + dz;
-      if (px < 0 || px >= W || py < 0 || py >= H || pz < 0 || pz >= D)
-        continue;
+      bool inside = px >= 0 && px < W && py >= 0 && py < H && pz >= 0 &&
+                    pz < D;
+      const int64_t cell = ((int64_t)min(max(pz, 0), D - 1) * H
+                            + min(max(py, 0), H - 1)) * W
+                           + min(max(px, 0), W - 1);
+      const float4* row = reinterpret_cast<const float4*>(vox + cell * 12);
+      const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
       float wx = dx ? fx : 1.f - fx;
       float wy = dy ? fy : 1.f - fy;
       float wz = dz ? fz : 1.f - fz;
-      float w = wx * wy * wz;
-      const float4* row = reinterpret_cast<const float4*>(
-          vox + (((int64_t)pz * H + py) * W + px) * 12);
-      float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+      float w = inside ? wx * wy * wz : 0.f;
       J[0] += w * a.x; J[1] += w * a.y; J[2] += w * a.z; J[3] += w * a.w;
       J[4] += w * b.x; J[5] += w * b.y; J[6] += w * b.z; J[7] += w * b.w;
       J[8] += w * c.x; J[9] += w * c.y; J[10] += w * c.z; J[11] += w * c.w;
@@ -71,91 +97,118 @@ struct Sampler {
   }
 };
 
-// From canonical start (x, y, z): J^-1 starts as the transpose of the
-// sampled rotation block, then up to max_iters Broyden steps toward target
-// (tx, ty, tz).  On convergence writes the root to xo, J^-1 to O and
-// returns whether the root is in bounds; returns false otherwise.
-__device__ __forceinline__ bool broyden_lane(
-    const Sampler& S, float x, float y, float z, float tx, float ty,
-    float tz, int max_iters, float cvg2, float dvg2, float* xo, float* O) {
-  float J[12];
-  S.sample(x, y, z, J);
-  float J00 = J[0], J01 = J[4], J02 = J[8];
-  float J10 = J[1], J11 = J[5], J12 = J[9];
-  float J20 = J[2], J21 = J[6], J22 = J[10];
-  float g0 = J[0] * x + J[1] * y + J[2] * z + J[3] - tx;
-  float g1 = J[4] * x + J[5] * y + J[6] * z + J[7] - ty;
-  float g2 = J[8] * x + J[9] * y + J[10] * z + J[11] - tz;
-  for (int it = 0; it < max_iters; ++it) {
-    float u0 = -(J00 * g0 + J01 * g1 + J02 * g2);
-    float u1 = -(J10 * g0 + J11 * g1 + J12 * g2);
-    float u2 = -(J20 * g0 + J21 * g1 + J22 * g2);
-    x = x + u0;
-    y = y + u1;
-    z = z + u2;
-    S.sample(x, y, z, J);
-    float n0 = J[0] * x + J[1] * y + J[2] * z + J[3] - tx;
-    float n1 = J[4] * x + J[5] * y + J[6] * z + J[7] - ty;
-    float n2 = J[8] * x + J[9] * y + J[10] * z + J[11] - tz;
-    float nsq = n0 * n0 + n1 * n1 + n2 * n2;
-    if (nsq < cvg2) {
-      xo[0] = x; xo[1] = y; xo[2] = z;
-      O[0] = J00; O[1] = J01; O[2] = J02;
-      O[3] = J10; O[4] = J11; O[5] = J12;
-      O[6] = J20; O[7] = J21; O[8] = J22;
-      return S.in_bounds(x, y, z);
-    }
-    if (nsq > dvg2) return false;
-    // rank-1 update: c = u^T J^-1; s = c . dg; J^-1 += (u - J^-1 dg) c / s
-    float d0 = n0 - g0, d1 = n1 - g1, d2 = n2 - g2;
-    float c0 = J00 * u0 + J10 * u1 + J20 * u2;
-    float c1 = J01 * u0 + J11 * u1 + J21 * u2;
-    float c2 = J02 * u0 + J12 * u1 + J22 * u2;
-    float sden = c0 * d0 + c1 * d1 + c2 * d2;
-    float r0 = -(J00 * d0 + J01 * d1 + J02 * d2);
-    float r1 = -(J10 * d0 + J11 * d1 + J12 * d2);
-    float r2 = -(J20 * d0 + J21 * d1 + J22 * d2);
-    float inv_s = fabsf(sden) > 1e-30f ? 1.f / sden : 0.f;
-    float a0 = (r0 + u0) * inv_s, a1 = (r1 + u1) * inv_s,
-          a2 = (r2 + u2) * inv_s;
-    J00 = J00 + c0 * a0; J01 = J01 + c1 * a0; J02 = J02 + c2 * a0;
-    J10 = J10 + c0 * a1; J11 = J11 + c1 * a1; J12 = J12 + c2 * a1;
-    J20 = J20 + c0 * a2; J21 = J21 + c1 * a2; J22 = J22 + c2 * a2;
-    g0 = n0; g1 = n1; g2 = n2;
+// One lane's state between two voxel samples: the iterate, the target, the
+// residual g at the last accepted iterate, J^-1, the step u just taken and
+// the count of steps.
+struct Lane {
+  float x, y, z, tx, ty, tz, g0, g1, g2, u0, u1, u2;
+  float J00, J01, J02, J10, J11, J12, J20, J21, J22;
+  int it;
+};
+
+// After the sample J at the start point: J^-1 starts as the transpose of
+// the sampled rotation block, g as the residual there.
+__device__ __forceinline__ void lane_start(Lane& s, const float* J) {
+  s.J00 = J[0]; s.J01 = J[4]; s.J02 = J[8];
+  s.J10 = J[1]; s.J11 = J[5]; s.J12 = J[9];
+  s.J20 = J[2]; s.J21 = J[6]; s.J22 = J[10];
+  s.g0 = J[0] * s.x + J[1] * s.y + J[2] * s.z + J[3] - s.tx;
+  s.g1 = J[4] * s.x + J[5] * s.y + J[6] * s.z + J[7] - s.ty;
+  s.g2 = J[8] * s.x + J[9] * s.y + J[10] * s.z + J[11] - s.tz;
+  s.it = 0;
+}
+
+// The Broyden step u = -J^-1 g, taken: the next point to sample.
+__device__ __forceinline__ void lane_point(Lane& s) {
+  s.u0 = -(s.J00 * s.g0 + s.J01 * s.g1 + s.J02 * s.g2);
+  s.u1 = -(s.J10 * s.g0 + s.J11 * s.g1 + s.J12 * s.g2);
+  s.u2 = -(s.J20 * s.g0 + s.J21 * s.g1 + s.J22 * s.g2);
+  s.x = s.x + s.u0;
+  s.y = s.y + s.u1;
+  s.z = s.z + s.u2;
+}
+
+enum { kRunning = 0, kConverged = 1, kFailed = 2 };
+
+// After the sample J at the point lane_point moved to: converged (the root
+// is (x, y, z) and J^-1 the one before this update), diverged or out of
+// iterations (failed), or the rank-1 update and on to the next step.
+__device__ __forceinline__ int lane_next(Lane& s, const float* J,
+                                         int max_iters, float cvg2,
+                                         float dvg2) {
+  float n0 = J[0] * s.x + J[1] * s.y + J[2] * s.z + J[3] - s.tx;
+  float n1 = J[4] * s.x + J[5] * s.y + J[6] * s.z + J[7] - s.ty;
+  float n2 = J[8] * s.x + J[9] * s.y + J[10] * s.z + J[11] - s.tz;
+  float nsq = n0 * n0 + n1 * n1 + n2 * n2;
+  if (nsq < cvg2) return kConverged;
+  if (nsq > dvg2) return kFailed;
+  // rank-1 update: c = u^T J^-1; s = c . dg; J^-1 += (u - J^-1 dg) c / s
+  float d0 = n0 - s.g0, d1 = n1 - s.g1, d2 = n2 - s.g2;
+  float c0 = s.J00 * s.u0 + s.J10 * s.u1 + s.J20 * s.u2;
+  float c1 = s.J01 * s.u0 + s.J11 * s.u1 + s.J21 * s.u2;
+  float c2 = s.J02 * s.u0 + s.J12 * s.u1 + s.J22 * s.u2;
+  float sden = c0 * d0 + c1 * d1 + c2 * d2;
+  float r0 = -(s.J00 * d0 + s.J01 * d1 + s.J02 * d2);
+  float r1 = -(s.J10 * d0 + s.J11 * d1 + s.J12 * d2);
+  float r2 = -(s.J20 * d0 + s.J21 * d1 + s.J22 * d2);
+  float inv_s = fabsf(sden) > 1e-30f ? 1.f / sden : 0.f;
+  float a0 = (r0 + s.u0) * inv_s, a1 = (r1 + s.u1) * inv_s,
+        a2 = (r2 + s.u2) * inv_s;
+  s.J00 = s.J00 + c0 * a0; s.J01 = s.J01 + c1 * a0; s.J02 = s.J02 + c2 * a0;
+  s.J10 = s.J10 + c0 * a1; s.J11 = s.J11 + c1 * a1; s.J12 = s.J12 + c2 * a1;
+  s.J20 = s.J20 + c0 * a2; s.J21 = s.J21 + c1 * a2; s.J22 = s.J22 + c2 * a2;
+  s.g0 = n0; s.g1 = n1; s.g2 = n2;
+  return ++s.it < max_iters ? kRunning : kFailed;
+}
+
+// A finished lane's outputs, zero where it is not valid: the root x and
+// J^-1 (9) times valid.
+__device__ __forceinline__ void lane_outputs(const Lane& s, int state,
+                                             const Sampler& S, float* xo,
+                                             float* O, bool& valid) {
+  valid = state == kConverged && S.in_bounds(s.x, s.y, s.z);
+  if (state != kConverged) {
+    for (int a = 0; a < 3; ++a) xo[a] = 0.f;
+    for (int i = 0; i < 9; ++i) O[i] = 0.f;
+    return;
   }
-  return false;
+  const float vf = valid ? 1.f : 0.f;
+  xo[0] = s.x * vf; xo[1] = s.y * vf; xo[2] = s.z * vf;
+  O[0] = s.J00 * vf; O[1] = s.J01 * vf; O[2] = s.J02 * vf;
+  O[3] = s.J10 * vf; O[4] = s.J11 * vf; O[5] = s.J12 * vf;
+  O[6] = s.J20 * vf; O[7] = s.J21 * vf; O[8] = s.J22 * vf;
 }
 
-// a lane's outputs, zero where it is not valid
-__device__ __forceinline__ void store_lane(
-    int64_t m, bool valid, const float* xo, const float* O,
-    float* __restrict__ x_out, float* __restrict__ jinv_out,
-    uint8_t* __restrict__ valid_out) {
-  float vf = valid ? 1.f : 0.f;
-  for (int a = 0; a < 3; ++a) x_out[m * 3 + a] = xo[a] * vf;
-  for (int i = 0; i < 9; ++i) jinv_out[m * 9 + i] = O[i] * vf;
-  valid_out[m] = valid ? 1 : 0;
-}
-
-__global__ void broyden_search_kernel(
+__global__ void __launch_bounds__(KC_THREADS) broyden_search_kernel(
     const float* __restrict__ xd, const int* __restrict__ bone_idx,
     const float* __restrict__ tfs, Sampler S, float* __restrict__ x_out,
     float* __restrict__ jinv_out, uint8_t* __restrict__ valid_out, int64_t M,
     int max_iters, float cvg2, float dvg2) {
-  int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t m = (int64_t)blockIdx.x * KC_THREADS + threadIdx.x;
   if (m >= M) return;
-  float tx = xd[m * 3], ty = xd[m * 3 + 1], tz = xd[m * 3 + 2];
-  const float* T = tfs + (int64_t)bone_idx[m] * 16;  // [4, 4] row-major
+  Lane s;
+  float J[12];
+  s.tx = xd[m * 3];
+  s.ty = xd[m * 3 + 1];
+  s.tz = xd[m * 3 + 2];
+  const float* T = tfs + (int64_t)bone_idx[m] * 16;  // [4, 4]
   // x = R^T (x_d - t)
-  float ddx = tx - T[3], ddy = ty - T[7], ddz = tz - T[11];
-  float x = T[0] * ddx + T[4] * ddy + T[8] * ddz;
-  float y = T[1] * ddx + T[5] * ddy + T[9] * ddz;
-  float z = T[2] * ddx + T[6] * ddy + T[10] * ddz;
-  float xo[3] = {0.f, 0.f, 0.f};
-  float O[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  bool valid = broyden_lane(S, x, y, z, tx, ty, tz, max_iters, cvg2, dvg2,
-                            xo, O);
-  store_lane(m, valid, xo, O, x_out, jinv_out, valid_out);
+  float ddx = s.tx - __ldg(T + 3), ddy = s.ty - __ldg(T + 7),
+        ddz = s.tz - __ldg(T + 11);
+  s.x = __ldg(T) * ddx + __ldg(T + 4) * ddy + __ldg(T + 8) * ddz;
+  s.y = __ldg(T + 1) * ddx + __ldg(T + 5) * ddy + __ldg(T + 9) * ddz;
+  s.z = __ldg(T + 2) * ddx + __ldg(T + 6) * ddy + __ldg(T + 10) * ddz;
+  S.sample(s.x, s.y, s.z, J);
+  lane_start(s, J);
+  int state = max_iters > 0 ? kRunning : kFailed;
+  while (state == kRunning) {
+    lane_point(s);
+    S.sample(s.x, s.y, s.z, J);
+    state = lane_next(s, J, max_iters, cvg2, dvg2);
+  }
+  bool valid;
+  lane_outputs(s, state, S, x_out + m * 3, jinv_out + m * 9, valid);
+  valid_out[m] = valid ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -173,9 +226,9 @@ __global__ void broyden_search_kernel(
 // 13 B of seed and writes 49 B, with up to 5 trilinear samples of 384 B
 // from the 25 MB voxel (mostly L2) and ~250 flops each.
 //
-// Design: KC's one thread per lane with its state in registers; the body is
-// KC's own (broyden_lane), so a seed that KC's search would reach gives the
-// same iterates.
+// Design: one thread per lane with its state in registers, KC's steps in
+// KC's order, so a seed that KC's search would reach gives the same
+// iterates.
 // ---------------------------------------------------------------------------
 
 __global__ void broyden_polish_kernel(
@@ -186,14 +239,24 @@ __global__ void broyden_polish_kernel(
     float dvg2) {
   int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
-  float xo[3] = {0.f, 0.f, 0.f};
-  float O[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  bool valid = false;
-  if (seed_ok[m])
-    valid = broyden_lane(S, seed[m * 3], seed[m * 3 + 1], seed[m * 3 + 2],
-                         xd[m * 3], xd[m * 3 + 1], xd[m * 3 + 2], max_iters,
-                         cvg2, dvg2, xo, O);
-  store_lane(m, valid, xo, O, x_out, jinv_out, valid_out);
+  Lane s;
+  int state = kFailed;
+  if (seed_ok[m]) {
+    s.tx = xd[m * 3]; s.ty = xd[m * 3 + 1]; s.tz = xd[m * 3 + 2];
+    s.x = seed[m * 3]; s.y = seed[m * 3 + 1]; s.z = seed[m * 3 + 2];
+    float J[12];
+    S.sample(s.x, s.y, s.z, J);
+    lane_start(s, J);
+    state = max_iters > 0 ? kRunning : kFailed;
+    while (state == kRunning) {
+      lane_point(s);
+      S.sample(s.x, s.y, s.z, J);
+      state = lane_next(s, J, max_iters, cvg2, dvg2);
+    }
+  }
+  bool valid;
+  lane_outputs(s, state, S, x_out + m * 3, jinv_out + m * 9, valid);
+  valid_out[m] = valid ? 1 : 0;
 }
 
 }  // namespace
@@ -208,9 +271,8 @@ extern "C" int broyden_search_fwd(const float* xd, const int* bone_idx,
                                   float cvg2, float dvg2, void* stream) {
   if (M <= 0) return 0;
   Sampler S{vox, D, H, W, ox, oy, oz, sx, sy, sz};
-  const int threads = 128;
-  unsigned blocks = (unsigned)((M + threads - 1) / threads);
-  broyden_search_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((M + KC_THREADS - 1) / KC_THREADS);
+  broyden_search_kernel<<<blocks, KC_THREADS, 0, (cudaStream_t)stream>>>(
       xd, bone_idx, tfs, S, x_out, jinv_out, valid_out, M, max_iters, cvg2,
       dvg2);
   return launch_status();

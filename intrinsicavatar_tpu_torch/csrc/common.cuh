@@ -45,6 +45,55 @@ __device__ __forceinline__ bool level_is_dense(int r, int T) {
   return (int64_t)r * r * r <= (int64_t)T;
 }
 
+// Adds the F floats v into the F floats at global p (aligned to 4 F bytes)
+// with one reduction: sm_90's vector float adds for F = 2 and 4 (the PTX
+// red.global.add.v2/.v4.f32, PTX ISA 8.1), scalar adds otherwise.
+template <int F>
+__device__ __forceinline__ void red_add(float* p, const float (&v)[F]) {
+  if constexpr (F == 2) {
+    asm volatile("red.global.add.v2.f32 [%0], {%1, %2};"
+                 :: "l"(__cvta_generic_to_global(p)), "f"(v[0]), "f"(v[1])
+                 : "memory");
+  } else if constexpr (F == 4) {
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(__cvta_generic_to_global(p)), "f"(v[0]), "f"(v[1]),
+                    "f"(v[2]), "f"(v[3])
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int c = 0; c < F; ++c) atomicAdd(p + c, v[c]);
+  }
+}
+
+// Adds v into row `row` of the [rows, F] table at `table` for each lane of
+// `active` (the calling lanes, all of which must call): the lanes that add
+// into one row find each other with __match_any_sync, and the lowest of
+// them sums their v in lane order through `scratch` (F * 32 floats of the
+// warp's own shared memory) and issues the row's one reduction.
+template <int F>
+__device__ __forceinline__ void warp_row_add(float* __restrict__ table,
+                                             uint32_t row,
+                                             const float (&v)[F],
+                                             unsigned active, float* scratch,
+                                             int lane) {
+  const unsigned peers = __match_any_sync(active, row);
+#pragma unroll
+  for (int c = 0; c < F; ++c) scratch[c * 32 + lane] = v[c];
+  __syncwarp(active);
+  if ((peers & ((1u << lane) - 1u)) == 0u) {
+    float sum[F];
+#pragma unroll
+    for (int c = 0; c < F; ++c) sum[c] = v[c];
+    for (unsigned b = peers & (peers - 1u); b; b &= b - 1u) {
+      const int j = __ffs(b) - 1;
+#pragma unroll
+      for (int c = 0; c < F; ++c) sum[c] += scratch[c * 32 + j];
+    }
+    red_add<F>(table + (int64_t)row * F, sum);
+  }
+  __syncwarp(active);
+}
+
 inline int launch_status() { return (int)cudaGetLastError(); }
 
 // The grid of a persistent kernel over `tiles` tiles of work: as many blocks

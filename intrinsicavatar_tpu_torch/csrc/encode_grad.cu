@@ -372,14 +372,31 @@ __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
 // What bounds them on an H100: bytes.  Pass 1 gathers N * L * 8 * F * 4 B
 // of table rows (counted at most at the table's size) and writes 2 * N *
 // d_in floats; pass 2 gathers the same rows when d_xn is asked for and adds
-// N * L * 8 * F atomics into a 64 MB cotangent (counted at most at twice its
-// size).  A few dozen flops per (point, level, corner) stay far below the
-// gather time.
+// N * L * 8 corner rows of F floats into a 64 MB cotangent (each row its
+// corners touch counted read and written once).  A few dozen flops per
+// (point, level, corner) stay far below the gather time; pass 2's time is
+// set by its reductions, which the L2 serializes where many land on one
+// row.
 //
-// Design: one thread per (point, level) in both passes, levels fastest as in
-// KA; nothing is kept between the passes but enc and g_genc_cot (the corner
-// weights are recomputed from xn).  Pass 2 adds its d_xn part with three
-// atomics per thread.
+// Design of pass 1: one thread per (point, level), levels fastest; nothing
+// is kept between the passes but enc and g_genc_cot (the corner weights are
+// recomputed from xn).
+//
+// Design of pass 2: persistent blocks walk 64-point tiles, as KA does.  A
+// block stages the tile's points, g_grad and its d_enc and g_enc rows
+// (coalesced loads) and the per-level scales, resolutions, flags and mask
+// in shared memory.  A warp takes 32 points of one level, so the
+// ray-ordered points of a warp add into few rows (on a train step's
+// shading call half or more of a warp's adds at every level share a row
+// with another lane's): at each corner the lanes that add into one row
+// find each other with __match_any_sync, and the lowest sums their terms
+// in lane order and issues the row's one reduction
+// (common.cuh:warp_row_add).  A row's F = 2 features go as one 8-byte
+// vector reduction (sm_90's red.global.add.v2.f32; F = 4 as .v4).  A level
+// the mask zeroes reads and adds nothing.
+// d_xn takes no atomics: each (point, level) leaves its 3 partials in
+// shared memory, and the block sums them in level order and stores the
+// point's 3 floats once.
 __global__ void encode_mlp_sdfgrad_bwd_gather_kernel(
     const float* __restrict__ table, const float* __restrict__ x,
     const float* __restrict__ scales, const int* __restrict__ res,
@@ -441,61 +458,94 @@ __global__ void encode_mlp_sdfgrad_bwd_gather_kernel(
   }
 }
 
-__global__ void encode_mlp_sdfgrad_bwd_scatter_kernel(
-    const float* __restrict__ table, const float* __restrict__ x,
-    const float* __restrict__ scales, const int* __restrict__ res,
-    const float* __restrict__ level_mask, const float* __restrict__ g_grad,
-    const float* __restrict__ d_enc, const float* __restrict__ g_enc,
-    float* __restrict__ d_table, float* __restrict__ d_xn, int64_t N, int L,
-    int T, int F, int include_xyz, float xyz_scale) {
-  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * L) return;
-  int64_t n = tid / L;
-  int l = (int)(tid - n * L);
-  int off = include_xyz ? 3 : 0;
-  int D = L * F + off;
-  const float* p = x + n * 3;
-  const float* gn = g_grad + n * 3;
-  float de[4] = {0.f, 0.f, 0.f, 0.f}, gl[4] = {0.f, 0.f, 0.f, 0.f};
+constexpr int KB2_TILE = 64;  // points a tile, a multiple of 32
+constexpr int KB2_THREADS = 256;
+constexpr int KB2_WARPS = KB2_THREADS / 32;
+constexpr int KB2_SD = (MAX_LF + 3) | 1;  // odd stride of a staged d_enc row
+
+// dynamic shared memory in floats: points, g_grad, d_enc, g_enc, the warps'
+// merge scratch, the level constants, and with d_xn its partials
+constexpr int kb2_smem_floats(bool xn) {
+  return KB2_TILE * 6 + 2 * KB2_TILE * KB2_SD + KB2_WARPS * 32 * 4
+         + 2 * MAX_L + MAX_LF + (xn ? MAX_L * KB2_TILE * 3 : 0);
+}
+
+// One (point p, level l) item of pass 2: the 8 corners' row cotangents into
+// the level's table cotangent, and with XN the point's partials of d_xn
+// for this level into s_dxn.
+template <int F, bool XN>
+__device__ __forceinline__ void scatter_item(
+    const float* __restrict__ tab, float* __restrict__ dtab, const float* px,
+    const float* gn, const float* de_row, const float* ge_row,
+    const float* mask, float s, int r, bool dense, uint32_t tmask,
+    unsigned active, float* scratch, int lane, float* dxn) {
+  float de[F], gl[F];
+#pragma unroll
   for (int c = 0; c < F; ++c) {
-    int q = l * F + c;
-    float m = level_mask[q];
-    de[c] = d_enc[n * D + off + q] * m;
-    gl[c] = g_enc[n * D + off + q] * m;
+    de[c] = de_row[c] * mask[c];
+    gl[c] = ge_row[c] * mask[c];
   }
-  float s = scales[l];
-  int r = res[l];
-  bool dense = level_is_dense(r, T);
   int c0[3];
   float f[3];
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float pos = __fadd_rn(__fmul_rn(p[a], s), 0.5f);
-    float fl = floorf(pos);
+    const float pos = __fadd_rn(__fmul_rn(px[a], s), 0.5f);
+    const float fl = floorf(pos);
     c0[a] = (int)fl;
     f[a] = pos - fl;
   }
-  const float* tab = table + (int64_t)l * T * F;
-  float* dtab = d_table + (int64_t)l * T * F;
-  uint32_t tmask = (uint32_t)(T - 1);
+  int X[2], Y[2], Z[2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    X[d] = axis_corner(c0[0], d, r, dense);
+    Y[d] = axis_corner(c0[1], d, r, dense);
+    Z[d] = axis_corner(c0[2], d, r, dense);
+  }
+  uint32_t rows[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    rows[k] = corner_index(X[k >> 2], Y[(k >> 1) & 1], Z[k & 1], r, dense,
+                           tmask);
+  // with d_xn the 8 corner rows of the table are loaded before the corner
+  // loop, whose reductions the compiler does not move loads across
+  float t[XN ? 8 : 1][F];
+  if constexpr (XN) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if constexpr (F == 2) {
+        const float2 t2 =
+            __ldg(reinterpret_cast<const float2*>(tab) + rows[k]);
+        t[k][0] = t2.x;
+        t[k][1] = t2.y;
+      } else {
+#pragma unroll
+        for (int c = 0; c < F; ++c)
+          t[k][c] = __ldg(tab + (int64_t)rows[k] * F + c);
+      }
+    }
+  }
   float ge[3] = {0.f, 0.f, 0.f}, g2[3] = {0.f, 0.f, 0.f};
+#pragma unroll
   for (int k = 0; k < 8; ++k) {
-    int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    float wx = dx ? f[0] : 1.f - f[0];
-    float wy = dy ? f[1] : 1.f - f[1];
-    float wz = dz ? f[2] : 1.f - f[2];
-    float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f, sz = dz ? 1.f : -1.f;
-    float w = wx * wy * wz;
-    float dwx = sx * wy * wz, dwy = wx * sy * wz, dwz = wx * wy * sz;
-    float uk = s * (gn[0] * dwx + gn[1] * dwy + gn[2] * dwz);
-    int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r, dense, tmask);
-    for (int c = 0; c < F; ++c)
-      atomicAdd(dtab + row * F + c, w * de[c] + uk * gl[c]);
-    if (d_xn) {
+    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    const float wx = dx ? f[0] : 1.f - f[0];
+    const float wy = dy ? f[1] : 1.f - f[1];
+    const float wz = dz ? f[2] : 1.f - f[2];
+    const float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f,
+                sz = dz ? 1.f : -1.f;
+    const float w = wx * wy * wz;
+    const float dwx = sx * wy * wz, dwy = wx * sy * wz, dwz = wx * wy * sz;
+    const float uk = s * (gn[0] * dwx + gn[1] * dwy + gn[2] * dwz);
+    float v[F];
+#pragma unroll
+    for (int c = 0; c < F; ++c) v[c] = w * de[c] + uk * gl[c];
+    warp_row_add<F>(dtab, rows[k], v, active, scratch, lane);
+    if constexpr (XN) {
       float re = 0.f, fg = 0.f;
+#pragma unroll
       for (int c = 0; c < F; ++c) {
-        float v = __ldg(tab + row * F + c);
-        re += v * de[c];
-        fg += v * gl[c];
+        re += t[k][c] * de[c];
+        fg += t[k][c] * gl[c];
       }
       ge[0] += re * dwx;
       ge[1] += re * dwy;
@@ -505,14 +555,114 @@ __global__ void encode_mlp_sdfgrad_bwd_scatter_kernel(
       g2[2] += fg * sz * (gn[0] * sx * wy + gn[1] * sy * wx);
     }
   }
-  if (d_xn) {
-    float* dxn = d_xn + n * 3;
-    for (int a = 0; a < 3; ++a) {
-      float v = s * ge[a] + (s * s) * g2[a];
-      if (include_xyz && l == 0) v += d_enc[n * D + a] * xyz_scale;
-      atomicAdd(dxn + a, v);
+  if constexpr (XN) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dxn[a] = s * ge[a] + (s * s) * g2[a];
+  }
+}
+
+template <int F, bool XN>
+__global__ void __launch_bounds__(KB2_THREADS)
+encode_mlp_sdfgrad_bwd_scatter_kernel(
+    const float* __restrict__ table, const float* __restrict__ x,
+    const float* __restrict__ scales, const int* __restrict__ res,
+    const float* __restrict__ level_mask, const float* __restrict__ g_grad,
+    const float* __restrict__ d_enc, const float* __restrict__ g_enc,
+    float* __restrict__ d_table, float* __restrict__ d_xn, int64_t N, int L,
+    int T, int include_xyz, float xyz_scale) {
+  extern __shared__ __align__(16) float kb2_smem[];
+  float* s_x = kb2_smem;                        // [TILE][3]
+  float* s_g = s_x + KB2_TILE * 3;              // [TILE][3]
+  float* s_de = s_g + KB2_TILE * 3;             // [TILE][SD]
+  float* s_ge = s_de + KB2_TILE * KB2_SD;       // [TILE][SD]
+  float* s_scr = s_ge + KB2_TILE * KB2_SD;      // [WARPS][4][32]
+  float* s_scale = s_scr + KB2_WARPS * 32 * 4;  // [MAX_L]
+  float* s_mask = s_scale + MAX_L;              // [MAX_LF]
+  int* s_res = reinterpret_cast<int*>(s_mask + MAX_LF);  // [MAX_L]
+  float* s_dxn = reinterpret_cast<float*>(s_res + MAX_L);  // [L][TILE][3]
+  __shared__ int s_flags[MAX_L];  // bit 0: dense, bit 1: not masked off
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int off = include_xyz ? 3 : 0;
+  const int D = L * F + off;
+  for (int l = tid; l < L; l += KB2_THREADS) {
+    bool on = false;
+    for (int c = 0; c < F; ++c) on |= level_mask[l * F + c] != 0.f;
+    s_scale[l] = scales[l];
+    s_res[l] = res[l];
+    s_flags[l] = (level_is_dense(res[l], T) ? 1 : 0) | (on ? 2 : 0);
+  }
+  for (int q = tid; q < L * F; q += KB2_THREADS) s_mask[q] = level_mask[q];
+  const uint32_t tmask = (uint32_t)(T - 1);
+  float* scratch = s_scr + warp * 32 * 4;
+  const int64_t n_tiles = (N + KB2_TILE - 1) / KB2_TILE;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t n0 = tile * KB2_TILE;
+    const int rows = N - n0 < KB2_TILE ? (int)(N - n0) : KB2_TILE;
+    __syncthreads();  // the previous tile is done with shared memory
+    for (int e = tid; e < rows * 3; e += KB2_THREADS) {
+      s_x[e] = x[n0 * 3 + e];
+      s_g[e] = g_grad[n0 * 3 + e];
+    }
+    for (int e = tid; e < rows * D; e += KB2_THREADS) {
+      const int p = e / D;
+      s_de[p * KB2_SD + e - p * D] = d_enc[n0 * D + e];
+      s_ge[p * KB2_SD + e - p * D] = g_enc[n0 * D + e];
+    }
+    __syncthreads();
+    // warp item w: level w % L of the tile's points 32 (w / L) + lane
+    for (int w = warp; w < (KB2_TILE / 32) * L; w += KB2_WARPS) {
+      const int l = w % L, p = (w / L) * 32 + lane;
+      const int flags = s_flags[l];
+      if (!(flags & 2)) continue;  // masked off: nothing to add
+      const unsigned active = __ballot_sync(0xffffffffu, p < rows);
+      if (p >= rows) continue;
+      const int q = off + l * F;
+      scatter_item<F, XN>(table + (int64_t)l * T * F,
+                          d_table + (int64_t)l * T * F, s_x + p * 3,
+                          s_g + p * 3, s_de + p * KB2_SD + q,
+                          s_ge + p * KB2_SD + q, s_mask + l * F, s_scale[l],
+                          s_res[l], (flags & 1) != 0, tmask, active, scratch,
+                          lane, s_dxn + (l * KB2_TILE + p) * 3);
+    }
+    if constexpr (XN) {
+      __syncthreads();
+      for (int p = tid; p < rows; p += KB2_THREADS) {
+        float v[3] = {0.f, 0.f, 0.f};
+        for (int l = 0; l < L; ++l) {
+          if (!(s_flags[l] & 2)) continue;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            v[a] += s_dxn[(l * KB2_TILE + p) * 3 + a];
+        }
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          if (include_xyz) v[a] += s_de[p * KB2_SD + a] * xyz_scale;
+          d_xn[(n0 + p) * 3 + a] = v[a];
+        }
+      }
     }
   }
+}
+
+template <int F, bool XN>
+int launch_scatter(const float* table, const float* x, const float* scales,
+                   const int* res, const float* level_mask,
+                   const float* g_grad, const float* d_enc,
+                   const float* g_enc, float* d_table, float* d_xn,
+                   long long N, int L, int T, int include_xyz,
+                   float xyz_scale, cudaStream_t stream) {
+  static int resident[kMaxDevices] = {};
+  constexpr int smem = kb2_smem_floats(XN) * 4;
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_grid(
+      encode_mlp_sdfgrad_bwd_scatter_kernel<F, XN>, KB2_THREADS, smem,
+      (N + KB2_TILE - 1) / KB2_TILE, resident, blocks);
+  if (err != cudaSuccess) return (int)err;
+  encode_mlp_sdfgrad_bwd_scatter_kernel<F, XN>
+      <<<blocks, KB2_THREADS, smem, stream>>>(
+          table, x, scales, res, level_mask, g_grad, d_enc, g_enc, d_table,
+          d_xn, N, L, T, include_xyz, xyz_scale);
+  return launch_status();
 }
 
 }  // namespace
@@ -539,16 +689,26 @@ extern "C" int encode_mlp_sdfgrad_bwd_scatter(
     const float* level_mask, const float* g_grad, const float* d_enc,
     const float* g_enc, float* d_table, float* d_xn, long long N, int L,
     int T, int F, int include_xyz, float xyz_scale, void* stream) {
-  if (F > 4) return (int)cudaErrorInvalidValue;
+  if (F < 1 || F > 4 || L > MAX_L || L * F > MAX_LF)
+    return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  const int threads = 256;
-  int64_t total = (int64_t)N * L;
-  unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  encode_mlp_sdfgrad_bwd_scatter_kernel<<<blocks, threads, 0,
-                                          (cudaStream_t)stream>>>(
-      table, x, scales, res, level_mask, g_grad, d_enc, g_enc, d_table, d_xn,
-      N, L, T, F, include_xyz, xyz_scale);
-  return launch_status();
+  const cudaStream_t st = (cudaStream_t)stream;
+#define KB2_LAUNCH(FF)                                                       \
+  return d_xn ? launch_scatter<FF, true>(table, x, scales, res, level_mask, \
+                                         g_grad, d_enc, g_enc, d_table,     \
+                                         d_xn, N, L, T, include_xyz,        \
+                                         xyz_scale, st)                     \
+              : launch_scatter<FF, false>(table, x, scales, res,            \
+                                          level_mask, g_grad, d_enc, g_enc, \
+                                          d_table, d_xn, N, L, T,           \
+                                          include_xyz, xyz_scale, st)
+  switch (F) {
+    case 1: KB2_LAUNCH(1);
+    case 2: KB2_LAUNCH(2);
+    case 3: KB2_LAUNCH(3);
+    default: KB2_LAUNCH(4);
+  }
+#undef KB2_LAUNCH
 }
 
 extern "C" int encode_mlp_sdfgrad_fwd(

@@ -194,9 +194,12 @@ def encode_mlp_sdfgrad_bwd_scatter(spec: HashGridSpec, table, xn,
     for t, name in ((d_enc, "d_enc"), (g_enc, "g_enc")):
         kernels.require(t, name, torch.float32, dev,
                         (N, spec.n_output_dims))
+    if table.data_ptr() % 8:
+        raise ValueError("table must be 8-byte aligned")
     scales, res = level_tensors(spec, dev)
     d_table = torch.zeros_like(table)
-    d_xn = torch.zeros_like(xn) if need_x else None
+    # the kernel stores every point's d_xn once
+    d_xn = torch.empty_like(xn) if need_x else None
     err = kernels.lib("encode_grad").encode_mlp_sdfgrad_bwd_scatter(
         table.data_ptr(), xn.data_ptr(), scales.data_ptr(), res.data_ptr(),
         level_mask.data_ptr(), g_grad.data_ptr(), d_enc.data_ptr(),

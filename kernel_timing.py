@@ -1,10 +1,11 @@
 """Time kernels KA (hash encode forward), KB (fused encode + SDF MLP +
-gradient), the KH epilogue (duplicate filter, overflow count, first-K) and
-KM (seed grid gather) of the PyTorch/CUDA port on one card, three ways.
+gradient), the KH epilogue (duplicate filter, overflow count, first-K), KM
+(seed grid gather), KC (Broyden search) and KB' pass 2 (the encode
+backward's table scatter) of the PyTorch/CUDA port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
-    python3 kernel_timing.py --kernels ka,kh      # some of ka, kb, kh, km
+    python3 kernel_timing.py --kernels ka,kh      # of ka, kb, kh, km, kc, kb2
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -39,7 +40,20 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   0, 30% or all roots valid and planted near-duplicates, held bit-equal;
 - KM at 262,144 points (4,096 rays x 64 samples in ray order) on a 96^3
   grid with 6 and with 4 channels, beside ``F.grid_sample`` on the 4 root
-  channels, seed_ok equal and floats within 1e-5 of max(|ref|, 1).
+  channels, seed_ok equal and floats within 1e-5 of max(|ref|, 1);
+- KC at 6,291,456 lanes (786,432 points x 8 inits, a serve chunk's search)
+  and 2,097,152 (262,144 x 8, the phys step's searched secondary coarse
+  call) on the published 32 x 128 x 128 voxel of the synthetic body in a
+  pose, the points on rays through the body (over 1 m each side of the
+  surface, as the recorded calls' lanes stop, and over 0.3 m, mostly near
+  the surface), each point's inits chosen by
+  the port's own prologue (KH): roots within 1e-4 of the twin's where both
+  converged, at most 1e-3 of lanes flipped; a digest of the outputs'
+  bytes, equal between two trees whose kernels compute the same bits;
+- KB' pass 2 at 552,960 ray-ordered points without d_xn (a train step's
+  shading call) and 92,160 with it (its curvature call), random
+  cotangents, held within 1e-5 of the largest entry beyond 1e-4 of each
+  entry (float atomics in changing order).
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -49,6 +63,7 @@ kernel's registers, stack frame and spills from ``ptxas``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -162,8 +177,8 @@ def search_result(B, torch, dev, N, I, seed):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=None)
-    ap.add_argument("--kernels", default="ka,kb,kh,km",
-                    help="comma-separated, of ka, kb, kh, km")
+    ap.add_argument("--kernels", default="ka,kb,kh,km,kc,kb2",
+                    help="comma-separated, of ka, kb, kh, km, kc, kb2")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     import torch
@@ -180,7 +195,7 @@ def main():
     print(f"card: {card}", flush=True)
     root = args.port_root or "."
     sources = {"ka": "hashgrid", "kb": "encode_grad", "kh": "deform",
-               "km": "seedgrid"}
+               "km": "seedgrid", "kc": "broyden", "kb2": "encode_grad"}
     logs = kernels.build_all(tuple(sorted({sources[k] for k in which})),
                              verbose=True)
     for name, log in logs.items():
@@ -199,6 +214,10 @@ def main():
         time_kh(torch, dev, report, failed)
     if "kb" in which:
         time_kb(torch, dev, report, failed)
+    if "kc" in which:
+        time_kc(torch, dev, report, failed)
+    if "kb2" in which:
+        time_kb2(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
@@ -376,6 +395,122 @@ def time_kb(torch, dev, report, failed):
                 "event_ms": ev, "device_ms": dv, "host_us": hu,
                 "hashgrid_encode_event_ms": kev,
                 "hashgrid_encode_device_ms": kdv})
+
+
+def body_rays(torch, dev, verts, rays, samples, seed, span):
+    """``[rays * samples, 3]`` points in ray order: rays through random
+    vertices of the posed body, samples over ``span`` m on each side of
+    the vertex: 1.0 lays a chunk's samples through the box (most lanes in
+    empty space: on the synthetic body a quarter of the lanes converge
+    and three quarters stop after one step, as at the recorded calls),
+    0.3 mostly near the surface."""
+    rng = np.random.default_rng(seed)
+    hit = verts[rng.choice(len(verts), rays)][:, None, :]
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(-span, span, samples)[None, :, None]
+    return torch.as_tensor((hit + t * d).reshape(-1, 3), dtype=torch.float32,
+                           device=dev).contiguous()
+
+
+def time_kc(torch, dev, report, failed):
+    """KC at a serve chunk's search and at the phys step's secondary coarse
+    call."""
+    import hashlib
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    from intrinsicavatar_tpu_torch.anim.deformer import FastSNARF
+    from intrinsicavatar_tpu_torch.utils.config import wrap
+    rigid = FastSNARF(wrap({"name": "fast-snarf", "model_path": "synthetic",
+                            "deformer_config": {"resolution": 128}}))
+    statics = rigid.initialize(np.zeros(10), dev)
+    pose = np.zeros(69, np.float32)
+    pose[2], pose[5], pose[52] = 0.4, -0.4, 0.9
+    z = lambda n: torch.zeros(1, n, device=dev)
+    frame = rigid.prepare(statics, {
+        "betas": torch.zeros(10, device=dev),
+        "body_pose": torch.as_tensor(pose, device=dev),
+        "global_orient": torch.zeros(3, device=dev),
+        "transl": torch.tensor([0.0, 0.3, 2.0], device=dev),
+        "betas_correction": z(10), "pose_correction": z(69),
+        "global_orient_correction": z(3), "transl_correction": z(3)})
+    verts = frame.vertices.cpu().numpy()
+    I = rigid.n_init
+    tfs = frame.tfs[torch.as_tensor(B.INIT_BONES, device=dev)].contiguous()
+    for (rays, samples), span in itertools.product(
+            ((4096, 192), (4096, 64)), (1.0, 0.3)):
+        pts = body_rays(torch, dev, verts, rays, samples, samples, span)
+        slot = B.deform_prologue(pts, tfs, statics.seg_table, I)
+        args = (torch.repeat_interleave(pts, I, dim=0).contiguous(), slot,
+                frame.voxel_J, tfs, rigid.spec.offset,
+                rigid.spec.scale_kernel)
+        out = B.broyden_search(*args)
+        active = []
+        ref = B.broyden_search_plain(*args, lane_iters=active)
+        torch.cuda.synchronize()
+        # lanes that ran exactly k iterations, k = 0 .. max_iters
+        active = [args[0].shape[0]] + [int(a) for a in active] + [0]
+        hist = [a - b for a, b in zip(active[:-1], active[1:])]
+        both = out.valid & ref.valid
+        flip = (out.valid != ref.valid).float().mean().item()
+        err = max((out.x - ref.x)[both].abs().max().item(),
+                  (out.j_inv - ref.j_inv)[both].abs().max().item())
+        M = args[0].shape[0]
+        if not (err <= 1e-4 and flip <= 1e-3):
+            print(f"kernel_timing: KC disagrees at {M} lanes: err={err} "
+                  f"flipped={flip}", flush=True)
+            failed.append(f"broyden_search at {M}")
+        digest = hashlib.sha256()
+        for t in (out.x, out.j_inv, out.valid):
+            digest.update(t.cpu().numpy().tobytes())
+        valid = out.valid.float().mean().item()
+        del out, ref, both
+        ev, dv, hu = timings(lambda: B.broyden_search(*args),
+                             "broyden_search_kernel")
+        report({"kernel": "broyden_search", "lanes": M, "span_m": span,
+                "valid": valid,
+                "iterations_hist": hist, "samples": M + sum(active[1:]),
+                "flipped": flip, "max_abs_err": err,
+                "digest": digest.hexdigest()[:16], "event_ms": ev,
+                "device_ms": dv, "host_us": hu})
+        del args, slot, pts
+
+
+def time_kb2(torch, dev, report, failed):
+    """KB' pass 2 at a train step's shading call (no d_xn) and its
+    curvature call (d_xn)."""
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    spec = HG.HashGridSpec(n_levels=16, n_features_per_level=2,
+                           log2_hashmap_size=19, include_xyz=True)
+    rng = np.random.default_rng(6)
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)),
+                            dtype=torch.float32, device=dev)
+    mask = torch.ones(32, device=dev)
+    for rays, samples, need_x in ((4096, 135, False), (1024, 90, True)):
+        x = ka_points(torch, dev, rays, samples, seed=samples)
+        N = x.shape[0]
+        g_grad, d_enc, g_enc = (torch.as_tensor(
+            rng.normal(size=(N, w)), dtype=torch.float32, device=dev)
+            for w in (3, spec.n_output_dims, spec.n_output_dims))
+        args = (spec, table, x, mask, g_grad, d_enc, g_enc, need_x)
+        out = EG.encode_mlp_sdfgrad_bwd_scatter(*args)
+        ref = EG.encode_mlp_sdfgrad_bwd_scatter_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for a, b in list(zip(out, ref))[:2 if need_x else 1]:
+            excess = ((a - b).abs() - 1e-4 * b.abs()).clamp(min=0.0)
+            errs.append(excess.max().item() / b.abs().max().item())
+        if not max(errs) <= 1e-5:
+            print(f"kernel_timing: KB' pass 2 disagrees at {N}: {errs}",
+                  flush=True)
+            failed.append(f"encode_mlp_sdfgrad_bwd_scatter at {N}")
+        del out, ref
+        ev, dv, hu = timings(lambda: EG.encode_mlp_sdfgrad_bwd_scatter(*args),
+                             "encode_mlp_sdfgrad_bwd_scatter_kernel")
+        report({"kernel": "encode_mlp_sdfgrad_bwd_scatter", "points": N,
+                "d_xn": need_x, "relerr": errs, "event_ms": ev,
+                "device_ms": dv, "host_us": hu})
 
 
 if __name__ == "__main__":

@@ -174,3 +174,57 @@ def test_deform_matches_jax(deformers):
                                    err_msg=name)
     assert {k: int(v) for k, v in tc.items()} == \
         {k: int(v) for k, v in jc.items()}
+
+
+@pytest.fixture(scope="module")
+def published():
+    """The JAX deformer at the published voxel (32 x 128 x 128) in the
+    pose, its transform voxel channel-last for the port."""
+    cfg = dict(RIGID, deformer_config=dict(RIGID["deformer_config"],
+                                           resolution=128))
+    jd = JD.FastSNARF(jwrap(cfg))
+    js = jd.initialize(np.zeros(10))
+    jf = jd.prepare(js, _smpl_params(jnp))
+    _, voxel_J = JL.precompute_transform_voxels(js.lbs_voxel, jf.tfs, jd.spec)
+    vox = torch.as_tensor(np.array(voxel_J).transpose(1, 2, 3, 0).copy())
+    return jd, js, jf, vox
+
+
+def test_broyden_twin_matches_jax_at_published_voxel(published):
+    """KC's twin against the JAX single-phase loop on the published 32 x 128
+    x 128 voxel: 384 points near the body, 8 of the 13 init bones each, so
+    some lanes run all max_iters steps."""
+    jd, js, jf, vox = published
+    rng = np.random.default_rng(0)
+    vc = np.asarray(js.vs_template)
+    n, I = 384, 8
+    pts = (vc[rng.choice(len(vc), n)]
+           + rng.normal(scale=0.03, size=(n, 3))).astype(np.float32)
+    w = JB.grid_sample_3d(js.lbs_voxel, jd.spec.normalize(jnp.asarray(pts)),
+                          padding="border")
+    xd = np.repeat(np.asarray(JB.forward_skinning(jnp.asarray(pts), w,
+                                                  jf.tfs)[0]), I, 0)
+    bones = np.stack([rng.choice(JB.INIT_BONES, I, replace=False)
+                      for _ in range(n)]).reshape(-1)
+    ref = JB.broyden_search(
+        jnp.asarray(xd), jnp.asarray(bones), jf.voxel_J_packed, jf.tfs,
+        jnp.asarray(jd.spec.offset), jnp.asarray(jd.spec.scale_kernel),
+        shape_dhw=jd.spec.shape_dhw, two_phase=False)
+    counts = []
+    out = TB.broyden_search_plain(
+        torch.as_tensor(xd), torch.as_tensor(bones, dtype=torch.int32), vox,
+        torch.as_tensor(np.array(jf.tfs)), jd.spec.offset,
+        jd.spec.scale_kernel, lane_counts=counts)
+    assert int((counts[0] == 10).sum()) > 0      # lanes that run out
+    valid = np.asarray(ref.valid)
+    assert 0.1 < valid.mean() < 0.9
+    np.testing.assert_array_equal(out.valid.numpy(), valid)
+    # as test_broyden_twin_matches_jax_single_phase: roots within 1e-4,
+    # J^-1 path-dependent through its rank-1 updates
+    np.testing.assert_allclose(out.x.numpy()[valid],
+                               np.asarray(ref.xc_array())[valid], atol=1e-4)
+    d_j = np.abs(out.j_inv.numpy()[valid]
+                 - np.asarray(ref.jinv_array()).reshape(-1, 9)[valid])
+    assert np.mean(d_j.max(-1) < 1e-4) > 0.75
+    assert d_j.max() < 0.1
+    assert not out.x.numpy()[~valid].any()

@@ -224,3 +224,57 @@ def test_function_matches_autograd_of_twin():
     for a, b in zip(d_fn, d_ref):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+def _ray_points(rng, rays, samples):
+    """``[rays * samples, 3]`` points in ray order inside [0, 1]^3: each
+    ray's samples over 0.3, so neighbouring points share the dense levels'
+    cells and rows."""
+    o = rng.uniform(0.2, 0.8, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.linspace(-0.15, 0.15, samples)[None, :, None]
+    return (o + t * d).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_backward_matches_jax_vjp_at_published_widths(masked):
+    """The Function's backward (KB' pass 1, the MLP's VJP, pass 2) against
+    ``jax.vjp`` of the JAX op at the default model's widths: 16 levels x 2
+    features, 2^19-row tables, a 35 -> 64 -> 13 MLP with noise on every
+    weight, 2,048 ray-ordered points (rows repeat along a ray at the dense
+    levels, as pass 2's warps see them), all levels on or the top four off
+    (the level mask's schedule)."""
+    kw = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+              include_xyz=True)
+    jspec, tspec = JSpec(**kw), TSpec(**kw)
+    jmlp = JMLP(35, 13, n_neurons=64, n_hidden_layers=1, sphere_init=True,
+                weight_norm=True)
+    params = _perturbed(jax.jit(jmlp.init)(jax.random.PRNGKey(12)), 13)
+    tmlp = TMLP(35, 13, n_neurons=64, n_hidden_layers=1, sphere_init=True,
+                weight_norm=True)
+    from_jax_params(_Holder(tmlp), {"f": {"mlp": params}})
+    rng = np.random.default_rng(14)
+    table = rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)).astype(np.float32)
+    x = _ray_points(rng, 32, 64)
+    mask = (np.arange(32) < (24 if masked else 32)).astype(np.float32)
+    g_feat = rng.normal(size=(x.shape[0], 13)).astype(np.float32)
+    g_grad = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t, mp, p: j_fused(jspec, jmlp.value_and_input_grad,
+                                              t, mp, p, jnp.asarray(mask)),
+                     jnp.asarray(table), jax.tree.map(jnp.asarray, params),
+                     jnp.asarray(x))
+    dt_r, dmlp_r, dx_r = vjp((jnp.asarray(g_feat), jnp.asarray(g_grad)))
+    t = torch.tensor(table, requires_grad=True)
+    p = torch.tensor(x, requires_grad=True)
+    feat, grad = encode_mlp_sdfgrad(tspec, tmlp, t, p, torch.as_tensor(mask))
+    torch.autograd.backward((feat, grad), (torch.as_tensor(g_feat),
+                                           torch.as_tensor(g_grad)))
+    _close(t.grad, dt_r, "table")
+    _close(p.grad, dx_r, "xn")
+    assert np.abs(np.asarray(dt_r)).max() > 0
+    if masked:
+        assert not t.grad[12:].any()
+    for i, layer in enumerate(tmlp.layers):
+        for k in ("v", "g", "b"):
+            _close(getattr(layer, k).grad, dmlp_r[i][k], f"mlp.{i}.{k}")

@@ -1240,3 +1240,248 @@ def test_deform_epilogue_kernel_groups(cuda, I, K, share):
         assert ref.overflow.item() > 0
     if share == 0.0:
         assert ref.overflow.item() == 0 and not ref.valid.any()
+
+
+# ---------------------------------------------------------------- KC blocks
+KC_BLOCK = 128  # lanes a block of the search kernel (csrc/broyden.cu)
+
+
+@pytest.fixture(scope="module")
+def posed_body():
+    """The synthetic body at the published voxel resolution (32 x 128 x
+    128), in a pose."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    rigid = FastSNARF(wrap({"name": "fast-snarf", "model_path": "synthetic",
+                            "deformer_config": {"resolution": 128}}))
+    statics = rigid.initialize(np.zeros(10), "cuda")
+    pose = np.zeros(69, np.float32)
+    pose[2], pose[5], pose[52] = 0.4, -0.4, 0.9
+    z = lambda n: torch.zeros(1, n, device="cuda")
+    frame = rigid.prepare(statics, {
+        "betas": torch.zeros(10, device="cuda"),
+        "body_pose": torch.as_tensor(pose, device="cuda"),
+        "global_orient": torch.zeros(3, device="cuda"),
+        "transl": torch.tensor([0.0, 0.3, 2.0], device="cuda"),
+        "betas_correction": z(10), "pose_correction": z(69),
+        "global_orient_correction": z(3), "transl_correction": z(3)})
+    tfs = frame.tfs[torch.as_tensor(TB.INIT_BONES, device="cuda")]
+    return rigid, frame, tfs.contiguous()
+
+
+def _kc_lanes(body, M, seed, far=0.0):
+    """``M`` lanes: targets near the posed body's vertices (a share ``far``
+    of them 5 m away), each with a random init bone."""
+    rigid, frame, tfs = body
+    rng = np.random.default_rng(seed)
+    verts = frame.vertices.cpu().numpy()
+    xd = verts[rng.choice(len(verts), M)] \
+        + rng.normal(scale=0.03, size=(M, 3))
+    xd[rng.random(M) < far] += 5.0
+    return (torch.as_tensor(xd, dtype=torch.float32, device="cuda"),
+            torch.as_tensor(rng.integers(0, len(TB.INIT_BONES), M),
+                            dtype=torch.int32, device="cuda"),
+            frame.voxel_J, tfs, rigid.spec.offset, rigid.spec.scale_kernel)
+
+
+def _kc_check(args, **kw):
+    """KC against its twin (a lane whose |g|^2 sits at a threshold may flip
+    with the order of a sum: one lane, and one more in 1,000; roots and J^-1
+    within 1e-4 where both converged, zeros elsewhere), and against itself
+    with its lanes permuted, bit for bit: a lane's result does not depend
+    on where it runs or which lanes share its warp."""
+    M = args[0].shape[0]
+    before = kernels.launches["broyden_search"]
+    out = TB.broyden_search(*args, **kw)
+    assert kernels.launches["broyden_search"] == before + 1
+    ref = TB.broyden_search_plain(*args, **kw)
+    assert out.x.shape == (M, 3) and out.j_inv.shape == (M, 9)
+    assert int((out.valid != ref.valid).sum()) <= 1 + M // 1000
+    both = out.valid & ref.valid
+    torch.testing.assert_close(out.x[both], ref.x[both], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out.j_inv[both], ref.j_inv[both], rtol=0,
+                               atol=1e-4)
+    assert not out.x[~out.valid].any() and not out.j_inv[~out.valid].any()
+    perm = torch.as_tensor(np.random.default_rng(M).permutation(M),
+                           device="cuda")
+    moved = TB.broyden_search(args[0][perm].contiguous(),
+                              args[1][perm].contiguous(), *args[2:], **kw)
+    for a, b in zip(moved, out):
+        assert torch.equal(a, b[perm])
+    return out, ref
+
+
+@pytest.mark.parametrize("M", [1, 37, KC_BLOCK - 1, KC_BLOCK, KC_BLOCK + 1,
+                               3 * KC_BLOCK + 17, 100_003])
+def test_broyden_kernel_blocks(cuda, posed_body, M):
+    """Ragged last blocks and warps, and fewer lanes than one block."""
+    _, ref = _kc_check(_kc_lanes(posed_body, M, seed=M))
+    if M > 10_000:
+        assert 0.05 < ref.valid.float().mean().item() < 0.95
+
+
+def test_broyden_kernel_every_lane_diverges(cuda, posed_body):
+    args = _kc_lanes(posed_body, 3 * KC_BLOCK + 5, seed=31, far=1.0)
+    out, _ = _kc_check(args)
+    assert not out.valid.any()
+
+
+def test_broyden_kernel_every_lane_runs_out(cuda, posed_body):
+    """No lane converges (cvg 0) or diverges (dvg 1e30): every lane runs
+    all max_iters steps."""
+    args = _kc_lanes(posed_body, 2 * KC_BLOCK + 3, seed=32)
+    lane_iters = []
+    TB.broyden_search_plain(*args, cvg_thresh=0.0, dvg_thresh=1e30,
+                            lane_iters=lane_iters)
+    assert len(lane_iters) == 10 and int(lane_iters[-1]) == args[0].shape[0]
+    out, _ = _kc_check(args, cvg_thresh=0.0, dvg_thresh=1e30)
+    assert not out.valid.any()
+
+
+def test_broyden_kernel_slow_lane_among_converged(cuda, posed_body):
+    """One lane a warp 5 m away (the voxel's zero padding leaves it where it
+    is: it runs all max_iters steps, dvg 1e30) beside lanes that converge
+    in a few steps."""
+    args = list(_kc_lanes(posed_body, 4 * KC_BLOCK + 7, seed=33))
+    xd = args[0].clone()
+    xd[5::32] += 5.0
+    args[0] = xd
+    counts = []
+    TB.broyden_search_plain(*args, dvg_thresh=1e30, lane_counts=counts)
+    assert bool((counts[0][5::32] == 10).all())
+    assert counts[0].float().mean().item() < 6.0
+    out, _ = _kc_check(tuple(args), dvg_thresh=1e30)
+    assert not out.valid[5::32].any()
+    assert out.valid.float().mean().item() > 0.3
+
+
+def test_broyden_kernel_roots_outside_the_voxel(cuda):
+    """A voxel whose transform fades to zero over its last cell beyond the
+    +x face puts the root of targets with x > 0 there: those lanes converge
+    and are invalid; targets with x < 0 have their root inside."""
+    n = 8
+    vox = torch.tensor([1.0, 0, 0, -1, 0, 1, 0, 0, 0, 0, 1, 0],
+                       device=cuda).expand(n, n, n, 12).contiguous()
+    rng = np.random.default_rng(34)
+    M = 2 * KC_BLOCK + 9
+    out_x = rng.random(M) < 0.5
+    tx = np.where(out_x, rng.uniform(0.005, 0.05, M),
+                  rng.uniform(-1.5, -0.01, M))
+    xd = np.stack([tx, rng.uniform(-0.5, 0.5, M),
+                   rng.uniform(-0.5, 0.5, M)], 1)
+    tfs = torch.eye(4, device=cuda)[None].clone()
+    tfs[0, 0, 3] = -1.0        # start at x_d + (1, 0, 0)
+    args = (torch.as_tensor(xd, dtype=torch.float32, device=cuda),
+            torch.zeros(M, dtype=torch.int32, device=cuda), vox, tfs,
+            (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    counts = []
+    TB.broyden_search_plain(*args, lane_counts=counts)
+    # the outside lanes stop before max_iters: converged, not run out
+    assert bool((counts[0][torch.as_tensor(out_x, device=cuda)] < 10).all())
+    out, _ = _kc_check(args)
+    assert not out.valid[torch.as_tensor(out_x, device=cuda)].any()
+    assert out.valid[torch.as_tensor(~out_x, device=cuda)].all()
+
+
+def test_broyden_polish_kernel_at_published_voxel(cuda, posed_body):
+    """KL shares KC's lane steps: held to its twin, equal valid, on seeds
+    from KC's roots nudged, at the published voxel."""
+    args = _kc_lanes(posed_body, 20_000, seed=35)
+    res = TB.broyden_search(*args)
+    rng = np.random.default_rng(36)
+    seed = res.x + torch.as_tensor(rng.normal(scale=0.01, size=(20_000, 3)),
+                                   dtype=torch.float32, device="cuda")
+    pargs = (args[0], seed.contiguous(), res.valid, *args[2:3], *args[4:])
+    out = TB.broyden_polish(*pargs, max_iters=4)
+    ref = TB.broyden_polish_plain(*pargs, max_iters=4)
+    assert torch.equal(out.valid, ref.valid)
+    for a, b in ((out.x, ref.x), (out.j_inv, ref.j_inv)):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+# ---------------------------------------------------------------- KB' pass 2
+KB2_TILE = 64  # points a tile of pass 2 (csrc/encode_grad.cu)
+KB2_SPECS = {
+    "published": PUBLISHED, "small": SMALL,
+    "f1": dict(SMALL, n_levels=8, n_features_per_level=1),
+    "f3": dict(SMALL, n_features_per_level=3),
+    "f4": dict(PUBLISHED, n_levels=8, n_features_per_level=4,
+               log2_hashmap_size=12),
+}
+
+
+def _kb2_case(cuda, kw, x, include_xyz, mask, seed):
+    spec = HG.HashGridSpec(include_xyz=include_xyz, **kw)
+    rng = np.random.default_rng(seed)
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    T = 1 << kw["log2_hashmap_size"]
+    normal = lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32), device=cuda)
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (L, T, F)),
+                            dtype=torch.float32, device=cuda)
+    N = x.shape[0]
+    return (spec, table, torch.as_tensor(x, device=cuda),
+            torch.as_tensor(mask, device=cuda), normal(N, 3),
+            normal(N, spec.n_output_dims), normal(N, spec.n_output_dims))
+
+
+def _kb2_check(args, need_x):
+    """Pass 2 against its twin within its tolerance in chip_smoke.py: float
+    atomics (the kernel's and index_add_'s) sum a row in changing order."""
+    before = kernels.launches["encode_mlp_sdfgrad_bwd_scatter"]
+    dt, dx = EG.encode_mlp_sdfgrad_bwd_scatter(*args, need_x)
+    assert kernels.launches["encode_mlp_sdfgrad_bwd_scatter"] == before + 1
+    dt_r, dx_r = EG.encode_mlp_sdfgrad_bwd_scatter_plain(*args, need_x)
+    _close(dt, dt_r)
+    if need_x:
+        assert dx.shape == dx_r.shape
+        _close(dx, dx_r)
+    else:
+        assert dx is None
+    return dt
+
+
+@pytest.mark.parametrize("need_x", [False, True])
+@pytest.mark.parametrize("include_xyz", [False, True])
+@pytest.mark.parametrize("n", [1, KB2_TILE - 1, KB2_TILE + 1,
+                               3 * KB2_TILE + 5, 20_011])
+@pytest.mark.parametrize("which", list(KB2_SPECS))
+def test_encode_grad_scatter_tiles_and_widths(cuda, which, n, include_xyz,
+                                              need_x):
+    """Ragged tiles, F = 1 to 4, ray-ordered points (a tenth outside the
+    domain, a few saturating the cell cast), levels masked off."""
+    kw = KB2_SPECS[which]
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    mask = np.ones((L, F), np.float32)
+    mask[[1, L - 1]] = 0.0
+    mask[L - 3, 0] = 0.0           # one feature of a level
+    args = _kb2_case(cuda, kw, _ka_points(n, True, seed=n + 11),
+                     include_xyz, mask.reshape(-1), seed=n)
+    dt = _kb2_check(args, need_x)
+    assert not dt[1].any() and not dt[L - 1].any()
+
+
+@pytest.mark.parametrize("need_x", [False, True])
+@pytest.mark.parametrize("which", ["published", "f1", "f3", "f4"])
+def test_encode_grad_scatter_full_merge(cuda, which, need_x):
+    """Every warp's 32 points at one position: at every level each corner's
+    32 lanes add into one row (the merge at its fullest), beside a tile of
+    points spread at random."""
+    kw = KB2_SPECS[which]
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    rng = np.random.default_rng(41)
+    same = np.repeat(rng.uniform(0.1, 0.9, (4, 1, 3)), 32, 1).reshape(-1, 3)
+    x = np.concatenate([same, rng.uniform(0, 1, (KB2_TILE, 3))])
+    args = _kb2_case(cuda, kw, x.astype(np.float32), True,
+                     np.ones(L * F, np.float32), seed=42)
+    _kb2_check(args, need_x)
+
+
+def test_encode_grad_scatter_every_level_masked(cuda):
+    """A mask that zeroes every level adds nothing; d_xn keeps only the
+    xyz columns' term."""
+    kw = KB2_SPECS["published"]
+    args = _kb2_case(cuda, kw, _ka_points(1000, True, seed=43), True,
+                     np.zeros(32, np.float32), seed=44)
+    dt = _kb2_check(args, True)
+    assert not dt.any()
