@@ -956,31 +956,24 @@ def epilogue_reading(rec, where, card):
     return r
 
 
-def lane_work(counts, tile=512, threads=256):
+def lane_work(counts):
     """What the iterations ``counts [M]`` of a search's lanes (from the
     twin, whose loop is the kernel's) cost in voxel samples (1 + the
-    iterations a lane): the histogram of iterations, the share of issued
-    samples that do work when 32 consecutive lanes share a warp and each
-    runs until its slowest lane ends (the one-lane-a-thread layout), and
-    the share when the threads of a tile take lanes as they finish
-    (refill; each tile counted at the larger of its slowest lane and its
-    samples over its threads)."""
+    iterations a lane): the histogram of iterations, and the share of
+    issued samples that do work when 32 consecutive lanes share a warp and
+    each runs until its slowest lane ends (the kernel's one lane a
+    thread)."""
     import torch
     M = counts.numel()
     samples = counts.to(torch.int64) + 1
     total = int(samples.sum())
-    pad = lambda n: torch.nn.functional.pad(samples, (0, -M % n))
-    warp_max = pad(32).reshape(-1, 32).max(1).values
-    per_tile = pad(tile).reshape(-1, tile)
-    tile_cost = torch.maximum(per_tile.max(1).values,
-                              -(-per_tile.sum(1) // threads))
+    warp_max = torch.nn.functional.pad(samples, (0, -M % 32)).reshape(
+        -1, 32).max(1).values
     return {
         "lanes": M, "samples": total,
         "iterations_hist": torch.bincount(counts.to(torch.int64))
         .tolist(),
-        "warp_efficiency": total / (32 * int(warp_max.sum())),
-        "refill_efficiency_bound": total / (threads * int(tile_cost.sum())),
-        "tile": tile, "threads": threads}
+        "warp_efficiency": total / (32 * int(warp_max.sum()))}
 
 
 def kc_reading(rec, where, card, launches=None):
@@ -994,9 +987,8 @@ def kc_reading(rec, where, card, launches=None):
     from intrinsicavatar_tpu_torch.anim import broyden as B
     args, kw = rec[1], rec[2]
     rk = B.broyden_search(*args, **kw)
-    lane_iters, counts = [], []
-    rp = B.broyden_search_plain(*args, **kw, lane_iters=lane_iters,
-                                lane_counts=counts)
+    counts = []
+    rp = B.broyden_search_plain(*args, **kw, lane_counts=counts)
     torch.cuda.synchronize()
     both = rk.valid & rp.valid
     flip = (rk.valid != rp.valid).float().mean().item()
@@ -1006,7 +998,7 @@ def kc_reading(rec, where, card, launches=None):
         fail(f"broyden_search disagrees with its twin at the {where}: "
              f"err={err} flipped={flip}")
     M = args[0].shape[0]
-    steps = int(sum(int(a) for a in lane_iters))
+    steps = int(counts[0].sum())
     work = lane_work(counts[0])
     valid = rk.valid.float().mean().item()
     del rk, rp, both, counts
@@ -1376,8 +1368,9 @@ def relight(rows, row, card, dev):
     # KL seeded polish (a shader chunk's fine budget)
     args, kw = kl[1], kl[2]
     pk = B.broyden_polish(*args, **kw)
-    lane_iters = []
-    pp = B.broyden_polish_plain(*args, **kw, lane_iters=lane_iters)
+    counts = []
+    pp = B.broyden_polish_plain(*args, **kw, lane_counts=counts)
+    steps = int(counts[0].sum())
     torch.cuda.synchronize()
     equal("broyden_polish valid", pk.valid, pp.valid)
     errs = [rel(pk.x, pp.x), rel(pk.j_inv, pp.j_inv)]
@@ -1385,18 +1378,18 @@ def relight(rows, row, card, dev):
         fail(f"broyden_polish disagrees with its twin: {errs}")
     M = args[0].shape[0]
 
-    def polish_work(a, lane_iters):
+    def polish_work(a, steps):
         """Bytes and operations of a polish call: every lane's target, seed
         and outputs; a trilinear sample (8 corner rows of 48 B, at most the
         voxel once) and ~250 flops at each seeded lane's start and at each
         lane-iteration it runs."""
-        samples = int(a[2].sum()) + int(sum(int(n) for n in lane_iters))
+        samples = int(a[2].sum()) + steps
         return (M * (12 + 12 + 1) + M * (12 + 36 + 1)
                 + min(a[3].numel() * 4, samples * 384),
                 samples * (8 * 12 * 2 + 8 * 6 + 40) + samples * 80)
 
     print(f"broyden polish: {M} lanes, {int(args[2].sum())} seeded, "
-          f"{int(sum(int(a) for a in lane_iters))} lane-iterations, "
+          f"{steps} lane-iterations, "
           f"{pk.valid.float().mean().item():.4f} valid", flush=True)
     row("broyden_polish", "cuda", "intrinsicavatar_tpu_torch/csrc/broyden.cu",
         "intrinsicavatar_tpu/anim/broyden.py:464", f"xd[{M}, 3]",
@@ -1404,7 +1397,7 @@ def relight(rows, row, card, dev):
             (pk.j_inv - pp.j_inv).abs().max().item()),
         time_ms(lambda: B.broyden_polish(*args, **kw)),
         time_ms(lambda: B.broyden_polish_plain(*args, **kw), 3),
-        *polish_work(args, lane_iters))
+        *polish_work(args, steps))
     # the same points with every lane seeded, from the roots of a search
     # from the first init bone (the relight cell's fine pass seeds few
     # lanes: its secondary rays leave the body)
@@ -1415,8 +1408,9 @@ def relight(rows, row, card, dev):
         off, sk)
     full = (xd, roots.x, roots.valid, vox, off, sk)
     fk = B.broyden_polish(*full, **kw)
-    lane_iters = []
-    fp = B.broyden_polish_plain(*full, **kw, lane_iters=lane_iters)
+    counts = []
+    fp = B.broyden_polish_plain(*full, **kw, lane_counts=counts)
+    f_steps = int(counts[0].sum())
     torch.cuda.synchronize()
     equal("broyden_polish valid, every lane seeded", fk.valid, fp.valid)
     errs = [rel(fk.x, fp.x), rel(fk.j_inv, fp.j_inv)]
@@ -1427,15 +1421,15 @@ def relight(rows, row, card, dev):
                 (fk.j_inv - fp.j_inv).abs().max().item())
     f_ms = time_ms(lambda: B.broyden_polish(*full, **kw))
     f_plain = time_ms(lambda: B.broyden_polish_plain(*full, **kw), 3)
-    f_bytes, f_ops = polish_work(full, lane_iters)
+    f_bytes, f_ops = polish_work(full, f_steps)
     print(f"broyden polish, the same points seeded from a search: "
           f"{int(roots.valid.sum())} seeded, "
-          f"{int(sum(int(a) for a in lane_iters))} lane-iterations, "
+          f"{f_steps} lane-iterations, "
           f"{fk.valid.float().mean().item():.4f} valid, "
           f"max_abs_err={f_err:.3g} ms={f_ms:.4f} plain_ms={f_plain:.4f} "
           f"bound_ms={max(f_bytes / PEAK_BYTES, f_ops / PEAK_FP32) * 1e3:.5f}",
           flush=True)
-    # KL shares KC's lane steps: its device time at both calls
+    # KL runs KC's lane function: its device time at both calls
     kl_dev = {w: device_ms(lambda: B.broyden_polish(*a, **kw),
                            "broyden_polish_kernel")
               for w, a in (("fine_budget", args), ("all_seeded", full))}

@@ -151,8 +151,7 @@ class BroydenResult(NamedTuple):
 
 
 def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
-                   cvg_thresh, dvg_thresh, max_iters, lane_iters,
-                   lane_counts=None):
+                   cvg_thresh, dvg_thresh, max_iters, lane_counts=None):
     """The JAX loop (`anim/broyden.py:242-314`), vectorized over lanes, from
     canonical starts ``x, y, z [M]``; lanes ``done`` at entry stay invalid."""
     shape_dhw = tuple(voxel_J.shape[:3])
@@ -182,8 +181,6 @@ def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
     for _ in range(max_iters):
         J00, J01, J02, J10, J11, J12, J20, J21, J22 = Ji
         active = ~done
-        if lane_iters is not None:
-            lane_iters.append(active.sum())
         if lane_counts is not None:
             steps += active
         u0 = -(J00 * g0 + J01 * g1 + J02 * g2)
@@ -231,14 +228,12 @@ def _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
 
 def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
                          cvg_thresh=1e-5, dvg_thresh=1e-1, max_iters=10,
-                         lane_iters: list | None = None,
                          lane_counts: list | None = None) -> BroydenResult:
     """Plain twin of kernel KC: the JAX single-phase loop, vectorized.
 
-    ``lane_iters``, when given, receives the number of (lane, iteration)
-    steps the lanes ran before converging or diverging (a measurement of
-    the work this data needs), one count per iteration; ``lane_counts``
-    receives an int32 ``[M]``: the iterations each lane ran."""
+    ``lane_counts``, when given, receives an int32 ``[M]``: the iterations
+    each lane ran before converging, diverging or running out (a
+    measurement of the work this data needs)."""
     tx, ty, tz = xd[:, 0], xd[:, 1], xd[:, 2]
     T = tfs[:, :3, :].reshape(tfs.shape[0], 12)[bone_idx]
     Tb = T.unbind(-1)
@@ -248,8 +243,7 @@ def broyden_search_plain(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
     z = Tb[2] * dx_ + Tb[6] * dy_ + Tb[10] * dz_
     done = torch.zeros(xd.shape[0], dtype=torch.bool, device=xd.device)
     return _broyden_plain(xd, x, y, z, done, voxel_J, offset, scale_kernel,
-                          cvg_thresh, dvg_thresh, max_iters, lane_iters,
-                          lane_counts)
+                          cvg_thresh, dvg_thresh, max_iters, lane_counts)
 
 
 def broyden_search(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
@@ -291,12 +285,13 @@ def broyden_search(xd, bone_idx, voxel_J, tfs, offset, scale_kernel,
 
 def broyden_polish_plain(xd, seed, seed_ok, voxel_J, offset, scale_kernel,
                          cvg_thresh=1e-5, dvg_thresh=1e-1, max_iters=4,
-                         lane_iters: list | None = None) -> BroydenResult:
-    """Plain twin of kernel KL."""
+                         lane_counts: list | None = None) -> BroydenResult:
+    """Plain twin of kernel KL; ``lane_counts`` as for
+    :func:`broyden_search_plain` (0 for lanes without a seed)."""
     x, y, z = seed.unbind(-1)
     res = _broyden_plain(xd, x, y, z, ~seed_ok, voxel_J, offset,
                          scale_kernel, cvg_thresh, dvg_thresh, max_iters,
-                         lane_iters)
+                         lane_counts)
     return res._replace(valid=res.valid & seed_ok)
 
 

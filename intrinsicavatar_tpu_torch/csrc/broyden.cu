@@ -1,7 +1,6 @@
 // KC: Broyden inverse-LBS root search (broyden_search_fwd); KL: its seeded
 // single-lane polish (broyden_polish_fwd), described above its kernel
-// below.  Both run the same per-lane steps (lane_start, lane_point,
-// lane_next), so a lane's arithmetic is one sequence of operations in both.
+// below.  Both run the same per-lane body, broyden_lane.
 //
 // KC:
 // Replaces intrinsicavatar_tpu/anim/broyden.py:351-460 broyden_search (body
@@ -22,24 +21,26 @@
 // the math is ~250 flops per sample.  Against the roofline the lane's
 // inputs and outputs (target 12 B, bone index 4 B, root 12 B, J^-1 36 B,
 // valid 1 B) are the bytes that must move, so the bound is set by bytes.
-// The kernel's time is set by its 24 scattered 16-byte voxel loads a
-// sample (a serve chunk's 6.3 M lanes take 15 M samples): a lane that has
-// stopped issues none, so the idle lanes of a warp whose slowest lane runs
-// on cost no loads, and lanes whose loads fall on one cache line in the
-// same instruction share it.
+// The kernel's time is set by the L1's work on its 24 scattered 16-byte
+// voxel loads a sample (a serve chunk's 6.3 M lanes take 15 M samples):
+// the sectors each load instruction touches and the 384 B it returns to
+// each lane.  A lane that has stopped issues none, so the idle lanes of a
+// warp whose slowest lane runs on cost no loads, and lanes whose loads
+// fall on one sector in the same instruction share it.
 //
 // Design: one thread per lane, 128-thread blocks, so a warp is 4 points x 8
 // inits in the caller's point-major order: a point's inits converge on the
 // same roots and then load the same rows in the same instruction.  (Lane
 // refill within a tile, a tile staged through shared memory, lanes strided
 // so a warp holds one init of 32 points, and persistent blocks were each
-// slower on the card: they break that lockstep.)  The whole state (x, g,
-// J^-1) lives in registers; the voxel is read channel-last ([D, H, W, 12])
-// so a corner is 48 contiguous bytes.  A cell that reaches into the voxel
-// issues its 24 float4 corner loads without a branch: a corner outside
-// reads the clamped row with weight 0, which adds +-0 to a sum that starts
-// at +0 and so changes no bit of it.  A cell wholly outside (most lanes of
-// a chunk's empty space start there) loads nothing.
+// slower on the card, as were a sample's 24 loads held in registers at
+// once and its rows staged in shared memory by cp.async.)  The whole state
+// (x, g, J^-1) lives in registers; the voxel is read channel-last
+// ([D, H, W, 12]) so a corner is 48 contiguous bytes.  A cell that reaches
+// into the voxel issues its 24 float4 corner loads without a branch: a
+// corner outside reads the clamped row with weight 0, which adds +-0 to a
+// sum that starts at +0 and so changes no bit of it.  A cell wholly
+// outside (most lanes of a chunk's empty space start there) loads nothing.
 #include "common.cuh"
 
 namespace {
@@ -97,86 +98,68 @@ struct Sampler {
   }
 };
 
-// One lane's state between two voxel samples: the iterate, the target, the
-// residual g at the last accepted iterate, J^-1, the step u just taken and
-// the count of steps.
-struct Lane {
-  float x, y, z, tx, ty, tz, g0, g1, g2, u0, u1, u2;
-  float J00, J01, J02, J10, J11, J12, J20, J21, J22;
-  int it;
-};
-
-// After the sample J at the start point: J^-1 starts as the transpose of
-// the sampled rotation block, g as the residual there.
-__device__ __forceinline__ void lane_start(Lane& s, const float* J) {
-  s.J00 = J[0]; s.J01 = J[4]; s.J02 = J[8];
-  s.J10 = J[1]; s.J11 = J[5]; s.J12 = J[9];
-  s.J20 = J[2]; s.J21 = J[6]; s.J22 = J[10];
-  s.g0 = J[0] * s.x + J[1] * s.y + J[2] * s.z + J[3] - s.tx;
-  s.g1 = J[4] * s.x + J[5] * s.y + J[6] * s.z + J[7] - s.ty;
-  s.g2 = J[8] * s.x + J[9] * s.y + J[10] * s.z + J[11] - s.tz;
-  s.it = 0;
-}
-
-// The Broyden step u = -J^-1 g, taken: the next point to sample.
-__device__ __forceinline__ void lane_point(Lane& s) {
-  s.u0 = -(s.J00 * s.g0 + s.J01 * s.g1 + s.J02 * s.g2);
-  s.u1 = -(s.J10 * s.g0 + s.J11 * s.g1 + s.J12 * s.g2);
-  s.u2 = -(s.J20 * s.g0 + s.J21 * s.g1 + s.J22 * s.g2);
-  s.x = s.x + s.u0;
-  s.y = s.y + s.u1;
-  s.z = s.z + s.u2;
-}
-
-enum { kRunning = 0, kConverged = 1, kFailed = 2 };
-
-// After the sample J at the point lane_point moved to: converged (the root
-// is (x, y, z) and J^-1 the one before this update), diverged or out of
-// iterations (failed), or the rank-1 update and on to the next step.
-__device__ __forceinline__ int lane_next(Lane& s, const float* J,
-                                         int max_iters, float cvg2,
-                                         float dvg2) {
-  float n0 = J[0] * s.x + J[1] * s.y + J[2] * s.z + J[3] - s.tx;
-  float n1 = J[4] * s.x + J[5] * s.y + J[6] * s.z + J[7] - s.ty;
-  float n2 = J[8] * s.x + J[9] * s.y + J[10] * s.z + J[11] - s.tz;
-  float nsq = n0 * n0 + n1 * n1 + n2 * n2;
-  if (nsq < cvg2) return kConverged;
-  if (nsq > dvg2) return kFailed;
-  // rank-1 update: c = u^T J^-1; s = c . dg; J^-1 += (u - J^-1 dg) c / s
-  float d0 = n0 - s.g0, d1 = n1 - s.g1, d2 = n2 - s.g2;
-  float c0 = s.J00 * s.u0 + s.J10 * s.u1 + s.J20 * s.u2;
-  float c1 = s.J01 * s.u0 + s.J11 * s.u1 + s.J21 * s.u2;
-  float c2 = s.J02 * s.u0 + s.J12 * s.u1 + s.J22 * s.u2;
-  float sden = c0 * d0 + c1 * d1 + c2 * d2;
-  float r0 = -(s.J00 * d0 + s.J01 * d1 + s.J02 * d2);
-  float r1 = -(s.J10 * d0 + s.J11 * d1 + s.J12 * d2);
-  float r2 = -(s.J20 * d0 + s.J21 * d1 + s.J22 * d2);
-  float inv_s = fabsf(sden) > 1e-30f ? 1.f / sden : 0.f;
-  float a0 = (r0 + s.u0) * inv_s, a1 = (r1 + s.u1) * inv_s,
-        a2 = (r2 + s.u2) * inv_s;
-  s.J00 = s.J00 + c0 * a0; s.J01 = s.J01 + c1 * a0; s.J02 = s.J02 + c2 * a0;
-  s.J10 = s.J10 + c0 * a1; s.J11 = s.J11 + c1 * a1; s.J12 = s.J12 + c2 * a1;
-  s.J20 = s.J20 + c0 * a2; s.J21 = s.J21 + c1 * a2; s.J22 = s.J22 + c2 * a2;
-  s.g0 = n0; s.g1 = n1; s.g2 = n2;
-  return ++s.it < max_iters ? kRunning : kFailed;
-}
-
-// A finished lane's outputs, zero where it is not valid: the root x and
-// J^-1 (9) times valid.
-__device__ __forceinline__ void lane_outputs(const Lane& s, int state,
-                                             const Sampler& S, float* xo,
-                                             float* O, bool& valid) {
-  valid = state == kConverged && S.in_bounds(s.x, s.y, s.z);
-  if (state != kConverged) {
-    for (int a = 0; a < 3; ++a) xo[a] = 0.f;
-    for (int i = 0; i < 9; ++i) O[i] = 0.f;
-    return;
+// From canonical start (x, y, z): J^-1 starts as the transpose of the
+// sampled rotation block, then up to max_iters Broyden steps toward target
+// (tx, ty, tz).  Stores the lane's outputs: the root to xo, J^-1 to O and
+// valid to vo where it converged inside the voxel, zeros otherwise.
+__device__ __forceinline__ void broyden_lane(
+    const Sampler& S, float x, float y, float z, float tx, float ty,
+    float tz, int max_iters, float cvg2, float dvg2, float* __restrict__ xo,
+    float* __restrict__ O, uint8_t* __restrict__ vo) {
+  float J[12];
+  S.sample(x, y, z, J);
+  float J00 = J[0], J01 = J[4], J02 = J[8];
+  float J10 = J[1], J11 = J[5], J12 = J[9];
+  float J20 = J[2], J21 = J[6], J22 = J[10];
+  float g0 = J[0] * x + J[1] * y + J[2] * z + J[3] - tx;
+  float g1 = J[4] * x + J[5] * y + J[6] * z + J[7] - ty;
+  float g2 = J[8] * x + J[9] * y + J[10] * z + J[11] - tz;
+  bool converged = false;
+  for (int it = 0; it < max_iters; ++it) {
+    float u0 = -(J00 * g0 + J01 * g1 + J02 * g2);
+    float u1 = -(J10 * g0 + J11 * g1 + J12 * g2);
+    float u2 = -(J20 * g0 + J21 * g1 + J22 * g2);
+    x = x + u0;
+    y = y + u1;
+    z = z + u2;
+    S.sample(x, y, z, J);
+    float n0 = J[0] * x + J[1] * y + J[2] * z + J[3] - tx;
+    float n1 = J[4] * x + J[5] * y + J[6] * z + J[7] - ty;
+    float n2 = J[8] * x + J[9] * y + J[10] * z + J[11] - tz;
+    float nsq = n0 * n0 + n1 * n1 + n2 * n2;
+    if (nsq < cvg2) {
+      converged = true;
+      break;
+    }
+    if (nsq > dvg2) break;
+    // rank-1 update: c = u^T J^-1; s = c . dg; J^-1 += (u - J^-1 dg) c / s
+    float d0 = n0 - g0, d1 = n1 - g1, d2 = n2 - g2;
+    float c0 = J00 * u0 + J10 * u1 + J20 * u2;
+    float c1 = J01 * u0 + J11 * u1 + J21 * u2;
+    float c2 = J02 * u0 + J12 * u1 + J22 * u2;
+    float sden = c0 * d0 + c1 * d1 + c2 * d2;
+    float r0 = -(J00 * d0 + J01 * d1 + J02 * d2);
+    float r1 = -(J10 * d0 + J11 * d1 + J12 * d2);
+    float r2 = -(J20 * d0 + J21 * d1 + J22 * d2);
+    float inv_s = fabsf(sden) > 1e-30f ? 1.f / sden : 0.f;
+    float a0 = (r0 + u0) * inv_s, a1 = (r1 + u1) * inv_s,
+          a2 = (r2 + u2) * inv_s;
+    J00 = J00 + c0 * a0; J01 = J01 + c1 * a0; J02 = J02 + c2 * a0;
+    J10 = J10 + c0 * a1; J11 = J11 + c1 * a1; J12 = J12 + c2 * a1;
+    J20 = J20 + c0 * a2; J21 = J21 + c1 * a2; J22 = J22 + c2 * a2;
+    g0 = n0; g1 = n1; g2 = n2;
   }
+  const bool valid = converged && S.in_bounds(x, y, z);
   const float vf = valid ? 1.f : 0.f;
-  xo[0] = s.x * vf; xo[1] = s.y * vf; xo[2] = s.z * vf;
-  O[0] = s.J00 * vf; O[1] = s.J01 * vf; O[2] = s.J02 * vf;
-  O[3] = s.J10 * vf; O[4] = s.J11 * vf; O[5] = s.J12 * vf;
-  O[6] = s.J20 * vf; O[7] = s.J21 * vf; O[8] = s.J22 * vf;
+  if (!converged) {
+    x = y = z = 0.f;
+    J00 = J01 = J02 = J10 = J11 = J12 = J20 = J21 = J22 = 0.f;
+  }
+  xo[0] = x * vf; xo[1] = y * vf; xo[2] = z * vf;
+  O[0] = J00 * vf; O[1] = J01 * vf; O[2] = J02 * vf;
+  O[3] = J10 * vf; O[4] = J11 * vf; O[5] = J12 * vf;
+  O[6] = J20 * vf; O[7] = J21 * vf; O[8] = J22 * vf;
+  *vo = valid ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(KC_THREADS) broyden_search_kernel(
@@ -186,29 +169,16 @@ __global__ void __launch_bounds__(KC_THREADS) broyden_search_kernel(
     int max_iters, float cvg2, float dvg2) {
   const int64_t m = (int64_t)blockIdx.x * KC_THREADS + threadIdx.x;
   if (m >= M) return;
-  Lane s;
-  float J[12];
-  s.tx = xd[m * 3];
-  s.ty = xd[m * 3 + 1];
-  s.tz = xd[m * 3 + 2];
-  const float* T = tfs + (int64_t)bone_idx[m] * 16;  // [4, 4]
+  float tx = xd[m * 3], ty = xd[m * 3 + 1], tz = xd[m * 3 + 2];
+  const float* T = tfs + (int64_t)bone_idx[m] * 16;  // [4, 4] row-major
   // x = R^T (x_d - t)
-  float ddx = s.tx - __ldg(T + 3), ddy = s.ty - __ldg(T + 7),
-        ddz = s.tz - __ldg(T + 11);
-  s.x = __ldg(T) * ddx + __ldg(T + 4) * ddy + __ldg(T + 8) * ddz;
-  s.y = __ldg(T + 1) * ddx + __ldg(T + 5) * ddy + __ldg(T + 9) * ddz;
-  s.z = __ldg(T + 2) * ddx + __ldg(T + 6) * ddy + __ldg(T + 10) * ddz;
-  S.sample(s.x, s.y, s.z, J);
-  lane_start(s, J);
-  int state = max_iters > 0 ? kRunning : kFailed;
-  while (state == kRunning) {
-    lane_point(s);
-    S.sample(s.x, s.y, s.z, J);
-    state = lane_next(s, J, max_iters, cvg2, dvg2);
-  }
-  bool valid;
-  lane_outputs(s, state, S, x_out + m * 3, jinv_out + m * 9, valid);
-  valid_out[m] = valid ? 1 : 0;
+  float ddx = tx - __ldg(T + 3), ddy = ty - __ldg(T + 7),
+        ddz = tz - __ldg(T + 11);
+  float x = __ldg(T) * ddx + __ldg(T + 4) * ddy + __ldg(T + 8) * ddz;
+  float y = __ldg(T + 1) * ddx + __ldg(T + 5) * ddy + __ldg(T + 9) * ddz;
+  float z = __ldg(T + 2) * ddx + __ldg(T + 6) * ddy + __ldg(T + 10) * ddz;
+  broyden_lane(S, x, y, z, tx, ty, tz, max_iters, cvg2, dvg2, x_out + m * 3,
+               jinv_out + m * 9, valid_out + m);
 }
 
 // ---------------------------------------------------------------------------
@@ -226,9 +196,9 @@ __global__ void __launch_bounds__(KC_THREADS) broyden_search_kernel(
 // 13 B of seed and writes 49 B, with up to 5 trilinear samples of 384 B
 // from the 25 MB voxel (mostly L2) and ~250 flops each.
 //
-// Design: one thread per lane with its state in registers, KC's steps in
-// KC's order, so a seed that KC's search would reach gives the same
-// iterates.
+// Design: KC's one thread per lane with its state in registers; the body is
+// KC's own (broyden_lane), so a seed that KC's search would reach gives the
+// same iterates.
 // ---------------------------------------------------------------------------
 
 __global__ void broyden_polish_kernel(
@@ -239,24 +209,15 @@ __global__ void broyden_polish_kernel(
     float dvg2) {
   int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
-  Lane s;
-  int state = kFailed;
-  if (seed_ok[m]) {
-    s.tx = xd[m * 3]; s.ty = xd[m * 3 + 1]; s.tz = xd[m * 3 + 2];
-    s.x = seed[m * 3]; s.y = seed[m * 3 + 1]; s.z = seed[m * 3 + 2];
-    float J[12];
-    S.sample(s.x, s.y, s.z, J);
-    lane_start(s, J);
-    state = max_iters > 0 ? kRunning : kFailed;
-    while (state == kRunning) {
-      lane_point(s);
-      S.sample(s.x, s.y, s.z, J);
-      state = lane_next(s, J, max_iters, cvg2, dvg2);
-    }
+  if (!seed_ok[m]) {  // no seed: invalid, zeros
+    for (int a = 0; a < 3; ++a) x_out[m * 3 + a] = 0.f;
+    for (int i = 0; i < 9; ++i) jinv_out[m * 9 + i] = 0.f;
+    valid_out[m] = 0;
+    return;
   }
-  bool valid;
-  lane_outputs(s, state, S, x_out + m * 3, jinv_out + m * 9, valid);
-  valid_out[m] = valid ? 1 : 0;
+  broyden_lane(S, seed[m * 3], seed[m * 3 + 1], seed[m * 3 + 2], xd[m * 3],
+               xd[m * 3 + 1], xd[m * 3 + 2], max_iters, cvg2, dvg2,
+               x_out + m * 3, jinv_out + m * 9, valid_out + m);
 }
 
 }  // namespace

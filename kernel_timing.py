@@ -417,6 +417,7 @@ def time_kc(torch, dev, report, failed):
     """KC at a serve chunk's search and at the phys step's secondary coarse
     call."""
     import hashlib
+    import inspect
 
     from intrinsicavatar_tpu_torch.anim import broyden as B
     from intrinsicavatar_tpu_torch.anim.deformer import FastSNARF
@@ -437,6 +438,8 @@ def time_kc(torch, dev, report, failed):
     verts = frame.vertices.cpu().numpy()
     I = rigid.n_init
     tfs = frame.tfs[torch.as_tensor(B.INIT_BONES, device=dev)].contiguous()
+    hook = "lane_counts" in inspect.signature(
+        B.broyden_search_plain).parameters
     for (rays, samples), span in itertools.product(
             ((4096, 192), (4096, 64)), (1.0, 0.3)):
         pts = body_rays(torch, dev, verts, rays, samples, samples, span)
@@ -445,17 +448,20 @@ def time_kc(torch, dev, report, failed):
                 frame.voxel_J, tfs, rigid.spec.offset,
                 rigid.spec.scale_kernel)
         out = B.broyden_search(*args)
-        active = []
-        ref = B.broyden_search_plain(*args, lane_iters=active)
+        # a parent's tree may predate the twin's lane_counts: no histogram
+        counts = [] if hook else None
+        ref = B.broyden_search_plain(
+            *args, **({"lane_counts": counts} if hook else {}))
         torch.cuda.synchronize()
+        M = args[0].shape[0]
         # lanes that ran exactly k iterations, k = 0 .. max_iters
-        active = [args[0].shape[0]] + [int(a) for a in active] + [0]
-        hist = [a - b for a, b in zip(active[:-1], active[1:])]
+        hist = (torch.bincount(counts[0].to(torch.int64), minlength=11)
+                .tolist() if hook else None)
+        samples = M + int(counts[0].sum()) if hook else None
         both = out.valid & ref.valid
         flip = (out.valid != ref.valid).float().mean().item()
         err = max((out.x - ref.x)[both].abs().max().item(),
                   (out.j_inv - ref.j_inv)[both].abs().max().item())
-        M = args[0].shape[0]
         if not (err <= 1e-4 and flip <= 1e-3):
             print(f"kernel_timing: KC disagrees at {M} lanes: err={err} "
                   f"flipped={flip}", flush=True)
@@ -464,12 +470,13 @@ def time_kc(torch, dev, report, failed):
         for t in (out.x, out.j_inv, out.valid):
             digest.update(t.cpu().numpy().tobytes())
         valid = out.valid.float().mean().item()
-        del out, ref, both
+        del out, ref, both, counts
         ev, dv, hu = timings(lambda: B.broyden_search(*args),
                              "broyden_search_kernel")
         report({"kernel": "broyden_search", "lanes": M, "span_m": span,
                 "valid": valid,
-                "iterations_hist": hist, "samples": M + sum(active[1:]),
+                "iterations_hist": hist,
+                "samples": samples,
                 "flipped": flip, "max_abs_err": err,
                 "digest": digest.hexdigest()[:16], "event_ms": ev,
                 "device_ms": dv, "host_us": hu})

@@ -1330,10 +1330,10 @@ def test_broyden_kernel_every_lane_runs_out(cuda, posed_body):
     """No lane converges (cvg 0) or diverges (dvg 1e30): every lane runs
     all max_iters steps."""
     args = _kc_lanes(posed_body, 2 * KC_BLOCK + 3, seed=32)
-    lane_iters = []
+    counts = []
     TB.broyden_search_plain(*args, cvg_thresh=0.0, dvg_thresh=1e30,
-                            lane_iters=lane_iters)
-    assert len(lane_iters) == 10 and int(lane_iters[-1]) == args[0].shape[0]
+                            lane_counts=counts)
+    assert bool((counts[0] == 10).all())
     out, _ = _kc_check(args, cvg_thresh=0.0, dvg_thresh=1e30)
     assert not out.valid.any()
 
@@ -1384,7 +1384,7 @@ def test_broyden_kernel_roots_outside_the_voxel(cuda):
 
 
 def test_broyden_polish_kernel_at_published_voxel(cuda, posed_body):
-    """KL shares KC's lane steps: held to its twin, equal valid, on seeds
+    """KL runs KC's lane function: held to its twin, equal valid, on seeds
     from KC's roots nudged, at the published voxel."""
     args = _kc_lanes(posed_body, 20_000, seed=35)
     res = TB.broyden_search(*args)
@@ -1485,3 +1485,26 @@ def test_encode_grad_scatter_every_level_masked(cuda):
                      np.zeros(32, np.float32), seed=44)
     dt = _kb2_check(args, True)
     assert not dt.any()
+
+
+@pytest.mark.parametrize("need_x", [False, True])
+@pytest.mark.parametrize("which", ["published", "f1", "f3", "f4"])
+def test_encode_grad_scatter_table_at_4_bytes(cuda, which, need_x):
+    """A table that starts 4 bytes past an 8-byte boundary: taken wherever
+    its rows are read with scalar loads, refused only where F = 2 reads
+    them as float2 (d_xn)."""
+    kw = KB2_SPECS[which]
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    args = list(_kb2_case(cuda, kw, _ka_points(3 * KB2_TILE + 5, True,
+                                                 seed=45), True,
+                          np.ones(L * F, np.float32), seed=46))
+    buf = torch.empty(args[1].numel() + 1, device=cuda)
+    table = buf[1:].view(args[1].shape)
+    table.copy_(args[1])
+    assert table.data_ptr() % 8 == 4
+    args[1] = table
+    if F == 2 and need_x:
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            EG.encode_mlp_sdfgrad_bwd_scatter(*args, need_x)
+    else:
+        _kb2_check(tuple(args), need_x)
