@@ -21,8 +21,9 @@
    and a train step and with noise on its table, the epilogue and KC also
    at the phys step's secondary coarse call, KC with the histogram of its
    lanes' iterations and the share of issued samples that do work,
-   ``lane_work``); the registers, stack frame and spills of KA, KB, KC,
-   KH, KL and KM from ``ptxas``;
+   ``lane_work``); KF's device time at its recorded call; the registers,
+   stack frame and spills of KA, KA', KB, KC, KH, KL, KM and KF from
+   ``ptxas``;
 4. serves: bakes one frame's 96^3 seed grid alone (its time and launches),
    then renders 2 frames x 16,384 rays of the synthetic val split through
    ``render_frame`` (each with its own 64^3 test grid and seed grid, the
@@ -57,7 +58,8 @@
 7. trains: records the backward kernels' inputs in one full-width train
    step at step 2000, holds each backward kernel against its twin on them
    and times both (KB' pass 2 at the step's shading call and its curvature
-   call, with its device time, the warps' merge hit rate by level, its
+   call, KA' at its radiance call, also with ``d_x`` on the same inputs,
+   each with its device time, the warps' merge hit rate by level, its
    bound over the cotangent rows its corners touch, and ``index_add_`` of
    the same adds, precomputed, as the library yardstick); then, with every
    launch counter set to 0 just before and
@@ -83,7 +85,7 @@
 9. prints the ``kernels`` line, the serve, relight and train lines (each
    profile with the device ms, launches and share of busy time of the
    kernels redesigned for the card, KA, KB, KC, KB' pass 2, the KH
-   epilogue and KM, ``redesigned``), and last the device line.
+   epilogue, KM, KA' and KF, ``redesigned``), and last the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -111,11 +113,15 @@ PEAK_TF32 = 495e12
 # points, KM at a relight chunk's busiest secondary coarse gather, KA at a
 # serve chunk's largest call (1,179,648 points), the KH epilogue and KC at
 # a serve chunk's search (6,291,456 lanes; KC's events without the voxel
-# copy), KB' pass 2 at a train step's shading call (552,960 points)
+# copy), KB' pass 2 at a train step's shading call (552,960 points), KA' at
+# its radiance call (368,640 points), KF at a serve chunk's second
+# importance round ([4096, 145] edges, 16 draws)
 EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "0.0513-0.0740", "hashgrid_encode": "0.855",
               "deform_epilogue": "0.852-0.857", "broyden_search": "0.501",
-              "encode_mlp_sdfgrad_bwd_scatter": "4.337-4.463"}
+              "encode_mlp_sdfgrad_bwd_scatter": "4.337-4.463",
+              "hashgrid_encode_bwd": "3.798-4.137",
+              "merge_resample": "0.500-0.502"}
 # the profiler's names of the kernels redesigned for the card
 REDESIGNED = {"encode_mlp_sdfgrad": "encode_mlp_sdfgrad_kernel",
               "seed_gather": "seed_gather_kernel",
@@ -123,7 +129,9 @@ REDESIGNED = {"encode_mlp_sdfgrad": "encode_mlp_sdfgrad_kernel",
               "deform_epilogue": "::epilogue_kernel(",
               "broyden_search": "broyden_search_kernel",
               "encode_mlp_sdfgrad_bwd_scatter":
-                  "encode_mlp_sdfgrad_bwd_scatter_kernel"}
+                  "encode_mlp_sdfgrad_bwd_scatter_kernel",
+              "hashgrid_encode_bwd": "hashgrid_encode_bwd_kernel",
+              "merge_resample": "merge_resample_kernel"}
 
 
 def fail(msg: str):
@@ -210,7 +218,7 @@ def main():
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name in ("encode_grad", "seedgrid", "hashgrid", "deform",
-                 "broyden"):
+                 "broyden", "resample"):
         for fn, info in ptxas_info(logs.get(name, "")).items():
             # the mangled names: no "::" or "(" around the kernel's name
             if name == "broyden" or any(k.strip(":(") in fn
@@ -435,14 +443,23 @@ def main():
              f"rays equal, err={err}")
     R, E = args[0].shape
     n_new = args[5]
+    kf_call = lambda: RS.merge_resample_rays(*args)
     row("merge_resample", "cuda",
         "intrinsicavatar_tpu_torch/csrc/resample.cu",
         "intrinsicavatar_tpu/ops/resample.py:166",
-        f"vals{[R, E]} B={n_new}", err,
-        time_ms(lambda: RS.merge_resample_rays(*args)),
+        f"vals{[R, E]} B={n_new}", err, time_ms(kf_call),
         time_ms(lambda: RS.merge_resample_rays_plain(*args)),
         R * E * (4 + 3 + 4) + R * (E + n_new) * (4 + 4 + 8),
         R * (E * 10 + n_new * 20 + 2 * E * n_new))
+    # at this size the wrapper's six allocations may set the event time
+    kf_read = {"shape": f"vals{[R, E]} B={n_new}",
+               "ms": rows[-1]["ms"],
+               "device_ms": device_ms(kf_call, REDESIGNED["merge_resample"]),
+               "equal_share": same_share,
+               "before_redesign_ms": EARLIER_MS["merge_resample"],
+               "card": card}
+    print(f"kernel merge_resample (serve chunk's second round): "
+          f"{json.dumps(kf_read)}", flush=True)
 
     # KG compaction (the test grid's candidate lanes)
     mask, budget, sample_major = kg[1]
@@ -698,6 +715,7 @@ def main():
                       "frame_wall_ms", "bake_wall_ms", "device_busy_ms",
                       "device_idle_share", "device_launches", "redesigned")},
                   "bake": bake_line, "bake_cpu_check": bake_check,
+                  "kf_second_round": kf_read,
                   "grid_path_shapes": grid_shapes,
                   "searched": searched, "in_turn": in_turn}}), flush=True)
     print(json.dumps({"relight": relight_line}), flush=True)
@@ -1035,12 +1053,13 @@ def relerr(a, b, rtol=0.0):
 ATOMIC_RTOL = 1e-4
 
 
-def warp_row_hits(x, spec, mask=None):
-    """By level, the share of the (point, corner) adds of KB' pass 2 that a
-    warp merges into another lane's: a warp takes 32 consecutive points of
-    one level (tiles of 64 start at multiples of 64), and at corner k the
-    lanes that add into one row issue one reduction.  A level masked off
-    adds nothing (None)."""
+def warp_row_hits(x, spec, mask=None, live=None):
+    """By level, the share of the (point, corner) adds of KA' or KB' pass 2
+    that a warp merges into another lane's: a warp takes 32 consecutive
+    points of one level (tiles of 64 start at multiples of 64), and at
+    corner k the lanes that add into one row issue one reduction.  A level
+    masked off adds nothing (None), nor does a point where ``live [N, L]``
+    is False (KA' skips a point whose cotangent is zero at a level)."""
     import torch
 
     from intrinsicavatar_tpu_torch.ops import hashgrid as HG
@@ -1059,7 +1078,10 @@ def warp_row_hits(x, spec, mask=None):
             rows = HG.corner_rows(c0, int(spec.resolutions[lvl]),
                                   bool(spec.dense_levels[lvl]), T)
             keys = warp * T + rows.reshape(N, 8).to(torch.int64)
-            hit = 1.0 - torch.unique(keys).numel() / keys.numel()
+            if live is not None:
+                keys = keys[live[:, lvl]]
+            hit = (1.0 - torch.unique(keys).numel() / keys.numel()
+                   if keys.numel() else None)
         out.append({"level": lvl, "resolution": int(spec.resolutions[lvl]),
                     "dense": bool(spec.dense_levels[lvl]), "hit_rate": hit})
     return out
@@ -1087,6 +1109,111 @@ def scatter_terms(spec, table, xn, level_mask, g_grad, d_enc, g_enc):
                      + u8[:, :, None] * gl[:, lvl, None, :]).reshape(-1, F))
         idx.append(rows.reshape(-1).to(torch.int64) + lvl * T)
     return torch.cat(idx), torch.cat(vals)
+
+
+def encode_terms(table, x, spec, g, mask):
+    """KA''s table adds as ``(rows [n] into table.view(-1, F), values [n,
+    F])``: every (point, level, corner) of the levels the mask leaves on, as
+    the twin computes them."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    N = x.shape[0]
+    L, T, F = table.shape
+    gl = g[:, 3:] if spec.include_xyz else g
+    if mask is not None:
+        gl = gl * mask[None, :]
+    gl = gl.reshape(N, L, F)
+    on = ([True] * L if mask is None
+          else (mask.reshape(L, F) != 0).any(1).tolist())
+    idx, vals = [], []
+    for lvl in range(L):
+        if not on[lvl]:
+            continue
+        c0, f = zip(*(HG.level_coords(x[:, a], float(spec.scales[lvl]))
+                      for a in range(3)))
+        rows = HG.corner_rows(c0, int(spec.resolutions[lvl]),
+                              bool(spec.dense_levels[lvl]), T)
+        w = HG.corner_weights(f)
+        vals.append((w[:, :, None] * gl[:, lvl, None, :]).reshape(-1, F))
+        idx.append(rows.reshape(-1).to(torch.int64) + lvl * T)
+    return torch.cat(idx), torch.cat(vals)
+
+
+def ka2_reading(rec, where, card):
+    """KA' against its twin on a recorded call (the table cotangent within
+    1e-5 of the largest entry beyond ATOMIC_RTOL of each entry), and with
+    d_x on the same inputs (within 1e-5 of its largest entry beyond 1e-4 of
+    each entry, and two calls bit-equal); timed with events (the wrapper's
+    zero-fill of the cotangent included) and on the device beside the twin
+    and beside ``index_add_`` of the same adds, precomputed; the warps'
+    merge hit rate by level; its bound over the cotangent rows its corners
+    touch.  Returns the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    table, x, spec, g, mask, need_x = rec[1]
+    args = (table, x, spec, g, mask, need_x)
+    dk = HG.hashgrid_encode_bwd(*args)
+    dp = HG.hashgrid_encode_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err = relerr(dk[0], dp[0], ATOMIC_RTOL)
+    if not err <= 1e-5:
+        fail(f"hashgrid_encode_bwd disagrees with its twin at the {where}: "
+             f"{err}")
+    abs_err = (dk[0] - dp[0]).abs().max().item()
+    del dk, dp
+    # d_x, which the path does not ask for here (the radiance points carry
+    # no gradient): its own sum, the same on every call
+    xargs = (table, x, spec, g, mask, True)
+    _, dx1 = HG.hashgrid_encode_bwd(*xargs)
+    _, dx2 = HG.hashgrid_encode_bwd(*xargs)
+    _, dxp = HG.hashgrid_encode_bwd_plain(*xargs)
+    torch.cuda.synchronize()
+    dx_err = relerr(dx1, dxp, 1e-4)
+    dx_repeat = bool(torch.equal(dx1, dx2))
+    if not (dx_err <= 1e-5 and dx_repeat):
+        fail(f"hashgrid_encode_bwd's d_x at the {where}: {dx_err} from its "
+             f"twin, two calls equal: {dx_repeat}")
+    del dx1, dx2, dxp
+    N, (L, T, F) = x.shape[0], table.shape
+    # the (point, level) items that add: g not zero there (the kernel skips
+    # the rest, the compaction's padded slots)
+    gl = g[:, 3:] if spec.include_xyz else g
+    if mask is not None:
+        gl = gl * mask[None, :]
+    live = (gl.reshape(N, L, F) != 0).any(-1)
+    rows = hash_rows_touched(x, spec, mask)
+    # x and g read once; each cotangent row the corners touch read and
+    # written once; with d_x each table row they touch read once and d_x
+    # written
+    nbytes = (x.numel() * 4 + g.numel() * 4 + 2 * rows * F * 4
+              + (rows * F * 4 + N * 12 if need_x else 0))
+    flops = N * L * (8 * (6 + 2 * F) + 12) + (N * L * 8 * (2 * F + 8)
+                                              if need_x else 0)
+    call = lambda: HG.hashgrid_encode_bwd(*args)
+    idx, vals = encode_terms(table, x, spec, g, mask)
+    d_lib = torch.zeros_like(table).view(-1, F)
+    lib = lambda: d_lib.index_add_(0, idx, vals)
+    r = {"where": where, "shape": f"x{list(x.shape)}", "d_x": bool(need_x),
+         "max_abs_err": abs_err, "relerr": err, "d_x_relerr": dx_err,
+         "d_x_repeat_equal": dx_repeat, "rows_touched": rows,
+         "live_share": live.float().mean().item(),
+         "merge_hits": warp_row_hits(x, spec, mask, live),
+         "ms": time_ms(call),
+         "device_ms": device_ms(call, REDESIGNED["hashgrid_encode_bwd"]),
+         "plain_ms": time_ms(lambda: HG.hashgrid_encode_bwd_plain(*args), 3),
+         "library_ms": time_ms(lib),
+         "library_device_ms": device_ms(lib, "index"),
+         "bytes": nbytes, "flops": flops,
+         "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+         "card": card}
+    del idx, vals, d_lib
+    if N == 368_640:
+        r["before_redesign_ms"] = EARLIER_MS["hashgrid_encode_bwd"]
+    print(f"kernel hashgrid_encode_bwd ({where}): {json.dumps(r)}",
+          flush=True)
+    return r
 
 
 def kb2_reading(rec, where, card):
@@ -2163,25 +2290,12 @@ def train(rows, row, card, dev):
                               key=lambda b: b[0]), "train step at 2000", card)
 
     # KA' (table only, as on the path: the radiance points carry no grad)
-    table, x, spec, g, mask, need_x = ka[1]
-    out_k = HG.hashgrid_encode_bwd(*ka[1])
-    out_p = HG.hashgrid_encode_bwd_plain(*ka[1])
-    torch.cuda.synchronize()
-    err = relerr(out_k[0], out_p[0], ATOMIC_RTOL)
-    if not err <= 1e-5:
-        fail(f"hashgrid_encode_bwd disagrees with its twin: {err}")
-    N, (L, T, F) = x.shape[0], table.shape
+    ka2 = ka2_reading(ka, "radiance call", card)
     row("hashgrid_encode_bwd", "cuda",
         "intrinsicavatar_tpu_torch/csrc/hashgrid.cu",
-        "intrinsicavatar_tpu/ops/hashgrid.py:182", f"x{list(x.shape)}",
-        (out_k[0] - out_p[0]).abs().max().item(),
-        time_ms(lambda: HG.hashgrid_encode_bwd(*ka[1])),
-        time_ms(lambda: HG.hashgrid_encode_bwd_plain(*ka[1]), 3),
-        # x and g read once; the cotangent's rows each read and written
-        # once, at most twice the table
-        x.numel() * 4 + g.numel() * 4
-        + min(N * L * 8 * F * 4, 2 * table.numel() * 4),
-        N * L * (8 * (6 + 2 * F) + 12))
+        "intrinsicavatar_tpu/ops/hashgrid.py:182", ka2["shape"],
+        ka2["max_abs_err"], ka2["ms"], ka2["plain_ms"], ka2["bytes"],
+        ka2["flops"], ka2["library_ms"])
 
     # KB' pass 1 and pass 2 (the shading call), pass 2 with d_xn checked
     # on the curvature call
@@ -2232,7 +2346,7 @@ def train(rows, row, card, dev):
         # per-ray cotangents; writes d sdf, d rgb, d normal, d beta
         n * (4 + 4 + 1 + 12 + 12 + 4 + 4) + R * 32 + n * (4 + 12 + 12)
         + R * 4, n * 60)
-    del recs, ka, kb1, kb2, kb2x, kd, out_k, out_p, dk, dp
+    del recs, ka, kb1, kb2, kb2x, kd, dk, dp
 
     # ------------------------------------------------ train phase
     system.setup(ds.betas)
@@ -2301,6 +2415,7 @@ def train(rows, row, card, dev):
                 "step_wall_ms", "device_busy_ms", "device_idle_share",
                 "device_launches", "redesigned")},
             "ka_train_step": ka_train,
+            "ka2_radiance_call": ka2,
             "kb2_shading_call": kb2_reads[0],
             "kb2_curvature_call": kb2_reads[1],
             "cpu_check": cpu_check}

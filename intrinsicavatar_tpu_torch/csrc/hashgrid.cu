@@ -202,76 +202,258 @@ int launch_encode(const float* table, const float* x, const float* scales,
 // (ops/encode_grad.py:350, a sort-aggregation on the TPU, ops/scatter.py) and
 // the point pullback hashgrid_encode_vjp_x (ops/hashgrid.py:263).
 //
-// What bounds it on an H100: the scattered bytes, N * L * 8 corners * F
-// atomic adds of 4 B into the [L, T, F] table cotangent at random rows; the
-// table is 64 MB, so the bound counts at most twice its size (read and
-// written once) plus the cotangent g read once.
+// What bounds it on an H100: bytes.  It reads the points and the cotangent g
+// once and adds N * L * 8 corner rows of F floats into the 64 MB [L, T, F]
+// table cotangent (each row its corners touch counted read and written
+// once); with d_x it also reads those rows of the table.  A few dozen flops
+// per (point, level, corner) stay far below that.  Its time is set by the
+// reductions, which the L2 serializes where many land on one row.
 //
-// Design: one thread per (point, level) as in KA.  Each corner atomicAdds
-// w_k * g into the row the forward read, so the dense levels need no adjoint
-// of the TPU's corner packing: the atomic to the clamped row is that adjoint.
-// The point pullback, when asked for, sums (row_k . g) dw_k / dpos over the
-// corners and adds its 3 components into d_x with atomics (one per level).
-__global__ void hashgrid_encode_bwd_kernel(
-    const float* __restrict__ table, const float* __restrict__ x,
-    const float* __restrict__ scales, const int* __restrict__ res,
-    const float* __restrict__ level_mask, const float* __restrict__ g,
-    float* __restrict__ d_table, float* __restrict__ d_x, int64_t N, int L,
-    int T, int F, int include_xyz, float xyz_scale) {
-  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * L) return;
-  int64_t n = tid / L;
-  int l = (int)(tid - n * L);
-  int D = L * F + (include_xyz ? 3 : 0);
-  int off = include_xyz ? 3 : 0;
-  const float* gn = g + n * D;
-  const float* p = x + n * 3;
+// Design (that of KB' pass 2, csrc/encode_grad.cu): persistent blocks walk
+// 64-point tiles, as KA does.  A block stages the tile's points and g rows
+// (coalesced loads) and the per-level scales, resolutions, flags and mask in
+// shared memory.  A warp takes 32 points of one level, so points near each
+// other (a ray's samples) add into few rows at the coarse levels: at each
+// corner the lanes that add into one row find each other with
+// __match_any_sync, and the lowest sums their terms in lane order and issues
+// the row's one reduction (common.cuh:warp_row_add; F = 2 as one
+// red.global.add.v2.f32, F = 4 as .v4).  For F = 2 the two corners that differ
+// only in x go as one .v4 where their rows lie in one aligned pair of rows, as
+// KA loads them (even x: half the cells; 11% faster on an H100 at 700 W).  The
+// corner rows are KA's (common.cuh:axis_corner, corner_index), so the atomic
+// into the clamped row of a dense level is the adjoint of the TPU's corner
+// packing.  A level the mask zeroes reads and adds nothing, and nor does a
+// point whose g is zero at a level: ~62% of a train step's radiance call are
+// the shading compaction's padded slots, all at one point with a zero
+// cotangent, whose adds into the same 8 rows a level would queue behind each
+// other in the L2.  d_x takes no atomics: each (point, level) leaves its 3
+// partials s * sum_k (row_k . g) dw_k/dpos in shared memory, and the block
+// sums them in level order, adds xyz_scale * g once where the output has the
+// xyz columns, and stores each point's 3 floats once, so d_x is the same on
+// every call.
+constexpr int KA2_THREADS = 256;
+constexpr int KA2_WARPS = KA2_THREADS / 32;
 
-  float gl[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c = 0; c < F; ++c) {
-    float m = level_mask ? level_mask[l * F + c] : 1.f;
-    gl[c] = gn[off + l * F + c] * m;
-  }
-  float s = scales[l];
-  int r = res[l];
-  bool dense = level_is_dense(r, T);
+// dynamic shared memory in floats: points, g rows, the warps' merge
+// scratch, the level constants, and with d_x its partials
+constexpr int ka2_smem_floats(bool xn) {
+  return KA_TILE * 3 + KA_TILE * KA_MAX_SD + KA2_WARPS * 32 * 4
+         + 2 * KA_MAX_L + KA_MAX_LF + (xn ? KA_MAX_L * KA_TILE * 3 : 0);
+}
+
+// One (point, level) item: the 8 corners' w_k * g into the level's table
+// cotangent and, with XN, the point's partials of d_x for this level (gl:
+// the level's masked g, not all zero).
+template <int F, bool XN>
+__device__ __forceinline__ void encode_bwd_item(
+    const float* __restrict__ tab, float* __restrict__ dtab, const float* px,
+    const float (&gl)[F], float s, int r, bool dense, uint32_t tmask,
+    unsigned active, float* scratch, int lane, float* dxp) {
   int c0[3];
   float f[3];
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float pos = __fadd_rn(__fmul_rn(p[a], s), 0.5f);
-    float fl = floorf(pos);
+    const float pos = __fadd_rn(__fmul_rn(px[a], s), 0.5f);
+    const float fl = floorf(pos);
     c0[a] = (int)fl;
     f[a] = pos - fl;
   }
-  const float* tab = table + (int64_t)l * T * F;
-  float* dtab = d_table + (int64_t)l * T * F;
-  uint32_t tmask = (uint32_t)(T - 1);
-  float lg[3] = {0.f, 0.f, 0.f};
-  for (int k = 0; k < 8; ++k) {
-    int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    float wx = dx ? f[0] : 1.f - f[0];
-    float wy = dy ? f[1] : 1.f - f[1];
-    float wz = dz ? f[2] : 1.f - f[2];
-    float w = wx * wy * wz;
-    int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r, dense, tmask);
-    for (int c = 0; c < F; ++c) atomicAdd(dtab + row * F + c, w * gl[c]);
-    if (d_x) {
+  int X[2], Y[2], Z[2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    X[d] = axis_corner(c0[0], d, r, dense);
+    Y[d] = axis_corner(c0[1], d, r, dense);
+    Z[d] = axis_corner(c0[2], d, r, dense);
+  }
+  uint32_t rows[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    rows[k] = corner_index(X[k >> 2], Y[(k >> 1) & 1], Z[k & 1], r, dense,
+                           tmask);
+  // with d_x the 8 corner rows of the table are loaded before the corner
+  // loop, whose reductions the compiler does not move loads across
+  float t[XN ? 8 : 1][F];
+  if constexpr (XN) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if constexpr (F == 2) {
+        const float2 t2 =
+            __ldg(reinterpret_cast<const float2*>(tab) + rows[k]);
+        t[k][0] = t2.x;
+        t[k][1] = t2.y;
+      } else {
+#pragma unroll
+        for (int c = 0; c < F; ++c)
+          t[k][c] = __ldg(tab + (int64_t)rows[k] * F + c);
+      }
+    }
+  }
+  // corner k's weight, in the twin's order of products
+  auto weight = [&](int k) {
+    return ((k >> 2) ? f[0] : 1.f - f[0])
+           * (((k >> 1) & 1) ? f[1] : 1.f - f[1])
+           * ((k & 1) ? f[2] : 1.f - f[2]);
+  };
+  if constexpr (F == 2) {
+    // corners q and q + 4 differ only in x: where their rows lie in one
+    // aligned pair of rows (an even x, or the dense border's clamp), one
+    // 16-byte reduction adds both
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float w0 = weight(q), w1 = weight(q + 4);
+      const float v0[2] = {w0 * gl[0], w0 * gl[1]};
+      const float v1[2] = {w1 * gl[0], w1 * gl[1]};
+      const uint32_t r0 = rows[q], r1 = rows[q + 4];
+      const bool paired = (r0 >> 1) == (r1 >> 1);
+      const unsigned pm = __ballot_sync(active, paired);
+      if (paired) {
+        const bool o0 = r0 & 1, o1 = r1 & 1;
+        const float v4[4] = {(o0 ? 0.f : v0[0]) + (o1 ? 0.f : v1[0]),
+                             (o0 ? 0.f : v0[1]) + (o1 ? 0.f : v1[1]),
+                             (o0 ? v0[0] : 0.f) + (o1 ? v1[0] : 0.f),
+                             (o0 ? v0[1] : 0.f) + (o1 ? v1[1] : 0.f)};
+        warp_row_add<4>(dtab, r0 >> 1, v4, pm, scratch, lane);
+      } else {
+        warp_row_add<2>(dtab, r0, v0, active & ~pm, scratch, lane);
+        warp_row_add<2>(dtab, r1, v1, active & ~pm, scratch, lane);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float w = weight(k);
+      float v[F];
+#pragma unroll
+      for (int c = 0; c < F; ++c) v[c] = w * gl[c];
+      warp_row_add<F>(dtab, rows[k], v, active, scratch, lane);
+    }
+  }
+  if constexpr (XN) {
+    float lg[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+      const float wx = dx ? f[0] : 1.f - f[0];
+      const float wy = dy ? f[1] : 1.f - f[1];
+      const float wz = dz ? f[2] : 1.f - f[2];
       float fg = 0.f;
-      for (int c = 0; c < F; ++c) fg += __ldg(tab + row * F + c) * gl[c];
-      float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f, sz = dz ? 1.f : -1.f;
+#pragma unroll
+      for (int c = 0; c < F; ++c) fg += t[k][c] * gl[c];
+      const float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f,
+                  sz = dz ? 1.f : -1.f;
       lg[0] += fg * (sx * wy * wz);
       lg[1] += fg * (wx * sy * wz);
       lg[2] += fg * (wx * wy * sz);
     }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dxp[a] = lg[a] * s;
   }
-  if (d_x) {
-    float* dxn = d_x + n * 3;
-    for (int a = 0; a < 3; ++a) {
-      float v = lg[a] * s;
-      if (include_xyz && l == 0) v += gn[a] * xyz_scale;
-      atomicAdd(dxn + a, v);
+}
+
+template <int F, bool XN>
+__global__ void __launch_bounds__(KA2_THREADS) hashgrid_encode_bwd_kernel(
+    const float* __restrict__ table, const float* __restrict__ x,
+    const float* __restrict__ scales, const int* __restrict__ res,
+    const float* __restrict__ level_mask, const float* __restrict__ g,
+    float* __restrict__ d_table, float* __restrict__ d_x, int64_t N, int L,
+    int T, int include_xyz, float xyz_scale) {
+  extern __shared__ __align__(16) float ka2_smem[];
+  float* s_x = ka2_smem;                        // [TILE][3]
+  float* s_g = s_x + KA_TILE * 3;               // [TILE][SD]
+  float* s_scr = s_g + KA_TILE * KA_MAX_SD;     // [WARPS][4][32]
+  float* s_scale = s_scr + KA2_WARPS * 32 * 4;  // [MAX_L]
+  float* s_mask = s_scale + KA_MAX_L;           // [MAX_LF]
+  int* s_res = reinterpret_cast<int*>(s_mask + KA_MAX_LF);  // [MAX_L]
+  float* s_dx = reinterpret_cast<float*>(s_res + KA_MAX_L);  // [L][TILE][3]
+  __shared__ int s_flags[KA_MAX_L];  // bit 0: dense, bit 1: not masked off
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int off = include_xyz ? 3 : 0;
+  const int D = L * F + off;
+  for (int l = tid; l < L; l += KA2_THREADS) {
+    bool on = level_mask == nullptr;
+    for (int c = 0; c < F && !on; ++c) on = level_mask[l * F + c] != 0.f;
+    s_scale[l] = scales[l];
+    s_res[l] = res[l];
+    s_flags[l] = (level_is_dense(res[l], T) ? 1 : 0) | (on ? 2 : 0);
+  }
+  for (int q = tid; q < L * F; q += KA2_THREADS)
+    s_mask[q] = level_mask ? level_mask[q] : 1.f;
+  const uint32_t tmask = (uint32_t)(T - 1);
+  float* scratch = s_scr + warp * 32 * 4;
+  const int64_t n_tiles = (N + KA_TILE - 1) / KA_TILE;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t n0 = tile * KA_TILE;
+    const int rows = N - n0 < KA_TILE ? (int)(N - n0) : KA_TILE;
+    __syncthreads();  // the previous tile is done with shared memory
+    for (int e = tid; e < rows * 3; e += KA2_THREADS) s_x[e] = x[n0 * 3 + e];
+    for (int e = tid; e < rows * D; e += KA2_THREADS) {
+      const int p = e / D;
+      s_g[p * KA_MAX_SD + e - p * D] = g[n0 * D + e];
+    }
+    __syncthreads();
+    // warp item w: level w % L of the tile's points 32 (w / L) + lane
+    for (int w = warp; w < (KA_TILE / 32) * L; w += KA2_WARPS) {
+      const int l = w % L, p = (w / L) * 32 + lane;
+      const int flags = s_flags[l];
+      if (!(flags & 2)) continue;  // masked off: nothing to add
+      // a point whose g is zero at this level adds only zeros
+      float gl[F];
+      bool live = false;
+#pragma unroll
+      for (int c = 0; c < F; ++c) {
+        gl[c] = p < rows ? s_g[p * KA_MAX_SD + off + l * F + c]
+                               * s_mask[l * F + c]
+                         : 0.f;
+        live |= gl[c] != 0.f;
+      }
+      const unsigned active = __ballot_sync(0xffffffffu, live);
+      float* dxp = s_dx + (l * KA_TILE + p) * 3;
+      if (!live) {
+        if (XN && p < rows) dxp[0] = dxp[1] = dxp[2] = 0.f;
+        continue;
+      }
+      encode_bwd_item<F, XN>(table + (int64_t)l * T * F,
+                             d_table + (int64_t)l * T * F, s_x + p * 3, gl,
+                             s_scale[l], s_res[l], (flags & 1) != 0, tmask,
+                             active, scratch, lane, dxp);
+    }
+    if constexpr (XN) {
+      __syncthreads();
+      for (int p = tid; p < rows; p += KA2_THREADS) {
+        float v[3] = {0.f, 0.f, 0.f};
+        for (int l = 0; l < L; ++l) {
+          if (!(s_flags[l] & 2)) continue;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            v[a] += s_dx[(l * KA_TILE + p) * 3 + a];
+        }
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          if (include_xyz) v[a] += s_g[p * KA_MAX_SD + a] * xyz_scale;
+          d_x[(n0 + p) * 3 + a] = v[a];
+        }
+      }
     }
   }
+}
+
+template <int F, bool XN>
+int launch_encode_bwd(const float* table, const float* x,
+                      const float* scales, const int* res,
+                      const float* level_mask, const float* g,
+                      float* d_table, float* d_x, long long N, int L, int T,
+                      int include_xyz, float xyz_scale, cudaStream_t stream) {
+  static int resident[kMaxDevices] = {};
+  constexpr int smem = ka2_smem_floats(XN) * 4;
+  unsigned blocks = 0;
+  const cudaError_t err =
+      persistent_grid(hashgrid_encode_bwd_kernel<F, XN>, KA2_THREADS, smem,
+                      (N + KA_TILE - 1) / KA_TILE, resident, blocks);
+  if (err != cudaSuccess) return (int)err;
+  hashgrid_encode_bwd_kernel<F, XN><<<blocks, KA2_THREADS, smem, stream>>>(
+      table, x, scales, res, level_mask, g, d_table, d_x, N, L, T,
+      include_xyz, xyz_scale);
+  return launch_status();
 }
 
 }  // namespace
@@ -282,15 +464,33 @@ extern "C" int hashgrid_encode_bwd(const float* table, const float* x,
                                    float* d_table, float* d_x, long long N,
                                    int L, int T, int F, int include_xyz,
                                    float xyz_scale, void* stream) {
-  if (F > 4) return (int)cudaErrorInvalidValue;
+  // the tile's shared memory holds L <= 32 levels and g rows of L * F <= 64
+  // features
+  if (F < 1 || F > 4 || L < 1 || L > KA_MAX_L || L * F > KA_MAX_LF)
+    return (int)cudaErrorInvalidValue;
+  // the float2 row loads of d_x and the 16-byte reductions into d_table
+  const uintptr_t vec = F == 2 || F == 4 ? 15 : 3;
+  if ((d_x && F == 2 && (reinterpret_cast<uintptr_t>(table) & 7)) ||
+      (reinterpret_cast<uintptr_t>(d_table) & vec))
+    return (int)cudaErrorMisalignedAddress;
   if (N <= 0) return 0;
-  const int threads = 256;
-  int64_t total = (int64_t)N * L;
-  unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  hashgrid_encode_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      table, x, scales, res, level_mask, g, d_table, d_x, N, L, T, F,
-      include_xyz, xyz_scale);
-  return launch_status();
+  const cudaStream_t st = (cudaStream_t)stream;
+#define KA2_LAUNCH(FF)                                                       \
+  return d_x ? launch_encode_bwd<FF, true>(table, x, scales, res,           \
+                                           level_mask, g, d_table, d_x, N,  \
+                                           L, T, include_xyz, xyz_scale,    \
+                                           st)                              \
+             : launch_encode_bwd<FF, false>(table, x, scales, res,          \
+                                            level_mask, g, d_table, d_x, N, \
+                                            L, T, include_xyz, xyz_scale,   \
+                                            st)
+  switch (F) {
+    case 1: KA2_LAUNCH(1);
+    case 2: KA2_LAUNCH(2);
+    case 3: KA2_LAUNCH(3);
+    default: KA2_LAUNCH(4);
+  }
+#undef KA2_LAUNCH
 }
 
 extern "C" int hashgrid_encode_fwd(const float* table, const float* x,

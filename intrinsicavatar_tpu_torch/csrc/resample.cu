@@ -16,122 +16,219 @@
 // and weights and writes (E+B) x 16 B; the compare count of the merge is
 // ~2 E B, far below the card's rate.
 //
-// Design: one thread per ray.  The CDF is summed sequentially in double and
-// rounded to float at each step, which is what torch.cumsum does on the CPU
-// (a warp scan would reassociate the sum and could move a searchsorted
-// result across a boundary).  The search is a walk over the CDF, since the
-// bins are ascending.  The merge computes each element's rank in the stable
-// order directly (old edge i: i plus the new values below it; new value j:
-// the old values at or below it plus the new values before it), so it needs
-// no assumption that the draws come out ascending.
+// Design: one warp per ray (a serve chunk's 4,096 rays, one thread each,
+// would fill 64 blocks of 2 warps on 132 SMs).  The warp stages the ray's
+// row in shared memory with coalesced loads and counts the valid edges by
+// ballot.  One lane sums the masked weights in double in edge order, which
+// is what torch.cumsum does on the CPU (a warp scan would reassociate the
+// sum and could move a search result across a boundary); the lanes round
+// each prefix to float and divide as the sequential form does, so the CDF
+// is the same bits.  Lane b draws u_b and finds its interval by a binary
+// search over the running maximum of the CDF: the first CDF entry above
+// u_b, which is what a walk over the CDF finds even where the CDF is not
+// ascending or holds NaN.  The merge places each element at its rank in the
+// stable order (old edge i: i plus the draws below it; draw b: the old
+// edges at or below it, counted by the warp's lanes and a warp reduction,
+// plus the draws before it), into a row staged in shared memory that the
+// warp then writes out with coalesced stores.  No array lives in local
+// memory.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxBins = 64;
+constexpr int kMaxEdges = 2048;
+constexpr int KF_WARPS = 4;  // rays a block, one warp each
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
+
+// shared memory of one ray: the double prefix sums (then the float pairs
+// (cdf, cdf_prev) in their place), vals, the masked weights (then the
+// CDF's running maximum), the draws, the merged vals and gather indices,
+// the input flags and the merged flags
+__host__ __device__ constexpr int kf_ray_bytes(int E, int B) {
+  return align16(8 * E) + 2 * align16(4 * E) + align16(4 * B)
+         + 2 * align16(4 * (E + B)) + align16(E) + align16(E + B);
+}
 
 // total order of the sort: NaN after everything, equal to itself
 __device__ __forceinline__ bool lt(float a, float b) {
   return a < b || (!isnan(a) && isnan(b));
 }
 
-__global__ void merge_resample_kernel(
+// number of entries of the ascending cdf[0, n) that are <= u
+__device__ __forceinline__ int count_le(const float* cdf, int n, float u) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (cdf[mid] <= u) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(KF_WARPS * 32) merge_resample_kernel(
     const float* __restrict__ vals, const uint8_t* __restrict__ is_left,
     const uint8_t* __restrict__ is_right, const uint8_t* __restrict__ valid,
     const float* __restrict__ weights, int64_t R, int E, int B, float u0,
     float du, float* __restrict__ o_vals, uint8_t* __restrict__ o_left,
     uint8_t* __restrict__ o_right, uint8_t* __restrict__ o_valid,
     uint8_t* __restrict__ o_new, int64_t* __restrict__ o_gather) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const float* v = vals + r * E;
-  const uint8_t *L = is_left + r * E, *Rt = is_right + r * E,
-                *V = valid + r * E;
-  const float* w = weights + r * E;
-  auto real = [&](int i) {
-    return i + 1 < E && V[i] && V[i + 1] && L[i] && Rt[i + 1];
-  };
+  extern __shared__ __align__(16) unsigned char kf_smem[];
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t r = (int64_t)blockIdx.x * KF_WARPS + warp;
+  if (r >= R) return;  // whole warps leave together
+  const int EB = E + B;
+  unsigned char* p = kf_smem + (int64_t)warp * kf_ray_bytes(E, B);
+  double* s_cs = reinterpret_cast<double*>(p);
+  float2* s_cdf = reinterpret_cast<float2*>(p);  // over s_cs, same slots
+  p += align16(8 * E);
+  float* s_v = reinterpret_cast<float*>(p);
+  p += align16(4 * E);
+  float* s_w = reinterpret_cast<float*>(p);  // masked weights, then the max
+  p += align16(4 * E);
+  float* s_nv = reinterpret_cast<float*>(p);
+  p += align16(4 * B);
+  float* s_ov = reinterpret_cast<float*>(p);
+  p += align16(4 * EB);
+  int* s_og = reinterpret_cast<int*>(p);
+  p += align16(4 * EB);
+  uint8_t* s_fl = p;  // bit 0: valid, 1: is_left, 2: is_right
+  p += align16(E);
+  uint8_t* s_of = p;  // bit 0: left, 1: right, 2: valid, 3: new
 
-  // pass 1: valid count and foreground mass
+  // the row, and the valid count by ballot
+  const int64_t row = r * E;
   int steps = 0;
-  double wsum_d = 0.0;
-  for (int i = 0; i < E; ++i) {
-    steps += V[i] ? 1 : 0;
-    if (real(i)) wsum_d += (double)w[i];
+  for (int i0 = 0; i0 < E; i0 += 32) {
+    const int i = i0 + lane;
+    bool vi = false;
+    if (i < E) {
+      vi = valid[row + i] != 0;
+      s_v[i] = vals[row + i];
+      s_w[i] = weights[row + i];
+      s_fl[i] = (vi ? 1 : 0) | (is_left[row + i] ? 2 : 0)
+                | (is_right[row + i] ? 4 : 0);
+    }
+    steps += __popc(__ballot_sync(full, vi));
   }
   const int last = steps > 0 ? steps - 1 : 0;
-  const float wsum = (float)wsum_d;
-  const float denom = wsum + fmaxf(1.f - wsum, 0.f);
-
-  // pass 2: walk the CDF; bin j goes to the first i with cdf[i] > u_j
-  float nv[kMaxBins];
-  double csum = 0.0;
-  float cdf_last = 0.f, prev_last = 0.f;
-  int j = 0;
-  auto draw = [&](int idx, float cdf, float cdf_prev, float u) {
-    float t0 = v[idx], t1 = v[min(idx + 1, E - 1)];
-    float seg = fmaxf(cdf - cdf_prev, 1e-20f);
-    return t0 + (u - cdf_prev) * (t1 - t0) / seg;
-  };
-  for (int i = 0; i < E; ++i) {
-    const float wi = real(i) ? w[i] : 0.f;
-    csum += (double)wi;
-    const float cdf = (float)csum / denom;
-    const float cdf_prev = cdf - wi / denom;
-    if (i == last) {
-      cdf_last = cdf;
-      prev_last = cdf_prev;
-    }
-    for (; j < B; ++j) {
-      const float u = u0 + (float)j * du;
-      if (!(cdf > u)) break;
-      nv[j] = i <= last ? draw(i, cdf, cdf_prev, u)
-                        : draw(last, cdf_last, prev_last, u);
-    }
+  __syncwarp();
+  // real(i): edge i valid and opening, edge i + 1 valid and closing
+  for (int i = lane; i < E; i += 32) {
+    const bool real = i + 1 < E && (s_fl[i] & 3) == 3 &&
+                      (s_fl[i + 1] & 5) == 5;
+    if (!real) s_w[i] = 0.f;
   }
-  for (; j < B; ++j)
-    nv[j] = draw(last, cdf_last, prev_last, u0 + (float)j * du);
-  uint64_t placed = 0;
-  for (int b = 0; b < B; ++b) {
-    const float u = u0 + (float)b * du;
-    if (steps > 0 && u < cdf_last) placed |= 1ull << b;
-    else nv[b] = INFINITY;
-  }
-
-  // pass 3: merge by rank
-  const int EB = E + B;
-  float* ov_row = o_vals + r * EB;
-  uint8_t *ol = o_left + r * EB, *orr = o_right + r * EB,
-          *ova = o_valid + r * EB, *onw = o_new + r * EB;
-  int64_t* og = o_gather + r * EB;
-  for (int i = 0; i < E; ++i) {
-    const bool vi = V[i] != 0;
-    const float x = vi ? v[i] : INFINITY;
-    int pos = i;
-    for (int b = 0; b < B; ++b) pos += lt(nv[b], x) ? 1 : 0;
-    ov_row[pos] = x;
-    ol[pos] = vi && L[i];
-    orr[pos] = vi && Rt[i];
-    ova[pos] = vi;
-    onw[pos] = 0;
-    og[pos] = i;
-  }
-  for (int b = 0; b < B; ++b) {
-    const float x = nv[b];
-    int pos = 0;
+  __syncwarp();
+  // the prefix sums, in double and in edge order, by one lane
+  if (lane == 0) {
+    double cs = 0.0;
     for (int i = 0; i < E; ++i) {
-      const float y = V[i] ? v[i] : INFINITY;
-      pos += lt(x, y) ? 0 : 1;  // old at or below x comes first
+      cs += (double)s_w[i];
+      s_cs[i] = cs;
     }
-    for (int c = 0; c < B; ++c)
-      pos += (lt(nv[c], x) || (c < b && !lt(x, nv[c]))) ? 1 : 0;
-    const uint8_t p = (placed >> b) & 1;
-    ov_row[pos] = x;
-    ol[pos] = p;
-    orr[pos] = p;
-    ova[pos] = p;
-    onw[pos] = p;
-    og[pos] = E + b;
+  }
+  __syncwarp();
+  const float wsum = (float)s_cs[E - 1];
+  const float denom = wsum + fmaxf(1.f - wsum, 0.f);
+  __syncwarp();  // every lane has read the total before the pairs overwrite
+  for (int i = lane; i < E; i += 32) {
+    const float cdf = (float)s_cs[i] / denom;
+    s_cdf[i] = make_float2(cdf, cdf - s_w[i] / denom);
+  }
+  __syncwarp();
+  // the CDF's running maximum (NaN skipped) over the masked weights: its
+  // first entry above u is the CDF's first entry above u
+  float run = -INFINITY;
+  for (int i0 = 0; i0 < E; i0 += 32) {
+    const int i = i0 + lane;
+    float m = i < E ? fmaxf(s_cdf[i].x, -INFINITY) : -INFINITY;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float n = __shfl_up_sync(full, m, o);
+      if (lane >= o) m = fmaxf(m, n);
+    }
+    m = fmaxf(m, run);
+    if (i < E) s_w[i] = m;
+    run = __shfl_sync(full, m, 31);
+  }
+  __syncwarp();
+
+  // the draws: lane b, then b + 32
+  const float cdf_last = s_cdf[last].x;
+  bool placed[2] = {false, false};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = lane + 32 * h;
+    if (b < B) {
+      const float u = u0 + (float)b * du;
+      const int idx = min(count_le(s_w, E, u), last);
+      const float2 c = s_cdf[idx];
+      const float t0 = s_v[idx], t1 = s_v[min(idx + 1, E - 1)];
+      const float seg = fmaxf(c.x - c.y, 1e-20f);
+      const float t = t0 + (u - c.y) * (t1 - t0) / seg;
+      placed[h] = steps > 0 && u < cdf_last;
+      s_nv[b] = placed[h] ? t : INFINITY;
+    }
+  }
+  __syncwarp();
+
+  // merge by rank: old edge i goes to i + #{draws below it}
+  for (int i = lane; i < E; i += 32) {
+    const int fl = s_fl[i];
+    const bool vi = fl & 1;
+    const float x = vi ? s_v[i] : INFINITY;
+    int pos = i;
+    for (int b = 0; b < B; ++b) pos += lt(s_nv[b], x) ? 1 : 0;
+    s_ov[pos] = x;
+    s_og[pos] = i;
+    s_of[pos] = vi ? 4 | ((fl >> 1) & 3) : 0;
+  }
+  // draw b goes to #{old at or below it} + #{draws before it in the stable
+  // order}; the old edges are counted by all lanes and a warp reduction
+  int old_le[2] = {0, 0};
+  for (int b = 0; b < B; ++b) {
+    const float xb = s_nv[b];
+    int n = 0;
+    for (int i = lane; i < E; i += 32) {
+      const float y = (s_fl[i] & 1) ? s_v[i] : INFINITY;
+      n += lt(xb, y) ? 0 : 1;
+    }
+    n = __reduce_add_sync(full, n);
+    if ((b & 31) == lane) {
+      if (b < 32) old_le[0] = n;
+      else old_le[1] = n;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = lane + 32 * h;
+    if (b < B) {
+      const float xb = s_nv[b];
+      int pos = old_le[h];
+      for (int c = 0; c < B; ++c) {
+        const float xc = s_nv[c];
+        pos += (lt(xc, xb) || (c < b && !lt(xb, xc))) ? 1 : 0;
+      }
+      s_ov[pos] = xb;
+      s_og[pos] = E + b;
+      s_of[pos] = placed[h] ? 15 : 0;
+    }
+  }
+  __syncwarp();
+
+  // the merged row, with coalesced stores
+  const int64_t orow = r * EB;
+  for (int q = lane; q < EB; q += 32) {
+    const int f = s_of[q];
+    o_vals[orow + q] = s_ov[q];
+    o_left[orow + q] = f & 1;
+    o_right[orow + q] = (f >> 1) & 1;
+    o_valid[orow + q] = (f >> 2) & 1;
+    o_new[orow + q] = (f >> 3) & 1;
+    o_gather[orow + q] = s_og[q];
   }
 }
 
@@ -142,11 +239,19 @@ extern "C" int merge_resample_fwd(
     const uint8_t* valid, const float* weights, long long R, int E, int B,
     float u0, float du, float* o_vals, uint8_t* o_left, uint8_t* o_right,
     uint8_t* o_valid, uint8_t* o_new, int64_t* o_gather, void* stream) {
+  if (B < 1 || B > kMaxBins || E < 1 || E > kMaxEdges)
+    return (int)cudaErrorInvalidValue;
   if (R <= 0) return 0;
-  if (B < 1 || B > kMaxBins) return (int)cudaErrorInvalidValue;
-  const int threads = 64;
-  unsigned blocks = (unsigned)((R + threads - 1) / threads);
-  merge_resample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int smem = KF_WARPS * kf_ray_bytes(E, B);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((R + KF_WARPS - 1) / KF_WARPS);
+  merge_resample_kernel<<<blocks, KF_WARPS * 32, smem,
+                          (cudaStream_t)stream>>>(
       vals, is_left, is_right, valid, weights, R, E, B, u0, du, o_vals,
       o_left, o_right, o_valid, o_new, o_gather);
   return launch_status();
@@ -194,17 +299,6 @@ __device__ __forceinline__ double warp_scan(double v, int lane) {
     if (lane >= o) v += n;
   }
   return v;
-}
-
-// number of entries of the ascending cdf[0, n) that are <= u
-__device__ __forceinline__ int count_le(const float* cdf, int n, float u) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (cdf[mid] <= u) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
 }
 
 __global__ void cdf_resample_kernel(

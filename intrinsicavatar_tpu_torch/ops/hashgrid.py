@@ -238,12 +238,16 @@ def _launch_fwd(table, x, spec: HashGridSpec, level_mask):
 def hashgrid_encode_bwd(table, x, spec: HashGridSpec, g, level_mask=None,
                         need_x: bool = True):
     """``(d_table, d_x)``: CPU tensors take the plain twin; CUDA tensors
-    launch kernel KA' (the table cotangent by ``atomicAdd``)."""
+    launch kernel KA' (a warp's same-row adds merged into one reduction;
+    ``d_x`` summed in level order, the same on every call)."""
     if x.device.type == "cpu":
         return hashgrid_encode_bwd_plain(table, x, spec, g, level_mask,
                                          need_x)
     dev, N, L, T, F = _check(table, x, spec, level_mask)
     kernels.require(g, "g", torch.float32, dev, (N, spec.n_output_dims))
+    if F == 2 and need_x and table.data_ptr() % 8:
+        raise ValueError("table must be 8-byte aligned for d_x with F = 2 "
+                         "(its rows are read as float2)")
     scales, res = level_tensors(spec, dev)
     d_table = torch.zeros_like(table)
     d_x = torch.zeros_like(x) if need_x else None

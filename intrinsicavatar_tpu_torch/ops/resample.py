@@ -23,6 +23,7 @@ import torch
 from intrinsicavatar_tpu_torch import kernels
 
 MAX_BINS = 64   # kMaxBins of csrc/resample.cu
+MAX_EDGES = 2048  # kMaxEdges of csrc/resample.cu
 CDF_MAX_S = 256  # kCdfMaxS of csrc/resample.cu
 BG_OFFSET = 10000.0  # background sample t offset (cdf.cu:131)
 
@@ -109,6 +110,8 @@ def merge_resample_rays(vals, is_left, is_right, valid, weights,
     B = int(n_samples)
     if not 1 <= B <= MAX_BINS:
         raise ValueError(f"n_samples {B} outside [1, {MAX_BINS}]")
+    if not 1 <= E <= MAX_EDGES:
+        raise ValueError(f"{E} edges a ray outside [1, {MAX_EDGES}]")
     kernels.require(vals, "vals", torch.float32, dev, (R, E))
     kernels.require(weights, "weights", torch.float32, dev, (R, E))
     for name, t in (("is_left", is_left), ("is_right", is_right),

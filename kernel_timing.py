@@ -1,11 +1,13 @@
 """Time kernels KA (hash encode forward), KB (fused encode + SDF MLP +
 gradient), the KH epilogue (duplicate filter, overflow count, first-K), KM
-(seed grid gather), KC (Broyden search) and KB' pass 2 (the encode
-backward's table scatter) of the PyTorch/CUDA port on one card, three ways.
+(seed grid gather), KC (Broyden search), KB' pass 2 (the encode
+backward's table scatter), KA' (the hash encode's backward) and KF (merge
+importance resampling) of the PyTorch/CUDA port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
-    python3 kernel_timing.py --kernels ka,kh      # of ka, kb, kh, km, kc, kb2
+    python3 kernel_timing.py --kernels ka,kh      # of ka, kb, kh, km, kc,
+                                                  # kb2, ka2, kf
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -53,7 +55,24 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
 - KB' pass 2 at 552,960 ray-ordered points without d_xn (a train step's
   shading call) and 92,160 with it (its curvature call), random
   cotangents, held within 1e-5 of the largest entry beyond 1e-4 of each
-  entry (float atomics in changing order).
+  entry (float atomics in changing order);
+- KA' at 368,640 points, random cotangents: ray-ordered (4,096 rays x 90
+  samples) and as a train step's radiance call lays them out (compacted
+  sample-major, so neighbours come from different rays: uniform over the
+  recorded call's box, with 62% of the slots the compaction's padding, at
+  one point with a zero cotangent); without d_x, as the path calls it,
+  and with it; the table cotangent held as KB' pass 2's and d_x within
+  1e-5 of its largest entry beyond 1e-4 of each; ``device_ms`` is
+  the kernel's and ``op_device_ms`` adds the wrapper's zero-fill of the
+  64 MB cotangent; with d_x a digest of d_x and whether two calls agree
+  bit for bit;
+- KF at a 4,096-ray chunk's two importance rounds ([4096, 129] and
+  [4096, 145] edges, 16 draws each) of a march through a random occupancy
+  grid (a quarter of the rays miss), with weights in a bump about a point
+  among each ray's valid edges, of mass 0, 0.5, 1 or 1.5; the second
+  round's edges are the twin's merge of the first; the share of rays
+  equal to the twin on flags and indices (at least 0.999) and a digest of
+  all six outputs' bytes.
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -107,6 +126,31 @@ def timings(fn, kernel_substr, reps=20):
            if e.device_type == DeviceType.CUDA and kernel_substr in e.name]
     device_ms = sum(dev) / len(dev) / 1e3 if dev else None
     return event_ms, device_ms, host_us
+
+
+def op_device_ms(fn, reps=20):
+    """The device time of every kernel and copy that ``fn`` runs, a call,
+    from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def digest_of(tensors):
+    """The first 16 hex digits of a sha256 over the tensors' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def seed_grid(SG, torch, dev, C, res=96, seed=0):
@@ -177,8 +221,9 @@ def search_result(B, torch, dev, N, I, seed):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=None)
-    ap.add_argument("--kernels", default="ka,kb,kh,km,kc,kb2",
-                    help="comma-separated, of ka, kb, kh, km, kc, kb2")
+    ap.add_argument("--kernels", default="ka,kb,kh,km,kc,kb2,ka2,kf",
+                    help="comma-separated, of ka, kb, kh, km, kc, kb2, ka2, "
+                         "kf")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     import torch
@@ -195,7 +240,8 @@ def main():
     print(f"card: {card}", flush=True)
     root = args.port_root or "."
     sources = {"ka": "hashgrid", "kb": "encode_grad", "kh": "deform",
-               "km": "seedgrid", "kc": "broyden", "kb2": "encode_grad"}
+               "km": "seedgrid", "kc": "broyden", "kb2": "encode_grad",
+               "ka2": "hashgrid", "kf": "resample"}
     logs = kernels.build_all(tuple(sorted({sources[k] for k in which})),
                              verbose=True)
     for name, log in logs.items():
@@ -218,6 +264,10 @@ def main():
         time_kc(torch, dev, report, failed)
     if "kb2" in which:
         time_kb2(torch, dev, report, failed)
+    if "ka2" in which:
+        time_ka2(torch, dev, report, failed)
+    if "kf" in which:
+        time_kf(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
@@ -416,7 +466,6 @@ def body_rays(torch, dev, verts, rays, samples, seed, span):
 def time_kc(torch, dev, report, failed):
     """KC at a serve chunk's search and at the phys step's secondary coarse
     call."""
-    import hashlib
     import inspect
 
     from intrinsicavatar_tpu_torch.anim import broyden as B
@@ -466,9 +515,7 @@ def time_kc(torch, dev, report, failed):
             print(f"kernel_timing: KC disagrees at {M} lanes: err={err} "
                   f"flipped={flip}", flush=True)
             failed.append(f"broyden_search at {M}")
-        digest = hashlib.sha256()
-        for t in (out.x, out.j_inv, out.valid):
-            digest.update(t.cpu().numpy().tobytes())
+        digest = digest_of((out.x, out.j_inv, out.valid))
         valid = out.valid.float().mean().item()
         del out, ref, both, counts
         ev, dv, hu = timings(lambda: B.broyden_search(*args),
@@ -478,7 +525,7 @@ def time_kc(torch, dev, report, failed):
                 "iterations_hist": hist,
                 "samples": samples,
                 "flipped": flip, "max_abs_err": err,
-                "digest": digest.hexdigest()[:16], "event_ms": ev,
+                "digest": digest, "event_ms": ev,
                 "device_ms": dv, "host_us": hu})
         del args, slot, pts
 
@@ -519,6 +566,128 @@ def time_kb2(torch, dev, report, failed):
                 "d_xn": need_x, "relerr": errs, "event_ms": ev,
                 "device_ms": dv, "host_us": hu})
 
+
+
+def compacted_points(torch, dev, n, seed):
+    """``(x [n, 3], padded [n])`` as a train step's radiance call lays its
+    points out (as recorded on the card): uniform over the body's box in [0,
+    1]^3 and, at 62% of the slots chosen at random, the padding point."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform([0.0, 0.11, 0.375], [0.9, 1.0, 0.625], (n, 3))
+    pad = rng.random(n) < 0.62
+    x[pad] = [0.4962, 0.5672, 0.4930]
+    return (torch.as_tensor(x, dtype=torch.float32, device=dev),
+            torch.as_tensor(pad, device=dev))
+
+
+def time_ka2(torch, dev, report, failed):
+    """KA' at a train step's radiance call, without and with d_x."""
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    spec = HG.HashGridSpec(n_levels=16, n_features_per_level=2,
+                           log2_hashmap_size=19, include_xyz=True)
+    rng = np.random.default_rng(8)
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)),
+                            dtype=torch.float32, device=dev)
+    mask = torch.ones(32, device=dev)
+    x = ka_points(torch, dev, 4096, 90, seed=90)
+    N = x.shape[0]
+    g = torch.as_tensor(rng.normal(size=(N, spec.n_output_dims)),
+                        dtype=torch.float32, device=dev)
+    xc, pad = compacted_points(torch, dev, N, seed=91)
+    gc = torch.where(pad[:, None], 0.0, g)
+    for (order, x, g), need_x in itertools.product(
+            (("ray-ordered", x, g), ("compacted", xc, gc)), (False, True)):
+        args = (table, x, spec, g, mask, need_x)
+        out = HG.hashgrid_encode_bwd(*args)
+        ref = HG.hashgrid_encode_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for a, b, rtol in list(zip(out, ref, (1e-4, 1e-4)))[
+                :2 if need_x else 1]:
+            excess = ((a - b).abs() - rtol * b.abs()).clamp(min=0.0)
+            errs.append(excess.max().item() / b.abs().max().item())
+        if not max(errs) <= 1e-5:
+            print(f"kernel_timing: KA' disagrees at {N}: {errs}", flush=True)
+            failed.append(f"hashgrid_encode_bwd at {N}")
+        line = {"kernel": "hashgrid_encode_bwd", "points": N,
+                "order": order, "d_x": need_x, "relerr": errs}
+        if need_x:
+            again = HG.hashgrid_encode_bwd(*args)[1]
+            line.update(digest=digest_of([out[1]]),
+                        repeat_equal=bool(torch.equal(out[1], again)))
+            del again
+        del out, ref
+        call = lambda: HG.hashgrid_encode_bwd(*args)
+        ev, dv, hu = timings(call, "hashgrid_encode_bwd_kernel")
+        line.update(event_ms=ev, device_ms=dv, op_device_ms=op_device_ms(
+            call), host_us=hu)
+        report(line)
+
+
+def kf_rounds(torch, dev, G, RS, R=4096, S=128, res=64, seed=11):
+    """The two importance rounds' inputs of an ``R``-ray chunk: the march's
+    [R, S + 1] edges and their weights, then the twin's merge of them with
+    16 draws and new weights."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, R)
+    o = np.stack([2.5 * np.cos(ang), rng.uniform(-0.5, 0.5, R),
+                  2.5 * np.sin(ang)], -1)
+    d = rng.uniform(-0.8, 0.8, (R, 3)) - o
+    d[: R // 4] *= -1.0                                 # a quarter miss
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    aabb = [-1.0, -1.2, -0.9, 1.1, 1.0, 1.3]
+    diag = float(np.linalg.norm(np.subtract(aabb[3:], aabb[:3])))
+    t = lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=dev)
+    iv = G.occupancy_sampling_plain(
+        t(o), t(d), t(rng.random((res,) * 3) < 0.3, torch.bool), t(aabb),
+        diag / S, S, stratified_u=t(rng.random(R)))
+
+    def bump(valid):
+        # around a point among the ray's valid edges
+        E = valid.shape[1]
+        c = rng.uniform(0, 1, (R, 1)) * valid.sum(-1, keepdims=True).cpu(
+            ).numpy()
+        w = np.exp(-0.5 * ((np.arange(E)[None, :] - c) / 3.0) ** 2)
+        w *= rng.choice([0.0, 0.5, 1.0, 1.5], (R, 1)) / w.sum(-1,
+                                                               keepdims=True)
+        return t(w + 1e-4 * rng.random((R, E)))
+
+    w1 = bump(iv.valid)
+    m = RS.merge_resample_rays_plain(iv.vals, iv.is_left, iv.is_right,
+                                     iv.valid, w1, 16)
+    w2 = bump(m.valid)
+    return ((iv.vals, iv.is_left, iv.is_right, iv.valid, w1, 16),
+            (m.vals, m.is_left, m.is_right, m.valid, w2, 16))
+
+
+def time_kf(torch, dev, report, failed):
+    """KF at a 4,096-ray chunk's two importance rounds."""
+    from intrinsicavatar_tpu_torch.ops import grid_traversal as G
+    from intrinsicavatar_tpu_torch.ops import resample as RS
+    for rnd, args in enumerate(kf_rounds(torch, dev, G, RS)):
+        out = RS.merge_resample_rays(*args)
+        ref = RS.merge_resample_rays_plain(*args)
+        torch.cuda.synchronize()
+        R, E = args[0].shape
+        same = torch.ones(R, dtype=torch.bool, device=dev)
+        for a, b in list(zip(out, ref))[1:]:
+            same &= (a == b).all(-1)
+        share = same.float().mean().item()
+        err = (out.vals - ref.vals)[same[:, None] & ref.valid].abs().max()
+        if not (share >= 0.999 and err.item() <= 1e-5):
+            print(f"kernel_timing: KF disagrees at [{R}, {E}]: {share} of "
+                  f"rays equal, err={err.item()}", flush=True)
+            failed.append(f"merge_resample at [{R}, {E}]")
+        line = {"kernel": "merge_resample", "round": rnd + 1, "rays": R,
+                "edges": E, "draws": args[5], "equal_share": share,
+                "placed": int(ref.is_new.sum()), "max_abs_err": err.item(),
+                "digest": digest_of(out)}
+        del out, ref
+        ev, dv, hu = timings(lambda: RS.merge_resample_rays(*args),
+                             "merge_resample_kernel")
+        line.update(event_ms=ev, device_ms=dv, host_us=hu)
+        report(line)
 
 if __name__ == "__main__":
     main()

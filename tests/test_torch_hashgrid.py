@@ -165,3 +165,38 @@ def test_twin_matches_jax_at_published_widths(include_xyz):
     assert out.shape == (4096, 35 if include_xyz else 32)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL,
                                atol=ATOL)
+
+
+def test_bwd_twin_matches_jax_vjp_at_published_widths():
+    """KA''s twin against the JAX VJP at the published grid (16 levels x 2
+    features, 2^19 tables, base 16, scale 1.4473, with the xyz columns) on
+    2,048 points: a third at the dense levels' last cells and just outside
+    the box, a few far outside, two levels masked."""
+    kw = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19,
+              base_resolution=16, include_xyz=True)
+    jspec, tspec = JH.HashGridSpec(**kw), TH.HashGridSpec(**kw)
+    rng = np.random.default_rng(5)
+    table = rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)).astype(np.float32)
+    x = rng.uniform(-0.15, 1.15, (2048, 3))
+    x = _border_points(x, jspec, rng)
+    x[-32:] = rng.choice([-50.0, -2.0, 2.0, 50.0], (32, 3))
+    x = x.astype(np.float32)
+    mask = np.ones(32, np.float32)
+    mask[[4, 5, 30, 31]] = 0.0
+    g = rng.normal(size=(2048, 35)).astype(np.float32)
+    # under jit: op by op, the 64 MB table's pullback takes ~30 s on a CPU
+    pullback = jax.jit(lambda t, p, m, gg: jax.vjp(
+        lambda tt, pp: JH.hashgrid_encode(tt, pp, jspec, m), t, p)[1](gg))
+    dt_r, dx_r = (np.asarray(a) for a in pullback(
+        jnp.asarray(table), jnp.asarray(x), jnp.asarray(mask),
+        jnp.asarray(g)))
+    dt, dx = TH.hashgrid_encode_bwd_plain(
+        torch.as_tensor(table), torch.as_tensor(x), tspec, torch.as_tensor(g),
+        torch.as_tensor(mask))
+    # the same tolerances as test_bwd_twin_matches_jax_vjp
+    np.testing.assert_allclose(dt.numpy(), dt_r, rtol=0,
+                               atol=1e-5 * np.abs(dt_r).max())
+    np.testing.assert_allclose(dx.numpy(), dx_r, rtol=0,
+                               atol=1e-5 * np.abs(dx_r).max())
+    assert not dt[2].any() and not dt[15].any()       # levels masked off
+    assert dt[:5].any() and dt[5:15].any()            # dense and hashed

@@ -1508,3 +1508,241 @@ def test_encode_grad_scatter_table_at_4_bytes(cuda, which, need_x):
             EG.encode_mlp_sdfgrad_bwd_scatter(*args, need_x)
     else:
         _kb2_check(tuple(args), need_x)
+
+
+# ---------------------------------------------------------------- KA' tiles
+def _ka2_case(cuda, kw, x, include_xyz, mask, seed):
+    spec = HG.HashGridSpec(include_xyz=include_xyz, **kw)
+    rng = np.random.default_rng(seed)
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    T = 1 << kw["log2_hashmap_size"]
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (L, T, F)),
+                            dtype=torch.float32, device=cuda)
+    g = rng.normal(size=(x.shape[0], spec.n_output_dims)).astype(np.float32)
+    return (table, torch.as_tensor(x, device=cuda), spec,
+            torch.as_tensor(g, device=cuda),
+            None if mask is None else torch.as_tensor(mask, device=cuda))
+
+
+def _ka2_check(args, need_x):
+    """KA' against its twin: the table cotangent within twice the summation
+    error bound of each row's terms (as test_hashgrid_bwd_kernel_matches_
+    twin), d_x within the tolerance of chip_smoke.py and the same bits on
+    a second call (it is summed in level order, without atomics)."""
+    table, x, spec, g, mask = args
+    before = kernels.launches["hashgrid_encode_bwd"]
+    dt, dx = HG.hashgrid_encode_bwd(*args, need_x)
+    assert kernels.launches["hashgrid_encode_bwd"] == before + 1
+    dt_r, dx_r = HG.hashgrid_encode_bwd_plain(*args, need_x)
+    c = _row_terms(x, spec, table.shape[1])
+    abs_terms = HG.hashgrid_encode_bwd_plain(table, x, spec, g.abs(), mask,
+                                             False)[0]
+    eps = torch.finfo(torch.float32).eps
+    assert float(((dt - dt_r).abs() - c * eps * abs_terms).max()) <= 0.0
+    if need_x:
+        assert dx.shape == dx_r.shape
+        _close(dx, dx_r)
+        _, dx2 = HG.hashgrid_encode_bwd(*args, True)
+        assert torch.equal(dx.view(torch.int32), dx2.view(torch.int32))
+    else:
+        assert dx is None
+    return dt, dx
+
+
+@pytest.mark.parametrize("need_x", [False, True])
+@pytest.mark.parametrize("include_xyz", [False, True])
+@pytest.mark.parametrize("n", [1, KA_TILE - 1, KA_TILE + 1,
+                               3 * KA_TILE + 5, 20_011])
+@pytest.mark.parametrize("which", list(KA_SPECS))
+def test_hashgrid_bwd_tiles_and_widths(cuda, which, n, include_xyz, need_x):
+    """Ragged tiles, F = 1 to 4, ray-ordered points (a tenth outside the
+    domain, a few saturating the cell cast), levels masked off."""
+    kw = KA_SPECS[which]
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    mask = np.ones((L, F), np.float32)
+    mask[[1, L - 1]] = 0.0
+    mask[L - 3, 0] = 0.0           # one feature of a level
+    args = _ka2_case(cuda, kw, _ka_points(n, True, seed=n + 13),
+                     include_xyz, mask.reshape(-1), seed=n + 1)
+    dt, _ = _ka2_check(args, need_x)
+    assert not dt[1].any() and not dt[L - 1].any()
+
+
+@pytest.mark.parametrize("need_x", [False, True])
+@pytest.mark.parametrize("which", ["published", "f1", "f3", "f4"])
+def test_hashgrid_bwd_full_merge(cuda, which, need_x):
+    """Every warp's 32 points at one position: at every level each corner's
+    32 lanes add into one row (the merge at its fullest), beside a tile of
+    points spread at random; no level mask."""
+    kw = KA_SPECS[which]
+    rng = np.random.default_rng(51)
+    same = np.repeat(rng.uniform(0.1, 0.9, (4, 1, 3)), 32, 1).reshape(-1, 3)
+    x = np.concatenate([same, rng.uniform(0, 1, (KA_TILE, 3))])
+    args = _ka2_case(cuda, kw, x.astype(np.float32), True, None, seed=52)
+    _ka2_check(args, need_x)
+
+
+def test_hashgrid_bwd_every_level_masked(cuda):
+    """A mask that zeroes every level adds nothing; d_x keeps only the xyz
+    columns' term."""
+    kw = KA_SPECS["published"]
+    args = _ka2_case(cuda, kw, _ka_points(1000, True, seed=53), True,
+                     np.zeros(32, np.float32), seed=54)
+    dt, dx = _ka2_check(args, True)
+    assert not dt.any()
+    torch.testing.assert_close(dx, args[3][:, :3] * args[2].xyz_scale,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("need_x", [False, True])
+@pytest.mark.parametrize("which", ["published", "f1", "f3", "f4"])
+def test_hashgrid_bwd_table_at_4_bytes(cuda, which, need_x):
+    """A table that starts 4 bytes past an 8-byte boundary: taken wherever
+    its rows are read with scalar loads or not at all, refused only where
+    F = 2 reads them as float2 (d_x)."""
+    kw = KA_SPECS[which]
+    L, F = kw["n_levels"], kw["n_features_per_level"]
+    args = list(_ka2_case(cuda, kw, _ka_points(3 * KA_TILE + 5, True,
+                                                 seed=55), True,
+                          np.ones(L * F, np.float32), seed=56))
+    buf = torch.empty(args[0].numel() + 1, device=cuda)
+    table = buf[1:].view(args[0].shape)
+    table.copy_(args[0])
+    assert table.data_ptr() % 8 == 4
+    args[0] = table
+    if F == 2 and need_x:
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            HG.hashgrid_encode_bwd(*args, need_x)
+    else:
+        _ka2_check(tuple(args), need_x)
+
+
+def test_hashgrid_bwd_refuses_widths_beyond_its_tile(cuda):
+    # 33 levels: more than the 32 level slots of the tile's shared memory
+    spec = HG.HashGridSpec(n_levels=33, n_features_per_level=1,
+                           log2_hashmap_size=8)
+    table = torch.zeros((33, 256, 1), device=cuda)
+    x = torch.rand((16, 3), device=cuda)
+    g = torch.zeros((16, 33), device=cuda)
+    with pytest.raises(RuntimeError):
+        HG.hashgrid_encode_bwd(table, x, spec, g, None, True)
+
+
+# ---------------------------------------------------------------- KF warps
+KF_KINDS = ("march", "no_valid", "zero_mass", "mass_above_1", "ties",
+            "nan_tail", "all_nan", "nan_weight", "equal_edges")
+
+
+def _kf_case(R, E, B, seed):
+    """``R`` rays of ``E`` edges, ray r of kind ``KF_KINDS[r % 9]``: a
+    march's left-packed ascending edges with random flags and a bump of
+    weights of mass below 1; no valid edge; zero mass; mass above 1; every
+    valid edge opening and closing with weights 1/128 (the CDF steps by
+    1/128, so the draws land exactly on old edges: ties); the last valid
+    edges NaN; every edge NaN; a NaN weight on a real interval; runs of
+    equal edges (zero-length intervals).  Returns numpy arrays and each
+    ray's foreground mass (float64)."""
+    rng = np.random.default_rng(seed)
+    kind = np.arange(R) % len(KF_KINDS)
+    n_valid = rng.integers(2, E + 1, R)
+    n_valid[kind == 1] = 0
+    n_valid[np.isin(kind, (4, 5, 6))] = E
+    valid = np.arange(E)[None, :] < n_valid[:, None]
+    vals = np.sort(rng.uniform(1.0, 4.0, (R, E)), -1).astype(np.float32)
+    eq = kind == 8
+    vals[eq] = np.round(vals[eq] * 4.0) / 4.0       # runs of equal edges
+    vals[kind == 5, E - 3:] = np.nan
+    vals[kind == 6] = np.nan
+    vals = np.where(valid, vals, np.inf).astype(np.float32)
+    is_left = valid & (rng.random((R, E)) < 0.8)
+    is_right = valid & (rng.random((R, E)) < 0.8)
+    is_left[kind == 4] = True
+    is_right[kind == 4] = True
+    c = rng.uniform(0, 1, (R, 1)) * np.maximum(n_valid[:, None], 1)
+    w = np.exp(-0.5 * ((np.arange(E)[None, :] - c) / 4.0) ** 2)
+    w *= rng.uniform(0.05, 0.95, (R, 1)) / w.sum(-1, keepdims=True)
+    w[kind == 2] = 0.0
+    w[kind == 3] *= 40.0
+    w[kind == 4] = np.where(np.arange(E) < 128, 1.0 / 128.0, 0.0)
+    w = w.astype(np.float32)
+    real = valid[:, :-1] & valid[:, 1:] & is_left[:, :-1] & is_right[:, 1:]
+    real = np.concatenate([real, np.zeros((R, 1), bool)], 1)
+    nan_rows = np.nonzero((kind == 7) & real.any(-1))[0]
+    w[nan_rows, real[nan_rows].argmax(-1)] = np.nan
+    mass = np.where(real, w.astype(np.float64), 0.0).sum(-1)
+    return (vals, is_left & valid, is_right & valid, valid, w), mass
+
+
+def _same_bits(a, b):
+    """Per ray: every output slot equal bit for bit (floats by their bits,
+    so NaNs compare)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return (a == b).all(-1)
+
+
+def _same_slots(a, b):
+    """Per ray: every output slot equal, a NaN to any NaN (the CPU keeps an
+    operand's NaN where the card returns its canonical one)."""
+    eq = a == b
+    if a.dtype == torch.float32:
+        eq |= torch.isnan(a) & torch.isnan(b)
+    return eq.all(-1)
+
+
+@pytest.mark.parametrize("B", [1, 16, RS.MAX_BINS])
+@pytest.mark.parametrize("E", [129, 145])
+def test_merge_resample_kernel_cases(cuda, E, B):
+    """KF against its twin run on the CPU (whose cumsum sums in double in
+    order, as the kernel does) and against itself: rays of mass at most 1
+    (the CDF's denominator is then exactly 1 on both sides) equal bit for
+    bit; all rays but 1e-3 equal on flags and indices, the values within
+    1e-5 (above mass 1 the twin sums the mass in float); two calls equal
+    bit for bit; rays with no valid edge in the +inf layout."""
+    R = 4096
+    arrays, mass = _kf_case(R, E, B, seed=E * 100 + B)
+    args = tuple(torch.as_tensor(a, device=cuda) for a in arrays) + (B,)
+    before = kernels.launches["merge_resample"]
+    out = RS.merge_resample_rays(*args)
+    assert kernels.launches["merge_resample"] == before + 1
+    again = RS.merge_resample_rays(*args)
+    ref = RS.merge_resample_rays_plain(
+        *(t.cpu() for t in args[:5]), B)
+    ones = torch.ones(R, dtype=torch.bool)
+    for a, b in zip(out, again):
+        assert bool(_same_bits(a, b).all())
+    exact, same = ones.clone(), ones.clone()
+    for name in out._fields:
+        a, b = getattr(out, name).cpu(), getattr(ref, name)
+        assert a.shape == b.shape == (R, E + B) and a.dtype == b.dtype
+        exact &= _same_slots(a, b)
+        if name != "vals":
+            same &= (a == b).all(-1)
+    low = torch.as_tensor(mass <= 1.0)
+    assert bool(exact[low].all()), torch.nonzero(~exact & low)[:8].tolist()
+    assert same.float().mean().item() >= 0.999
+    v, vr = out.vals.cpu()[same], ref.vals[same]
+    finite = torch.isfinite(vr)
+    assert torch.equal(torch.isnan(v), torch.isnan(vr))
+    torch.testing.assert_close(v[finite], vr[finite], rtol=0, atol=1e-5)
+    # the cases were reached: ties, NaN draws placed, nothing placed
+    kind = torch.arange(R) % len(KF_KINDS)
+    tie = ref.is_new[kind == 4] & (ref.vals[kind == 4] == torch.roll(
+        ref.vals[kind == 4], 1, 1))
+    assert bool(tie.any())
+    assert bool((ref.is_new & torch.isnan(ref.vals)).any())
+    for k in (1, 2, 7):
+        assert not ref.is_new[kind == k].any()
+    none = out.vals.cpu()[kind == 1]
+    assert torch.isinf(none).all() and not out.valid.cpu()[kind == 1].any()
+    assert torch.equal(out.gather_idx.cpu()[kind == 1],
+                       torch.arange(E + B).expand(int((kind == 1).sum()),
+                                                  E + B))
+
+
+def test_merge_resample_refuses_rows_beyond_shared_memory(cuda):
+    R, E = 4, RS.MAX_EDGES + 1
+    vals = torch.zeros((R, E), device=cuda)
+    flags = torch.ones((R, E), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="edges a ray"):
+        RS.merge_resample_rays(vals, flags, flags, flags, vals, 16)

@@ -50,7 +50,7 @@ def _rays(seed=0, R=96):
     return o, d, near, far, binaries, u
 
 
-def _march(seed=0, case=None):
+def _march(seed=0, case=None, steps=32):
     """``case``: ``miss`` turns every other ray away from the box; ``full``
     sets every voxel, so every step inside the box is a sample."""
     o, d, near, far, binaries, u = _rays(seed)
@@ -58,22 +58,23 @@ def _march(seed=0, case=None):
         d[::2] *= -1.0
     elif case == "full":
         binaries[:] = True
+    step = STEP * 32 / steps
     jiv = JG.occupancy_sampling(
         jnp.asarray(o), jnp.asarray(d), jnp.asarray(binaries),
-        jnp.asarray(AABB), STEP, 32, near=jnp.asarray(near),
+        jnp.asarray(AABB), step, steps, near=jnp.asarray(near),
         far=jnp.asarray(far), stratified_u=jnp.asarray(u))
     tiv = TG.occupancy_sampling(
         torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(binaries),
-        torch.as_tensor(AABB), STEP, 32, near=torch.as_tensor(near),
+        torch.as_tensor(AABB), step, steps, near=torch.as_tensor(near),
         far=torch.as_tensor(far), stratified_u=torch.as_tensor(u))
     return jiv, tiv
 
 
-def _assert_intervals(j, t):
+def _assert_intervals(j, t, vtol=VTOL):
     for name in ("is_left", "is_right", "valid"):
         np.testing.assert_array_equal(getattr(t, name).numpy(),
                                       np.asarray(getattr(j, name)), name)
-    np.testing.assert_allclose(t.vals.numpy(), np.asarray(j.vals), **VTOL)
+    np.testing.assert_allclose(t.vals.numpy(), np.asarray(j.vals), **vtol)
 
 
 def test_occupancy_sampling_matches_jax():
@@ -102,8 +103,8 @@ def test_occupancy_sampling_edge_cases_match_jax(case):
         assert (np.asarray(jiv.is_left).sum(-1) == np.maximum(n - 1, 0)).all()
 
 
-def _assert_merged(jm, tm):
-    _assert_intervals(jm, tm)
+def _assert_merged(jm, tm, vtol=VTOL):
+    _assert_intervals(jm, tm, vtol)
     np.testing.assert_array_equal(tm.is_new.numpy(), np.asarray(jm.is_new))
     np.testing.assert_array_equal(tm.gather_idx.numpy(),
                                   np.asarray(jm.gather_idx))
@@ -121,6 +122,52 @@ def test_merge_resample_rays_matches_jax():
                                 tiv.valid, torch.as_tensor(w), 16)
     _assert_merged(jm, tm)
     assert np.asarray(jm.is_new).any()
+
+
+MERGE_VTOL = dict(rtol=0.0, atol=1e-5)
+
+
+def test_merge_resample_second_round_with_ties_matches_jax():
+    """The second importance round's shape: a 128-step march (129 edges)
+    merged with 16 draws gives 145 edges, merged again with 16 draws.  In
+    the second round every third ray puts 1/128 on each of its first 128
+    real intervals, so its CDF steps by exact multiples of 1/128 and the
+    draws u = (8k + 4) / 128 land exactly on old edges (ties, which old
+    edges win); the others carry random weights, some of mass above 1."""
+    jiv, tiv = _march(8, "full", steps=128)
+    rng = np.random.default_rng(9)
+    R, E = jiv.vals.shape
+    assert E == 129
+    w = (rng.random((R, E)) * 0.05).astype(np.float32)
+    jm = JR.merge_resample_rays(jiv.vals, jiv.is_left, jiv.is_right,
+                                jiv.valid, jnp.asarray(w), 16)
+    tm = TR.merge_resample_rays(tiv.vals, tiv.is_left, tiv.is_right,
+                                tiv.valid, torch.as_tensor(w), 16)
+    # JAX sums the CDF in float32 (XLA's cumsum and sum), the port in double
+    # in edge order; t_new divides by the CDF's step, which turns a CDF a
+    # few ulps apart into ~3e-6 on t over 129 edges; flags and indices equal
+    _assert_merged(jm, tm, MERGE_VTOL)
+    E = jm.vals.shape[1]
+    assert E == 145
+    valid, left, right = (np.asarray(a) for a in (jm.valid, jm.is_left,
+                                                  jm.is_right))
+    real = valid[:, :-1] & valid[:, 1:] & left[:, :-1] & right[:, 1:]
+    real = np.concatenate([real, np.zeros((R, 1), bool)], 1)
+    w = (rng.random((R, E)) * 0.02).astype(np.float32)
+    w[1::6] *= 60.0                          # foreground mass above 1
+    ties = np.arange(R) % 3 == 0
+    planted = real & (np.cumsum(real, 1) <= 128)
+    w[ties] = np.where(planted[ties], 1.0 / 128.0, 0.0)
+    jm2 = JR.merge_resample_rays(jm.vals, jm.is_left, jm.is_right, jm.valid,
+                                 jnp.asarray(w), 16)
+    tm2 = TR.merge_resample_rays(tm.vals, tm.is_left, tm.is_right, tm.valid,
+                                 torch.as_tensor(w), 16)
+    _assert_merged(jm2, tm2, MERGE_VTOL)
+    assert tm2.vals.shape == (R, 161)
+    # the planted draws tie with the old edge just before them
+    tied = tm2.is_new[ties] & (tm2.vals[ties] == torch.roll(tm2.vals[ties],
+                                                            1, 1))
+    assert int(tied.sum()) >= 4 * int(ties.sum())
 
 
 @pytest.mark.parametrize("mass", ["zero", "above_one"])
