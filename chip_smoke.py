@@ -84,8 +84,9 @@
    losses and gradients (the pose's included) must agree;
 9. prints the ``kernels`` line, the serve, relight and train lines (each
    profile with the device ms, launches and share of busy time of the
-   kernels redesigned for the card, KA, KB, KC, KB' pass 2, the KH
-   epilogue, KM, KA' and KF, ``redesigned``), and last the device line.
+   kernels of the port, KG's count and scatter passes apart, and whether
+   each was redesigned for the card, ``port_kernels``), and last the
+   device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -115,23 +116,50 @@ PEAK_TF32 = 495e12
 # a serve chunk's search (6,291,456 lanes; KC's events without the voxel
 # copy), KB' pass 2 at a train step's shading call (552,960 points), KA' at
 # its radiance call (368,640 points), KF at a serve chunk's second
-# importance round ([4096, 145] edges, 16 draws)
+# importance round ([4096, 145] edges, 16 draws), KJ at a shader chunk's
+# call ([32768, 64] -> 4), KG at the test grid's candidate lanes
+# (3,145,728 entries)
 EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "0.0513-0.0740", "hashgrid_encode": "0.855",
               "deform_epilogue": "0.852-0.857", "broyden_search": "0.501",
               "encode_mlp_sdfgrad_bwd_scatter": "4.337-4.463",
               "hashgrid_encode_bwd": "3.798-4.137",
-              "merge_resample": "0.500-0.502"}
-# the profiler's names of the kernels redesigned for the card
-REDESIGNED = {"encode_mlp_sdfgrad": "encode_mlp_sdfgrad_kernel",
-              "seed_gather": "seed_gather_kernel",
-              "hashgrid_encode": "::hashgrid_encode_kernel",
-              "deform_epilogue": "::epilogue_kernel(",
-              "broyden_search": "broyden_search_kernel",
-              "encode_mlp_sdfgrad_bwd_scatter":
-                  "encode_mlp_sdfgrad_bwd_scatter_kernel",
-              "hashgrid_encode_bwd": "hashgrid_encode_bwd_kernel",
-              "merge_resample": "merge_resample_kernel"}
+              "merge_resample": "0.500-0.502",
+              "fine_resample": "0.0522-0.0527",
+              "compact_indices": "0.046-0.072"}
+# the profiler's names of every kernel of the port (KG's count and scatter
+# passes apart); a kernel's wrapper counts its launches under the same
+# name (KG's under compact_indices)
+PORT_KERNELS = {"hashgrid_encode": "::hashgrid_encode_kernel",
+                "hashgrid_encode_bwd": "hashgrid_encode_bwd_kernel",
+                "encode_mlp_sdfgrad": "encode_mlp_sdfgrad_kernel",
+                "encode_mlp_sdfgrad_bwd_gather":
+                    "encode_mlp_sdfgrad_bwd_gather_kernel",
+                "encode_mlp_sdfgrad_bwd_scatter":
+                    "encode_mlp_sdfgrad_bwd_scatter_kernel",
+                "broyden_search": "broyden_search_kernel",
+                "broyden_polish": "broyden_polish_kernel",
+                "deform_prologue": "::prologue_kernel(",
+                "deform_epilogue": "::epilogue_kernel(",
+                "deform_skinning": "::skinning_kernel(",
+                "deform_skinning_bwd": "::skinning_bwd_",
+                "occupancy_march": "occupancy_march_kernel",
+                "secondary_march": "secondary_march_kernel",
+                "merge_resample": "merge_resample_kernel",
+                "cdf_resample": "cdf_resample_kernel",
+                "fine_resample": "fine_resample_kernel",
+                "compact_count": "compact_count_",
+                "compact_scatter": "compact_scatter_",
+                "seed_gather": "seed_gather_kernel",
+                "volrend_weights": "weights_kernel",
+                "volrend_composite": "composite_kernel",
+                "volrend_composite_bwd": "composite_bwd_kernel"}
+# the kernels redesigned for the card
+REDESIGNED = ("encode_mlp_sdfgrad", "seed_gather", "hashgrid_encode",
+              "deform_epilogue", "broyden_search",
+              "encode_mlp_sdfgrad_bwd_scatter", "hashgrid_encode_bwd",
+              "merge_resample", "fine_resample", "compact_count",
+              "compact_scatter")
 
 
 def fail(msg: str):
@@ -217,13 +245,9 @@ def main():
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name in ("encode_grad", "seedgrid", "hashgrid", "deform",
-                 "broyden", "resample"):
-        for fn, info in ptxas_info(logs.get(name, "")).items():
-            # the mangled names: no "::" or "(" around the kernel's name
-            if name == "broyden" or any(k.strip(":(") in fn
-                                        for k in REDESIGNED.values()):
-                print(f"ptxas {fn}: {info} ({card})", flush=True)
+    for name, log in logs.items():
+        for fn, info in ptxas_info(log).items():
+            print(f"ptxas {fn}: {info} ({card})", flush=True)
 
     # ---------------------------------------------------------- model
     cfg = serve_config()
@@ -454,7 +478,8 @@ def main():
     # at this size the wrapper's six allocations may set the event time
     kf_read = {"shape": f"vals{[R, E]} B={n_new}",
                "ms": rows[-1]["ms"],
-               "device_ms": device_ms(kf_call, REDESIGNED["merge_resample"]),
+               "device_ms": device_ms(kf_call,
+                                      PORT_KERNELS["merge_resample"]),
                "equal_share": same_share,
                "before_redesign_ms": EARLIER_MS["merge_resample"],
                "card": card}
@@ -462,21 +487,7 @@ def main():
           f"{json.dumps(kf_read)}", flush=True)
 
     # KG compaction (the test grid's candidate lanes)
-    mask, budget, sample_major = kg[1]
-    ck = C._compact(mask, budget, sample_major)
-    cp = C.compact_indices_plain(mask, budget, sample_major)
-    torch.cuda.synchronize()
-    if not (torch.equal(ck[0], cp[0]) and torch.equal(ck[1], cp[1])):
-        fail("compact_indices differs from its twin")
-    flat = mask.T.reshape(-1) if sample_major else mask
-    M = mask.numel()
-    row("compact_indices", "cuda", "intrinsicavatar_tpu_torch/csrc/compact.cu",
-        "intrinsicavatar_tpu/ops/compact.py:43",
-        f"mask[{M}] budget={budget}", 0.0,
-        time_ms(lambda: C._compact(mask, budget, sample_major)),
-        time_ms(lambda: C.compact_indices_plain(mask, budget, sample_major)),
-        M + budget * 9, M * 4,
-        time_ms(lambda: torch.argsort(~flat, stable=True)[:budget]))
+    kg_read = kg_row(row, rows, *kg[1], "test grid's candidate lanes", card)
 
     # KH prologue (the test grid's points)
     def check_kh_pro(rec):
@@ -616,7 +627,7 @@ def main():
         "bake_wall_ms": grid["bake_ms"], "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(n for _, n in by_kernel.values()),
-        "redesigned": kernel_shares(by_kernel, busy_ms),
+        "port_kernels": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, n] for k, (ms, n) in top]}
     print(json.dumps({"profile": serve_profile}), flush=True)
 
@@ -713,9 +724,11 @@ def main():
                                          for k, v in launches.items()},
                   "profile": {k: serve_profile[k] for k in (
                       "frame_wall_ms", "bake_wall_ms", "device_busy_ms",
-                      "device_idle_share", "device_launches", "redesigned")},
+                      "device_idle_share", "device_launches",
+                      "port_kernels")},
                   "bake": bake_line, "bake_cpu_check": bake_check,
                   "kf_second_round": kf_read,
+                  "kg_candidate_call": kg_read,
                   "grid_path_shapes": grid_shapes,
                   "searched": searched, "in_turn": in_turn}}), flush=True)
     print(json.dumps({"relight": relight_line}), flush=True)
@@ -728,6 +741,42 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def kg_row(row, rows, mask, budget, sample_major, at, card):
+    """KG on a recorded call: idx and picked equal to the twin's; its row
+    (its bound: the mask read once, 9 B written a budget slot), tagged with
+    ``at``; and its reading: the count and scatter passes' device time a
+    call beside their events."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import compact as C
+    ck = C._compact(mask, budget, sample_major)
+    cp = C.compact_indices_plain(mask, budget, sample_major)
+    torch.cuda.synchronize()
+    if not (torch.equal(ck[0], cp[0]) and torch.equal(ck[1], cp[1])):
+        fail(f"compact_indices differs from its twin at the {at}")
+    flat = mask.T.reshape(-1) if sample_major else mask
+    M = mask.numel()
+    shape = (f"mask{list(mask.shape)} budget={budget}"
+             + (" sample-major" if sample_major else ""))
+    call = lambda: C._compact(mask, budget, sample_major)
+    row("compact_indices", "cuda", "intrinsicavatar_tpu_torch/csrc/compact.cu",
+        "intrinsicavatar_tpu/ops/compact.py:52" if sample_major
+        else "intrinsicavatar_tpu/ops/compact.py:43", shape, 0.0,
+        time_ms(call),
+        time_ms(lambda: C.compact_indices_plain(mask, budget, sample_major)),
+        M + budget * 9, M * 4,
+        time_ms(lambda: torch.argsort(~flat, stable=True)[:budget]))
+    rows[-1]["at"] = at
+    r = {"at": at, "shape": shape, "valid": int(ck[1].sum()),
+         "ms": rows[-1]["ms"], "bound_ms": rows[-1]["bound_ms"],
+         "count_device_ms": device_ms(call, PORT_KERNELS["compact_count"]),
+         "scatter_device_ms": device_ms(call,
+                                        PORT_KERNELS["compact_scatter"]),
+         "before_redesign_ms": EARLIER_MS["compact_indices"], "card": card}
+    print(f"kernel compact_indices ({at}): {json.dumps(r)}", flush=True)
+    return r
 
 
 def profile_device(fn):
@@ -765,13 +814,15 @@ def device_ms(fn, substr, reps=10):
 
 def kernel_shares(by_kernel, busy_ms):
     """The device ms, launches and share of the busy time in a profile of
-    each kernel redesigned for the card (``REDESIGNED``)."""
+    every kernel of the port (``PORT_KERNELS``), and whether it was
+    redesigned for the card."""
     out = {}
-    for name, sub in REDESIGNED.items():
+    for name, sub in PORT_KERNELS.items():
         hits = [v for k, v in by_kernel.items() if sub in k]
         ms = sum(m for m, _ in hits)
         out[name] = {"device_ms": ms, "launches": sum(c for _, c in hits),
-                     "share": ms / busy_ms if busy_ms else 0.0}
+                     "share": ms / busy_ms if busy_ms else 0.0,
+                     "redesigned": name in REDESIGNED}
     return out
 
 
@@ -839,7 +890,7 @@ def kb_reading(rec, where, card):
     r = {"where": where, "shape": f"x{list(xn.shape)}", "max_abs_err": err,
          "tolerance": tol, "noisy_weights_err": err_noisy,
          "noisy_weights_tolerance": tol_noisy, "ms": time_ms(call),
-         "device_ms": device_ms(call, REDESIGNED["encode_mlp_sdfgrad"]),
+         "device_ms": device_ms(call, PORT_KERNELS["encode_mlp_sdfgrad"]),
          "plain_ms": time_ms(lambda: EG.encode_mlp_sdfgrad_plain(
              spec_b, mlp, table_b, xn, mask_b, mlp.effective_weights()), 3),
          "bytes": nbytes, "flops": products + rest,
@@ -927,7 +978,7 @@ def ka_reading(rec, where, card):
              "noisy_hash_tolerance": errs["noisy", "hash"][1],
              "rows_read": rows,
              "ms": time_ms(call),
-             "device_ms": device_ms(call, REDESIGNED["hashgrid_encode"]),
+             "device_ms": device_ms(call, PORT_KERNELS["hashgrid_encode"]),
              "plain_ms": time_ms(plain, 3), "bytes": nbytes, "flops": flops,
              "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
              "card": card}
@@ -963,7 +1014,7 @@ def epilogue_reading(rec, where, card):
     r = {"where": where, "shape": f"lanes[{M}] I={n_init} K={K}",
          "overflow": int(ep.overflow), "kept_valid": int(ep.valid.sum()),
          "ms": time_ms(call),
-         "device_ms": device_ms(call, REDESIGNED["deform_epilogue"]),
+         "device_ms": device_ms(call, PORT_KERNELS["deform_epilogue"]),
          "plain_ms": time_ms(lambda: B.deform_epilogue_plain(*args), 3),
          "bytes": nbytes, "flops": flops,
          "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
@@ -1028,7 +1079,7 @@ def kc_reading(rec, where, card, launches=None):
          "max_abs_err": err, "flipped": flip,
          "valid": valid, "lane_iterations": steps, "work": work,
          "ms": time_ms(call),
-         "device_ms": device_ms(call, REDESIGNED["broyden_search"]),
+         "device_ms": device_ms(call, PORT_KERNELS["broyden_search"]),
          "plain_ms": time_ms(lambda: B.broyden_search_plain(*args, **kw), 2),
          "bytes": nbytes, "flops": flops,
          "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
@@ -1201,7 +1252,7 @@ def ka2_reading(rec, where, card):
          "live_share": live.float().mean().item(),
          "merge_hits": warp_row_hits(x, spec, mask, live),
          "ms": time_ms(call),
-         "device_ms": device_ms(call, REDESIGNED["hashgrid_encode_bwd"]),
+         "device_ms": device_ms(call, PORT_KERNELS["hashgrid_encode_bwd"]),
          "plain_ms": time_ms(lambda: HG.hashgrid_encode_bwd_plain(*args), 3),
          "library_ms": time_ms(lib),
          "library_device_ms": device_ms(lib, "index"),
@@ -1255,7 +1306,7 @@ def kb2_reading(rec, where, card):
          "max_abs_err": abs_err, "relerr": errs, "rows_touched": rows,
          "merge_hits": warp_row_hits(xn, spec, mask),
          "ms": time_ms(call),
-         "device_ms": device_ms(call, REDESIGNED[
+         "device_ms": device_ms(call, PORT_KERNELS[
              "encode_mlp_sdfgrad_bwd_scatter"]),
          "plain_ms": time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_scatter_plain(
              *args), 3),
@@ -1328,8 +1379,10 @@ def relight(rows, row, card, dev):
     from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
     from intrinsicavatar_tpu_torch.fields import geometry as GEO
     from intrinsicavatar_tpu_torch.fields import radiance as RAD
+    from intrinsicavatar_tpu_torch.ops import compact as C
     from intrinsicavatar_tpu_torch.ops import grid_traversal as G
     from intrinsicavatar_tpu_torch.ops import resample as RS
+    from intrinsicavatar_tpu_torch.ops import volrend as V
     from intrinsicavatar_tpu_torch.render import pbr as PBR
     from intrinsicavatar_tpu_torch.render.renderer import IntrinsicAvatar
     from intrinsicavatar_tpu_torch.train import evaluate as EV
@@ -1386,7 +1439,9 @@ def relight(rows, row, card, dev):
                      lambda a: 0 if a[3].shape[0] == fine_n else -1),
             # KA: the radiance encode of a shader chunk's fine samples
             Recorder(RAD, "hashgrid_encode",
-                     MostFrequent(lambda a: a[1].shape[0]))]
+                     MostFrequent(lambda a: a[1].shape[0])),
+            # KG: the largest sample-major call, a secondary coarse pass's
+            Recorder(C, "_compact", lambda a: a[0].numel() if a[2] else -1)]
     with torch.no_grad():
         model(statics, frame, cond, occ, batch["rays"][:chunk], step, flags,
               background_color=torch.ones(3, device=dev),
@@ -1395,7 +1450,8 @@ def relight(rows, row, card, dev):
     torch.cuda.synchronize()
     for r in reversed(recs):
         r.restore()
-    ki, kj, kk, kl, km_big, km_sec, kb_f, ka_f = (r.best for r in recs)
+    ki, kj, kk, kl, km_big, km_sec, kb_f, ka_f, kg_sec = (r.best
+                                                          for r in recs)
     if km_sec[0] < 0:
         fail(f"no secondary coarse gather of {sec_n} points was recorded")
     if kb_f is None or kb_f[0] < 0:
@@ -1462,13 +1518,54 @@ def relight(rows, row, card, dev):
                              fp.mask))
     M, S2 = args[0].shape
     n_f = args[5]
+    kj_placed = int(fp.mask.sum())
+    kj_call = lambda: RS.sdf_fine_resample_rays(*args)
+    # its bytes: alphas, sdf and mask at every slot, t_starts and t_ends at
+    # the n + 1 drawn slots, the outputs
     row("fine_resample", "cuda", "intrinsicavatar_tpu_torch/csrc/resample.cu",
         "intrinsicavatar_tpu/ops/resample.py:282", f"[{M}, {S2}] n={n_f}",
-        kj_err,
-        time_ms(lambda: RS.sdf_fine_resample_rays(*args)),
+        kj_err, time_ms(kj_call),
         time_ms(lambda: RS.sdf_fine_resample_rays_plain(*args), 3),
-        M * S2 * (4 * 4 + 1) + M * n_f * (4 + 4 + 1),
+        M * S2 * (4 + 4 + 1) + M * (n_f + 1) * 8 + M * n_f * (4 + 4 + 1),
         M * (S2 * 15 + (n_f + 1) * 20))
+    # plain mode (no zero-crossing search) on the same rows, with the
+    # weights of their alphas
+    ts_, te_, al_, _, sm_ = args[:5]
+    w_, _ = V.render_weight_from_alpha(al_, sm_)
+    plain_args = (ts_, te_, w_, sm_, n_f)
+    fk = RS.fine_resample_rays(*plain_args)
+    fp = RS.fine_resample_rays_plain(*plain_args)
+    torch.cuda.synchronize()
+    equal("fine_resample mask, plain mode", fk.mask, fp.mask)
+    kj_plain_err = max(
+        close_where("fine_resample t_starts, plain mode", fk.t_starts,
+                    fp.t_starts, fp.mask),
+        close_where("fine_resample t_ends, plain mode", fk.t_ends,
+                    fp.t_ends, fp.mask))
+    kj_plain_call = lambda: RS.fine_resample_rays(*plain_args)
+    kj_read = {
+        "shape": f"[{M}, {S2}] n={n_f}",
+        "sdf": {"ms": rows[-1]["ms"], "max_abs_err": kj_err,
+                "placed": kj_placed,
+                "device_ms": device_ms(kj_call,
+                                       PORT_KERNELS["fine_resample"])},
+        "plain": {"ms": time_ms(kj_plain_call), "max_abs_err": kj_plain_err,
+                  "placed": int(fp.mask.sum()),
+                  "device_ms": device_ms(kj_plain_call,
+                                         PORT_KERNELS["fine_resample"]),
+                  "plain_ms": time_ms(lambda: RS.fine_resample_rays_plain(
+                      *plain_args), 3)},
+        "bound_ms": rows[-1]["bound_ms"],
+        "before_redesign_ms": EARLIER_MS["fine_resample"], "card": card}
+    print(f"kernel fine_resample (shader chunk, both modes): "
+          f"{json.dumps(kj_read)}", flush=True)
+
+    # KG at the secondary coarse call (sample-major)
+    if kg_sec is None or kg_sec[0] < 0:
+        fail("no sample-major compaction was recorded in the relight chunk")
+    kg_sec_read = kg_row(row, rows, *kg_sec[1], "secondary coarse call",
+                         card)
+    kg_sec_row = rows[-1]
 
     # KK secondary march (a shader chunk)
     args = kk[1]
@@ -1563,7 +1660,7 @@ def relight(rows, row, card, dev):
     print(f"broyden_polish device_ms: {json.dumps(kl_dev)} ({card})",
           flush=True)
     check_seed_gather(row, km_big, km_sec, dev)
-    del ok_, op_, fk, fp, mk, mp, pk, pp, recs, ki, kj, kk, kl, roots
+    del ok_, op_, fk, fp, mk, mp, pk, pp, recs, ki, kj, kk, kl, roots, kg_sec
 
     # ------------------------------------------------ one relight frame
     trips = [Tripwire(RS, "cdf_resample_rays_plain"),
@@ -1591,6 +1688,7 @@ def relight(rows, row, card, dev):
     for r in rows:
         if r["name"] in RELIGHT_NAMES:
             r["launches"] = int(launches.get(r["name"], 0))
+    kg_sec_row["launches"] = int(launches.get("compact_indices", 0))
     forward = {"hashgrid_encode", "encode_mlp_sdfgrad", "broyden_search",
                "volrend_weights", "volrend_composite", "occupancy_march",
                "merge_resample", "compact_indices", "deform_prologue",
@@ -1642,7 +1740,7 @@ def relight(rows, row, card, dev):
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(n for _, n in by_kernel.values()),
-        "redesigned": kernel_shares(by_kernel, busy_ms),
+        "port_kernels": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, n] for k, (ms, n) in top]}
     print(json.dumps({"relight_profile": profile_line}), flush=True)
 
@@ -1701,7 +1799,9 @@ def relight(rows, row, card, dev):
             "launches": launches,
             "profile": {k: profile_line[k] for k in (
                 "chunk_wall_ms", "device_busy_ms", "device_idle_share",
-                "device_launches", "redesigned")},
+                "device_launches", "port_kernels")},
+            "kj_shader_chunk": kj_read,
+            "kg_secondary_coarse_call": kg_sec_read,
             "kb_fine_pass": kb_fine,
             "ka_fine_pass": ka_fine,
             "searched": searched,
@@ -2034,7 +2134,7 @@ def check_seed_gather(row, km_big, km_sec, dev):
         # records); center and half
         N * (12 + 17) + rows_read * C * 4 + 24,
         N * 300, lib_ms)
-    print(f"seed_gather secondary coarse call: {json.dumps({'ms': ms, 'device_ms': device_ms(km, REDESIGNED['seed_gather']), 'library_ms': lib_ms, 'library_device_ms': device_ms(lib, 'grid_sampler'), 'before_redesign_ms': EARLIER_MS['seed_gather']})}",
+    print(f"seed_gather secondary coarse call: {json.dumps({'ms': ms, 'device_ms': device_ms(km, PORT_KERNELS['seed_gather']), 'library_ms': lib_ms, 'library_device_ms': device_ms(lib, 'grid_sampler'), 'before_redesign_ms': EARLIER_MS['seed_gather']})}",
           flush=True)
 
 
@@ -2403,7 +2503,7 @@ def train(rows, row, card, dev):
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(cnt for _, cnt in by_kernel.values()),
-        "redesigned": kernel_shares(by_kernel, busy_ms),
+        "port_kernels": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, cnt] for k, (ms, cnt) in top]}
     print(json.dumps({"train_profile": profile_line}), flush=True)
 
@@ -2413,7 +2513,7 @@ def train(rows, row, card, dev):
     return {"regimes": regimes, "launches": launches, "card": card,
             "profile": {k: profile_line[k] for k in (
                 "step_wall_ms", "device_busy_ms", "device_idle_share",
-                "device_launches", "redesigned")},
+                "device_launches", "port_kernels")},
             "ka_train_step": ka_train,
             "ka2_radiance_call": ka2,
             "kb2_shading_call": kb2_reads[0],
@@ -2654,7 +2754,7 @@ def train_pose_phys(rows, row, card, dev):
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_launches": sum(cnt for _, cnt in by_kernel.values()),
-        "redesigned": kernel_shares(by_kernel, busy_ms),
+        "port_kernels": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, cnt] for k, (ms, cnt) in top]}
     print(json.dumps({"phys_profile": phys_profile}), flush=True)
     del system
@@ -2669,7 +2769,7 @@ def train_pose_phys(rows, row, card, dev):
     return {"pose_regime": pose, "phys_regime": phys, "card": card,
             "phys_profile": {k: phys_profile[k] for k in (
                 "step_wall_ms", "device_busy_ms", "device_idle_share",
-                "device_launches", "redesigned")},
+                "device_launches", "port_kernels")},
             "epilogue_secondary_coarse": epi_phys,
             "search_secondary_coarse": kc_phys,
             "cpu_checks": checks}

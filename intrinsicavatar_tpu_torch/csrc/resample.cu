@@ -426,117 +426,226 @@ __global__ void cdf_resample_kernel(
 // placed while u < cdf[last].  Interval k spans draws k and k+1 and is
 // valid when both were placed.
 //
-// What bounds it on an H100: bytes.  Per ray it reads S x 17 B (t_starts,
-// t_ends, alphas or weights, sdf, mask) and writes n x 9 B; ~20 flops per
-// slot.
+// What bounds it on an H100: bytes.  Per ray it reads S x 9 B (alphas or
+// weights, sdf, mask), t_starts and t_ends at the n+1 drawn slots, and
+// writes n x 9 B; ~20 flops per slot.
 //
-// Design: one thread per ray.  The secondary shader chunk has 32,768 rays,
-// 1,024 warps, ~8 a streaming multiprocessor, enough to fill the card
-// without splitting a 64-slot row over a warp.  A thread keeps no arrays:
-// it walks its row three times (crossing or count; the total mass; the CDF
-// with the ascending draws emitted as the walk passes them, as KF does),
-// the row staying in L1 between walks.  Products and sums run sequentially
-// in double and are rounded to float where the plain twin rounds its
-// double cumprod and cumsum, so both build the same CDF.
+// Design: one thread per ray, 128 rays a block, whose rows the block's 16
+// warps first stage in shared memory, 8 rows a warp, so that the whole
+// block's loads are in flight at once (32,768 rays give only ~8 warps an
+// SM).  The staging loads run along the rows (a warp reads 32 consecutive
+// slots of a row), keep each value with its mask applied in a row of odd
+// stride (32 lanes at one slot of 32 rows hit 32 banks), and reduce the
+// mask and the SDF's signs to bit words by ballot: the crossing is the
+// first set bit of m & m>>1 & (sd >= 0) & (sd < 0)>>1, where a NaN SDF sets
+// neither sign, and the valid count is a popc.  One walk then builds the
+// CDF, KJ_GROUP slots at a time (their values loaded first, sdf steps
+// without a branch: with ~8 walking warps an SM the walk is bound by each
+// step's latency), and records each draw's slot and CDF pair only in a
+// group where one passes; the mass the draws are placed against is the
+// CDF at the walk's last slot, so `placed` is resolved after it.  Products and sums run sequentially in
+// double and are rounded to float where the plain twin rounds its double
+// cumprod and cumsum, so both build the same CDF (sdf mode divides by a
+// denominator of exactly 1, which it leaves out).  t_starts and t_ends are
+// read only at the drawn slots, and each walking warp's outputs leave
+// through shared memory as contiguous spans.
 // ---------------------------------------------------------------------------
 
-struct FineRow {
-  const float *ts, *te, *v;
-  const uint8_t* m;
-  int start;     // sdf mode: first slot of the restarted transmittance
-  bool sdf_mode;
-  float denom;
-  double trans, csum;
+constexpr int KJ_RAYS = 128;     // rays a block, a walking thread each
+constexpr int KJ_THREADS = 512;  // threads staging them, 8 rows a warp
+constexpr int KJ_GROUP = 8;      // slots a walk step takes before its draws
 
-  __device__ void reset() { trans = 1.0; csum = 0.0; }
-  // slot i's weight; advances the running transmittance and sum
-  __device__ float step(int i, float* cdf, float* cdf_prev) {
-    float w;
-    if (sdf_mode) {
-      const float a = (m[i] && i >= start) ? v[i] : 0.f;
-      w = a * (float)trans;
-      trans *= (double)(1.f - a);
-    } else {
-      w = m[i] ? v[i] : 0.f;
-    }
-    csum += (double)w;
-    *cdf = (float)csum / denom;
-    *cdf_prev = *cdf - w / denom;
-    return w;
-  }
-};
+// words of a row's bit mask, and the odd stride of its staged values
+__host__ __device__ constexpr int kj_words(int S) { return (S + 31) / 32; }
+__host__ __device__ constexpr int kj_stride(int S) { return S | 1; }
 
-__global__ void fine_resample_kernel(
+// dynamic shared memory of a block: the staged rows, three bit words a
+// 32-slot group, and each draw's slot, CDF floor and segment (the floor's
+// place then takes the drawn t), all [item][ray]; each ray's placing mass
+__host__ __device__ constexpr int kj_smem(int S, int nb) {
+  return 4 * KJ_RAYS * (kj_stride(S) + 3 * kj_words(S) + 3 * nb + 1);
+}
+
+template <bool kSdf>
+__global__ void __launch_bounds__(KJ_THREADS, 2) fine_resample_kernel(
     const float* __restrict__ t_starts, const float* __restrict__ t_ends,
     const float* __restrict__ vals, const float* __restrict__ sdfs,
     const uint8_t* __restrict__ mask, int64_t R, int S, int nb, float u0,
-    float du, int sdf_mode, float* __restrict__ o_ts,
-    float* __restrict__ o_te, uint8_t* __restrict__ o_mask) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  FineRow row{t_starts + r * S, t_ends + r * S, vals + r * S, mask + r * S,
-              0, sdf_mode != 0, 1.f, 1.0, 0.0};
+    float du, float* __restrict__ o_ts, float* __restrict__ o_te,
+    uint8_t* __restrict__ o_mask) {
+  extern __shared__ float kj_shared[];
+  const int W = kj_words(S), stride = kj_stride(S);
+  float* s_v = kj_shared;
+  uint32_t* s_m = reinterpret_cast<uint32_t*>(s_v + KJ_RAYS * stride);
+  uint32_t* s_nn = s_m + W * KJ_RAYS;  // sd >= 0
+  uint32_t* s_ng = s_nn + W * KJ_RAYS;  // sd < 0
+  int* s_idx = reinterpret_cast<int*>(s_ng + W * KJ_RAYS);
+  float* s_lo = reinterpret_cast<float*>(s_idx + nb * KJ_RAYS);
+  float* s_seg = s_lo + nb * KJ_RAYS;
+  float* s_lim = s_seg + nb * KJ_RAYS;
 
-  // walk 1: the crossing (sdf mode) or the valid count and mass (plain)
-  int cross = -1, steps = 0;
-  double mass = 0.0;
-  if (row.sdf_mode) {
-    const float* sd = sdfs + r * S;
-    for (int i = 0; i + 1 < S; ++i)
-      if (row.m[i] && row.m[i + 1] && sd[i] >= 0.f && sd[i + 1] < 0.f) {
-        cross = i;
-        break;
-      }
-  } else {
-    for (int i = 0; i < S; ++i)
-      if (row.m[i]) {
-        ++steps;
-        mass += (double)row.v[i];
-      }
-    const float wsum = (float)mass;
-    row.denom = wsum + fmaxf(1.f - wsum, 0.f);
-  }
-  const bool found = row.sdf_mode ? cross >= 0 : steps > 0;
-  row.start = cross < 0 ? 0 : cross;
-  const int clip = row.sdf_mode ? S - 1 : (steps > 0 ? steps - 1 : 0);
+  const int lane = threadIdx.x & 31;
+  const int64_t rb = (int64_t)blockIdx.x * KJ_RAYS;  // the block's first ray
+  const int nrows = R - rb < KJ_RAYS ? (int)(R - rb) : KJ_RAYS;
 
-  // walk 2: the mass the draws are placed against, cdf[clip]
-  float total = 0.f, c, cp;
-  row.reset();
-  for (int i = 0; i <= clip; ++i) row.step(i, &c, &cp);
-  total = c;
-
-  // walk 3: draw j goes to the first i <= clip with cdf[i] > u_j, else to
-  // clip; the draws ascend, so they are emitted in order
-  float* ots = o_ts + r * (nb - 1);
-  float* ote = o_te + r * (nb - 1);
-  uint8_t* om = o_mask + r * (nb - 1);
-  float t_prev = 0.f;
-  bool placed_prev = false;
-  int j = 0;
-  auto emit = [&](int idx, float cdf, float cdf_prev) {
-    const float u = u0 + (float)j * du;
-    const float seg = fmaxf(cdf - cdf_prev, 1e-20f);
-    const float t =
-        row.ts[idx] + (u - cdf_prev) * (row.te[idx] - row.ts[idx]) / seg;
-    const bool placed = u < total && found;
-    if (j > 0) {
-      ots[j - 1] = t_prev;
-      ote[j - 1] = t;
-      om[j - 1] = placed_prev && placed;
+  // staging: warp w reads rows 8w .. 8w + 7, 32 slots at a time
+  constexpr int U = 8;
+  const int row0 = (threadIdx.x >> 5) * U;
+  const float* vb = vals + rb * S;
+  const float* sb = sdfs + rb * S;
+  const uint8_t* mb = mask + rb * S;
+  for (int k = 0; k < W && row0 < nrows; ++k) {
+    const int slot = k * 32 + lane;
+    float v[U], sd[U];
+    bool m[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool in = slot < S && row0 + u < nrows;
+      const int e = (row0 + u) * S + slot;
+      v[u] = in ? vb[e] : 0.f;
+      m[u] = in && mb[e] != 0;
+      // out of the row: a NaN, which sets neither sign
+      sd[u] = (kSdf && in) ? sb[e] : __int_as_float(0x7fffffff);
     }
-    t_prev = t;
-    placed_prev = placed;
-    ++j;
-  };
-  row.reset();
-  for (int i = 0; i <= clip && j < nb; ++i) {
-    row.step(i, &c, &cp);
-    while (j < nb && c > u0 + (float)j * du) emit(i, c, cp);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // rows past the block's last ray are staged too, never read
+      const int q = row0 + u;
+      if (slot < S) s_v[q * stride + slot] = m[u] ? v[u] : 0.f;
+      const unsigned bm = __ballot_sync(0xffffffffu, m[u]);
+      if (lane == 0) s_m[k * KJ_RAYS + q] = bm;
+      if (kSdf) {
+        const unsigned bnn = __ballot_sync(0xffffffffu, sd[u] >= 0.f);
+        const unsigned bng = __ballot_sync(0xffffffffu, sd[u] < 0.f);
+        if (lane == 0) {
+          s_nn[k * KJ_RAYS + q] = bnn;
+          s_ng[k * KJ_RAYS + q] = bng;
+        }
+      }
+    }
   }
-  while (j < nb) emit(clip, c, cp);
-}
+  __syncthreads();
 
+  // the walk: a thread a ray
+  const int q0 = threadIdx.x & ~31;
+  if (q0 >= nrows) return;  // the same for the whole warp
+  const int rows = min(nrows - q0, 32);
+  const int64_t r0 = rb + q0;  // the warp's first ray
+  const int q = q0 + lane;
+  if (lane < rows) {
+    const float* row = s_v + q * stride;
+    // the crossing (sdf mode) or the valid count (plain)
+    int cross = -1, steps = 0;
+    for (int k = 0; k < W; ++k) {
+      const uint32_t m = s_m[k * KJ_RAYS + q];
+      if (kSdf) {
+        const bool last = k + 1 == W;
+        const uint32_t m1 = last ? 0u : s_m[(k + 1) * KJ_RAYS + q];
+        const uint32_t g1 = last ? 0u : s_ng[(k + 1) * KJ_RAYS + q];
+        const uint32_t x = m & ((m >> 1) | (m1 << 31)) & s_nn[k * KJ_RAYS + q]
+                           & ((s_ng[k * KJ_RAYS + q] >> 1) | (g1 << 31));
+        if (x && cross < 0) cross = k * 32 + __ffs(x) - 1;
+      } else {
+        steps += __popc(m);
+      }
+    }
+    float denom = 1.f;
+    if (!kSdf) {
+      double mass = 0.0;  // a masked slot adds +0, which changes no sum
+#pragma unroll 8
+      for (int i = 0; i < S; ++i) mass += (double)row[i];
+      const float wsum = (float)mass;
+      denom = wsum + fmaxf(1.f - wsum, 0.f);
+    }
+    const bool found = kSdf ? cross >= 0 : steps > 0;
+    const int start = cross < 0 ? 0 : cross;
+    const int clip = kSdf ? S - 1 : (steps > 0 ? steps - 1 : 0);
+
+    // the walk, KJ_GROUP slots at a time: the group's CDF pairs first, then
+    // the draws in order, only in a group where some pair passes the next
+    // draw: draw j goes to the first i <= clip with cdf[i] > u_j, else to
+    // clip (the draws ascend, so they are recorded in order)
+    double trans = 1.0, csum = 0.0;
+    float c = 0.f, cp = 0.f;
+    int j = 0;
+    float u_next = u0 + (float)j * du;  // +inf once every draw is recorded
+    auto record = [&](int i, float ci, float cpi) {
+      s_idx[j * KJ_RAYS + q] = i;
+      s_lo[j * KJ_RAYS + q] = cpi;
+      s_seg[j * KJ_RAYS + q] = fmaxf(ci - cpi, 1e-20f);
+      ++j;
+    };
+    for (int i0 = 0; i0 <= clip; i0 += KJ_GROUP) {
+      // the group's values first, so that no step waits on shared memory;
+      // a step past clip leaves the state as it is (in sdf mode without a
+      // branch a step)
+      float av[KJ_GROUP], cg[KJ_GROUP], cpg[KJ_GROUP];
+#pragma unroll
+      for (int g = 0; g < KJ_GROUP; ++g) av[g] = row[min(i0 + g, S - 1)];
+      bool pass = false;
+#pragma unroll
+      for (int g = 0; g < KJ_GROUP; ++g) {
+        const int i = i0 + g;
+        const bool live = i <= clip;
+        if (kSdf) {
+          const float a = i >= start ? av[g] : 0.f;
+          const float w = a * (float)trans;
+          const double t_next = trans * (double)(1.f - a);
+          const double s_next = csum + (double)w;
+          const float c_next = (float)s_next;
+          const float cp_next = c_next - w;
+          trans = live ? t_next : trans;
+          csum = live ? s_next : csum;
+          c = live ? c_next : c;
+          cp = live ? cp_next : cp;
+        } else if (live) {  // plain mode: clip differs from ray to ray
+          const float w = av[g];
+          csum += (double)w;
+          c = (float)csum / denom;
+          cp = c - w / denom;
+        }
+        pass |= live && c > u_next;
+        cg[g] = c;
+        cpg[g] = cp;
+      }
+      if (pass) {
+#pragma unroll
+        for (int g = 0; g < KJ_GROUP; ++g) {
+          if (i0 + g > clip) break;
+          while (j < nb && cg[g] > u0 + (float)j * du)
+            record(i0 + g, cg[g], cpg[g]);
+        }
+        u_next = j < nb ? u0 + (float)j * du : INFINITY;
+      }
+    }
+    while (j < nb) record(clip, c, cp);
+    s_lim[q] = found ? c : -INFINITY;  // placed: u < cdf[clip], if found
+
+    // the drawn positions, t_starts and t_ends read at the drawn slots
+    const int64_t base = (r0 + lane) * S;
+#pragma unroll 4
+    for (int d = 0; d < nb; ++d) {
+      const int i = s_idx[d * KJ_RAYS + q];
+      const float u = u0 + (float)d * du;
+      const float ts = t_starts[base + i], te = t_ends[base + i];
+      s_lo[d * KJ_RAYS + q] =
+          ts + (u - s_lo[d * KJ_RAYS + q]) * (te - ts) / s_seg[d * KJ_RAYS + q];
+    }
+  }
+  __syncwarp();
+
+  // the warp's rows of the outputs, contiguous
+  const int n = nb - 1;
+  const int64_t out0 = r0 * n;
+  for (int e = lane; e < rows * n; e += 32) {
+    const int rw = e / n, k = e - rw * n, qq = q0 + rw;
+    const float lim = s_lim[qq];
+    o_ts[out0 + e] = s_lo[k * KJ_RAYS + qq];
+    o_te[out0 + e] = s_lo[(k + 1) * KJ_RAYS + qq];
+    o_mask[out0 + e] = u0 + (float)k * du < lim
+                       && u0 + (float)(k + 1) * du < lim;
+  }
+}
 }  // namespace
 
 extern "C" int cdf_resample_fwd(
@@ -553,6 +662,9 @@ extern "C" int cdf_resample_fwd(
   return launch_status();
 }
 
+// Dynamic shared memory KJ needs for rows of S slots and nb draws.
+extern "C" int fine_resample_smem(int S, int nb) { return kj_smem(S, nb); }
+
 extern "C" int fine_resample_fwd(
     const float* t_starts, const float* t_ends, const float* vals,
     const float* sdfs, const uint8_t* mask, long long R, int S, int nb,
@@ -560,10 +672,17 @@ extern "C" int fine_resample_fwd(
     uint8_t* o_mask, void* stream) {
   if (R <= 0) return 0;
   if (S < 1 || nb < 2) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  unsigned blocks = (unsigned)((R + threads - 1) / threads);
-  fine_resample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      t_starts, t_ends, vals, sdfs, mask, R, S, nb, u0, du, sdf_mode, o_ts,
-      o_te, o_mask);
+  const int smem = kj_smem(S, nb);
+  auto kernel = sdf_mode ? fine_resample_kernel<true>
+                         : fine_resample_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((R + KJ_RAYS - 1) / KJ_RAYS);
+  kernel<<<blocks, KJ_THREADS, smem, (cudaStream_t)stream>>>(
+      t_starts, t_ends, vals, sdfs, mask, R, S, nb, u0, du, o_ts, o_te,
+      o_mask);
   return launch_status();
 }

@@ -69,10 +69,11 @@ SIGNATURES = {
             P, P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P, P, P, P),
         "cdf_resample_fwd": (
             P, P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P, P, P, P, P),
+        "fine_resample_smem": (I32, I32),
         "fine_resample_fwd": (
             P, P, P, P, P, I64, I32, I32, F32, F32, I32, P, P, P, P)},
     "compact": {
-        "compact_counts_len": (I64,),
+        "compact_counts_len": (I64, I64, I64, I32),
         "compact_indices_fwd": (P, I64, I64, I64, I32, I64, P, P, P, P)},
     "deform": {
         "deform_prologue_fwd": (P, P, P, I64, I32, I32, P, P),

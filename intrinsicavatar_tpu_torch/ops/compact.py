@@ -16,6 +16,8 @@ import torch
 
 from intrinsicavatar_tpu_torch import kernels
 
+MAX_SAMPLES = 4096  # kMaxS of csrc/compact.cu: samples a ray, sample-major
+
 
 def stable_partition_indices(mask: torch.Tensor) -> torch.Tensor:
     """Permutation putting True entries first, order preserved, along the
@@ -51,8 +53,14 @@ def _compact(mask: torch.Tensor, budget: int, sample_major: bool):
     if budget == 0:
         return idx, picked
     lib = kernels.lib("compact")
-    counts = torch.empty((lib.compact_counts_len(M),), dtype=torch.int32,
-                         device=dev)
+    if sample_major and S > MAX_SAMPLES:
+        raise ValueError(f"{S} samples a ray above the sample-major "
+                         f"kernel's {MAX_SAMPLES}")
+    # the count pass's per-block counts (per sample in sample-major order),
+    # read by the scatter pass on the same stream
+    counts = torch.empty(
+        (lib.compact_counts_len(M, R, S, int(sample_major)),),
+        dtype=torch.int32, device=dev)
     err = lib.compact_indices_fwd(
         mask.data_ptr(), M, R, S, int(sample_major), budget,
         counts.data_ptr(), idx.data_ptr(), picked.data_ptr(),

@@ -25,6 +25,7 @@ from intrinsicavatar_tpu_torch import kernels
 MAX_BINS = 64   # kMaxBins of csrc/resample.cu
 MAX_EDGES = 2048  # kMaxEdges of csrc/resample.cu
 CDF_MAX_S = 256  # kCdfMaxS of csrc/resample.cu
+MAX_SHARED = 232_448  # shared memory a block can have on an H100 (227 KB)
 BG_OFFSET = 10000.0  # background sample t offset (cdf.cu:131)
 
 
@@ -316,11 +317,16 @@ def _launch_fine(t_starts, t_ends, vals, sdfs, mask, n_samples, sdf_mode):
                     ("weights", vals), ("sdfs", sdfs)):
         kernels.require(t, name, torch.float32, dev, (R, S))
     kernels.require(mask, "mask", torch.bool, dev, (R, S))
+    lib = kernels.lib("resample")
+    smem = lib.fine_resample_smem(S, n + 1)
+    if smem > MAX_SHARED:
+        raise ValueError(f"rows of {S} slots with {n + 1} draws need {smem} B "
+                         f"of shared memory a block, above {MAX_SHARED}")
     o_ts = torch.empty((R, n), dtype=torch.float32, device=dev)
     o_te = torch.empty((R, n), dtype=torch.float32, device=dev)
     o_mask = torch.empty((R, n), dtype=torch.bool, device=dev)
     u0, du = _bin_params(n + 1)
-    err = kernels.lib("resample").fine_resample_fwd(
+    err = lib.fine_resample_fwd(
         t_starts.data_ptr(), t_ends.data_ptr(), vals.data_ptr(),
         sdfs.data_ptr(), mask.data_ptr(), R, S, n + 1, u0, du,
         int(sdf_mode), o_ts.data_ptr(), o_te.data_ptr(), o_mask.data_ptr(),

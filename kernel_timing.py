@@ -1,13 +1,14 @@
 """Time kernels KA (hash encode forward), KB (fused encode + SDF MLP +
 gradient), the KH epilogue (duplicate filter, overflow count, first-K), KM
 (seed grid gather), KC (Broyden search), KB' pass 2 (the encode
-backward's table scatter), KA' (the hash encode's backward) and KF (merge
-importance resampling) of the PyTorch/CUDA port on one card, three ways.
+backward's table scatter), KA' (the hash encode's backward), KF (merge
+importance resampling), KJ (secondary fine resampling) and KG (valid-first
+compaction) of the PyTorch/CUDA port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
     python3 kernel_timing.py --kernels ka,kh      # of ka, kb, kh, km, kc,
-                                                  # kb2, ka2, kf
+                                                  # kb2, ka2, kf, kj, kg
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -72,7 +73,19 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   among each ray's valid edges, of mass 0, 0.5, 1 or 1.5; the second
   round's edges are the twin's merge of the first; the share of rays
   equal to the twin on flags and indices (at least 0.999) and a digest of
-  all six outputs' bytes.
+  all six outputs' bytes;
+- KJ at a shader chunk's call, [32768, 64] -> 4 intervals, in sdf and in
+  plain mode, and at [32768, 16] in both, on left-packed rows (a sixth of
+  the rays empty, a fifth with a rising SDF and so no crossing): the mask
+  equal to the twin's and the placed intervals within 1e-5 of max(|ref|,
+  1), and a digest of the three outputs' bytes;
+- KG at the secondary coarse call ([32768, 64] sample-major, budget
+  262,144; ~19,500 entries valid in left-packed runs, 7.5% of the budget,
+  as the phys step's chunks average) and at the serve
+  path's candidate call (3,145,728 ray-major, budget 1,179,648, 30% valid,
+  0-4 of each point's 4 candidates): idx and picked equal to the twin's, a
+  digest of both, and ``op_device_ms`` the count and scatter passes'
+  device time a call (``parts``: each pass's).
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -128,9 +141,10 @@ def timings(fn, kernel_substr, reps=20):
     return event_ms, device_ms, host_us
 
 
-def op_device_ms(fn, reps=20):
+def op_device_ms(fn, reps=20, parts=()):
     """The device time of every kernel and copy that ``fn`` runs, a call,
-    from ``torch.profiler``."""
+    from ``torch.profiler``; with ``parts``, also ``{part: device ms a
+    call}`` of the kernels whose names hold each substring."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -140,8 +154,12 @@ def op_device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+    if not parts:
+        return total
+    return total, {p: sum(e.time_range.elapsed_us() for e in ev
+                          if p in e.name) / reps / 1e3 for p in parts}
 
 
 def digest_of(tensors):
@@ -221,9 +239,9 @@ def search_result(B, torch, dev, N, I, seed):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=None)
-    ap.add_argument("--kernels", default="ka,kb,kh,km,kc,kb2,ka2,kf",
+    ap.add_argument("--kernels", default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg",
                     help="comma-separated, of ka, kb, kh, km, kc, kb2, ka2, "
-                         "kf")
+                         "kf, kj, kg")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     import torch
@@ -241,7 +259,8 @@ def main():
     root = args.port_root or "."
     sources = {"ka": "hashgrid", "kb": "encode_grad", "kh": "deform",
                "km": "seedgrid", "kc": "broyden", "kb2": "encode_grad",
-               "ka2": "hashgrid", "kf": "resample"}
+               "ka2": "hashgrid", "kf": "resample", "kj": "resample",
+               "kg": "compact"}
     logs = kernels.build_all(tuple(sorted({sources[k] for k in which})),
                              verbose=True)
     for name, log in logs.items():
@@ -268,6 +287,10 @@ def main():
         time_ka2(torch, dev, report, failed)
     if "kf" in which:
         time_kf(torch, dev, report, failed)
+    if "kj" in which:
+        time_kj(torch, dev, report, failed)
+    if "kg" in which:
+        time_kg(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
@@ -688,6 +711,102 @@ def time_kf(torch, dev, report, failed):
                              "merge_resample_kernel")
         line.update(event_ms=ev, device_ms=dv, host_us=hu)
         report(line)
+
+
+def fine_rows(R, S, seed):
+    """``(t_starts, t_ends, alphas, weights, sdfs, mask)``, ``[R, S]``, as a
+    shader chunk's march and coarse pass give them: each ray's valid samples
+    left-packed (none on a sixth of the rays), t ascending with gaps,
+    alphas and weights in [0, 1) (some rows over unit mass), an SDF falling
+    through zero, rising on a fifth of the rays (no + to - crossing)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, S + 1, R)
+    n[rng.random(R) < 1.0 / 6.0] = 0
+    mask = np.arange(S)[None] < n[:, None]
+    dt = rng.uniform(0.005, 0.03, (R, S))
+    ts = np.cumsum(dt, 1) + rng.uniform(0.0, 1.0, (R, 1))
+    te = ts + dt * rng.uniform(0.3, 1.0, (R, S))
+    alphas = rng.uniform(0.0, 1.0, (R, S)) ** 2
+    w = rng.uniform(0.0, 1.0, (R, S))
+    w = w / w.sum(1, keepdims=True) * rng.uniform(0.2, 1.3, (R, 1))
+    sdf = rng.uniform(0.1, 0.6, (R, 1)) - np.cumsum(
+        rng.uniform(0.0, 0.05, (R, S)), 1)
+    sdf[rng.random(R) < 0.2] *= -1.0
+    z = lambda a: np.where(mask, a, 0.0).astype(np.float32)
+    return z(ts), z(te), z(alphas), z(w), sdf.astype(np.float32), mask
+
+
+def time_kj(torch, dev, report, failed):
+    """KJ at a shader chunk's call in both modes, at 64 and 16 slots."""
+    from intrinsicavatar_tpu_torch.ops import resample as RS
+    R, n = 32768, 4
+    for S in (64, 16):
+        ts, te, alphas, w, sdf, mask = (
+            torch.as_tensor(a, device=dev) for a in fine_rows(R, S, seed=S))
+        for mode in ("sdf", "plain"):
+            if mode == "sdf":
+                args = (ts, te, alphas, sdf, mask, n)
+                fn, plain = (RS.sdf_fine_resample_rays,
+                             RS.sdf_fine_resample_rays_plain)
+            else:
+                args = (ts, te, w, mask, n)
+                fn, plain = RS.fine_resample_rays, RS.fine_resample_rays_plain
+            out, ref = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            ok = torch.equal(out.mask, ref.mask)
+            for a, b in ((out.t_starts, ref.t_starts),
+                         (out.t_ends, ref.t_ends)):
+                d, r = (a - b).abs()[ref.mask], b.abs()[ref.mask]
+                ok &= bool((d <= 1e-5 * r.clamp(min=1.0)).all())
+                err = max(err, d.max().item() if d.numel() else 0.0)
+            if not ok:
+                print(f"kernel_timing: KJ disagrees at [{R}, {S}] {mode}: "
+                      f"err={err}", flush=True)
+                failed.append(f"fine_resample [{R}, {S}] {mode}")
+            line = {"kernel": "fine_resample", "rays": R, "slots": S,
+                    "n": n, "mode": mode, "placed": int(ref.mask.sum()),
+                    "max_abs_err": err, "digest": digest_of(out)}
+            del out, ref
+            ev, dv, hu = timings(lambda: fn(*args), "fine_resample_kernel")
+            line.update(event_ms=ev, device_ms=dv, host_us=hu)
+            report(line)
+
+
+def time_kg(torch, dev, report, failed):
+    """KG at the secondary coarse call and the serve path's candidate
+    call."""
+    from intrinsicavatar_tpu_torch.ops import compact as C
+    rng = np.random.default_rng(12)
+    R, S = 32768, 64
+    runs = np.where(rng.random(R) < 0.964, 0, rng.integers(1, 33, R))
+    coarse = torch.as_tensor(np.arange(S)[None] < runs[:, None], device=dev)
+    kept = rng.choice(5, 786_432, p=[0.45, 0.2, 0.15, 0.1, 0.1])
+    cand = torch.as_tensor((np.arange(4)[None] < kept[:, None]).reshape(-1),
+                           device=dev)
+    for where, mask, budget, fn in (
+            ("secondary coarse call", coarse, 262_144,
+             C.compact_indices_interleaved),
+            ("candidate call", cand, 1_179_648, C.compact_indices)):
+        out = fn(mask, budget)
+        ref = C.compact_indices_plain(mask, budget, mask.dim() == 2)
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+            print(f"kernel_timing: KG differs from its twin at the {where}",
+                  flush=True)
+            failed.append(f"compact_indices at the {where}")
+        line = {"kernel": "compact_indices", "at": where,
+                "mask": list(mask.shape), "budget": budget,
+                "valid": int(mask.sum()), "digest": digest_of(out)}
+        del out, ref
+        call = lambda: fn(mask, budget)
+        ev, dv, hu = timings(call, "scatter_")
+        total, parts = op_device_ms(call, parts=("count_", "scatter_"))
+        line.update(event_ms=ev, op_device_ms=total,
+                    count_device_ms=parts["count_"],
+                    scatter_device_ms=parts["scatter_"], host_us=hu)
+        report(line)
+
 
 if __name__ == "__main__":
     main()

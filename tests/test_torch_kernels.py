@@ -275,19 +275,65 @@ def test_resample_kernel_matches_twin(cuda):
         iv = G.RayIntervals(ref.vals, ref.is_left, ref.is_right, ref.valid)
 
 
+def _kg_budget(n_valid, M, budget_of):
+    return {"below": max(1, n_valid // 2), "at": max(1, n_valid),
+            "above": min(M, n_valid + (M - n_valid) // 2 + 1)}[budget_of]
+
+
 @pytest.mark.parametrize("sample_major", [False, True])
 @pytest.mark.parametrize("budget_of", ["below", "at", "above"])
-def test_compact_kernel_matches_twin(cuda, sample_major, budget_of):
-    rng = np.random.default_rng(6)
-    mask = torch.as_tensor(rng.random((4096, 160)) < 0.2, device=cuda)
-    n_valid = int(mask.sum())
-    budget = {"below": n_valid - 1000, "at": n_valid,
-              "above": n_valid + 70_000}[budget_of]
+@pytest.mark.parametrize("R, S", [(4096, 160), (31, 16), (32, 64),
+                                  (4096 + 7, 64), (4096 + 7, 13)])
+def test_compact_kernel_matches_twin(cuda, sample_major, budget_of, R, S):
+    """KG against its twin: rows not a multiple of a warp, rows whose
+    bytes are not 16-byte aligned (S = 13), budgets below, at and above the
+    valid count."""
+    rng = np.random.default_rng(6 + R + S)
+    mask = torch.as_tensor(rng.random((R, S)) < 0.2, device=cuda)
+    budget = _kg_budget(int(mask.sum()), mask.numel(), budget_of)
     m = mask if sample_major else mask.reshape(-1)
     fn = C.compact_indices_interleaved if sample_major else C.compact_indices
+    before = kernels.launches["compact_indices"]
     idx, picked = fn(m, budget)
+    assert kernels.launches["compact_indices"] == before + 1
     ref_idx, ref_picked = C.compact_indices_plain(m, budget, sample_major)
     assert torch.equal(idx, ref_idx) and torch.equal(picked, ref_picked)
+
+
+@pytest.mark.parametrize("sample_major", [False, True])
+@pytest.mark.parametrize("fill", ["all_valid", "all_invalid", "runs",
+                                  "unaligned"])
+def test_compact_kernel_edge_masks(cuda, sample_major, fill):
+    """KG on an all-valid and an all-invalid mask, on left-packed runs as
+    the secondary coarse call gives them, and on a mask that starts one
+    byte past a 16-byte boundary (the byte loads); budgets of a third, a
+    half and all of the entries."""
+    rng = np.random.default_rng(9)
+    R, S = 4096 + 7, 64
+    runs = np.where(rng.random(R) < 0.9, 0, rng.integers(1, S + 1, R))
+    mask = {"all_valid": np.ones((R, S), bool),
+            "all_invalid": np.zeros((R, S), bool),
+            "runs": np.arange(S)[None] < runs[:, None],
+            "unaligned": rng.random((R, S)) < 0.3}[fill]
+    flat = torch.zeros(R * S + 1, dtype=torch.bool, device=cuda)
+    off = 1 if fill == "unaligned" else 0
+    flat[off:off + R * S] = torch.as_tensor(mask.reshape(-1), device=cuda)
+    m = flat[off:off + R * S]
+    assert m.is_contiguous() and (m.data_ptr() % 16 != 0) == bool(off)
+    if sample_major:
+        m = m.view(R, S)
+    fn = C.compact_indices_interleaved if sample_major else C.compact_indices
+    for budget in (R * S // 3, R * S // 2, R * S):
+        idx, picked = fn(m, budget)
+        ref_idx, ref_picked = C.compact_indices_plain(m, budget,
+                                                      sample_major)
+        assert torch.equal(idx, ref_idx) and torch.equal(picked, ref_picked)
+
+
+def test_compact_refuses_samples_beyond_its_limit(cuda):
+    mask = torch.ones((2, C.MAX_SAMPLES + 1), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="samples a ray"):
+        C.compact_indices_interleaved(mask, 8)
 
 
 def _rigid_table(cuda, seed=7):
@@ -771,24 +817,91 @@ def test_cdf_resample_kernel_matches_twin(cuda, B):
     assert ref.is_bg[:16].all() and (ref.surface_idx >= 0).any()
 
 
+KJ_KINDS = ("rows", "no_valid", "zero_mass", "cross_at_0", "all_valid",
+            "no_cross", "nan_val", "nan_val_before_cross", "nan_sdf")
+
+
+def _kj_case(R, S, sdf_mode, seed):
+    """``R`` left-packed rows of ``S`` slots (``_pbr_rows``, alphas in
+    sdf mode), row r of kind ``KJ_KINDS[r % 9]``: as drawn; no valid slot;
+    zero weights; the crossing at slot 0; every slot valid, the crossing
+    mid-row; every slot valid and the SDF positive (no crossing); a NaN
+    value at a valid slot after the crossing; a NaN value before the
+    crossing (which no weight reads); a NaN SDF before the crossing."""
+    rng = np.random.default_rng(seed)
+    ts, te, w, sdf, mask = _pbr_rows(rng, R, S, gaps=True)
+    kind = np.arange(R) % len(KJ_KINDS)
+    vals = (np.where(mask, rng.uniform(0.0, 1.0, mask.shape) ** 2, 0.0)
+            if sdf_mode else w).astype(np.float32)
+    ar = np.arange(S)[None]
+    mid = S // 2
+    mask[kind == 1] = False
+    vals[kind == 2] = 0.0
+    sdf[kind == 3] = np.where(ar == 0, 0.2, -0.3)
+    mask[kind == 3, :2] = True
+    full = np.isin(kind, (4, 5, 6, 7, 8))
+    mask[full] = True
+    dt = np.diff(ts[full], axis=1, prepend=0.0).clip(min=0.01)
+    ts[full] = np.cumsum(np.abs(dt) + 0.01, 1)
+    te[full] = ts[full] + 0.005
+    vals[full] = (rng.uniform(0.05, 0.9, (int(full.sum()), S)) ** 2
+                  if sdf_mode else 1.0 / S)
+    sdf[full] = np.where(ar < mid, 0.3, -0.3)
+    sdf[kind == 5] = 0.3
+    vals[kind == 6, min(mid + 1, S - 1)] = np.nan
+    vals[kind == 7, 1] = np.nan
+    sdf[kind == 8, 1] = np.nan
+    return (ts, te, vals, sdf.astype(np.float32), mask), kind
+
+
+@pytest.mark.parametrize("S", [16, 64, 128])
 @pytest.mark.parametrize("sdf_mode", [True, False])
-def test_fine_resample_kernel_matches_twin(cuda, sdf_mode):
-    rng = np.random.default_rng(12)
-    ts, te, w, sdf, mask = _pbr_rows(rng, 32768, 64, gaps=True)
+def test_fine_resample_kernel_matches_twin(cuda, sdf_mode, S):
+    """KJ against its twin run on the CPU (whose cumprod and cumsum run in
+    double in slot order, as the kernel's walk does): the masks equal and
+    the placed intervals bit for bit, over a ragged last block and rows of
+    every kind of ``_kj_case``; two calls equal bit for bit."""
+    R = 32768 + 37
+    arrays, kind = _kj_case(R, S, sdf_mode, seed=12 + S + sdf_mode)
+    ts, te, vals, sdf, mask = _dev(cuda, *arrays)
     if sdf_mode:
-        alphas = np.where(mask, rng.uniform(0.0, 1.0, mask.shape) ** 2, 0.0)
-        args = _dev(cuda, ts, te, alphas.astype(np.float32), sdf, mask)
-        out = RS.sdf_fine_resample_rays(*args, 4)
-        ref = RS.sdf_fine_resample_rays_plain(*args, 4)
+        args, fn, plain = ((ts, te, vals, sdf, mask),
+                           RS.sdf_fine_resample_rays,
+                           RS.sdf_fine_resample_rays_plain)
     else:
-        args = _dev(cuda, ts, te, w, mask)
-        out = RS.fine_resample_rays(*args, 4)
-        ref = RS.fine_resample_rays_plain(*args, 4)
-    assert torch.equal(out.mask, ref.mask)
-    # only placed intervals are read
-    for a, b in ((out.t_starts, ref.t_starts), (out.t_ends, ref.t_ends)):
-        _close_where(a, b, ref.mask)
-    assert ref.mask.any() and not ref.mask[:8].any()
+        args, fn, plain = ((ts, te, vals, mask), RS.fine_resample_rays,
+                           RS.fine_resample_rays_plain)
+    before = kernels.launches["fine_resample"]
+    out = fn(*args, 4)
+    assert kernels.launches["fine_resample"] == before + 1
+    again = fn(*args, 4)
+    ref = plain(*(a.cpu() for a in args), 4)
+    for a, b in zip(out, again):
+        assert bool(_same_bits(a, b).all())
+    got = [a.cpu() for a in out]
+    assert torch.equal(got[2], ref.mask)
+    for a, b in zip(got[:2], ref[:2]):
+        assert torch.equal(a[ref.mask], b[ref.mask])
+    kind = torch.as_tensor(kind)
+    placed = ref.mask.any(-1)
+    # the kinds were reached: nothing placed without a valid slot, without
+    # a crossing or after a NaN value; NaN before the crossing harmless
+    assert placed.any() and not placed[kind == 1].any()
+    if sdf_mode:
+        assert not placed[kind == 5].any() and placed[kind == 3].any()
+        assert placed[kind == 4].all() and placed[kind == 7].all()
+    assert not placed[kind == 6].any()
+    assert placed[kind == 8].any()
+
+
+def test_fine_resample_refuses_rows_beyond_shared_memory(cuda):
+    R, S = 4, 1024
+    z = torch.zeros((R, S), device=cuda)
+    m = torch.ones((R, S), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        RS.sdf_fine_resample_rays(z, z, z, z, m, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        RS.fine_resample_rays(z, z, z, m, 4)
 
 
 @pytest.mark.parametrize("cap", [8, 0])

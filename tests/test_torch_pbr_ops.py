@@ -304,3 +304,68 @@ def test_deform_seeded_matches_jax(deformers):
     assert {k: int(v) for k, v in tc.items()} == \
         {k: int(v) for k, v in jc.items()}
     assert tc["sec_seed_polish_fail"] > 0
+
+
+def _fine_both(args, sdf_mode):
+    jfn = JR.sdf_fine_resample_rays if sdf_mode else JR.fine_resample_rays
+    tfn = TR.sdf_fine_resample_rays if sdf_mode else TR.fine_resample_rays
+    return (jfn(*(jnp.asarray(a) for a in args), 4),
+            tfn(*(T(a) for a in args), 4))
+
+
+def _check_fine(ref, out):
+    """The masks equal; the placed intervals within ``TOL`` (an unplaced
+    draw of a NaN row is NaN on one side and may be a number on the
+    other)."""
+    m = np.asarray(ref.mask)
+    np.testing.assert_array_equal(out.mask.numpy(), m)
+    for name in ("t_starts", "t_ends"):
+        np.testing.assert_allclose(getattr(out, name).numpy()[m],
+                                   np.asarray(getattr(ref, name))[m],
+                                   err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("S", [16, 64])
+@pytest.mark.parametrize("sdf_mode", [True, False])
+def test_fine_resample_edge_rows_match_jax(sdf_mode, S):
+    """KJ's twin against JAX in both modes on the rows the kernel treats
+    apart: no valid slot, every slot valid, no + to - crossing, the
+    crossing in the first and in the last interval, NaN SDFs (before the
+    crossing, in it, and everywhere), and a NaN value before the crossing
+    (which no weight reads) and after it."""
+    rng = np.random.default_rng(100 + S + sdf_mode)
+    ts, te, w, sdf, mask = _rows(rng, 240, S, gaps=True)
+    vals = (np.where(mask, rng.uniform(0.0, 1.0, mask.shape) ** 2, 0.0)
+            if sdf_mode else w).astype(np.float32)
+    ar = np.arange(S)
+    kind = np.arange(240) % 12
+    mask[kind == 1] = False
+    full = kind >= 2
+    mask[full] = True
+    ts[full] = np.cumsum(np.full(S, 0.02, np.float32)) + 0.5
+    te[full] = ts[full] + 0.015
+    vals[full] = (rng.uniform(0.05, 0.9, (int(full.sum()), S)) ** 2
+                  if sdf_mode else 0.5 / S)
+    sdf[full] = np.where(ar < S // 2, 0.3, -0.3)
+    sdf[kind == 3] = 0.3                                  # no crossing
+    sdf[kind == 4] = np.where(ar == 0, 0.3, -0.3)         # in slot 0
+    sdf[kind == 5] = np.where(ar < S - 1, 0.3, -0.3)      # in the last
+    sdf[kind == 6, 1] = np.nan                            # NaN before it
+    sdf[kind == 7, S // 2] = np.nan                       # NaN in it
+    sdf[kind == 8] = np.nan                               # NaN everywhere
+    vals[kind == 9, 1] = np.nan                           # before it
+    vals[kind == 10, S // 2 + 1] = np.nan                 # after it
+    args = ((ts, te, vals, sdf, mask) if sdf_mode else (ts, te, vals, mask))
+    ref, out = _fine_both(args, sdf_mode)
+    _check_fine(ref, out)
+    placed = out.mask.numpy().any(-1)
+    assert not placed[kind == 1].any() and placed[kind == 2].all()
+    if sdf_mode:
+        assert not placed[np.isin(kind, (3, 7, 8, 10))].any()
+        assert placed[np.isin(kind, (4, 6, 9))].all()
+        # the last interval's mass may fall short of the first draw
+        assert placed[kind == 5].any()
+    else:
+        # plain mode reads no SDF; a NaN weight places nothing
+        assert placed[np.isin(kind, (3, 4, 5, 6, 7, 8))].all()
+        assert not placed[np.isin(kind, (9, 10))].any()

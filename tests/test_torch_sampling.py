@@ -235,6 +235,37 @@ def test_compaction_budgets_match_jax(sample_major, budget_of):
     assert int(t[1].sum()) == min(n, budget)
 
 
+@pytest.mark.parametrize("R, S", [(31, 13), (33, 160), (4096 + 7, 64)])
+@pytest.mark.parametrize("sample_major", [False, True])
+@pytest.mark.parametrize("fill", ["random", "runs", "all_valid",
+                                  "all_invalid"])
+def test_compaction_edge_shapes_match_jax(R, S, sample_major, fill):
+    """KG's twin against JAX where the kernel takes other paths: rays not a
+    multiple of a warp, rows whose bytes are not 16-byte aligned (S = 13),
+    left-packed runs as the secondary coarse call gives them, all-valid and
+    all-invalid masks; budgets below and above the valid count, and all of
+    the entries."""
+    rng = np.random.default_rng(R + S)
+    runs = np.where(rng.random(R) < 0.8, 0, rng.integers(1, S + 1, R))
+    mask2d = {"random": rng.random((R, S)) < 0.3,
+              "runs": np.arange(S)[None] < runs[:, None],
+              "all_valid": np.ones((R, S), bool),
+              "all_invalid": np.zeros((R, S), bool)}[fill]
+    n, M = int(mask2d.sum()), R * S
+    for budget in sorted({max(1, n // 2), min(M, n + (M - n) // 2 + 1), M}):
+        if sample_major:
+            j = JC.compact_indices_interleaved(jnp.asarray(mask2d), budget)
+            t = TC.compact_indices_interleaved(torch.as_tensor(mask2d),
+                                               budget)
+        else:
+            j = JC.compact_indices(jnp.asarray(mask2d.reshape(-1)), budget)
+            t = TC.compact_indices(torch.as_tensor(mask2d.reshape(-1)),
+                                   budget)
+        for a, b in zip(t, j):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert int(t[1].sum()) == min(n, budget)
+
+
 def test_cpu_tensors_take_the_twins():
     """Every wrapper of this slice gives its twin's result for CPU tensors
     and launches nothing."""
