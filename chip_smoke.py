@@ -17,9 +17,10 @@
    the weights of its hash features), at the tiny config's widths and at
    a relight fine pass, with its device time and its bound at the FP32
    and at the TF32 rate; KM's and ``F.grid_sample``'s device times; KA's,
-   KC's and the KH epilogue's device times (KA also at a relight fine pass
-   and a train step and with noise on its table, the epilogue and KC also
-   at the phys step's secondary coarse call, KC with the histogram of its
+   KC's and the KH prologue's and epilogue's device times (KA also at a
+   relight fine pass and a train step and with noise on its table, the
+   prologue, the epilogue and KC also at the phys step's secondary coarse
+   call, KC with the histogram of its
    lanes' iterations and the share of issued samples that do work,
    ``lane_work``); KF's device time at its recorded call; the registers,
    stack frame and spills of KA, KA', KB, KC, KH, KL, KM and KF from
@@ -46,7 +47,8 @@
    the published widths: 512 scattering points per ray, 64-step secondary
    rays in 32,768-ray shader chunks): records the inputs of KI-KM in one
    4,096-ray chunk with the frame's seed grid, holds each against its twin
-   (KM also on a hand-built grid) and times both; then, with every launch
+   (KM also on a hand-built grid) and times both (KK also on the device);
+   then, with every launch
    counter set to 0 just before and read just after and the plain twins of
    KI-KM set to fail if called, renders one frame of 16,384 rays; profiles
    one chunk; renders the frame by the searched path (its rays/s, peak
@@ -118,7 +120,9 @@ PEAK_TF32 = 495e12
 # its radiance call (368,640 points), KF at a serve chunk's second
 # importance round ([4096, 145] edges, 16 draws), KJ at a shader chunk's
 # call ([32768, 64] -> 4), KG at the test grid's candidate lanes
-# (3,145,728 entries)
+# (3,145,728 entries), the KH prologue at a serve chunk's search (786,432
+# points; device 0.0349 at the phys step's secondary coarse call, 262,144),
+# KK at a shader chunk's call ([32768, 64], cap 8; device 0.0210)
 EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "0.0513-0.0740", "hashgrid_encode": "0.855",
               "deform_epilogue": "0.852-0.857", "broyden_search": "0.501",
@@ -126,7 +130,9 @@ EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "hashgrid_encode_bwd": "3.798-4.137",
               "merge_resample": "0.500-0.502",
               "fine_resample": "0.0522-0.0527",
-              "compact_indices": "0.046-0.072"}
+              "compact_indices": "0.046-0.072",
+              "deform_prologue": "0.080-0.083",
+              "secondary_march": "0.0486-0.0775"}
 # the profiler's names of every kernel of the port (KG's count and scatter
 # passes apart); a kernel's wrapper counts its launches under the same
 # name (KG's under compact_indices)
@@ -139,7 +145,7 @@ PORT_KERNELS = {"hashgrid_encode": "::hashgrid_encode_kernel",
                     "encode_mlp_sdfgrad_bwd_scatter_kernel",
                 "broyden_search": "broyden_search_kernel",
                 "broyden_polish": "broyden_polish_kernel",
-                "deform_prologue": "::prologue_kernel(",
+                "deform_prologue": "::prologue_kernel<",
                 "deform_epilogue": "::epilogue_kernel(",
                 "deform_skinning": "::skinning_kernel(",
                 "deform_skinning_bwd": "::skinning_bwd_",
@@ -159,7 +165,7 @@ REDESIGNED = ("encode_mlp_sdfgrad", "seed_gather", "hashgrid_encode",
               "deform_epilogue", "broyden_search",
               "encode_mlp_sdfgrad_bwd_scatter", "hashgrid_encode_bwd",
               "merge_resample", "fine_resample", "compact_count",
-              "compact_scatter")
+              "compact_scatter", "deform_prologue", "secondary_march")
 
 
 def fail(msg: str):
@@ -490,25 +496,16 @@ def main():
     kg_read = kg_row(row, rows, *kg[1], "test grid's candidate lanes", card)
 
     # KH prologue (the test grid's points)
-    def check_kh_pro(rec):
-        args = rec[1]
-        sk = B.deform_prologue(*args)
-        sp = B.deform_prologue_plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(sk, sp):
-            fail(f"deform_prologue differs from its twin at "
-                 f"{list(args[0].shape)}")
-        N, n_all, n_init = args[0].shape[0], args[1].shape[0], args[3]
-        return (f"pts{[N, 3]}", 0.0,
-                time_ms(lambda: B.deform_prologue(*args)),
-                time_ms(lambda: B.deform_prologue_plain(*args)),
-                N * 12 + n_all * (64 + 28) + N * n_init * 4,
-                N * n_all * (45 + n_init))
+    def check_kh_pro(rec, where):
+        r = prologue_reading(rec, where, card)
+        return (r["shape"], 0.0, r["ms"], r["plain_ms"], r["bytes"],
+                r["flops"])
 
     row("deform_prologue", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
-        "intrinsicavatar_tpu/anim/deformer.py:264", *check_kh_pro(kh_pro))
+        "intrinsicavatar_tpu/anim/deformer.py:264",
+        *check_kh_pro(kh_pro, "serve chunk's search"))
     grid_shape("deform_prologue", "bake's last chunk",
-               *check_kh_pro(kh_pro_g))
+               *check_kh_pro(kh_pro_g, "bake's last chunk"))
 
     # KH epilogue: filter + first-K (the test grid's lanes), without the
     # blend, which the next row times on a shading call
@@ -985,6 +982,40 @@ def ka_reading(rec, where, card):
     if N == 1_179_648:
         r["before_redesign_ms"] = EARLIER_MS["hashgrid_encode"]
     print(f"kernel hashgrid_encode ({where}): {json.dumps(r)}", flush=True)
+    return r
+
+
+def prologue_reading(rec, where, card, launches=None):
+    """The KH prologue against its twin on a recorded call, slot for slot;
+    timed with events and on the device beside the twin; its bound (the
+    points read once, the bone tables once, I slots a point written).
+    Returns the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    args = rec[1]
+    sk = B.deform_prologue(*args)
+    sp = B.deform_prologue_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(sk, sp):
+        fail(f"deform_prologue differs from its twin at "
+             f"{list(args[0].shape)} ({where})")
+    N, n_all, n_init = args[0].shape[0], args[1].shape[0], args[3]
+    nbytes = N * 12 + n_all * (64 + 28) + N * n_init * 4
+    flops = N * n_all * (45 + n_init)
+    call = lambda: B.deform_prologue(*args)
+    r = {"where": where, "shape": f"pts{[N, 3]}", "bones": n_all,
+         "I": n_init, "ms": time_ms(call),
+         "device_ms": device_ms(call, PORT_KERNELS["deform_prologue"]),
+         "plain_ms": time_ms(lambda: B.deform_prologue_plain(*args), 3),
+         "bytes": nbytes, "flops": flops,
+         "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+         "card": card}
+    if launches is not None:
+        r["launches_per_step"] = launches
+    if N == 786_432:
+        r["before_redesign_ms"] = EARLIER_MS["deform_prologue"]
+    print(f"kernel deform_prologue ({where}): {json.dumps(r)}", flush=True)
     return r
 
 
@@ -1580,14 +1611,24 @@ def relight(rows, row, card, dev):
     res = args[2].shape[0]
     print(f"secondary march: {int(mk[2].sum())} of {M * S2} samples "
           f"masked (cap {args[9]})", flush=True)
+    kk_call = lambda: G.secondary_march(*args)
     row("secondary_march", "cuda", "intrinsicavatar_tpu_torch/csrc/march.cu",
         "intrinsicavatar_tpu/render/pbr.py:197", f"rays[{M}, 3] S={S2}",
         max((mk[0] - mp[0]).abs().max().item(),
             (mk[1] - mp[1]).abs().max().item()),
-        time_ms(lambda: G.secondary_march(*args)),
+        time_ms(kk_call),
         time_ms(lambda: G.secondary_march_plain(*args), 3),
         M * (12 + 12 + 4 + 4 + 1) + res ** 3 + 24 + M * S2 * (4 + 4 + 1),
         M * (S2 + 1) * 30 + M * 40)
+    kk_read = {"at": "shader chunk", "shape": f"rays[{M}, 3] S={S2}",
+               "cap": args[9], "masked": int(mk[2].sum()),
+               "ms": rows[-1]["ms"], "bound_ms": rows[-1]["bound_ms"],
+               "device_ms": device_ms(kk_call,
+                                      PORT_KERNELS["secondary_march"]),
+               "before_redesign_ms": EARLIER_MS["secondary_march"],
+               "card": card}
+    print(f"kernel secondary_march (shader chunk): {json.dumps(kk_read)}",
+          flush=True)
 
     # KL seeded polish (a shader chunk's fine budget)
     args, kw = kl[1], kl[2]
@@ -2718,6 +2759,8 @@ def train_pose_phys(rows, row, card, dev):
                    MostFrequent(lambda a: a[0].x.shape[0]))
     rec_kc = Recorder(DF, "broyden_search",
                       MostFrequent(lambda a: a[0].shape[0]))
+    rec_pro = Recorder(DF, "deform_prologue",
+                       MostFrequent(lambda a: a[0].shape[0]))
     kernels.reset_launches()
     try:
         phys, _ = run_regime(system, data, PHYS_START, 3, cfg)
@@ -2726,6 +2769,7 @@ def train_pose_phys(rows, row, card, dev):
              f"({torch.cuda.max_memory_allocated()} bytes allocated at "
              f"the peak): {e}")
     launches = dict(kernels.launches)
+    rec_pro.restore()
     rec_kc.restore()
     rec.restore()
     for t in trips:
@@ -2744,7 +2788,10 @@ def train_pose_phys(rows, row, card, dev):
                                 card)
     kc_phys = kc_reading(rec_kc.best, "phys step's secondary coarse call",
                          card, launches.get("broyden_search", 0) / 3)
-    del rec, rec_kc
+    pro_phys = prologue_reading(rec_pro.best,
+                                "phys step's secondary coarse call", card,
+                                launches.get("deform_prologue", 0) / 3)
+    del rec, rec_kc, rec_pro
     wall_ms, by_kernel = profile_device(
         lambda: system.fit(data, system.step + 1, log_every=1))
     busy_ms = sum(ms for ms, _ in by_kernel.values())
@@ -2772,6 +2819,7 @@ def train_pose_phys(rows, row, card, dev):
                 "device_launches", "port_kernels")},
             "epilogue_secondary_coarse": epi_phys,
             "search_secondary_coarse": kc_phys,
+            "prologue_secondary_coarse": pro_phys,
             "cpu_checks": checks}
 
 

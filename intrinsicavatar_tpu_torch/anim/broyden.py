@@ -34,6 +34,8 @@ INIT_BONES = np.array([0, 1, 2, 4, 5, 10, 11, 12, 15, 16, 17, 18, 19],
                       dtype=np.int64)
 N_BONES = 24
 MAX_INIT = 16   # kMaxInit of csrc/deform.cu
+MAX_INIT_BONES = N_BONES   # kBones of csrc/deform.cu: the prologue's
+#                            limit on the rows of its table
 SKIN_BWD_TILE = N_BONES * 12   # kTile of csrc/deform.cu: lanes a tile
 SKIN_BWD_BLOCKS = 4 * 132      # KN's pass-1 blocks: 4 a streaming
 #                                multiprocessor of an H100
@@ -132,6 +134,9 @@ def deform_prologue(pts, tfs_table, segs, n_init: int) -> torch.Tensor:
     kernels.require(pts, "pts", torch.float32, dev, (N, 3))
     kernels.require(tfs_table, "tfs_table", torch.float32, dev, (n_all, 4, 4))
     kernels.require(segs, "segs", torch.float32, dev, (n_all, 7))
+    if n_all > MAX_INIT_BONES:
+        raise ValueError(f"deform_prologue's kernel takes at most "
+                         f"{MAX_INIT_BONES} init bones, got {n_all}")
     if not 1 <= n_init <= min(n_all, MAX_INIT):
         raise ValueError(f"n_init {n_init} outside "
                          f"[1, {min(n_all, MAX_INIT)}]")

@@ -32,8 +32,12 @@
 //   U_m[a, c] = rho_m[a] x^_m[c] + (c < 3 ? R_m[a, c] : 0)     (3 x 4)
 //   d tfs[b, a, c] = sum_m w_m[b] U_m[a, c]  (a < 3; row 3 of tfs gets 0)
 //
-// What bounds them on an H100: bytes.  The prologue reads 12 B and writes
-// 4 I B per point with ~40 flops per bone; the epilogue reads I x 13 B
+// What bounds them on an H100: bytes, and for the prologue its
+// instruction issue.  The prologue reads 12 B and writes 4 I B per point
+// (at 262,144 points and I = 8, ~3.4 us at 3.35 TB/s) but issues ~47 FP32
+// operations per bone, none of which may fuse into a multiply-add (the
+// twin's rounding), an IEEE division among them, and one compare a pair of
+// bones: at 13 bones ~900 instructions a point; the epilogue reads I x 13 B
 // (x and valid of every lane) and K x 36 B (j_inv of the kept lanes only)
 // and writes K x 49 B per point, a copy of ~444 B a point at I = 8, K = 4,
 // so its time is set by how many sectors its loads and stores touch; the
@@ -47,8 +51,22 @@
 // Its order of sums is fixed, so a check can bound its rounding
 // (anim/broyden.py:deform_skinning_bwd_exact).
 //
-// Design: one thread per point for the prologue, with the I nearest bones
-// in per-thread arrays.  The epilogue is lane-parallel, with no arrays: a
+// Design: the prologue is a thread a point over 128-point tiles with
+// nothing in local memory and no branch on the data.  The bone count is a
+// template parameter (13, or the limit of 24), the table padded with rows
+// whose distance is +inf.  A block stages the bone rows (the 12 transform
+// floats used and the segment's 7) in shared memory, read as five 16-byte
+// broadcast loads a bone, and its points with coalesced loads.  The
+// distances stay in registers, and the selection is a rank by counting:
+// one compare a pair of bones gives both ranks, so rank_s = #{t < s : d_t
+// <= d_s} + #{t > s : d_t < d_s} is bone s's stable ascending position
+// (lower slot first on ties, as top_k(-d) and a stable argsort order
+// them), the ranks packed 4 bits a bone in two words so that a pair costs
+// one predicated add, and bone s goes to output rank_s when it is below I
+// (else to a spare word).  The ranks index a shared-memory row of the
+// tile's I slots a point, written out with 16-byte stores.  Its time is
+// the same for any order of the distances.  The epilogue is lane-parallel,
+// with no arrays: a
 // group of G lanes of one warp (G the power of two >= I) serves a point,
 // lane i its candidate i, so the loads of x and valid are coalesced and
 // j_inv is read only by the K lanes that fill a slot.  Lane i learns
@@ -79,47 +97,6 @@ namespace {
 constexpr int kMaxInit = 16;
 constexpr int kBones = 24;
 
-__global__ void prologue_kernel(const float* __restrict__ pts,
-                                const float* __restrict__ tfs,
-                                const float* __restrict__ segs, int64_t N,
-                                int n_all, int I, int* __restrict__ slot) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const float px = pts[n * 3], py = pts[n * 3 + 1], pz = pts[n * 3 + 2];
-  float best[kMaxInit];
-  int idx[kMaxInit];
-  int filled = 0;
-  for (int s = 0; s < n_all; ++s) {
-    const float* T = tfs + s * 16;  // [4, 4] row-major
-    const float* g = segs + s * 7;  // a (3), b - a (3), |b - a|^2 + 1e-9
-    const float dx = px - T[3], dy = py - T[7], dz = pz - T[11];
-    const float xi = T[0] * dx + T[4] * dy + T[8] * dz;
-    const float yi = T[1] * dx + T[5] * dy + T[9] * dz;
-    const float zi = T[2] * dx + T[6] * dy + T[10] * dz;
-    float t = ((xi - g[0]) * g[3] + (yi - g[1]) * g[4] + (zi - g[2]) * g[5])
-              / g[6];
-    t = fminf(fmaxf(t, 0.f), 1.f);
-    const float ex = xi - (g[0] + t * g[3]);
-    const float ey = yi - (g[1] + t * g[4]);
-    const float ez = zi - (g[2] + t * g[5]);
-    const float d = ex * ex + ey * ey + ez * ez;
-    if (filled == I && !(d < best[I - 1])) continue;
-    int p = filled < I ? filled++ : I - 1;
-    // insert after every kept entry <= d: equal distances keep slot order
-    for (; p > 0 && d < best[p - 1]; --p) {
-      best[p] = best[p - 1];
-      idx[p] = idx[p - 1];
-    }
-    best[p] = d;
-    idx[p] = s;
-  }
-  for (int k = 0; k < I; ++k) slot[n * I + k] = idx[k];
-}
-
-// The epilogue, lane-parallel: a group of G lanes (G, a power of two >= I)
-// of one warp serves one point, lane i of the group its candidate i.
-constexpr int EPI_THREADS = 256;
-
 // Copy n words of shared memory to dst with 16-byte stores, then the tail
 // (dst and src 16-byte aligned).
 template <typename W>
@@ -130,6 +107,116 @@ __device__ __forceinline__ void copy_out(W* dst, const W* src, int n) {
     reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(src)[q];
   for (int e = n4 * per + threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
+
+// The prologue: a thread a point over tiles of PRO_THREADS points, NB bones
+// a point known at compile time (13, the search's init bones, or the
+// kernel's limit of 24).  A block stages NB bone rows in shared memory,
+// kBoneStride floats a row (T rows 0-2, then the segment's 7 floats, then a
+// pad), so that a thread reads a bone with five 16-byte broadcast loads;
+// rows from n_all on are T = 0, a = (3e38, 0, 0), b - a = 0 and a
+// denominator of 1, whose distance is +inf for every finite point, so they
+// rank after every bone of the table and the kernel has no branch on n_all.
+constexpr int PRO_THREADS = 128;
+constexpr int kBoneStride = 20;
+constexpr int kInitBones = 13;
+
+// The squared distance of the canonicalized point R^T (p - t) to the
+// segment of bone row b (the plain version's expressions in its order)
+__device__ __forceinline__ float bone_distance(const float4* b, float px,
+                                               float py, float pz) {
+  // T[0..3], T[4..7], T[8..11] of the row-major [4, 4] transform; a (3),
+  // b - a (3), |b - a|^2 + 1e-9
+  const float4 T0 = b[0], T1 = b[1], T2 = b[2], g0 = b[3], g1 = b[4];
+  const float dx = px - T0.w, dy = py - T1.w, dz = pz - T2.w;
+  const float xi = T0.x * dx + T1.x * dy + T2.x * dz;
+  const float yi = T0.y * dx + T1.y * dy + T2.y * dz;
+  const float zi = T0.z * dx + T1.z * dy + T2.z * dz;
+  float t = ((xi - g0.x) * g0.w + (yi - g0.y) * g1.x + (zi - g0.z) * g1.y)
+            / g1.z;
+  t = fminf(fmaxf(t, 0.f), 1.f);
+  const float ex = xi - (g0.x + t * g0.w);
+  const float ey = yi - (g0.y + t * g1.x);
+  const float ez = zi - (g0.z + t * g1.y);
+  return ex * ex + ey * ey + ez * ez;
+}
+
+// rank_s = #{t < s : d_t <= d_s} + #{t > s : d_t < d_s}, the stable
+// ascending position of bone s, packed FB bits a bone into NW words, then
+// bone s written to out[rank_s] when it is below I, else to *spare.
+// rank_t starts at t; a pair s < t with d_t < d_s adds one to rank_s and
+// takes one from rank_t (every field stays in [0, NB) throughout, so the
+// packed adds are exact): one compare a pair and one predicated add (two
+// where the two bones' fields lie in different words).
+template <int NB>
+__device__ __forceinline__ void rank_out(const float (&d)[NB], int I,
+                                         int* out, int* spare) {
+  constexpr int FB = NB <= 16 ? 4 : 5, PW = 32 / FB, NW = (NB + PW - 1) / PW;
+  unsigned w[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) w[i] = 0u;
+#pragma unroll
+  for (int s = 0; s < NB; ++s) w[s / PW] += (unsigned)s << (FB * (s % PW));
+#pragma unroll
+  for (int t = 1; t < NB; ++t)
+#pragma unroll
+    for (int s = 0; s < t; ++s) {
+      const unsigned bs = 1u << (FB * (s % PW)), bt = 1u << (FB * (t % PW));
+      if (d[t] < d[s]) {
+        if (s / PW == t / PW) {
+          w[s / PW] += bs - bt;
+        } else {
+          w[s / PW] += bs;
+          w[t / PW] -= bt;
+        }
+      }
+    }
+#pragma unroll
+  for (int s = 0; s < NB; ++s) {
+    const int r = (int)(w[s / PW] >> (FB * (s % PW))) & ((1 << FB) - 1);
+    *(r < I ? out + r : spare) = s;
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(PRO_THREADS) prologue_kernel(
+    const float* __restrict__ pts, const float* __restrict__ tfs,
+    const float* __restrict__ segs, int64_t N, int n_all, int I,
+    int* __restrict__ slot) {
+  __shared__ __align__(16) float s_bone[NB * kBoneStride];
+  __shared__ float s_pts[PRO_THREADS * 3];
+  // the tile's I slots a point, then a spare word a thread
+  __shared__ __align__(16) int s_slot[PRO_THREADS * (kMaxInit + 1)];
+  const int tid = threadIdx.x;
+  const int64_t n0 = (int64_t)blockIdx.x * PRO_THREADS;
+  const int P = (int)(N - n0 < PRO_THREADS ? N - n0 : PRO_THREADS);
+  for (int e = tid; e < NB * kBoneStride; e += PRO_THREADS) {
+    const int s = e / kBoneStride, c = e % kBoneStride;
+    float v = c == 12 ? 3e38f : c == 18 ? 1.f : 0.f;
+    if (s < n_all)
+      v = c < 12 ? tfs[s * 16 + c] : c < 19 ? segs[s * 7 + c - 12] : 0.f;
+    s_bone[e] = v;
+  }
+  // the tile's points, coalesced
+  for (int e = tid; e < P * 3; e += PRO_THREADS) s_pts[e] = pts[n0 * 3 + e];
+  __syncthreads();
+  // past the tile's last point, its first (that row is not copied out)
+  const int q = tid < P ? tid : 0;
+  const float px = s_pts[q * 3], py = s_pts[q * 3 + 1], pz = s_pts[q * 3 + 2];
+  float d[NB];
+#pragma unroll
+  for (int s = 0; s < NB; ++s)
+    d[s] = bone_distance(reinterpret_cast<const float4*>(s_bone)
+                         + s * (kBoneStride / 4), px, py, pz);
+  rank_out<NB>(d, I, s_slot + tid * I, s_slot + PRO_THREADS * kMaxInit + tid);
+  __syncthreads();
+  // the tile's slots are contiguous in `slot` (n0 * I * 4 B is a multiple
+  // of 16)
+  copy_out(slot + n0 * I, s_slot, P * I);
+}
+
+// The epilogue, lane-parallel: a group of G lanes (G, a power of two >= I)
+// of one warp serves one point, lane i of the group its candidate i.
+constexpr int EPI_THREADS = 256;
 
 __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(
     const float* __restrict__ x, const float* __restrict__ jinv,
@@ -334,11 +421,19 @@ extern "C" int deform_prologue_fwd(const float* pts, const float* tfs,
                                    const float* segs, long long N, int n_all,
                                    int I, int* slot, void* stream) {
   if (N <= 0) return 0;
-  if (I < 1 || I > n_all || I > kMaxInit) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  unsigned blocks = (unsigned)((N + threads - 1) / threads);
-  prologue_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      pts, tfs, segs, N, n_all, I, slot);
+  if (I < 1 || I > n_all || I > kMaxInit || n_all > kBones)
+    return (int)cudaErrorInvalidValue;
+  // the 16-byte stores of the staged slots
+  if (reinterpret_cast<uintptr_t>(slot) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  unsigned blocks = (unsigned)((N + PRO_THREADS - 1) / PRO_THREADS);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n_all <= kInitBones)
+    prologue_kernel<kInitBones><<<blocks, PRO_THREADS, 0, st>>>(
+        pts, tfs, segs, N, n_all, I, slot);
+  else
+    prologue_kernel<kBones><<<blocks, PRO_THREADS, 0, st>>>(
+        pts, tfs, segs, N, n_all, I, slot);
   return launch_status();
 }
 

@@ -2,13 +2,15 @@
 gradient), the KH epilogue (duplicate filter, overflow count, first-K), KM
 (seed grid gather), KC (Broyden search), KB' pass 2 (the encode
 backward's table scatter), KA' (the hash encode's backward), KF (merge
-importance resampling), KJ (secondary fine resampling) and KG (valid-first
-compaction) of the PyTorch/CUDA port on one card, three ways.
+importance resampling), KJ (secondary fine resampling), KG (valid-first
+compaction), the KH prologue (the search's init pruning) and KK (the
+secondary march) of the PyTorch/CUDA port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
-    python3 kernel_timing.py --kernels ka,kh      # of ka, kb, kh, km, kc,
-                                                  # kb2, ka2, kf, kj, kg
+    python3 kernel_timing.py --kernels khp,kk     # of ka, kb, kh, km, kc,
+                                                  # kb2, ka2, kf, kj, kg,
+                                                  # khp, kk
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -20,6 +22,8 @@ parent.  For each call it prints one JSON line:
   wherever it is longer than the kernel);
 - ``device_ms``: the kernel's own device time a launch, from
   ``torch.profiler``;
+- ``op_device_ms`` (KA', KG, the KH prologue, KK): the device time of
+  everything the call runs, from ``torch.profiler``;
 - ``host_us``: the wrapper's host time a call (200 calls, no sync between);
   for KM also the pieces of it (an allocation, the stream pointer, the
   ``ctypes`` call with N = 0, which launches nothing).
@@ -85,7 +89,22 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   path's candidate call (3,145,728 ray-major, budget 1,179,648, 30% valid,
   0-4 of each point's 4 candidates): idx and picked equal to the twin's, a
   digest of both, and ``op_device_ms`` the count and scatter passes'
-  device time a call (``parts``: each pass's).
+  device time a call (``parts``: each pass's);
+- the KH prologue (I = 8 of 13 bones, the synthetic body in KC's pose) at
+  a serve chunk's search (786,432 points on rays through the body, as KC's
+  serve call) and at a stand-in for the phys step's secondary coarse call
+  (262,144 points laid out as that call's compaction lays them out:
+  sample-major, the ~7.5% valid samples first, then padded slots, ~92% of
+  the call, which sit at their rays' scattering points since an unmasked
+  slot's t_starts is 0; a chunk's rays are 64 primary rays' 512
+  scattering points, neighbours along the primary ray): slot equal to the
+  twin's, and a digest of it;
+- KK at a shader chunk's call ([32768, 64], cap 8 and cap 0) and at
+  [32768, 16], cap 8: rays from scattering points on a body-shaped blob of
+  a 64^3 occupancy grid (a third of them inward), about 60% active, 2% a
+  padded chunk's rays (origin 0, direction 1, inactive), near 0, far 1.5:
+  the mask equal to the twin's, t_starts/t_ends within 1e-6, and a digest
+  of the three outputs' bytes.
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -239,9 +258,10 @@ def search_result(B, torch, dev, N, I, seed):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=None)
-    ap.add_argument("--kernels", default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg",
+    ap.add_argument("--kernels",
+                    default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg,khp,kk",
                     help="comma-separated, of ka, kb, kh, km, kc, kb2, ka2, "
-                         "kf, kj, kg")
+                         "kf, kj, kg, khp, kk")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     import torch
@@ -260,7 +280,7 @@ def main():
     sources = {"ka": "hashgrid", "kb": "encode_grad", "kh": "deform",
                "km": "seedgrid", "kc": "broyden", "kb2": "encode_grad",
                "ka2": "hashgrid", "kf": "resample", "kj": "resample",
-               "kg": "compact"}
+               "kg": "compact", "khp": "deform", "kk": "march"}
     logs = kernels.build_all(tuple(sorted({sources[k] for k in which})),
                              verbose=True)
     for name, log in logs.items():
@@ -291,6 +311,10 @@ def main():
         time_kj(torch, dev, report, failed)
     if "kg" in which:
         time_kg(torch, dev, report, failed)
+    if "khp" in which:
+        time_khp(torch, dev, report, failed)
+    if "kk" in which:
+        time_kk(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
@@ -486,11 +510,10 @@ def body_rays(torch, dev, verts, rays, samples, seed, span):
                            device=dev).contiguous()
 
 
-def time_kc(torch, dev, report, failed):
-    """KC at a serve chunk's search and at the phys step's secondary coarse
-    call."""
-    import inspect
-
+def posed_body(torch, dev):
+    """The synthetic body's rigid deformer (the published 32 x 128 x 128
+    voxel) in a pose: ``(deformer, statics, frame, posed vertices, the init
+    bones' transforms)``."""
     from intrinsicavatar_tpu_torch.anim import broyden as B
     from intrinsicavatar_tpu_torch.anim.deformer import FastSNARF
     from intrinsicavatar_tpu_torch.utils.config import wrap
@@ -507,9 +530,18 @@ def time_kc(torch, dev, report, failed):
         "transl": torch.tensor([0.0, 0.3, 2.0], device=dev),
         "betas_correction": z(10), "pose_correction": z(69),
         "global_orient_correction": z(3), "transl_correction": z(3)})
-    verts = frame.vertices.cpu().numpy()
-    I = rigid.n_init
     tfs = frame.tfs[torch.as_tensor(B.INIT_BONES, device=dev)].contiguous()
+    return rigid, statics, frame, frame.vertices.cpu().numpy(), tfs
+
+
+def time_kc(torch, dev, report, failed):
+    """KC at a serve chunk's search and at the phys step's secondary coarse
+    call."""
+    import inspect
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    rigid, statics, frame, verts, tfs = posed_body(torch, dev)
+    I = rigid.n_init
     hook = "lane_counts" in inspect.signature(
         B.broyden_search_plain).parameters
     for (rays, samples), span in itertools.product(
@@ -805,6 +837,123 @@ def time_kg(torch, dev, report, failed):
         line.update(event_ms=ev, op_device_ms=total,
                     count_device_ms=parts["count_"],
                     scatter_device_ms=parts["scatter_"], host_us=hu)
+        report(line)
+
+
+def coarse_call_points(verts, R=32768, S=64, budget=262_144, seed=13):
+    """``[budget, 3]`` points as the phys step's secondary coarse call lays
+    them out: a shader chunk's R secondary rays are 64 primary rays' 512
+    scattering points each, drawn within 2 cm of a surface point along its
+    primary ray in t order; S samples a secondary ray (t_starts 0 at an
+    unmasked slot, so such a sample sits at its ray's origin), ~3.6% of the
+    rays with a run of 1-32 masked samples (~7.5% of the budget),
+    compacted sample-major: the valid samples first, then the padded
+    slots in the same order."""
+    rng = np.random.default_rng(seed)
+    n = R // 512
+    hit = verts[rng.choice(len(verts), n)]
+    view = rng.normal(size=(n, 3))
+    view /= np.linalg.norm(view, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(-0.02, 0.02, (n, 512)), axis=1)
+    o = (hit[:, None] + t[..., None] * view[:, None]).reshape(R, 3)
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    runs = np.where(rng.random(R) < 0.964, 0, rng.integers(1, 33, R))
+    mask = np.arange(S)[None] < runs[:, None]
+    ts = np.where(mask, 0.02 + (1.5 / 63) * np.arange(S)[None], 0.0)
+    flat = mask.T.reshape(-1)                       # sample-major
+    order = np.concatenate([np.flatnonzero(flat), np.flatnonzero(~flat)])
+    idx = order[:budget]
+    ray, k = idx % R, idx // R
+    pts = o[ray] + d[ray] * ts[ray, k][:, None]
+    return pts.astype(np.float32), int(mask.sum())
+
+
+def time_khp(torch, dev, report, failed):
+    """The KH prologue at a serve chunk's search and at the phys step's
+    secondary coarse call."""
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    rigid, statics, _, verts, tfs = posed_body(torch, dev)
+    I, segs = rigid.n_init, statics.seg_table
+    coarse, valid = coarse_call_points(verts)
+    for where, pts, n_valid in (
+            ("serve search", body_rays(torch, dev, verts, 4096, 192, 192,
+                                       1.0), None),
+            ("phys secondary coarse call", torch.as_tensor(coarse,
+                                                           device=dev),
+             valid)):
+        out = B.deform_prologue(pts, tfs, segs, I)
+        ref = B.deform_prologue_plain(pts, tfs, segs, I)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            print(f"kernel_timing: the KH prologue differs from its twin at "
+                  f"the {where}", flush=True)
+            failed.append(f"deform_prologue at the {where}")
+        line = {"kernel": "deform_prologue", "at": where,
+                "points": pts.shape[0], "valid_points": n_valid,
+                "bones": tfs.shape[0], "I": I, "digest": digest_of([out])}
+        del out, ref
+        call = lambda: B.deform_prologue(pts, tfs, segs, I)
+        ev, dv, hu = timings(call, "prologue_kernel")
+        line.update(event_ms=ev, device_ms=dv, op_device_ms=op_device_ms(
+            call), host_us=hu)
+        report(line)
+
+
+def kk_inputs(torch, dev, R, seed=14, res=64):
+    """A shader chunk's secondary rays: from scattering points on a
+    body-shaped blob of a 64^3 occupancy grid, a third of them pointing
+    into it, about 60% active, the last 2% a padded chunk's rays (origin 0,
+    direction 1, inactive); near 0, far 1.5."""
+    rng = np.random.default_rng(seed)
+    aabb = np.asarray([-1.25, -1.55, -1.25, 1.25, 0.95, 1.25], np.float32)
+    c = (np.arange(res) + 0.5) / res
+    X, Y, Z = np.meshgrid(*(aabb[a] + c * (aabb[3 + a] - aabb[a])
+                            for a in range(3)), indexing="ij")
+    axes = np.asarray([0.45, 1.1, 0.3])
+    grid = ((X / axes[0]) ** 2 + ((Y + 0.3) / axes[1]) ** 2
+            + (Z / axes[2]) ** 2) < 1.0
+    n = rng.normal(size=(R, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    o = n * axes + [0.0, -0.3, 0.0]                 # on the blob's surface
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    out = (d * n).sum(-1, keepdims=True)
+    d = np.where(rng.random((R, 1)) < 1.0 / 3.0, -np.sign(out) * d,
+                 np.sign(out) * d)
+    active = rng.random(R) < 0.6
+    pad = R - R // 50
+    o[pad:], d[pad:], active[pad:] = 0.0, 1.0, False
+    t = lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=dev)
+    return (t(o), t(d), t(grid, torch.bool), t(aabb), t(np.zeros(R)),
+            t(np.full(R, 1.5)), t(active, torch.bool))
+
+
+def time_kk(torch, dev, report, failed):
+    """KK at a shader chunk's call (cap 8 and cap 0) and at 16 steps."""
+    from intrinsicavatar_tpu_torch.ops import grid_traversal as G
+    R = 32768
+    o, d, grid, aabb, near, far, active = kk_inputs(torch, dev, R)
+    for S, cap in ((64, 8), (64, 0), (16, 8)):
+        args = (o, d, grid, aabb, 1.5 / (S - 1), S, near, far, active, cap)
+        out = G.secondary_march(*args)
+        ref = G.secondary_march_plain(*args)
+        torch.cuda.synchronize()
+        err = max((out[0] - ref[0]).abs().max().item(),
+                  (out[1] - ref[1]).abs().max().item())
+        if not (torch.equal(out[2], ref[2]) and err <= 1e-6):
+            print(f"kernel_timing: KK disagrees at [{R}, {S}] cap {cap}: "
+                  f"err={err}", flush=True)
+            failed.append(f"secondary_march [{R}, {S}] cap {cap}")
+        line = {"kernel": "secondary_march", "rays": R, "steps": S,
+                "cap": cap, "masked": int(ref[2].sum()),
+                "max_abs_err": err, "digest": digest_of(out)}
+        del out, ref
+        call = lambda: G.secondary_march(*args)
+        ev, dv, hu = timings(call, "secondary_march_kernel")
+        line.update(event_ms=ev, device_ms=dv, op_device_ms=op_device_ms(
+            call), host_us=hu)
         report(line)
 
 

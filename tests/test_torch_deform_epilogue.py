@@ -69,19 +69,33 @@ def _points(js, n, seed):
             + rng.normal(scale=0.05, size=(n, 3))).astype(np.float32)
 
 
-@pytest.mark.parametrize("case", ["distinct", "tied"])
+@pytest.mark.parametrize("case", ["distinct", "tied", "n_init_1",
+                                  "n_init_12", "far", "zero_length"])
 def test_prologue_matches_jax_pruning(jax_deformer, monkeypatch, case):
     """``tied``: two init bones share their transform and segment, so every
-    point has an exact tie between them; lower slot first on both sides."""
+    point has an exact tie between them; lower slot first on both sides.
+    ``n_init_1`` / ``n_init_12``: other counts of inits kept (set on the JAX
+    deformer); ``far``: points 2-50 m from the body; ``zero_length``: a
+    bone's segment is a point (the denominator is 1e-9)."""
     jd, js, jf, _, _ = jax_deformer
     tfs = np.array(jf.tfs)
     segs = np.array(jd.init_segs)
+    n_init = {"n_init_1": 1, "n_init_12": 12}.get(case, I)
     if case == "tied":
         a, b = JB.INIT_BONES[3], JB.INIT_BONES[6]
         tfs[b] = tfs[a]
         segs[6] = segs[3]
-        monkeypatch.setattr(jd, "init_segs", segs)
+    if case == "zero_length":
+        segs[5, 1] = segs[5, 0]
+    monkeypatch.setattr(jd, "init_segs", segs)
+    monkeypatch.setattr(jd, "n_init", n_init)
     pts = _points(js, 3000, 1)
+    if case == "far":
+        rng = np.random.default_rng(2)
+        u = rng.normal(size=pts.shape)
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        pts = (pts + u * rng.uniform(2.0, 50.0, (len(pts), 1))
+               ).astype(np.float32)
     seen = {}
 
     def capture(xd, bone_idx, *args, **kwargs):
@@ -91,14 +105,16 @@ def test_prologue_matches_jax_pruning(jax_deformer, monkeypatch, case):
     jd.search(jf._replace(tfs=jnp.asarray(tfs)), jnp.asarray(pts))
     slot = TB.deform_prologue(
         torch.as_tensor(pts), torch.as_tensor(tfs[JB.INIT_BONES]),
-        torch.as_tensor(TB.segment_table(segs)), I)
+        torch.as_tensor(TB.segment_table(segs)), n_init)
     np.testing.assert_array_equal(slot.numpy(), seen["slot"])
+    s = seen["slot"].reshape(-1, n_init)
     if case == "tied":
-        s = seen["slot"].reshape(-1, I)
         both = (s == 3).any(-1) & (s == 6).any(-1)
         assert both.any()
         first = lambda v: np.argmax(s == v, -1)
         assert (first(3)[both] < first(6)[both]).all()
+    if case == "zero_length":
+        assert (s == 5).any()
 
 
 def _search_result(js, N, valid_share, seed):

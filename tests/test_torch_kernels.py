@@ -336,17 +336,17 @@ def test_compact_refuses_samples_beyond_its_limit(cuda):
         C.compact_indices_interleaved(mask, 8)
 
 
-def _rigid_table(cuda, seed=7):
+def _rigid_table(cuda, seed=7, n=13):
     rng = np.random.default_rng(seed)
     rots = []
-    for _ in range(13):
+    for _ in range(n):
         q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
         rots.append(q)
-    T = np.zeros((13, 4, 4))
+    T = np.zeros((n, 4, 4))
     T[:, :3, :3] = rots
-    T[:, :3, 3] = rng.normal(scale=0.3, size=(13, 3))
+    T[:, :3, 3] = rng.normal(scale=0.3, size=(n, 3))
     T[:, 3, 3] = 1.0
-    segs = rng.normal(scale=0.4, size=(13, 2, 3)).astype(np.float32)
+    segs = rng.normal(scale=0.4, size=(n, 2, 3)).astype(np.float32)
     # rows 4 and 9 identical: every point has a tie between them
     T[9], segs[9] = T[4], segs[4]
     # row 2's segment is a point: zero length, the denominator is 1e-9
@@ -355,14 +355,40 @@ def _rigid_table(cuda, seed=7):
             torch.as_tensor(TB.segment_table(segs), device=cuda))
 
 
-def test_deform_prologue_kernel_matches_twin(cuda):
-    tfs_table, segs = _rigid_table(cuda)
-    pts = torch.randn(200_000, 3, generator=torch.Generator().manual_seed(8)
-                      ).to(cuda) * 0.5
-    for I in (1, 8, 12):
-        slot = TB.deform_prologue(pts, tfs_table, segs, I)
-        ref = TB.deform_prologue_plain(pts, tfs_table, segs, I)
-        assert torch.equal(slot, ref), I
+@pytest.mark.parametrize("n_all,I", [(13, 1), (13, 8), (13, 12), (13, 13),
+                                     (24, 1), (24, 8), (24, 13), (24, 16)])
+def test_deform_prologue_kernel_matches_twin(cuda, n_all, I):
+    tfs_table, segs = _rigid_table(cuda, n=n_all)
+    # a ragged last tile of 5 points; points near the bones and out to
+    # |x| = 1e7, where the distances of all bones lie close together
+    N = 128 * 1562 + 5
+    gen = torch.Generator().manual_seed(8)
+    scale = torch.tensor([0.5, 30.0, 1e4, 1e7])[
+        torch.randint(0, 4, (N, 1), generator=gen)]
+    pts = (torch.randn(N, 3, generator=gen) * scale).to(cuda)
+    before = kernels.launches["deform_prologue"]
+    slot = TB.deform_prologue(pts, tfs_table, segs, I)
+    assert kernels.launches["deform_prologue"] == before + 1
+    ref = TB.deform_prologue_plain(pts, tfs_table, segs, I)
+    assert torch.equal(slot, ref)
+    if I > 1 and n_all == 13:
+        # the tie between rows 4 and 9: the lower row first
+        s = ref.reshape(N, I)
+        both = (s == 4).any(-1) & (s == 9).any(-1)
+        assert bool(both.any())
+        first = lambda v: (s == v).int().argmax(-1)
+        assert bool((first(4)[both] < first(9)[both]).all())
+
+
+def test_deform_prologue_refuses_bones_beyond_its_limit(cuda):
+    tfs_table, segs = _rigid_table(cuda, n=TB.MAX_INIT_BONES + 1)
+    pts = torch.zeros((256, 3), device=cuda)
+    with pytest.raises(ValueError, match="init bones"):
+        TB.deform_prologue(pts, tfs_table, segs, 8)
+    # at the limit it runs
+    tfs_table, segs = _rigid_table(cuda, n=TB.MAX_INIT_BONES)
+    assert torch.equal(TB.deform_prologue(pts, tfs_table, segs, 8),
+                       TB.deform_prologue_plain(pts, tfs_table, segs, 8))
 
 
 def _search_result(cuda, N=50_000, I=8, seed=9):
@@ -904,36 +930,64 @@ def test_fine_resample_refuses_rows_beyond_shared_memory(cuda):
         RS.fine_resample_rays(z, z, z, m, 4)
 
 
-@pytest.mark.parametrize("cap", [8, 0])
-def test_secondary_march_kernel_matches_twin(cuda, cap):
+@pytest.mark.parametrize("S,cap,occupancy,active_share,shift", [
+    (64, 8, "sparse", 0.6, 0.0), (64, 0, "sparse", 0.6, 0.0),
+    (16, 8, "sparse", 0.6, 0.0), (100, 8, "sparse", 0.6, 0.0),
+    (128, 0, "sparse", 0.6, 0.0), (64, 0, "full", 0.6, 0.0),
+    (64, 8, "empty", 0.6, 0.0), (64, 8, "sparse", 0.0, 0.0),
+    (64, 8, "sparse", 0.6, 1.25), (100, 0, "sparse", 0.6, 1.25)])
+def test_secondary_march_kernel_matches_twin(cuda, S, cap, occupancy,
+                                             active_share, shift):
+    """``shift`` moves the box and the rays by +shift in x: at 1.25 the
+    box's lower x bound is 0, where the kernel divides by the box's extent
+    with `/` instead of its fast quotient."""
     rng = np.random.default_rng(13)
-    M, S, res = 32768, 64, 64
+    M, res = 32771, 64         # not a multiple of a block's rays
     # a sparse grid: occupied steps with empty ones between them leave
     # masked gaps in the packed samples, which the cap must not count
-    grid = rng.random((res, res, res)) < 0.3
+    grid = {"sparse": rng.random((res, res, res)) < 0.3,
+            "full": np.ones((res, res, res), bool),
+            "empty": np.zeros((res, res, res), bool)}[occupancy]
     aabb = np.asarray([-1.25, -1.55, -1.25, 1.25, 0.95, 1.25], np.float32)
+    aabb[[0, 3]] += shift
     o = rng.uniform(-0.8, 0.6, (M, 3)).astype(np.float32)
+    o[:, 0] += shift
     d = rng.normal(size=(M, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    d[-100:] = 1.0                        # a padded chunk's rays
-    active = rng.random(M) < 0.6
+    o[:64], d[:64] = 3.0 + shift, [1.0, 0.0, 0.0]   # rays that miss
+    o[-100:], d[-100:] = 0.0, 1.0              # a padded chunk's rays
+    active = rng.random(M) < active_share
+    active[-100:] = False
+    near = np.zeros(M, np.float32)
+    # with the full grid a ray's S steps may all be samples: the closing
+    # edge at slot S is dropped
+    far = np.full(M, 3.0 if occupancy == "full" else 1.5, np.float32)
+    near[64:128], far[64:128] = 1.0, 0.5       # far below near
     args = _dev(cuda, o, d, grid, aabb)
-    near = torch.zeros(M, device=cuda)
-    far = torch.full((M,), 1.5, device=cuda)
+    near, far, active = _dev(cuda, near, far, active)
     before = kernels.launches["secondary_march"]
-    out = G.secondary_march(*args, 1.5 / 63, S, near, far,
-                            torch.as_tensor(active, device=cuda), cap)
+    out = G.secondary_march(*args, 1.5 / 63, S, near, far, active, cap)
     assert kernels.launches["secondary_march"] == before + 1
-    ref = G.secondary_march_plain(*args, 1.5 / 63, S, near, far,
-                                  torch.as_tensor(active, device=cuda), cap)
+    ref = G.secondary_march_plain(*args, 1.5 / 63, S, near, far, active, cap)
     assert torch.equal(out[2], ref[2])
     # the same f32 operations in the same order
     for a, b in zip(out[:2], ref[:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    # misses and far < near: rows of zeros
+    for a in out:
+        assert not bool(a[:128].any())
     m = ref[2]
-    assert m.any() and not m[torch.as_tensor(~active, device=cuda)].any()
+    assert not m[~active].any()
+    if occupancy == "sparse" and active_share:
+        assert m.any()
+    else:
+        assert occupancy == "full" or not m.any()
     if cap:
-        assert int(m.sum(1).max()) == cap
+        assert int(m.sum(1).max()) <= cap
+        if (S, occupancy) == (64, "sparse") and active_share:
+            assert int(m.sum(1).max()) == cap
+    if occupancy == "full" and not cap:
+        assert bool(m.all(1).any())
 
 
 def test_broyden_polish_kernel_matches_twin(cuda):

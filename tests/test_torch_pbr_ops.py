@@ -165,18 +165,34 @@ def _jax_march(o, d, grid, aabb, step, S, near, far, active, cap):
     return np.asarray(ts), np.asarray(te), np.asarray(m)
 
 
-@pytest.mark.parametrize("cap", [8, 0])
-def test_secondary_march_twin_matches_jax(cap):
-    rng = np.random.default_rng(cap)
-    M, S, res = 600, 64, 16
+@pytest.mark.parametrize("cap,S,occupancy", [
+    pytest.param(8, 64, "sparse", id="8"),
+    pytest.param(0, 64, "sparse", id="0"),
+    pytest.param(8, 16, "sparse", id="S16-8"),
+    pytest.param(0, 16, "sparse", id="S16-0"),
+    pytest.param(0, 64, "full", id="full"),
+    pytest.param(8, 64, "empty", id="empty"),
+    pytest.param(8, 64, "miss", id="miss")])
+def test_secondary_march_twin_matches_jax(cap, S, occupancy):
+    """Sparse, full and empty grids; in every case some rays miss the box
+    and some have far below near (``miss``: all but a few rays miss)."""
+    rng = np.random.default_rng(cap + S)
+    M, res = 600, 16
     # a sparse grid: occupied steps with empty ones between (masked gaps)
-    grid = rng.random((res, res, res)) < 0.35
+    grid = {"full": np.ones((res,) * 3, bool),
+            "empty": np.zeros((res,) * 3, bool)}.get(
+        occupancy, rng.random((res, res, res)) < 0.35)
     aabb = np.asarray([-1.0, -1.2, -1.0, 1.0, 0.8, 1.0], np.float32)
     o = rng.uniform(-0.6, 0.6, (M, 3)).astype(np.float32)
     d = rng.normal(size=(M, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     d[:3] = 1.0                          # the padded rays' direction
-    near, far = np.zeros(M, np.float32), np.full(M, 1.5, np.float32)
+    miss = slice(3, M - 20 if occupancy == "miss" else 40)
+    o[miss], d[miss] = 2.5, [0.0, 1.0, 0.0]   # rays that miss the box
+    # with the full grid all S steps of some rays are samples
+    near = np.zeros(M, np.float32)
+    far = np.full(M, 3.0 if occupancy == "full" else 1.5, np.float32)
+    near[-20:-10], far[-20:-10] = 0.9, 0.4    # far below near
     active = rng.random(M) < 0.8
     step = 1.5 / (S - 1)
     ref = _jax_march(o, d, grid, aabb, step, S, near, far, active, cap)
@@ -186,14 +202,24 @@ def test_secondary_march_twin_matches_jax(cap):
     for a, b in zip(out[:2], ref[:2]):
         np.testing.assert_allclose(a.numpy(), b, **TOL)
     m = ref[2]
-    assert m.any() and not m[~active].any()
+    assert not m[~active].any()
+    assert not m[miss].any() and not m[-20:-10].any()
+    if occupancy == "empty":
+        assert not m.any()
+        return
+    assert m.any()
     if cap:
-        assert m.sum(1).max() == cap
-    # some ray has a masked gap between two of its samples
-    first = np.argmax(m, 1)
-    last = S - 1 - np.argmax(m[:, ::-1], 1)
-    assert any(m[r].any() and not m[r, first[r]:last[r] + 1].all()
-               for r in range(M))
+        assert m.sum(1).max() <= cap
+    if occupancy == "full":
+        assert m.all(1).any()
+    if occupancy == "sparse":
+        if cap and S == 64:
+            assert m.sum(1).max() == cap
+        # some ray has a masked gap between two of its samples
+        first = np.argmax(m, 1)
+        last = S - 1 - np.argmax(m[:, ::-1], 1)
+        assert any(m[r].any() and not m[r, first[r]:last[r] + 1].all()
+                   for r in range(M))
 
 
 POSE = np.zeros(69, np.float32)
