@@ -22,15 +22,17 @@
    prologue, the epilogue and KC also at the phys step's secondary coarse
    call, KC with the histogram of its
    lanes' iterations and the share of issued samples that do work,
-   ``lane_work``); KF's device time at its recorded call; the registers,
-   stack frame and spills of KA, KA', KB, KC, KH, KL, KM and KF from
-   ``ptxas``;
+   ``lane_work``); KF's and KD weights' device times at their recorded
+   calls (KD at a serve chunk's second importance round, [4096, 145]); KH
+   skinning's bound over the voxel rows its points touch; the registers,
+   stack frame and spills of every kernel of the port from ``ptxas``;
 4. serves: bakes one frame's 96^3 seed grid alone (its time and launches),
    then renders 2 frames x 16,384 rays of the synthetic val split through
    ``render_frame`` (each with its own 64^3 test grid and seed grid, the
    default eval path) with every launch counter set to 0 just before and
-   read just after and the seed-grid gather's plain twin set to fail if
-   called; renders one more frame under ``torch.profiler`` to show where
+   read just after and the plain twins of the seed-grid gather and of KD
+   weights set to fail if called; renders one more frame under
+   ``torch.profiler`` to show where
    the device time goes; renders each frame again by the searched path
    (``model.eval_seed_grid=false``): its rays/s, peak memory (the first
    frame also under the profiler), its PSNR and its per-ray
@@ -47,10 +49,14 @@
    the published widths: 512 scattering points per ray, 64-step secondary
    rays in 32,768-ray shader chunks): records the inputs of KI-KM in one
    4,096-ray chunk with the frame's seed grid, holds each against its twin
-   (KM also on a hand-built grid) and times both (KK also on the device);
-   then, with every launch
+   (KM also on a hand-built grid) and times both (KK also on the device;
+   KD weights at a shader chunk's call and KL at the fine pass that seeds
+   the most points, also with its points seeded from a search, each with
+   its device time and bound, KL with its seeded points' iterations and
+   warp efficiency); then, with every launch
    counter set to 0 just before and read just after and the plain twins of
-   KI-KM set to fail if called, renders one frame of 16,384 rays; profiles
+   KI-KM and KD weights set to fail if called, renders one frame of 16,384
+   rays; profiles
    one chunk; renders the frame by the searched path (its rays/s, peak
    memory, a chunk's profile, PSNR and per-ray agreement with the grid
    path's render) and times the two paths
@@ -80,7 +86,10 @@
    4,001 (one KN launch a step; the pose corrections of the frames seen
    move) and 3 from step 10,000, the phys regime at full width (512
    scattering points, 64-step secondary rays in 32,768-ray shader chunks,
-   ``uniform_light``, with the PBR kernels' twins set to fail too);
+   ``uniform_light``, with the PBR kernels' twins set to fail too), and
+   holds KD weights at the step's shader-chunk call, KL at its fine pass
+   (with the points seeded a call over all its calls) and KH skinning at
+   its fine pass against their twins, with their device times and bounds;
    profiles one phys step; and runs a 256-ray step at step 4,001 and a
    32-ray phys step at step 10,000 on the card and on the CPU twins, whose
    losses and gradients (the pose's included) must agree;
@@ -122,7 +131,10 @@ PEAK_TF32 = 495e12
 # call ([32768, 64] -> 4), KG at the test grid's candidate lanes
 # (3,145,728 entries), the KH prologue at a serve chunk's search (786,432
 # points; device 0.0349 at the phys step's secondary coarse call, 262,144),
-# KK at a shader chunk's call ([32768, 64], cap 8; device 0.0210)
+# KK at a shader chunk's call ([32768, 64], cap 8; device 0.0210), KD
+# weights at a shader chunk's call ([32768, 4]; device, the phys step's
+# profile: 1.354 ms over 66 launches) and KL at a phys step's fine pass
+# (65,536 points; device, 0.903 ms over 64 launches)
 EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "0.0513-0.0740", "hashgrid_encode": "0.855",
               "deform_epilogue": "0.852-0.857", "broyden_search": "0.501",
@@ -132,7 +144,8 @@ EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "fine_resample": "0.0522-0.0527",
               "compact_indices": "0.046-0.072",
               "deform_prologue": "0.080-0.083",
-              "secondary_march": "0.0486-0.0775"}
+              "secondary_march": "0.0486-0.0775",
+              "volrend_weights": "0.0205", "broyden_polish": "0.0141"}
 # the profiler's names of every kernel of the port (KG's count and scatter
 # passes apart); a kernel's wrapper counts its launches under the same
 # name (KG's under compact_indices)
@@ -165,7 +178,8 @@ REDESIGNED = ("encode_mlp_sdfgrad", "seed_gather", "hashgrid_encode",
               "deform_epilogue", "broyden_search",
               "encode_mlp_sdfgrad_bwd_scatter", "hashgrid_encode_bwd",
               "merge_resample", "fine_resample", "compact_count",
-              "compact_scatter", "deform_prologue", "secondary_march")
+              "compact_scatter", "deform_prologue", "secondary_march",
+              "volrend_weights", "broyden_polish")
 
 
 def fail(msg: str):
@@ -196,15 +210,19 @@ def time_ms(fn, reps: int = 10) -> float:
 
 class Recorder:
     """Stands in for a kernel wrapper in the module that calls it and keeps
-    the arguments of its largest call."""
+    the arguments of its largest call (and of every call in ``calls``,
+    where given)."""
 
-    def __init__(self, module, name, size_of):
+    def __init__(self, module, name, size_of, calls=None):
         self.module, self.name, self.size_of = module, name, size_of
         self.fn = getattr(module, name)
         self.best = None
+        self.calls = calls
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
+        if self.calls is not None:
+            self.calls.append((args, kwargs))
         size = self.size_of(args)
         if self.best is None or size > self.best[0]:
             self.best = (size, args, kwargs)
@@ -395,23 +413,15 @@ def main():
     grid_shape("broyden_search", "bake's last chunk",
                *kc_row(kc_g, "bake's last chunk"))
 
-    # KD weights (importance rounds) and composite (final)
-    alphas, amask = kd_w[1][:2]
-    wk, tk = V.render_weight_from_alpha(alphas, amask)
-    wp, tp = V.render_weight_from_alpha_plain(alphas, amask)
-    torch.cuda.synchronize()
-    err = max((wk - wp).abs().max().item(), (tk - tp).abs().max().item())
-    # the scan multiplies in another order than torch.cumprod
-    if not err <= 1e-5:
-        fail(f"render_weight_from_alpha disagrees with its twin: {err}")
-    n = alphas.numel()
-    row("volrend_weights", "triton",
-        "intrinsicavatar_tpu_torch/ops/volrend_triton.py",
-        "intrinsicavatar_tpu/ops/volrend.py:61", f"alphas{list(alphas.shape)}",
-        err,
-        time_ms(lambda: V.render_weight_from_alpha(alphas, amask)),
-        time_ms(lambda: V.render_weight_from_alpha_plain(alphas, amask)),
-        n * (4 + 1 + 4 + 4), n * 4)
+    # KD weights (a serve chunk's second importance round, [4096, 145])
+    # and composite (final)
+    kd_read = kd_reading(kd_w, "serve chunk's second importance round",
+                         card)
+    row("volrend_weights", "cuda",
+        "intrinsicavatar_tpu_torch/csrc/volrend.cu",
+        "intrinsicavatar_tpu/ops/volrend.py:61",
+        f"alphas{kd_read['shape']}", kd_read["max_abs_err"], kd_read["ms"],
+        kd_read["plain_ms"], kd_read["bytes"], kd_read["flops"])
 
     cargs = kd_c[1]
     ok_ = V.composite(*cargs)
@@ -525,26 +535,12 @@ def main():
         fail("no deform_epilogue call blended the rotation")
     _, _, _, _, lbs_cl, spec, tfs = kh_rot[1]
     xc = B.deform_epilogue(*kh_rot[1]).xc
-    rk = B.deform_skinning(xc, lbs_cl, spec, tfs)
-    rp = B.deform_skinning_plain(xc, lbs_cl, spec, tfs)
-    torch.cuda.synchronize()
-    err = (rk - rp).abs().max().item()
-    # the kernel sums the 24 bones in order, the twin's product in cuBLAS's
-    if not err <= 1e-5:
-        fail(f"deform_skinning disagrees with its twin: {err}")
-    M = xc.shape[0]
-    vox5 = statics.lbs_voxel[None]
-    grid5 = spec.normalize(xc).reshape(1, M, 1, 1, 3)
+    sk = skinning_reading((xc, lbs_cl, spec, tfs),
+                          "serve chunk's shading query", card)
     row("deform_skinning", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
-        "intrinsicavatar_tpu/anim/deformer.py:235", f"xc{[M, 3]}", err,
-        time_ms(lambda: B.deform_skinning(xc, lbs_cl, spec, tfs)),
-        time_ms(lambda: B.deform_skinning_plain(xc, lbs_cl, spec, tfs), 3),
-        # of tfs only the 3x3 rotation part of each bone is read
-        M * 12 + min(lbs_cl.numel() * 4, M * 8 * 96) + 24 * 36 + M * 36,
-        M * (8 * (4 + 24 * 2) + 9 * 24 * 2 + 20),
-        time_ms(lambda: torch.nn.functional.grid_sample(
-            vox5, grid5, mode="bilinear", padding_mode="border",
-            align_corners=True)))
+        "intrinsicavatar_tpu/anim/deformer.py:235", sk["shape"],
+        sk["max_abs_err"], sk["ms"], sk["plain_ms"], sk["bytes"],
+        sk["flops"], sk["library_ms"])
 
     # ---------------------------------------------------------- 4. serve
     # the seed grid's bake alone: one frame's 96^3 lattice searched
@@ -553,7 +549,8 @@ def main():
         generator=torch.Generator().manual_seed(100))
     bake_line = bake_alone(model, statics, frame_b, cond_b, step)
 
-    trip = Tripwire(SG, "gather_from_grid_plain")
+    trips = [Tripwire(SG, "gather_from_grid_plain"),
+             Tripwire(V, "render_weight_from_alpha_plain")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -570,9 +567,11 @@ def main():
     serve_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    trip.restore()
-    if trip.calls:
-        fail(f"the gather's plain twin ran on the card: {trip.calls} calls")
+    for t in trips:
+        t.restore()
+    if any(t.calls for t in trips):
+        fail(f"plain twins ran on the card in the serve frames: "
+             f"{[(t.name, t.calls) for t in trips if t.calls]}")
     names = {"hashgrid_encode", "encode_mlp_sdfgrad", "broyden_search",
              "volrend_weights", "volrend_composite", "occupancy_march",
              "merge_resample", "compact_indices", "deform_prologue",
@@ -725,6 +724,7 @@ def main():
                       "port_kernels")},
                   "bake": bake_line, "bake_cpu_check": bake_check,
                   "kf_second_round": kf_read,
+                  "kd_second_round": kd_read,
                   "kg_candidate_call": kg_read,
                   "grid_path_shapes": grid_shapes,
                   "searched": searched, "in_turn": in_turn}}), flush=True)
@@ -1123,6 +1123,212 @@ def kc_reading(rec, where, card, launches=None):
     return r
 
 
+def kd_reading(rec, where, card, launches=None):
+    """KD weights against its twin on a recorded call (within rtol 1e-5,
+    atol 1e-6 and 1e-5 absolute: the kernel multiplies in another order
+    than torch.cumprod), timed with events and on the device beside the
+    twin; its bound, 13 B a sample.  Returns the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import volrend as V
+    alphas, mask = rec[1][:2]
+    wk, tk = V.render_weight_from_alpha(alphas, mask)
+    wp, tp = V.render_weight_from_alpha_plain(alphas, mask)
+    torch.cuda.synchronize()
+    err = max((wk - wp).abs().max().item(), (tk - tp).abs().max().item())
+    close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                for a, b in ((wk, wp), (tk, tp)))
+    if not (close and err <= 1e-5):
+        fail(f"render_weight_from_alpha disagrees with its twin at the "
+             f"{where}: {err}")
+    R, S = alphas.shape
+    call = lambda: V.render_weight_from_alpha(alphas, mask)
+    r = {"where": where, "shape": [R, S], "max_abs_err": err,
+         "ms": time_ms(call),
+         "device_ms": device_ms(call, PORT_KERNELS["volrend_weights"]),
+         "plain_ms": time_ms(lambda: V.render_weight_from_alpha_plain(
+             alphas, mask)),
+         "bytes": R * S * 13, "flops": R * S * 4,
+         "bound_ms": R * S * 13 / PEAK_BYTES * 1e3, "card": card,
+         "before_redesign_ms": EARLIER_MS["volrend_weights"]}
+    if launches is not None:
+        r["launches_per_step"] = launches
+    print(f"kernel volrend_weights ({where}): {json.dumps(r)}", flush=True)
+    return r
+
+
+def polish_work(a, steps):
+    """Bytes and operations of a polish call on KL's arguments ``a``: every
+    lane's target, seed and outputs; a trilinear sample (8 corner rows of
+    48 B, at most the voxel once) and ~250 flops at each seeded lane's
+    start and at each lane-iteration it runs."""
+    M = a[0].shape[0]
+    samples = int(a[2].sum()) + steps
+    return (M * (12 + 12 + 1) + M * (12 + 36 + 1)
+            + min(a[3].numel() * 4, samples * 384),
+            samples * (8 * 12 * 2 + 8 * 6 + 40) + samples * 80)
+
+
+def polish_slots(M):
+    """The point each of KL's threads holds (``[blocks * 128]``; beyond M
+    where M is not a multiple of 128), as ``csrc/broyden.cu`` lays them: in
+    order for calls above ``KL_SPREAD_MAX`` (131,072) points, else thread t
+    of block b holds point 4 (b + blocks (t // 4)) + t % 4.  A model of the
+    kernel's layout, kept by hand beside it."""
+    import torch
+    nb = -(-M // 128)
+    t = torch.arange(nb * 128)
+    if M > 1 << 17:
+        return t
+    return 4 * (t // 128 + nb * (t % 128 // 4)) + t % 4
+
+
+def polish_warps(counts, seed_ok):
+    """The share of issued samples that do work in KL's warps, where a
+    warp runs until its slowest lane ends and an unseeded lane samples
+    nothing, modelled from the twin's lane counts: with 32 consecutive
+    points a warp (KL's lane-order form) and as ``polish_slots`` models
+    KL's layout; and the modelled warps with a seeded lane."""
+    import torch
+    samples = torch.where(seed_ok, counts.to(torch.int64) + 1, 0).cpu()
+    total = int(samples.sum())
+
+    def share(s):
+        s = torch.nn.functional.pad(s, (0, -s.numel() % 32)).reshape(-1, 32)
+        issued = 32 * int(s.max(1).values.sum())
+        return (total / issued if issued else None), int((s > 0).any(1)
+                                                         .sum())
+
+    slots = polish_slots(samples.numel())
+    laid = torch.where(slots < samples.numel(),
+                       samples[slots.clamp(max=samples.numel() - 1)], 0)
+    (one, _), (kl, warps) = share(samples), share(laid)
+    return {"one_lane": one, "kl_modelled": kl,
+            "kl_modelled_warps_seeded": warps}
+
+
+def kl_reading(rec, where, card, launches=None):
+    """KL against its twin on a recorded call (valid equal, x and J^-1
+    within 1e-5 of the largest entry), timed with events and on the device
+    beside the twin; its lanes, seeded lanes, the seeded lanes'
+    iterations and warp efficiency (``polish_warps``); its bound
+    (``polish_work``).  Returns the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    args, kw = rec[1], rec[2]
+    pk = B.broyden_polish(*args, **kw)
+    counts = []
+    pp = B.broyden_polish_plain(*args, **kw, lane_counts=counts)
+    torch.cuda.synchronize()
+    if not torch.equal(pk.valid, pp.valid):
+        fail(f"broyden_polish at the {where}: "
+             f"{int((pk.valid != pp.valid).sum())} lanes' valid differ")
+    errs = [relerr(pk.x, pp.x), relerr(pk.j_inv, pp.j_inv)]
+    if not max(errs) <= 1e-5:
+        fail(f"broyden_polish disagrees with its twin at the {where}: "
+             f"{errs}")
+    M = args[0].shape[0]
+    ok = args[2]
+    steps = int(counts[0].sum())
+    nbytes, flops = polish_work(args, steps)
+    call = lambda: B.broyden_polish(*args, **kw)
+    r = {"where": where, "shape": f"xd[{M}, 3]", "lanes": M,
+         "seeded": int(ok.sum()), "max_iters": kw.get("max_iters"),
+         "lane_iterations": steps,
+         "iterations_hist": torch.bincount(
+             counts[0][ok].to(torch.int64)).tolist(),
+         "warp_efficiency": polish_warps(counts[0], ok),
+         "valid": int(pk.valid.sum()),
+         "max_abs_err": max((pk.x - pp.x).abs().max().item(),
+                            (pk.j_inv - pp.j_inv).abs().max().item()),
+         "ms": time_ms(call),
+         "device_ms": device_ms(call, PORT_KERNELS["broyden_polish"]),
+         "plain_ms": time_ms(lambda: B.broyden_polish_plain(*args, **kw), 3),
+         "bytes": nbytes, "flops": flops,
+         "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+         "card": card, "before_redesign_ms": EARLIER_MS["broyden_polish"]}
+    if launches is not None:
+        r["launches_per_step"] = launches
+    print(f"kernel broyden_polish ({where}): {json.dumps(r)}", flush=True)
+    return r
+
+
+def median_polish_call(calls, where):
+    """Of the recorded polish calls ``calls`` (``(args, kwargs)`` a call),
+    those of the most frequent size (a fine pass's budget): the one whose
+    seeded count is their median, as a ``Recorder`` keeps a call, and
+    their mean seeded count."""
+    import torch
+    M = collections.Counter(a[0].shape[0] for a, _ in calls).most_common(
+        1)[0][0]
+    same = [c for c in calls if c[0][0].shape[0] == M]
+    seeded = torch.stack([a[2].sum() for a, _ in same]).cpu()
+    pick = int(torch.argsort(seeded)[len(same) // 2])
+    mean = seeded.double().mean().item()
+    print(f"broyden_polish at the {where}: {len(same)} calls of {M} points,"
+          f" {mean:.1f} seeded a call (median {int(seeded[pick])}, most "
+          f"{int(seeded.max())})", flush=True)
+    return (M, *same[pick]), mean
+
+
+def lbs_rows_touched(xc, spec):
+    """The LBS voxel's rows that KH skinning's trilinear corners read at
+    ``xc`` (border padding: coordinates clamped into the voxel)."""
+    import torch
+    D, H, W = spec.shape_dhw
+    c = spec.normalize(xc)
+    idx = []
+    for a, n in ((0, W), (1, H), (2, D)):
+        i = torch.clamp((c[:, a] + 1.0) * 0.5 * (n - 1), 0.0, n - 1.0)
+        i0 = torch.floor(i).long()
+        idx.append((i0, torch.clamp(i0 + 1, max=n - 1)))
+    rows = [(z * H + y) * W + x for x in idx[0] for y in idx[1]
+            for z in idx[2]]
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
+def skinning_reading(args, where, card, launches=None):
+    """KH skinning against its twin on the call ``args`` (within 1e-5: the
+    kernel sums the 24 bones in order, the twin's product in cuBLAS's),
+    timed with events and on the device beside the twin and
+    ``F.grid_sample`` of the weights alone; its bound over the voxel rows
+    its points touch.  Returns the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    xc, lbs_cl, spec, tfs = args
+    rk = B.deform_skinning(*args)
+    rp = B.deform_skinning_plain(*args)
+    torch.cuda.synchronize()
+    err = (rk - rp).abs().max().item()
+    if not err <= 1e-5:
+        fail(f"deform_skinning disagrees with its twin at the {where}: "
+             f"{err}")
+    M = xc.shape[0]
+    rows = lbs_rows_touched(xc, spec)
+    # of tfs only the 3x3 rotation part of each bone is read
+    nbytes = M * 12 + rows * 96 + 24 * 36 + M * 36
+    flops = M * (8 * (4 + 24 * 2) + 9 * 24 * 2 + 20)
+    vox5 = lbs_cl.t().reshape(1, lbs_cl.shape[1], *spec.shape_dhw)
+    grid5 = spec.normalize(xc).reshape(1, M, 1, 1, 3)
+    call = lambda: B.deform_skinning(*args)
+    r = {"where": where, "shape": f"xc{[M, 3]}", "max_abs_err": err,
+         "rows_touched": rows, "ms": time_ms(call),
+         "device_ms": device_ms(call, PORT_KERNELS["deform_skinning"]),
+         "plain_ms": time_ms(lambda: B.deform_skinning_plain(*args), 3),
+         "library_ms": time_ms(lambda: torch.nn.functional.grid_sample(
+             vox5, grid5, mode="bilinear", padding_mode="border",
+             align_corners=True)),
+         "bytes": nbytes, "flops": flops,
+         "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+         "card": card}
+    if launches is not None:
+        r["launches_per_step"] = launches
+    print(f"kernel deform_skinning ({where}): {json.dumps(r)}", flush=True)
+    return r
+
+
 def relerr(a, b, rtol=0.0):
     """Largest error beyond ``rtol`` of each entry, over the largest
     entry."""
@@ -1450,6 +1656,8 @@ def relight(rows, row, card, dev):
     fine_n = -(-int(sub * 4 * float(cfg.model.get(
         "secondary_fine_query_compaction", 0.5))) // 128) * 128
 
+    kl_calls = []
+
     def sec_inside(a):
         """Points of a secondary coarse gather inside the lattice."""
         if a[1].shape[0] != sec_n:
@@ -1472,7 +1680,13 @@ def relight(rows, row, card, dev):
             Recorder(RAD, "hashgrid_encode",
                      MostFrequent(lambda a: a[1].shape[0])),
             # KG: the largest sample-major call, a secondary coarse pass's
-            Recorder(C, "_compact", lambda a: a[0].numel() if a[2] else -1)]
+            Recorder(C, "_compact", lambda a: a[0].numel() if a[2] else -1),
+            # KD weights: a shader chunk's call, the one that comes most
+            # often
+            Recorder(V, "render_weight_from_alpha",
+                     MostFrequent(lambda a: tuple(a[0].shape))),
+            # KL: every call, for a fine pass's (``median_polish_call``)
+            Recorder(DF, "broyden_polish", lambda a: 0, calls=kl_calls)]
     with torch.no_grad():
         model(statics, frame, cond, occ, batch["rays"][:chunk], step, flags,
               background_color=torch.ones(3, device=dev),
@@ -1481,8 +1695,8 @@ def relight(rows, row, card, dev):
     torch.cuda.synchronize()
     for r in reversed(recs):
         r.restore()
-    ki, kj, kk, kl, km_big, km_sec, kb_f, ka_f, kg_sec = (r.best
-                                                          for r in recs)
+    ki, kj, kk, kl, km_big, km_sec, kb_f, ka_f, kg_sec, kd_sc, _ = (
+        r.best for r in recs)
     if km_sec[0] < 0:
         fail(f"no secondary coarse gather of {sec_n} points was recorded")
     if kb_f is None or kb_f[0] < 0:
@@ -1490,6 +1704,7 @@ def relight(rows, row, card, dev):
     with torch.no_grad():
         kb_fine = kb_reading(kb_f, "relight fine pass", card)
     ka_fine = ka_reading(ka_f, "relight fine pass", card)
+    kd_chunk = kd_reading(kd_sc, "relight shader chunk", card)
 
     def rel(a, b):
         """Largest error over the reference's largest entry."""
@@ -1630,39 +1845,18 @@ def relight(rows, row, card, dev):
     print(f"kernel secondary_march (shader chunk): {json.dumps(kk_read)}",
           flush=True)
 
-    # KL seeded polish (a shader chunk's fine budget)
+    # KL seeded polish: the call that seeds the most points (the
+    # grid-seeded shading pass) and a shader chunk's fine pass
     args, kw = kl[1], kl[2]
-    pk = B.broyden_polish(*args, **kw)
-    counts = []
-    pp = B.broyden_polish_plain(*args, **kw, lane_counts=counts)
-    steps = int(counts[0].sum())
-    torch.cuda.synchronize()
-    equal("broyden_polish valid", pk.valid, pp.valid)
-    errs = [rel(pk.x, pp.x), rel(pk.j_inv, pp.j_inv)]
-    if not max(errs) <= 1e-5:
-        fail(f"broyden_polish disagrees with its twin: {errs}")
+    kl_shade = kl_reading(kl, "grid-seeded shading pass", card)
     M = args[0].shape[0]
-
-    def polish_work(a, steps):
-        """Bytes and operations of a polish call: every lane's target, seed
-        and outputs; a trilinear sample (8 corner rows of 48 B, at most the
-        voxel once) and ~250 flops at each seeded lane's start and at each
-        lane-iteration it runs."""
-        samples = int(a[2].sum()) + steps
-        return (M * (12 + 12 + 1) + M * (12 + 36 + 1)
-                + min(a[3].numel() * 4, samples * 384),
-                samples * (8 * 12 * 2 + 8 * 6 + 40) + samples * 80)
-
-    print(f"broyden polish: {M} lanes, {int(args[2].sum())} seeded, "
-          f"{steps} lane-iterations, "
-          f"{pk.valid.float().mean().item():.4f} valid", flush=True)
     row("broyden_polish", "cuda", "intrinsicavatar_tpu_torch/csrc/broyden.cu",
-        "intrinsicavatar_tpu/anim/broyden.py:464", f"xd[{M}, 3]",
-        max((pk.x - pp.x).abs().max().item(),
-            (pk.j_inv - pp.j_inv).abs().max().item()),
-        time_ms(lambda: B.broyden_polish(*args, **kw)),
-        time_ms(lambda: B.broyden_polish_plain(*args, **kw), 3),
-        *polish_work(args, steps))
+        "intrinsicavatar_tpu/anim/broyden.py:464", kl_shade["shape"],
+        kl_shade["max_abs_err"], kl_shade["ms"], kl_shade["plain_ms"],
+        kl_shade["bytes"], kl_shade["flops"])
+    kl_f, seeded_mean = median_polish_call(kl_calls, "relight fine pass")
+    kl_fine = kl_reading(kl_f, "relight fine pass", card)
+    kl_fine["seeded_per_call"] = seeded_mean
     # the same points with every lane seeded, from the roots of a search
     # from the first init bone (the relight cell's fine pass seeds few
     # lanes: its secondary rays leave the body)
@@ -1672,36 +1866,11 @@ def relight(rows, row, card, dev):
         frame.tfs[torch.as_tensor(B.INIT_BONES, device=dev)].contiguous(),
         off, sk)
     full = (xd, roots.x, roots.valid, vox, off, sk)
-    fk = B.broyden_polish(*full, **kw)
-    counts = []
-    fp = B.broyden_polish_plain(*full, **kw, lane_counts=counts)
-    f_steps = int(counts[0].sum())
-    torch.cuda.synchronize()
-    equal("broyden_polish valid, every lane seeded", fk.valid, fp.valid)
-    errs = [rel(fk.x, fp.x), rel(fk.j_inv, fp.j_inv)]
-    if not max(errs) <= 1e-5:
-        fail(f"broyden_polish, every lane seeded, disagrees with its twin: "
-             f"{errs}")
-    f_err = max((fk.x - fp.x).abs().max().item(),
-                (fk.j_inv - fp.j_inv).abs().max().item())
-    f_ms = time_ms(lambda: B.broyden_polish(*full, **kw))
-    f_plain = time_ms(lambda: B.broyden_polish_plain(*full, **kw), 3)
-    f_bytes, f_ops = polish_work(full, f_steps)
-    print(f"broyden polish, the same points seeded from a search: "
-          f"{int(roots.valid.sum())} seeded, "
-          f"{f_steps} lane-iterations, "
-          f"{fk.valid.float().mean().item():.4f} valid, "
-          f"max_abs_err={f_err:.3g} ms={f_ms:.4f} plain_ms={f_plain:.4f} "
-          f"bound_ms={max(f_bytes / PEAK_BYTES, f_ops / PEAK_FP32) * 1e3:.5f}",
-          flush=True)
-    # KL runs KC's lane function: its device time at both calls
-    kl_dev = {w: device_ms(lambda: B.broyden_polish(*a, **kw),
-                           "broyden_polish_kernel")
-              for w, a in (("fine_budget", args), ("all_seeded", full))}
-    print(f"broyden_polish device_ms: {json.dumps(kl_dev)} ({card})",
-          flush=True)
+    kl_full = kl_reading((0, full, kw), "grid-seeded shading pass's "
+                         "points seeded from a search", card)
     check_seed_gather(row, km_big, km_sec, dev)
-    del ok_, op_, fk, fp, mk, mp, pk, pp, recs, ki, kj, kk, kl, roots, kg_sec
+    del ok_, op_, fk, fp, mk, mp, recs, ki, kj, kk, kl, roots, kg_sec, full
+    del kl_calls, kl_f
 
     # ------------------------------------------------ one relight frame
     trips = [Tripwire(RS, "cdf_resample_rays_plain"),
@@ -1709,7 +1878,8 @@ def relight(rows, row, card, dev):
              Tripwire(RS, "fine_resample_rays_plain"),
              Tripwire(G, "secondary_march_plain"),
              Tripwire(B, "broyden_polish_plain"),
-             Tripwire(SG, "gather_from_grid_plain")]
+             Tripwire(SG, "gather_from_grid_plain"),
+             Tripwire(V, "render_weight_from_alpha_plain")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1845,6 +2015,10 @@ def relight(rows, row, card, dev):
             "kg_secondary_coarse_call": kg_sec_read,
             "kb_fine_pass": kb_fine,
             "ka_fine_pass": ka_fine,
+            "kd_shader_chunk": kd_chunk,
+            "kl_shading_pass": kl_shade,
+            "kl_fine_pass": kl_fine,
+            "kl_seeded_from_a_search": kl_full,
             "searched": searched,
             "cpu_check": {"rays": n_crop, "agree_1e-3": agree}}
 
@@ -2568,6 +2742,7 @@ TWINS = (("hashgrid", "hashgrid_encode_bwd_plain"),
          ("encode_grad", "encode_mlp_sdfgrad_bwd_gather_plain"),
          ("encode_grad", "encode_mlp_sdfgrad_bwd_scatter_plain"),
          ("volrend", "composite_bwd_plain"),
+         ("volrend", "render_weight_from_alpha_plain"),
          ("broyden", "deform_skinning_bwd_plain"))
 PBR_TWINS = (("resample", "cdf_resample_rays_plain"),
              ("resample", "sdf_fine_resample_rays_plain"),
@@ -2713,6 +2888,7 @@ def train_pose_phys(rows, row, card, dev):
     from intrinsicavatar_tpu_torch import kernels
     from intrinsicavatar_tpu_torch.anim import deformer as DF
     from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.ops import volrend as V
     from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
     from intrinsicavatar_tpu_torch.utils.config import merge
     from intrinsicavatar_tpu_torch.utils.default_config import train_config
@@ -2761,6 +2937,14 @@ def train_pose_phys(rows, row, card, dev):
                       MostFrequent(lambda a: a[0].shape[0]))
     rec_pro = Recorder(DF, "deform_prologue",
                        MostFrequent(lambda a: a[0].shape[0]))
+    # KD weights' shader-chunk call and the fine pass's skinning, each the
+    # call that comes most often (KL's calls are kept in a step of their
+    # own, after the profile, so that the measured steps hold no more than
+    # one call's arguments a recorder)
+    rec_kd = Recorder(V, "render_weight_from_alpha",
+                      MostFrequent(lambda a: tuple(a[0].shape)))
+    rec_sk = Recorder(DF, "deform_skinning",
+                      MostFrequent(lambda a: a[0].shape[0]))
     kernels.reset_launches()
     try:
         phys, _ = run_regime(system, data, PHYS_START, 3, cfg)
@@ -2769,9 +2953,8 @@ def train_pose_phys(rows, row, card, dev):
              f"({torch.cuda.max_memory_allocated()} bytes allocated at "
              f"the peak): {e}")
     launches = dict(kernels.launches)
-    rec_pro.restore()
-    rec_kc.restore()
-    rec.restore()
+    for r in (rec_sk, rec_kd, rec_pro, rec_kc, rec):
+        r.restore()
     for t in trips:
         t.restore()
     if any(t.calls for t in trips):
@@ -2791,7 +2974,11 @@ def train_pose_phys(rows, row, card, dev):
     pro_phys = prologue_reading(rec_pro.best,
                                 "phys step's secondary coarse call", card,
                                 launches.get("deform_prologue", 0) / 3)
-    del rec, rec_kc, rec_pro
+    kd_phys = kd_reading(rec_kd.best, "phys step's shader chunk", card,
+                         launches.get("volrend_weights", 0) / 3)
+    skin_phys = skinning_reading(rec_sk.best[1], "phys step's fine pass",
+                                 card, launches.get("deform_skinning", 0) / 3)
+    del rec, rec_kc, rec_pro, rec_kd, rec_sk
     wall_ms, by_kernel = profile_device(
         lambda: system.fit(data, system.step + 1, log_every=1))
     busy_ms = sum(ms for ms, _ in by_kernel.values())
@@ -2804,7 +2991,18 @@ def train_pose_phys(rows, row, card, dev):
         "port_kernels": kernel_shares(by_kernel, busy_ms),
         "top": [[k[:70], ms, cnt] for k, (ms, cnt) in top]}
     print(json.dumps({"phys_profile": phys_profile}), flush=True)
-    del system
+    # one more phys step, not measured, keeps every polish call's arguments
+    # for a fine pass's median call
+    kl_calls = []
+    rec_kl = Recorder(DF, "broyden_polish", lambda a: 0, calls=kl_calls)
+    system.fit(data, system.step + 1, log_every=1)
+    rec_kl.restore()
+    kl_f, seeded_mean = median_polish_call(kl_calls, "phys step's fine "
+                                           "pass")
+    kl_phys = kl_reading(kl_f, "phys step's fine pass", card,
+                         launches.get("broyden_polish", 0) / 3)
+    kl_phys["seeded_per_call"] = seeded_mean
+    del system, rec_kl, kl_calls, kl_f
 
     # ------------------------------------------------ card vs CPU twins
     checks = [
@@ -2820,6 +3018,9 @@ def train_pose_phys(rows, row, card, dev):
             "epilogue_secondary_coarse": epi_phys,
             "search_secondary_coarse": kc_phys,
             "prologue_secondary_coarse": pro_phys,
+            "kd_shader_chunk": kd_phys,
+            "kl_fine_pass": kl_phys,
+            "skinning_fine_pass": skin_phys,
             "cpu_checks": checks}
 
 

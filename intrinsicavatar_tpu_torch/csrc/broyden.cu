@@ -188,19 +188,97 @@ __global__ void __launch_bounds__(KC_THREADS) broyden_search_kernel(
 // warm start of the secondary fine pass (FastSNARF.deform_seeded,
 // anim/deformer.py:476-537): one lane per point, started at a known-nearby
 // canonical root (the seed) instead of the bone initializations, at most
-// max_iters (4) Broyden steps with KC's residual, thresholds and bounds
-// test.  A lane without a usable seed (seed_ok false) is done at entry and
+// max_iters Broyden steps with KC's residual, thresholds and bounds test.
+// A lane without a usable seed (seed_ok false) is done at entry and
 // invalid; invalid lanes' outputs are zero.
 //
 // What bounds it on an H100: bytes.  Per lane it reads 12 B of target,
-// 13 B of seed and writes 49 B, with up to 5 trilinear samples of 384 B
-// from the 25 MB voxel (mostly L2) and ~250 flops each.
+// 13 B of seed and writes 49 B, with up to max_iters + 1 trilinear samples
+// of 384 B from the 25 MB voxel (mostly L2) and ~250 flops each.  At the
+// path's calls few lanes are seeded, at the front of the budget where the
+// compaction puts the valid slots (a phys step's fine pass ~1,200 of its
+// 65,536, a relight chunk's ~1): the time is the unseeded lanes' zero rows
+// and the seeded lanes' serial chain of samples, ~1 us an iteration.
 //
 // Design: KC's one thread per lane with its state in registers; the body is
 // KC's own (broyden_lane), so a seed that KC's search would reach gives the
-// same iterates.
+// same iterates. Two forms, by the call's size. Calls of up to
+// KL_SPREAD_MAX lanes (a fine pass's budget) take the spread form: each
+// warp writes its 32 consecutive lanes' zero rows with 16-byte stores where
+// a word holds no seeded lane's bytes (13 scalar stores a lane took 7 us of
+// a 65,536-lane call on an H100), and thread t of block b polishes lane
+// 4 (b + gridDim.x (t / 4)) + t % 4, so the seeded front's 4-lane chunks
+// spread over every block and multiprocessor, where in lane order they
+// filled the first few. Larger calls (a grid-seeded shading pass, a
+// third of its lanes seeded) take the lane-order form, whose 102 registers
+// keep more warps in flight. (A group of 2, 4 or 8 lanes a point sharing
+// each sample through shared memory, packing a block's seeded lanes into
+// its first warps, and register caps were each slower at the recorded
+// calls: PERF.md.)
 // ---------------------------------------------------------------------------
 
+constexpr int KL_THREADS = 128;
+// calls of up to this many lanes (a fine pass's budget, at most 131,072)
+// take the spread form; larger ones the lane-order form
+constexpr long long KL_SPREAD_MAX = 1 << 17;
+
+// Zeros to the unseeded rows of a warp's n <= 32 consecutive points at
+// dst (per elements of T each, 16-byte aligned; `seeded` their bits), 16
+// bytes a store where a word holds no seeded point's bytes.
+template <int per, typename T>
+__device__ __forceinline__ void zero_warp_rows(T* __restrict__ dst, int n,
+                                               unsigned seeded, int lane) {
+  constexpr int W = 16 / sizeof(T);
+  const int len = n * per;
+  for (int wd = lane; wd * W < len; wd += 32) {
+    bool whole = (wd + 1) * W <= len;
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      whole = whole && !((seeded >> ((wd * W + q) / per)) & 1u);
+    if (whole) {
+      reinterpret_cast<uint4*>(dst)[wd] = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    for (int q = 0; q < W && wd * W + q < len; ++q)
+      if (!((seeded >> ((wd * W + q) / per)) & 1u)) dst[wd * W + q] = T(0);
+  }
+}
+
+// The spread form: each warp writes its 32 consecutive lanes' zero rows,
+// then each thread polishes the lane of its slot, in 4-lane chunks spread
+// over the blocks, if that lane is seeded (the slots are a permutation of
+// the lanes, so the outputs do not depend on it).  One block an SM is
+// all it asks of occupancy, so the compiler keeps a sample's loads in
+// flight together (161 registers; 96 without the bound, 13% slower at a
+// fine pass on an H100).
+__global__ void __launch_bounds__(KL_THREADS, 1)
+broyden_polish_kernel_spread(
+    const float* __restrict__ xd, const float* __restrict__ seed,
+    const uint8_t* __restrict__ seed_ok, Sampler S,
+    float* __restrict__ x_out, float* __restrict__ jinv_out,
+    uint8_t* __restrict__ valid_out, int64_t M, int max_iters, float cvg2,
+    float dvg2) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int64_t mt = (int64_t)blockIdx.x * KL_THREADS + t;
+  const unsigned seeded =
+      __ballot_sync(0xffffffffu, mt < M && seed_ok[mt] != 0);
+  const int64_t w0 = mt - lane;
+  if (w0 < M) {
+    const int n = (int)min((int64_t)32, M - w0);
+    zero_warp_rows<3>(x_out + w0 * 3, n, seeded, lane);
+    zero_warp_rows<9>(jinv_out + w0 * 9, n, seeded, lane);
+    zero_warp_rows<1>(valid_out + w0, n, seeded, lane);
+  }
+  const int64_t m =
+      4 * ((int64_t)blockIdx.x + (int64_t)gridDim.x * (t >> 2)) + (t & 3);
+  if (m < M && seed_ok[m] != 0)
+    broyden_lane(S, seed[m * 3], seed[m * 3 + 1], seed[m * 3 + 2],
+                 xd[m * 3], xd[m * 3 + 1], xd[m * 3 + 2], max_iters, cvg2,
+                 dvg2, x_out + m * 3, jinv_out + m * 9, valid_out + m);
+}
+
+// The lane-order form: thread t of block b takes lane 128 b + t; an
+// unseeded lane stores its zeros.
 __global__ void broyden_polish_kernel(
     const float* __restrict__ xd, const float* __restrict__ seed,
     const uint8_t* __restrict__ seed_ok, Sampler S,
@@ -239,6 +317,8 @@ extern "C" int broyden_search_fwd(const float* xd, const int* bone_idx,
   return launch_status();
 }
 
+// Outputs that are not 16-byte aligned are refused (the wrapper allocates
+// them).
 extern "C" int broyden_polish_fwd(const float* xd, const float* seed,
                                   const uint8_t* seed_ok, const float* vox,
                                   float* x_out, float* jinv_out,
@@ -247,12 +327,21 @@ extern "C" int broyden_polish_fwd(const float* xd, const float* seed,
                                   int max_iters, float ox, float oy,
                                   float oz, float sx, float sy, float sz,
                                   float cvg2, float dvg2, void* stream) {
+  if (((reinterpret_cast<uintptr_t>(x_out) |
+        reinterpret_cast<uintptr_t>(jinv_out) |
+        reinterpret_cast<uintptr_t>(valid_out)) & 15u) != 0)
+    return (int)cudaErrorMisalignedAddress;
   if (M <= 0) return 0;
   Sampler S{vox, D, H, W, ox, oy, oz, sx, sy, sz};
-  const int threads = 128;
-  unsigned blocks = (unsigned)((M + threads - 1) / threads);
-  broyden_polish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      xd, seed, seed_ok, S, x_out, jinv_out, valid_out, M, max_iters, cvg2,
-      dvg2);
+  const unsigned blocks = (unsigned)((M + KL_THREADS - 1) / KL_THREADS);
+  if (M <= KL_SPREAD_MAX)
+    broyden_polish_kernel_spread<<<blocks, KL_THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+        xd, seed, seed_ok, S, x_out, jinv_out, valid_out, M, max_iters,
+        cvg2, dvg2);
+  else
+    broyden_polish_kernel<<<blocks, KL_THREADS, 0, (cudaStream_t)stream>>>(
+        xd, seed, seed_ok, S, x_out, jinv_out, valid_out, M, max_iters,
+        cvg2, dvg2);
   return launch_status();
 }

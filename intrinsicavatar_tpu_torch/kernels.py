@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("hashgrid", "encode_grad", "broyden", "march", "resample",
-           "compact", "deform", "seedgrid")
+           "compact", "deform", "seedgrid", "volrend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # no multiply-add contraction: the kernels then round like
               # their plain PyTorch twins, which the checks compare against
@@ -84,6 +84,8 @@ SIGNATURES = {
                                 F32, F32, F32, F32, P, I32, P, P)},
     "seedgrid": {
         "seed_gather_fwd": (P, P, P, P, I64, I32, I32, F32, F32, P, P, P, P)},
+    "volrend": {
+        "volrend_weights_fwd": (P, P, P, P, I64, I32, P)},
 }
 
 launches: collections.Counter = collections.Counter()

@@ -1,23 +1,29 @@
 """Rectangular masked volume rendering (counterpart of the JAX package's
-``ops/volrend.py:24-126``), kernel KD in Triton.
+``ops/volrend.py:24-126``): kernel KD, its weights in CUDA and its
+composite in Triton.
 
 KD replaces ``alpha_from_sdf`` + ``render_weight_from_alpha`` +
 ``accumulate_along_rays`` of the JAX op (themselves the nerfacc kernels of
 the reference).  Two entries:
 
 * :func:`render_weight_from_alpha` -- weights and transmittance, used by the
-  importance rounds;
+  importance rounds and the secondary shader chunks; a CUDA kernel
+  (``csrc/volrend.cu``) in two forms: a thread a row for short rows of
+  16-byte words (a shader chunk's ``[32768, 4]``), a warp a row with a
+  multiplicative warp scan for any other (the importance rounds' 129 and
+  145 samples);
 * :func:`composite` -- Laplace alpha from SDF, weights, and the rgb, normal,
   opacity and depth sums of the final composite; differentiable in the SDF,
   beta, rgb and normals, with kernel KD' (Triton) as its backward.
 
 What bounds KD on an H100: bytes.  Per sample it reads a few floats and
 writes one or two, with ~30 flops between, far below the card's ~20 flops
-per byte.  Design: one program per ray, the whole row (S <= 161 samples,
-padded to a power of two) in one block; the exclusive transmittance is an
-inclusive ``tl.cumprod`` over the row shifted by one sample, which is loaded
-from memory at offset -1 (no division by ``1 - alpha``, which can be 0).
-Masked samples have alpha 0 and do not attenuate.
+per byte.  The composite: one Triton program per ray, the whole row (S <=
+161 samples, padded to a power of two) in one block; the exclusive
+transmittance is an inclusive ``tl.cumprod`` over the row shifted by one
+sample, which is loaded from memory at offset -1 (no division by ``1 -
+alpha``, which can be 0).  Masked samples have alpha 0 and do not
+attenuate.
 
 KD' (the backward of the composite; JAX differentiates ``cumprod`` by
 autodiff, ``ops/volrend.py:46-82``) is bound by bytes the same way.  It
@@ -29,8 +35,9 @@ front.  Beta's cotangent is summed per ray by the kernel and over rays by
 ``torch.sum``, with no float atomics.
 
 CPU tensors take the plain twins ``*_plain``; CUDA tensors launch the
-Triton kernels of ``ops/volrend_triton.py``, which the launching functions
-load on first use (``triton`` exists only where there is a card).
+kernels: the weights' from ``csrc/volrend.cu``, the composite's and KD''s
+from ``ops/volrend_triton.py``, which the launching functions load on first
+use (``triton`` exists only where there is a card).
 """
 
 from __future__ import annotations
@@ -87,19 +94,21 @@ def composite_plain(sdf, dists, beta, mask, rgb, normal, mids):
 
 def render_weight_from_alpha(alphas, mask):
     """``(weights, trans)``, each ``[R, S]``: ``w_i = alpha_i *
-    prod_{j<i} (1 - alpha_j)`` over valid samples."""
+    prod_{j<i} (1 - alpha_j)`` over valid samples.  CPU tensors take the
+    plain twin; CUDA tensors launch KD weights, whose entry picks its form
+    from S and the pointers' alignment (``csrc/volrend.cu``)."""
     if alphas.device.type == "cpu":
         return render_weight_from_alpha_plain(alphas, mask)
     R, S = alphas.shape
     kernels.require(alphas, "alphas", torch.float32, alphas.device, (R, S))
     kernels.require(mask, "mask", torch.bool, alphas.device, (R, S))
-    from intrinsicavatar_tpu_torch.ops import volrend_triton as k
-    k.load()
     w = torch.empty_like(alphas)
     t = torch.empty_like(alphas)
-    if R:
-        k.weights_kernel[(R,)](alphas, mask.view(torch.uint8), w, t, S,
-                               BLOCK=k.block(S), num_warps=4)
+    if R and S:
+        err = kernels.lib("volrend").volrend_weights_fwd(
+            alphas.data_ptr(), mask.data_ptr(), w.data_ptr(), t.data_ptr(),
+            R, S, kernels.stream_ptr(alphas.device))
+        kernels.check(err, "volrend_weights")
         kernels.launches["volrend_weights"] += 1
     return w, t
 

@@ -1,5 +1,5 @@
-"""Triton kernels of KD and KD' (see ``ops/volrend.py`` for what they
-replace and why they are shaped so).
+"""Triton kernels of KD's composite and of KD' (see ``ops/volrend.py`` for
+what they replace and why they are shaped so).
 
 ``triton`` exists only on a machine with a card, so importing this module
 imports nothing; :func:`load`, called by the launching functions of
@@ -8,7 +8,7 @@ globals (Triton resolves the names a kernel uses in its module's globals).
 """
 
 triton = tl = None
-weights_kernel = composite_kernel = composite_bwd_kernel = None
+composite_kernel = composite_bwd_kernel = None
 _alpha = _alpha_parts = _sample_cot = _affine = None
 
 
@@ -18,30 +18,12 @@ def block(S: int) -> int:
 
 
 def load():
-    global triton, tl, weights_kernel, composite_kernel, composite_bwd_kernel
+    global triton, tl, composite_kernel, composite_bwd_kernel
     global _alpha, _alpha_parts, _sample_cot, _affine
-    if weights_kernel is not None:
+    if composite_kernel is not None:
         return
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def weights_kernel(alpha_ptr, mask_ptr, w_ptr, t_ptr, S,
-                       BLOCK: tl.constexpr):
-        base = tl.program_id(0).to(tl.int64) * S
-        offs = tl.arange(0, BLOCK)
-        inb = offs < S
-        a = tl.load(alpha_ptr + base + offs, mask=inb, other=0.0)
-        m = tl.load(mask_ptr + base + offs, mask=inb, other=0) != 0
-        a = tl.where(m, a, 0.0)
-        # exclusive transmittance: inclusive product of the row shifted by 1
-        pin = (offs >= 1) & inb
-        ap = tl.load(alpha_ptr + base + offs - 1, mask=pin, other=0.0)
-        mp = tl.load(mask_ptr + base + offs - 1, mask=pin, other=0) != 0
-        ap = tl.where(mp, ap, 0.0)
-        trans = tl.cumprod(1.0 - ap, axis=0)
-        tl.store(w_ptr + base + offs, a * trans, mask=inb)
-        tl.store(t_ptr + base + offs, trans, mask=inb)
 
     @triton.jit
     def _alpha(sdf, dist, beta):

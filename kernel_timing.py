@@ -3,14 +3,15 @@ gradient), the KH epilogue (duplicate filter, overflow count, first-K), KM
 (seed grid gather), KC (Broyden search), KB' pass 2 (the encode
 backward's table scatter), KA' (the hash encode's backward), KF (merge
 importance resampling), KJ (secondary fine resampling), KG (valid-first
-compaction), the KH prologue (the search's init pruning) and KK (the
-secondary march) of the PyTorch/CUDA port on one card, three ways.
+compaction), the KH prologue (the search's init pruning), KK (the
+secondary march), KD weights (the volume-rendering weights) and KL (the
+seeded Broyden polish) of the PyTorch/CUDA port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
-    python3 kernel_timing.py --kernels khp,kk     # of ka, kb, kh, km, kc,
+    python3 kernel_timing.py --kernels kd,kl      # of ka, kb, kh, km, kc,
                                                   # kb2, ka2, kf, kj, kg,
-                                                  # khp, kk
+                                                  # khp, kk, kd, kl
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -104,7 +105,25 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   a 64^3 occupancy grid (a third of them inward), about 60% active, 2% a
   padded chunk's rays (origin 0, direction 1, inactive), near 0, far 1.5:
   the mask equal to the twin's, t_starts/t_ends within 1e-6, and a digest
-  of the three outputs' bytes.
+  of the three outputs' bytes;
+- KD weights at a shader chunk's call ([32768, 4]) and at a chunk's two
+  importance rounds ([4096, 129], [4096, 145]): alphas in [0, 0.3] with
+  some 0 and some 1, a sixth of the rows fully masked, NaN at the masked
+  slots; within rtol 1e-5, atol 1e-6 of the twin on the card (the scan
+  orders differ), a digest of w and T, and the form the wrapper picked;
+- KL at a fine pass's 65,536-point budget laid out as its compaction lays
+  it out (the seeded points first, the rest padding at the origin,
+  unseeded): a phys step's (``KL_FINE_SEEDED``, the recorded calls'
+  share, 4 iterations) and a relight chunk's busiest (11 points, 6
+  iterations); at 368,640 points with 37% seeded (a grid-seeded shading
+  pass), at 65,536 with every point seeded and with none: targets near the
+  posed body's surface (the published voxel in KC's pose, skinned from
+  canonical points near the template), seeds those canonical points moved
+  by ~1 cm (a fine sample lies within a march step of its coarse seed);
+  valid equal to the twin's, x
+  and J^-1 within 1e-5 of the largest entry, a digest of all three
+  outputs' bytes, equal between two trees whose kernels compute the same
+  bits.
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -259,9 +278,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=None)
     ap.add_argument("--kernels",
-                    default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg,khp,kk",
+                    default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg,khp,kk,kd,kl",
                     help="comma-separated, of ka, kb, kh, km, kc, kb2, ka2, "
-                         "kf, kj, kg, khp, kk")
+                         "kf, kj, kg, khp, kk, kd, kl")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     import torch
@@ -280,9 +299,10 @@ def main():
     sources = {"ka": "hashgrid", "kb": "encode_grad", "kh": "deform",
                "km": "seedgrid", "kc": "broyden", "kb2": "encode_grad",
                "ka2": "hashgrid", "kf": "resample", "kj": "resample",
-               "kg": "compact", "khp": "deform", "kk": "march"}
-    logs = kernels.build_all(tuple(sorted({sources[k] for k in which})),
-                             verbose=True)
+               "kg": "compact", "khp": "deform", "kk": "march",
+               "kd": "volrend", "kl": "broyden"}
+    logs = kernels.build_all(tuple(sorted(
+        {sources[k] for k in which} & set(kernels.SOURCES))), verbose=True)
     for name, log in logs.items():
         for fn, info in ptxas_info(log).items():
             print(f"ptxas {name} {fn}: {info}", flush=True)
@@ -315,6 +335,10 @@ def main():
         time_khp(torch, dev, report, failed)
     if "kk" in which:
         time_kk(torch, dev, report, failed)
+    if "kd" in which:
+        time_kd(torch, dev, report, failed)
+    if "kl" in which:
+        time_kl(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
@@ -955,6 +979,125 @@ def time_kk(torch, dev, report, failed):
         line.update(event_ms=ev, device_ms=dv, op_device_ms=op_device_ms(
             call), host_us=hu)
         report(line)
+
+
+def kd_rows(torch, dev, R, S, seed):
+    """``[R, S]`` alphas and mask: alphas in [0, 0.3] with 5% zeros and 1%
+    ones, 70% of the slots valid, a sixth of the rows fully masked, NaN at
+    the masked slots."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.0, 0.3, (R, S)).astype(np.float32)
+    a[rng.random((R, S)) < 0.05] = 0.0
+    a[rng.random((R, S)) < 0.01] = 1.0
+    m = rng.random((R, S)) < 0.7
+    m[rng.random(R) < 1 / 6] = False
+    a[~m] = np.nan
+    return (torch.as_tensor(a, device=dev), torch.as_tensor(m, device=dev))
+
+
+def time_kd(torch, dev, report, failed):
+    """KD weights at a shader chunk's call and the importance rounds'."""
+    from intrinsicavatar_tpu_torch.ops import volrend as V
+    for R, S in ((32768, 4), (4096, 129), (4096, 145)):
+        alphas, mask = kd_rows(torch, dev, R, S, seed=20 + S)
+        w, t = V.render_weight_from_alpha(alphas, mask)
+        w_r, t_r = V.render_weight_from_alpha_plain(alphas, mask)
+        torch.cuda.synchronize()
+        err = max((w - w_r).abs().max().item(), (t - t_r).abs().max().item())
+        close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                    for a, b in ((w, w_r), (t, t_r)))
+        if not close:
+            print(f"kernel_timing: KD weights disagrees at [{R}, {S}]: "
+                  f"err={err}", flush=True)
+            failed.append(f"volrend_weights [{R}, {S}]")
+        line = {"kernel": "volrend_weights", "shape": [R, S],
+                "max_abs_err": err, "digest": digest_of((w, t)),
+                "bound_ms": R * S * 13 / 3.35e12 * 1e3}
+        ev, dv, hu = timings(lambda: V.render_weight_from_alpha(alphas, mask),
+                             "weights_kernel")
+        line.update(event_ms=ev, device_ms=dv, host_us=hu)
+        report(line)
+
+
+# the share of a fine pass's 65,536-point budget that KL's calls seeded,
+# a call on average (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W: a
+# phys step's 1,222.5 over 192 calls; a relight chunk's 1.4 over 64, the
+# busiest 11)
+KL_FINE_SEEDED = 1222.5 / 65536
+KL_RELIGHT_SEEDED = 11 / 65536
+
+
+def kl_inputs(torch, dev, B, body, M, seeded, front, seed):
+    """KL's arguments over ``M`` points: targets skinned from canonical
+    points near the template's surface, ``seeded`` of them seeded at their
+    canonical point moved by ~1 cm, first (``front``, as a compacted fine
+    pass lays them out; the rest padding at the origin) or at random."""
+    rigid, statics, frame, verts, tfs = body
+    rng = np.random.default_rng(seed)
+    n = int(round(M * seeded))
+    vs = statics.vs_template.cpu().numpy()
+    xc = torch.as_tensor(vs[rng.choice(len(vs), M)]
+                         + rng.normal(scale=0.02, size=(M, 3)),
+                         dtype=torch.float32, device=dev)
+    w = B.grid_sample_3d(statics.lbs_cl, rigid.spec.shape_dhw,
+                         rigid.spec.normalize(xc), padding="border")
+    xd, _ = B.forward_skinning(xc, w, frame.tfs)
+    if front:
+        xd[n:] = 0.0
+        ok = np.arange(M) < n
+    else:
+        ok = np.zeros(M, bool)
+        ok[rng.choice(M, n, replace=False)] = True
+    seed_xc = xc + torch.as_tensor(rng.normal(scale=0.01, size=(M, 3)),
+                                   dtype=torch.float32, device=dev)
+    return (xd.contiguous(), seed_xc.contiguous(),
+            torch.as_tensor(ok, device=dev), frame.voxel_J,
+            rigid.spec.offset, rigid.spec.scale_kernel)
+
+
+def time_kl(torch, dev, report, failed):
+    """KL at a phys step's fine pass, a grid-seeded shading pass and with
+    every point seeded."""
+    import inspect
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    body = posed_body(torch, dev)
+    hook = "lane_counts" in inspect.signature(
+        B.broyden_polish_plain).parameters
+    for where, M, seeded, front, iters in (
+            ("phys fine pass", 65536, KL_FINE_SEEDED, True, 4),
+            ("relight fine pass", 65536, KL_RELIGHT_SEEDED, True, 6),
+            ("grid-seeded shading pass", 368640, 0.37, False, 6),
+            ("every point seeded", 65536, 1.0, False, 4),
+            ("no point seeded", 65536, 0.0, True, 4)):
+        args = kl_inputs(torch, dev, B, body, M, seeded, front, seed=M)
+        out = B.broyden_polish(*args, max_iters=iters)
+        counts = [] if hook else None
+        ref = B.broyden_polish_plain(
+            *args, max_iters=iters,
+            **({"lane_counts": counts} if hook else {}))
+        torch.cuda.synchronize()
+        err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  .item() for a, b in ((out.x, ref.x),
+                                       (out.j_inv, ref.j_inv)))
+        if not (torch.equal(out.valid, ref.valid) and err <= 1e-5):
+            print(f"kernel_timing: KL disagrees at the {where}: err={err}",
+                  flush=True)
+            failed.append(f"broyden_polish at the {where}")
+        line = {"kernel": "broyden_polish", "at": where, "lanes": M,
+                "seeded": int(args[2].sum()), "max_iters": iters,
+                "valid": int(out.valid.sum()), "max_rel_err": err,
+                "digest": digest_of(out)}
+        if hook:
+            line["iterations_hist"] = torch.bincount(
+                counts[0].to(torch.int64)).tolist()
+        del out, ref, counts
+        ev, dv, hu = timings(lambda: B.broyden_polish(*args,
+                                                      max_iters=iters),
+                             "broyden_polish_kernel")
+        line.update(event_ms=ev, device_ms=dv, host_us=hu)
+        report(line)
+        del args
 
 
 if __name__ == "__main__":

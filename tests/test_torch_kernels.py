@@ -1913,3 +1913,182 @@ def test_merge_resample_refuses_rows_beyond_shared_memory(cuda):
     flags = torch.ones((R, E), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="edges a ray"):
         RS.merge_resample_rays(vals, flags, flags, flags, vals, 16)
+
+
+# ---------------------------------------------------------------- KD weights
+KD_BLOCK = 128  # rows a block of the short form (csrc/volrend.cu)
+
+
+def _kd_rows(cuda, R, S, seed, offset=0):
+    """``[R, S]`` alphas and mask: random alphas with 0 and 1 among them, a
+    fully masked row, a row whose middle alpha is 1, NaN at masked slots;
+    with ``offset``, the alphas and mask lie ``offset`` elements into their
+    storage (not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.0, 0.3, (R, S)).astype(np.float32)
+    a[rng.random((R, S)) < 0.05] = 0.0
+    a[rng.random((R, S)) < 0.01] = 1.0
+    m = rng.random((R, S)) < 0.7
+    m[0] = False                                  # fully masked
+    if R > 1:
+        m[1] = True
+        a[1, S // 2] = 1.0                        # opaque mid-row
+    a[~m] = np.nan
+    flat_a = torch.zeros(offset + R * S, device=cuda)
+    flat_a[offset:] = torch.as_tensor(a.reshape(-1), device=cuda)
+    flat_m = torch.zeros(offset + R * S, dtype=torch.bool, device=cuda)
+    flat_m[offset:] = torch.as_tensor(m.reshape(-1), device=cuda)
+    return (flat_a[offset:].view(R, S), flat_m[offset:].view(R, S))
+
+
+def _kd_kernels(fn):
+    """The names of the KD weights kernels that ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "weights_kernel" in e.name}
+
+
+@pytest.mark.parametrize("S", [1, 3, 4, 16, 17, 64, 129, 145, 161, 300])
+def test_volrend_weights_forms_match_twin(cuda, S):
+    """KD weights at every row length the path uses and around them (the
+    short form at S 4 and 16, the warp form at the others, over two
+    segments at 300), R not a multiple of a block: within the scan's
+    rounding of the twin (rtol 1e-5, atol 1e-6), masked NaNs read as 0, T 1
+    on a fully masked row and 0 after an opaque sample; two calls bit for
+    bit."""
+    R = 3 * KD_BLOCK + 5
+    alphas, mask = _kd_rows(cuda, R, S, seed=S)
+    before = kernels.launches["volrend_weights"]
+    w, t = V.render_weight_from_alpha(alphas, mask)
+    assert kernels.launches["volrend_weights"] == before + 1
+    w_r, t_r = V.render_weight_from_alpha_plain(alphas.cpu(), mask.cpu())
+    assert torch.isfinite(w).all() and torch.isfinite(t).all()
+    torch.testing.assert_close(w.cpu(), w_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(t.cpu(), t_r, rtol=1e-5, atol=1e-6)
+    assert not w[0].any() and bool((t[0] == 1.0).all())
+    assert not t[1, S // 2 + 1:].any()
+    w2, t2 = V.render_weight_from_alpha(alphas, mask)
+    assert torch.equal(w, w2) and torch.equal(t, t2)
+
+
+@pytest.mark.parametrize("S", [4, 17, 145])
+def test_volrend_weights_unaligned_rows(cuda, S):
+    """Alphas and mask that start off a 16-byte boundary take the warp
+    form, within the twin's tolerance; at S > 16 the aligned call takes it
+    too and gives the same bits."""
+    R = KD_BLOCK + 9
+    alphas, mask = _kd_rows(cuda, R, S, seed=100 + S, offset=1)
+    assert alphas.data_ptr() % 16 and mask.data_ptr() % 16
+    w, t = V.render_weight_from_alpha(alphas, mask)
+    w_r, t_r = V.render_weight_from_alpha_plain(alphas.cpu(), mask.cpu())
+    torch.testing.assert_close(w.cpu(), w_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(t.cpu(), t_r, rtol=1e-5, atol=1e-6)
+    if S > 16:
+        w_a, t_a = V.render_weight_from_alpha(alphas.clone(), mask.clone())
+        assert torch.equal(w, w_a) and torch.equal(t, t_a)
+
+
+def test_volrend_weights_picks_the_form_by_row_length(cuda):
+    """Rows of up to 16 samples in whole 16-byte words take the short form
+    (a thread a row), every other row the warp form; an empty call
+    launches nothing."""
+    for S, offset, words in ((4, 0, True), (16, 0, True), (4, 1, False),
+                             (3, 0, False), (17, 0, False),
+                             (145, 0, False)):
+        alphas, mask = _kd_rows(cuda, 7, S, seed=7, offset=offset)
+        names = _kd_kernels(lambda: V.render_weight_from_alpha(alphas, mask))
+        assert len(names) == 1, names
+        assert ("weights_kernel<true>" in names.pop()) == words, (S, offset)
+    empty = torch.zeros((0, 4), device=cuda)
+    before = kernels.launches["volrend_weights"]
+    w, t = V.render_weight_from_alpha(empty, empty > 0)
+    assert w.shape == (0, 4) and t.shape == (0, 4)
+    assert kernels.launches["volrend_weights"] == before
+
+
+# ---------------------------------------------------------------- KL
+def _kl_args(body, M, seeded, seed):
+    """``M`` points near the posed body seeded from KC's roots nudged (a
+    fifth of them far), ``seeded`` the ``seed_ok`` mask to apply."""
+    args = _kc_lanes(body, M, seed=seed)
+    res = TB.broyden_search(*args)
+    rng = np.random.default_rng(seed + 1)
+    scale = np.where(rng.random(M) < 0.8, 0.01, 0.3)[:, None]
+    xs = res.x + torch.as_tensor(rng.normal(size=(M, 3)) * scale,
+                                 dtype=torch.float32, device="cuda")
+    ok = res.valid & torch.as_tensor(seeded, device="cuda")
+    return (args[0], xs.contiguous(), ok, args[2], args[4], args[5])
+
+
+def _kl_check(pargs, **kw):
+    """KL against its twin: valid equal, x and J^-1 within 1e-5 of the
+    largest entry, zeros where invalid; a second call bit for bit the
+    same."""
+    before = kernels.launches["broyden_polish"]
+    out = TB.broyden_polish(*pargs, **kw)
+    assert kernels.launches["broyden_polish"] == before + 1
+    ref = TB.broyden_polish_plain(*pargs, **kw)
+    assert torch.equal(out.valid, ref.valid)
+    assert not out.valid[~pargs[2]].any()
+    for a, b in ((out.x, ref.x), (out.j_inv, ref.j_inv)):
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max(), 1e-30)
+    assert not out.x[~out.valid].any() and not out.j_inv[~out.valid].any()
+    for a, b in zip(TB.broyden_polish(*pargs, **kw), out):
+        assert torch.equal(a, b)
+    return out, ref
+
+
+@pytest.mark.parametrize("M", [1, 15, 17, 63, 65, 1000, 40_003, 140_001])
+@pytest.mark.parametrize("which", ["none", "one_a_warp", "all", "mixed"])
+def test_broyden_polish_kernel_seeding(cuda, posed_body, M, which):
+    """KL at M not a multiple of its 128-point blocks, in its spread form
+    (up to 131,072 points, 4-point chunks spread over the blocks) and its
+    lane-order form (140,001), with no point seeded, one point in 32, every
+    point and 90% at random."""
+    rng = np.random.default_rng(M)
+    seeded = {"none": np.zeros(M, bool),
+              "one_a_warp": np.arange(M) % 32 == 5,
+              "all": np.ones(M, bool),
+              "mixed": rng.random(M) < 0.9}[which]
+    pargs = _kl_args(posed_body, M, seeded, seed=M + 7)
+    out, _ = _kl_check(pargs, max_iters=4)
+    if which == "none":
+        assert not out.valid.any()
+
+
+def test_broyden_polish_kernel_front_packed(cuda, posed_body):
+    """A fine pass's budget as the compaction lays it out: the valid slots
+    first (most seeded), then padding at the origin, unseeded; with the
+    seed grid's 6 iterations."""
+    M, n = 65_536, 6_000
+    pargs = list(_kl_args(posed_body, M, np.arange(M) < n, seed=50))
+    pargs[0] = pargs[0].clone()
+    pargs[0][n:] = 0.0
+    pargs[2] = pargs[2] & torch.as_tensor(
+        np.random.default_rng(51).random(M) < 0.95, device="cuda")
+    out, _ = _kl_check(tuple(pargs), max_iters=6)
+    assert out.valid[:n].float().mean().item() > 0.3
+
+
+def test_broyden_polish_kernel_is_the_search_lane(cuda, posed_body):
+    """Seeded at KC's start points with KC's iterations, KL gives KC's
+    outputs bit for bit: the two kernels run one lane body."""
+    args = _kc_lanes(posed_body, 5_000, seed=52)
+    xd, bone, vox, tfs = args[0], args[1], args[2], args[3]
+    T = tfs[:, :3, :].reshape(tfs.shape[0], 12)[bone.long()].unbind(-1)
+    dx, dy, dz = (xd[:, 0] - T[3], xd[:, 1] - T[7], xd[:, 2] - T[11])
+    start = torch.stack([T[0] * dx + T[4] * dy + T[8] * dz,
+                         T[1] * dx + T[5] * dy + T[9] * dz,
+                         T[2] * dx + T[6] * dy + T[10] * dz], -1)
+    kc = TB.broyden_search(*args)
+    for ok in (torch.ones(5_000, dtype=torch.bool, device=cuda),
+               torch.arange(5_000, device=cuda) < 100):
+        kl = TB.broyden_polish(xd, start.contiguous(), ok, vox, args[4],
+                               args[5], max_iters=10)
+        for a, b in zip(kl, kc):
+            assert torch.equal(a[ok], b[ok])
+    assert 0.05 < kc.valid.float().mean().item() < 0.95

@@ -22,6 +22,7 @@ from intrinsicavatar_tpu.ops import resample as JR
 from intrinsicavatar_tpu.utils.config import wrap as jwrap
 from intrinsicavatar_tpu_torch.anim import broyden as TB
 from intrinsicavatar_tpu_torch.anim import deformer as TD
+from intrinsicavatar_tpu_torch.ops import compact as TC
 from intrinsicavatar_tpu_torch.ops import grid_traversal as TG
 from intrinsicavatar_tpu_torch.ops import resample as TR
 from intrinsicavatar_tpu_torch.utils.config import wrap as twrap
@@ -271,9 +272,27 @@ def _seeds(deformers, n, seed):
     return np.asarray(xd), seed_xc, ok
 
 
-def test_broyden_polish_twin_matches_jax(deformers):
+def _compacted_budget(xd, seed_xc, ok, rays, seed):
+    """The lanes of a secondary fine pass as ``compact_apply`` lays them
+    out: ``rays`` x 4 slots, a tenth of them valid, compacted sample-major
+    into half of the slots (valid first, then padding); a slot's seed is
+    usable only where it is valid, so most of the budget is unseeded."""
+    valid = np.random.default_rng(seed).random((rays, 4)) < 0.1
+    idx, _ = TC.compact_indices_interleaved(torch.as_tensor(valid),
+                                            rays * 2)
+    idx = idx.numpy()
+    return xd[idx], seed_xc[idx], (ok & valid.reshape(-1))[idx]
+
+
+@pytest.mark.parametrize("layout", ["scattered", "compacted"])
+def test_broyden_polish_twin_matches_jax(deformers, layout):
     jd, js, jf, td, ts, tf = deformers
-    xd, seed_xc, ok = _seeds(deformers, 2000, 0)
+    if layout == "scattered":
+        xd, seed_xc, ok = _seeds(deformers, 2000, 0)
+    else:
+        xd, seed_xc, ok = _compacted_budget(*_seeds(deformers, 8000, 2),
+                                            rays=2000, seed=3)
+        assert 0.1 < ok.mean() < 0.25   # most of the budget unseeded
     _, voxel_J = JL.precompute_transform_voxels(js.lbs_voxel, jf.tfs, jd.spec)
     ref = JB.broyden_polish(
         jnp.asarray(xd), *(jnp.asarray(seed_xc[:, i]) for i in range(3)),

@@ -1,6 +1,6 @@
 """Kernels KD and KD''s plain twins (``intrinsicavatar_tpu_torch.ops.
 volrend``) against the JAX ``alpha_from_sdf``, ``render_weight_from_alpha``
-and ``accumulate_along_rays`` and their VJP (the Triton kernels themselves:
+and ``accumulate_along_rays`` and their VJP (the kernels themselves:
 ``test_torch_kernels.py``)."""
 
 import jax
@@ -42,16 +42,23 @@ def _inputs(seed=0, R=64, S=161):
     return sdf, dists, beta, mask, rgb, normal, mids
 
 
-def test_weights_twin_matches_jax():
-    sdf, dists, beta, mask, *_ = _inputs()
+@pytest.mark.parametrize("S", [161, 4, 145])
+def test_weights_twin_matches_jax(S):
+    """At the row lengths the path uses (a shader chunk's 4, an importance
+    round's 145, and 161), with a fully masked row and NaN at masked
+    slots, which read as alpha 0."""
+    sdf, dists, beta, mask, *_ = _inputs(R=64, S=S)
     alphas = np.array(JV.alpha_from_sdf(jnp.asarray(sdf), jnp.asarray(dists),
                                         jnp.asarray(beta)))
+    alphas[~mask] = np.nan
     w_r, t_r = JV.render_weight_from_alpha(jnp.asarray(alphas),
                                            jnp.asarray(mask))
     w, t = TV.render_weight_from_alpha(torch.as_tensor(alphas),
                                        torch.as_tensor(mask))
     np.testing.assert_allclose(w.numpy(), np.asarray(w_r), **TOL)
     np.testing.assert_allclose(t.numpy(), np.asarray(t_r), **TOL)
+    assert not mask[1].any() and not w[1].any() and bool((t[1] == 1).all())
+    assert np.isnan(alphas).any() and torch.isfinite(w).all()
 
 
 def test_composite_twin_matches_jax():
