@@ -24,7 +24,9 @@
    lanes' iterations and the share of issued samples that do work,
    ``lane_work``); KF's and KD weights' device times at their recorded
    calls (KD at a serve chunk's second importance round, [4096, 145]); KH
-   skinning's bound over the voxel rows its points touch; the registers,
+   skinning against its twin and its transform-voxel form in plain
+   PyTorch, its bound over the voxel rows its points touch (of the
+   transform voxel it reads and of the weight voxel); the registers,
    stack frame and spills of every kernel of the port from ``ptxas``;
 4. serves: bakes one frame's 96^3 seed grid alone (its time and launches),
    then renders 2 frames x 16,384 rays of the synthetic val split through
@@ -65,9 +67,10 @@
    whose physically based maps must agree;
 7. trains: records the backward kernels' inputs in one full-width train
    step at step 2000, holds each backward kernel against its twin on them
-   and times both (KB' pass 2 at the step's shading call and its curvature
-   call, KA' at its radiance call, also with ``d_x`` on the same inputs,
-   each with its device time, the warps' merge hit rate by level, its
+   and times both (KB' pass 1 and pass 2 at the step's shading call and
+   its curvature call, KA' at its radiance call, also with ``d_x`` on the
+   same inputs, each with its device time, the warps' merge hit rate by
+   level, its
    bound over the cotangent rows its corners touch, and ``index_add_`` of
    the same adds, precomputed, as the library yardstick); then, with every
    launch counter set to 0 just before and
@@ -133,8 +136,12 @@ PEAK_TF32 = 495e12
 # points; device 0.0349 at the phys step's secondary coarse call, 262,144),
 # KK at a shader chunk's call ([32768, 64], cap 8; device 0.0210), KD
 # weights at a shader chunk's call ([32768, 4]; device, the phys step's
-# profile: 1.354 ms over 66 launches) and KL at a phys step's fine pass
-# (65,536 points; device, 0.903 ms over 64 launches)
+# profile: 1.354 ms over 66 launches), KL at a phys step's fine pass
+# (65,536 points; device, 0.903 ms over 64 launches), KH skinning at a
+# serve chunk's shading query (1,474,560 lanes; device 0.101; 0.0092 at a
+# phys step's fine pass, 0.855 ms over 65 launches in its profile) and
+# KB' pass 1 at a train step's shading call (552,960 points; 0.786 ms over
+# 2 launches in its profile)
 EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "0.0513-0.0740", "hashgrid_encode": "0.855",
               "deform_epilogue": "0.852-0.857", "broyden_search": "0.501",
@@ -145,7 +152,9 @@ EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "compact_indices": "0.046-0.072",
               "deform_prologue": "0.080-0.083",
               "secondary_march": "0.0486-0.0775",
-              "volrend_weights": "0.0205", "broyden_polish": "0.0141"}
+              "volrend_weights": "0.0205", "broyden_polish": "0.0141",
+              "deform_skinning": "0.108 (device 0.101)",
+              "encode_mlp_sdfgrad_bwd_gather": "0.684-0.697"}
 # the profiler's names of every kernel of the port (KG's count and scatter
 # passes apart); a kernel's wrapper counts its launches under the same
 # name (KG's under compact_indices)
@@ -179,7 +188,8 @@ REDESIGNED = ("encode_mlp_sdfgrad", "seed_gather", "hashgrid_encode",
               "encode_mlp_sdfgrad_bwd_scatter", "hashgrid_encode_bwd",
               "merge_resample", "fine_resample", "compact_count",
               "compact_scatter", "deform_prologue", "secondary_march",
-              "volrend_weights", "broyden_polish")
+              "volrend_weights", "broyden_polish", "deform_skinning",
+              "encode_mlp_sdfgrad_bwd_gather")
 
 
 def fail(msg: str):
@@ -530,12 +540,12 @@ def main():
     grid_shape("deform_epilogue", "bake's last chunk",
                *check_kh_epi(kh_epi_g, "bake's last chunk"))
 
-    # KH skinning: LBS-weight sample + blend at a shading call's kept lanes
+    # KH skinning: the LBS rotation at a shading call's kept lanes
     if not kh_rot[1][3]:
         fail("no deform_epilogue call blended the rotation")
-    _, _, _, _, lbs_cl, spec, tfs = kh_rot[1]
-    xc = B.deform_epilogue(*kh_rot[1]).xc
-    sk = skinning_reading((xc, lbs_cl, spec, tfs),
+    _, _, _, _, lbs_cl, spec, tfs, voxel_J = kh_rot[1]
+    xc = B.deform_epilogue(*kh_rot[1], **kh_rot[2]).xc
+    sk = skinning_reading((xc, lbs_cl, spec, tfs, voxel_J),
                           "serve chunk's shading query", card)
     row("deform_skinning", "cuda", "intrinsicavatar_tpu_torch/csrc/deform.cu",
         "intrinsicavatar_tpu/anim/deformer.py:235", sk["shape"],
@@ -1273,8 +1283,9 @@ def median_polish_call(calls, where):
 
 
 def lbs_rows_touched(xc, spec):
-    """The LBS voxel's rows that KH skinning's trilinear corners read at
-    ``xc`` (border padding: coordinates clamped into the voxel)."""
+    """The voxel rows that KH skinning's trilinear corners read at ``xc``
+    (border padding: coordinates clamped into the voxel); the weight voxel
+    and the transform voxel share the grid."""
     import torch
     D, H, W = spec.shape_dhw
     c = spec.normalize(xc)
@@ -1290,42 +1301,98 @@ def lbs_rows_touched(xc, spec):
 
 def skinning_reading(args, where, card, launches=None):
     """KH skinning against its twin on the call ``args`` (within 1e-5: the
-    kernel sums the 24 bones in order, the twin's product in cuBLAS's),
-    timed with events and on the device beside the twin and
-    ``F.grid_sample`` of the weights alone; its bound over the voxel rows
-    its points touch.  Returns the reading."""
+    kernel samples the frame's transform voxel, the twin blends the
+    sampled weights in cuBLAS's order), and against the voxel form in
+    plain PyTorch; timed with events and on the device beside the twin and
+    ``F.grid_sample`` of the transform voxel's 9 rotation channels (the
+    same function; their channel-first copy made beforehand); its bound
+    over the transform voxel's rows its points touch (48 B a row), and
+    over the weight voxel's (96 B a row, and the 24 rotations).  Returns
+    the reading."""
     import torch
 
     from intrinsicavatar_tpu_torch.anim import broyden as B
-    xc, lbs_cl, spec, tfs = args
+    xc, lbs_cl, spec, tfs, voxel_J = args
     rk = B.deform_skinning(*args)
-    rp = B.deform_skinning_plain(*args)
+    rp = B.deform_skinning_plain(*args[:4])
+    rv = B.deform_skinning_voxel_plain(xc, voxel_J, spec)
     torch.cuda.synchronize()
     err = (rk - rp).abs().max().item()
-    if not err <= 1e-5:
+    err_voxel = (rk - rv).abs().max().item()
+    if not (err <= 1e-5 and err_voxel <= 1e-5):
         fail(f"deform_skinning disagrees with its twin at the {where}: "
-             f"{err}")
+             f"{err} (voxel form {err_voxel})")
     M = xc.shape[0]
     rows = lbs_rows_touched(xc, spec)
-    # of tfs only the 3x3 rotation part of each bone is read
-    nbytes = M * 12 + rows * 96 + 24 * 36 + M * 36
-    flops = M * (8 * (4 + 24 * 2) + 9 * 24 * 2 + 20)
-    vox5 = lbs_cl.t().reshape(1, lbs_cl.shape[1], *spec.shape_dhw)
+    # xc read, each transform voxel row touched read once, rot written
+    nbytes = M * 12 + rows * 48 + M * 36
+    flops = M * (8 * (2 + 9 * 2) + 20)
+    # the weights' form: each weight row touched, the 24 bones' 3 x 3
+    nbytes_w = M * 12 + rows * 96 + 24 * 36 + M * 36
+    flops_w = M * (8 * (4 + 24 * 2) + 9 * 24 * 2 + 20)
+    vox5 = voxel_J[..., list(B.ROT_CHANNELS)].permute(3, 0, 1, 2)[
+        None].contiguous()
     grid5 = spec.normalize(xc).reshape(1, M, 1, 1, 3)
     call = lambda: B.deform_skinning(*args)
     r = {"where": where, "shape": f"xc{[M, 3]}", "max_abs_err": err,
-         "rows_touched": rows, "ms": time_ms(call),
+         "voxel_form_err": err_voxel, "rows_touched": rows,
+         "ms": time_ms(call),
          "device_ms": device_ms(call, PORT_KERNELS["deform_skinning"]),
-         "plain_ms": time_ms(lambda: B.deform_skinning_plain(*args), 3),
+         "plain_ms": time_ms(lambda: B.deform_skinning_plain(*args[:4]), 3),
          "library_ms": time_ms(lambda: torch.nn.functional.grid_sample(
              vox5, grid5, mode="bilinear", padding_mode="border",
              align_corners=True)),
          "bytes": nbytes, "flops": flops,
          "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
-         "card": card}
+         "weights_bound_ms": max(nbytes_w / PEAK_BYTES,
+                                 flops_w / PEAK_FP32) * 1e3,
+         "before_redesign_ms": EARLIER_MS["deform_skinning"], "card": card}
     if launches is not None:
         r["launches_per_step"] = launches
     print(f"kernel deform_skinning ({where}): {json.dumps(r)}", flush=True)
+    return r
+
+
+def kb1_reading(rec, where, card):
+    """KB' pass 1 against its twin on a recorded call (each output within
+    1e-5 of its largest entry: the corner sums in another order), timed
+    with events and on the device beside the twin; its bound over the
+    table rows its corners read at the levels the mask leaves on.  Returns
+    the reading."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    args = rec[1]
+    spec, table, xn, mask, _ = args
+    enc_k, gg_k = EG.encode_mlp_sdfgrad_bwd_gather(*args)
+    enc_p, gg_p = EG.encode_mlp_sdfgrad_bwd_gather_plain(*args)
+    torch.cuda.synchronize()
+    rel = max(relerr(enc_k, enc_p), relerr(gg_k, gg_p))
+    if not rel <= 1e-5:
+        fail(f"encode_mlp_sdfgrad_bwd_gather disagrees with its twin at the "
+             f"{where}: {rel}")
+    err = max((enc_k - enc_p).abs().max().item(),
+              (gg_k - gg_p).abs().max().item())
+    N, (L, T, F) = xn.shape[0], table.shape
+    D = enc_k.shape[1]
+    del enc_k, gg_k, enc_p, gg_p
+    rows = hash_rows_touched(xn, spec, mask)
+    # x and g_grad read, each table row touched once, enc and gg written
+    nbytes = N * 24 + rows * F * 4 + 2 * N * D * 4
+    flops = N * L * 8 * (24 + 4 * F)
+    call = lambda: EG.encode_mlp_sdfgrad_bwd_gather(*args)
+    r = {"where": where, "shape": f"x{list(xn.shape)}", "max_abs_err": err,
+         "relerr": rel, "rows_read": rows, "ms": time_ms(call),
+         "device_ms": device_ms(
+             call, PORT_KERNELS["encode_mlp_sdfgrad_bwd_gather"]),
+         "plain_ms": time_ms(
+             lambda: EG.encode_mlp_sdfgrad_bwd_gather_plain(*args), 3),
+         "bytes": nbytes, "flops": flops,
+         "bound_ms": max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3,
+         "before_redesign_ms": EARLIER_MS["encode_mlp_sdfgrad_bwd_gather"],
+         "card": card}
+    print(f"kernel encode_mlp_sdfgrad_bwd_gather ({where}): "
+          f"{json.dumps(r)}", flush=True)
     return r
 
 
@@ -2589,7 +2656,10 @@ def train(rows, row, card, dev):
             Recorder(V, "composite_bwd", lambda a: a[0].numel()),
             # KA's forward: the step's largest encode
             Recorder(GEO, "hashgrid_encode", lambda a: a[1].shape[0]),
-            Recorder(RAD, "hashgrid_encode", lambda a: a[1].shape[0])]
+            Recorder(RAD, "hashgrid_encode", lambda a: a[1].shape[0]),
+            # the smallest pass 1 with points (the curvature call)
+            Recorder(EG, "encode_mlp_sdfgrad_bwd_gather",
+                     lambda a: -a[2].shape[0] if a[2].shape[0] else -1 << 62)]
     batch, t_idx = next(data)
     batch = system.to_device(batch)
     system.step = 2000
@@ -2601,8 +2671,9 @@ def train(rows, row, card, dev):
     ka, kb1, kb2, kb2x, kd = (r.best for r in recs[:5])
     if kb2x[0] < 0:
         fail("no pass 2 of KB' pulled xn back (the curvature call)")
-    ka_train = ka_reading(max((r.best for r in recs[5:] if r.best),
+    ka_train = ka_reading(max((r.best for r in recs[5:7] if r.best),
                               key=lambda b: b[0]), "train step at 2000", card)
+    kb1x = recs[7].best
 
     # KA' (table only, as on the path: the radiance points carry no grad)
     ka2 = ka2_reading(ka, "radiance call", card)
@@ -2612,26 +2683,16 @@ def train(rows, row, card, dev):
         ka2["max_abs_err"], ka2["ms"], ka2["plain_ms"], ka2["bytes"],
         ka2["flops"], ka2["library_ms"])
 
-    # KB' pass 1 and pass 2 (the shading call), pass 2 with d_xn checked
-    # on the curvature call
-    spec_b, table_b, xn, mask_b, g_grad = kb1[1]
-    enc_k, gg_k = EG.encode_mlp_sdfgrad_bwd_gather(*kb1[1])
-    enc_p, gg_p = EG.encode_mlp_sdfgrad_bwd_gather_plain(*kb1[1])
-    torch.cuda.synchronize()
-    err = max(relerr(enc_k, enc_p), relerr(gg_k, gg_p))
-    if not err <= 1e-5:
-        fail(f"encode_mlp_sdfgrad_bwd_gather disagrees with its twin: {err}")
-    N, (L, T, F) = xn.shape[0], table_b.shape
-    D = enc_k.shape[1]
-    gathered = min(N * L * 8 * F * 4, table_b.numel() * 4)
+    # KB' pass 1 at the shading and the curvature call, pass 2 at the
+    # shading call, pass 2 with d_xn checked on the curvature call
+    kb1_reads = [kb1_reading(kb1, "shading call", card),
+                 kb1_reading(kb1x, "curvature call", card)]
+    r = kb1_reads[0]
     row("encode_mlp_sdfgrad_bwd_gather", "cuda",
         "intrinsicavatar_tpu_torch/csrc/encode_grad.cu",
-        "intrinsicavatar_tpu/ops/encode_grad.py:238", f"x{list(xn.shape)}",
-        max((enc_k - enc_p).abs().max().item(),
-            (gg_k - gg_p).abs().max().item()),
-        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_gather(*kb1[1])),
-        time_ms(lambda: EG.encode_mlp_sdfgrad_bwd_gather_plain(*kb1[1]), 3),
-        N * 24 + gathered + 2 * N * D * 4, N * L * 8 * (24 + 4 * F))
+        "intrinsicavatar_tpu/ops/encode_grad.py:238", r["shape"],
+        max(k["max_abs_err"] for k in kb1_reads), r["ms"], r["plain_ms"],
+        r["bytes"], r["flops"])
     kb2_reads = [kb2_reading(kb2, "shading call", card),
                  kb2_reading(kb2x, "curvature call", card)]
     r = kb2_reads[0]
@@ -2661,7 +2722,7 @@ def train(rows, row, card, dev):
         # per-ray cotangents; writes d sdf, d rgb, d normal, d beta
         n * (4 + 4 + 1 + 12 + 12 + 4 + 4) + R * 32 + n * (4 + 12 + 12)
         + R * 4, n * 60)
-    del recs, ka, kb1, kb2, kb2x, kd, dk, dp
+    del recs, ka, kb1, kb1x, kb2, kb2x, kd, dk, dp
 
     # ------------------------------------------------ train phase
     system.setup(ds.betas)
@@ -2731,6 +2792,8 @@ def train(rows, row, card, dev):
                 "device_launches", "port_kernels")},
             "ka_train_step": ka_train,
             "ka2_radiance_call": ka2,
+            "kb1_shading_call": kb1_reads[0],
+            "kb1_curvature_call": kb1_reads[1],
             "kb2_shading_call": kb2_reads[0],
             "kb2_curvature_call": kb2_reads[1],
             "cpu_check": cpu_check}

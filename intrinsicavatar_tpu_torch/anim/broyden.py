@@ -375,9 +375,10 @@ class EpilogueOut(NamedTuple):
 
 
 def deform_epilogue_plain(res: BroydenResult, n_init: int, n_keep: int,
-                          need_rot: bool, lbs_cl, spec, tfs,
+                          need_rot: bool, lbs_cl, spec, tfs, voxel_J,
                           thresh: float = 1e-4) -> EpilogueOut:
-    """Plain twin of :func:`deform_epilogue`."""
+    """Plain twin of :func:`deform_epilogue` (``voxel_J`` unread: the twin
+    blends ``lbs_cl``'s weights over ``tfs``)."""
     I, K = n_init, n_keep
     N = res.x.shape[0] // I
     valid = filter_duplicates(res.x.reshape(N, I, 3), res.valid.reshape(N, I),
@@ -395,7 +396,7 @@ def deform_epilogue_plain(res: BroydenResult, n_init: int, n_keep: int,
 
 
 def deform_epilogue(res: BroydenResult, n_init: int, n_keep: int,
-                    need_rot: bool, lbs_cl, spec, tfs,
+                    need_rot: bool, lbs_cl, spec, tfs, voxel_J,
                     thresh: float = 1e-4) -> EpilogueOut:
     """After the search over ``n_init`` lanes per point: drop each root
     within ``thresh`` of a later valid one (`filter.cu:25-51`), count the
@@ -403,11 +404,15 @@ def deform_epilogue(res: BroydenResult, n_init: int, n_keep: int,
     order (then the first lanes that did not survive), and with
     ``need_rot`` sample the LBS weights ``lbs_cl [D*H*W, 24]`` (border
     padding) at each kept root and blend the rotation of ``tfs [24, 4, 4]``
-    (`deformer_torch.py:213-227`).  ``spec`` is the voxel's
-    :class:`~intrinsicavatar_tpu_torch.anim.lbs_voxel.VoxelSpec`."""
+    (`deformer_torch.py:213-227`; :func:`deform_skinning`, whose kernel
+    reads ``voxel_J``, the transform voxel of the same frame's ``lbs_cl``
+    and ``tfs``).  ``spec`` is the voxel's
+    :class:`~intrinsicavatar_tpu_torch.anim.lbs_voxel.VoxelSpec`.  Without
+    ``need_rot``, ``lbs_cl``, ``spec``, ``tfs`` and ``voxel_J`` may be
+    None."""
     if res.x.device.type == "cpu":
         return deform_epilogue_plain(res, n_init, n_keep, need_rot, lbs_cl,
-                                     spec, tfs, thresh)
+                                     spec, tfs, voxel_J, thresh)
     dev = res.x.device
     I, K = n_init, n_keep
     M = res.x.shape[0]
@@ -429,36 +434,60 @@ def deform_epilogue(res: BroydenResult, n_init: int, n_keep: int,
     kernels.launches["deform_epilogue"] += 1
     return EpilogueOut(
         xc=xc, j_inv=j_inv, valid=valid, overflow=overflow,
-        fwd_rot=deform_skinning(xc, lbs_cl, spec, tfs) if need_rot else None)
+        fwd_rot=deform_skinning(xc, lbs_cl, spec, tfs, voxel_J) if need_rot
+        else None)
 
 
 def deform_skinning_plain(xc, lbs_cl, spec, tfs) -> torch.Tensor:
-    """Plain twin of :func:`deform_skinning`."""
+    """Plain twin of :func:`deform_skinning`: the 24 LBS weights sampled
+    with border padding, then blended over ``tfs`` (JAX's `query_weights`
+    + `forward_skinning`)."""
     weights = grid_sample_3d(lbs_cl, spec.shape_dhw, spec.normalize(xc),
                              padding="border")
     return forward_skinning(xc, weights, tfs)[1]
 
 
-def deform_skinning(xc, lbs_cl, spec, tfs) -> torch.Tensor:
+# the rotation channels of a [3, 4] transform voxel row (row-major)
+ROT_CHANNELS = (0, 1, 2, 4, 5, 6, 8, 9, 10)
+
+
+def deform_skinning_voxel_plain(xc, voxel_J, spec) -> torch.Tensor:
+    """What KH skinning's kernel computes: the 9 rotation channels of the
+    transform voxel ``voxel_J [D, H, W, 12]`` (``sum_b W_b tfs[b, :3,
+    :4]``, as :meth:`FastSNARF.prepare` bakes it) sampled with border
+    padding at ``xc [M, 3]`` (the kernel adds the two x sides of a cell's
+    corners apart, then each other).  The trilinear sample is linear in the
+    voxel, so this is :func:`deform_skinning_plain` with the sums in
+    another order."""
+    out = grid_sample_3d(voxel_J.reshape(-1, 12), spec.shape_dhw,
+                         spec.normalize(xc), padding="border")
+    return out[:, list(ROT_CHANNELS)]
+
+
+def deform_skinning(xc, lbs_cl, spec, tfs, voxel_J) -> torch.Tensor:
     """Rotation rows ``[M, 9]`` of the LBS transform at canonical points
     ``xc [M, 3]``: the weights ``lbs_cl [D*H*W, 24]`` sampled with border
     padding (``spec`` normalizes), blended over ``tfs [24, 4, 4]``
     (`FastSNARF.query_weights` + `forward_skinning`).  Kernel KH's second
-    stage; :func:`deform_epilogue` calls it when ``need_rot``."""
+    stage; :func:`deform_epilogue` calls it when ``need_rot``.
+
+    CPU tensors take the plain twin, which reads ``lbs_cl`` and ``tfs``.
+    For CUDA tensors the kernel samples the frame's transform voxel
+    ``voxel_J [D, H, W, 12]``, baked from the same weights and ``tfs``
+    (:func:`deform_skinning_voxel_plain`): 8 corner rows of 48 B a lane
+    where the weights take 8 of 96 B and a blend over 24 bones."""
     if xc.device.type == "cpu":
         return deform_skinning_plain(xc, lbs_cl, spec, tfs)
     dev = xc.device
     M = xc.shape[0]
     D, H, W = spec.shape_dhw
     kernels.require(xc, "xc", torch.float32, dev, (M, 3))
-    kernels.require(lbs_cl, "lbs_cl", torch.float32, dev,
-                    (D * H * W, N_BONES))
-    kernels.require(tfs, "tfs", torch.float32, dev, (N_BONES, 4, 4))
-    if lbs_cl.data_ptr() % 16:
-        raise ValueError("lbs_cl must be 16-byte aligned")
+    kernels.require(voxel_J, "voxel_J", torch.float32, dev, (D, H, W, 12))
+    if voxel_J.data_ptr() % 16:
+        raise ValueError("voxel_J must be 16-byte aligned")
     rot = torch.empty((M, 9), dtype=torch.float32, device=dev)
     err = kernels.lib("deform").deform_skinning_fwd(
-        xc.data_ptr(), lbs_cl.data_ptr(), tfs.data_ptr(), M, D, H, W,
+        xc.data_ptr(), voxel_J.data_ptr(), M, D, H, W,
         *(float(v) for v in spec.offset), float(spec.scale),
         float(spec.ratio), rot.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(err, "deform_skinning")

@@ -276,13 +276,13 @@ class FastSNARF(nn.Module):
             and torch.is_grad_enabled()
         ep = deform_epilogue(res, I, K, need_rot and not pose_grad,
                              statics.lbs_cl, self.spec,
-                             frame.tfs.detach().contiguous())
+                             frame.tfs.detach().contiguous(), frame.voxel_J)
         record(counters, "ovf_candidates", ep.overflow)
         xc, rot = ep.xc, ep.fwd_rot
         if pose_grad:
             xc, rot = _SkinningCorrection.apply(
                 ep.xc, ep.j_inv, ep.valid, frame.tfs, statics.lbs_cl,
-                self.spec, need_rot)
+                self.spec, frame.voxel_J, need_rot)
         c2w = ep.j_inv if self.use_j_inv else rot                 # [M, 9]
         return self._finish_query(N, K, xc, c2w, ep.valid, geometry_fn,
                                   boost, counters)
@@ -311,7 +311,8 @@ class FastSNARF(nn.Module):
             c2w = res.j_inv
         elif with_jac:
             c2w = deform_skinning(res.x, statics.lbs_cl, self.spec,
-                                  frame.tfs.detach().contiguous())
+                                  frame.tfs.detach().contiguous(),
+                                  frame.voxel_J)
         else:
             c2w = None
         # the lanes were compacted by the caller and are mostly valid: no
@@ -355,17 +356,19 @@ class FastSNARF(nn.Module):
 class _SkinningCorrection(torch.autograd.Function):
     """``(xc [M, 3], jinv [M, 9], valid [M], tfs [24, 4, 4]) -> (xc,
     rot [M, 9])``: the detached roots unchanged in value, and, with
-    ``need_rot``, the blended LBS rotation rows (kernel KH's skinning).
+    ``need_rot``, the blended LBS rotation rows (kernel KH's skinning,
+    which reads ``voxel_J``, the transform voxel of ``lbs_cl`` and ``tfs``
+    detached, of the same frame).
     The backward gives ``tfs`` the cotangent of the correction ``xc - v
     J^-1 (x_d(xc, tfs) - sg(x_d))`` and of the rotation (kernel KN); the
     roots, ``jinv`` and ``valid`` get none, as in the JAX package."""
 
     @staticmethod
-    def forward(ctx, xc, jinv, valid, tfs, lbs_cl, spec, need_rot):
+    def forward(ctx, xc, jinv, valid, tfs, lbs_cl, spec, voxel_J, need_rot):
         ctx.spec, ctx.need_rot = spec, need_rot
         ctx.save_for_backward(xc, jinv, valid, lbs_cl)
-        rot = (deform_skinning(xc, lbs_cl, spec, tfs.detach().contiguous())
-               if need_rot else None)
+        rot = (deform_skinning(xc, lbs_cl, spec, tfs.detach().contiguous(),
+                               voxel_J) if need_rot else None)
         return xc.clone(), rot
 
     @staticmethod
@@ -378,7 +381,7 @@ class _SkinningCorrection(torch.autograd.Function):
                 xc, valid, jinv, g_xc.contiguous(),
                 g_rot.contiguous() if ctx.need_rot and g_rot is not None
                 else None, lbs_cl, ctx.spec)
-        return None, None, None, d_tfs, None, None, None
+        return None, None, None, d_tfs, None, None, None, None
 
 
 def _fill_for(i, o):

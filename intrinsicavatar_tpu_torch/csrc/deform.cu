@@ -15,11 +15,14 @@
 // did not, in lane order.
 //
 // deform_skinning replaces anim/deformer.py:235 (query_weights: 24-channel
-// trilinear sample, border padding, align_corners, corners summed in
-// (dx, dy, dz) order with dz fastest) and anim/broyden.py:550
+// trilinear sample, border padding, align_corners) and anim/broyden.py:550
 // (forward_skinning_soa): the rotation rows of sum_b w_b tfs[b, :3, :3] at
-// each kept lane.  The eval path launches it only where the query reads the
-// rotation (a gradient query without use_j_inv).
+// each kept lane.  The sample is linear in the voxel, so it reads the
+// frame's transform voxel voxel_J (sum_b W_b tfs[b, :3, :4] at each voxel,
+// baked once a frame for the search) and samples its 9 rotation channels:
+// the same function with the sums in another order.  The eval path
+// launches it only where the query reads the rotation (a gradient query
+// without use_j_inv).
 //
 // deform_skinning_bwd (kernel KN) replaces the backward with respect to tfs
 // of anim/deformer.py:396-412 (the train-mode implicit-function correction
@@ -41,9 +44,9 @@
 // (x and valid of every lane) and K x 36 B (j_inv of the kept lanes only)
 // and writes K x 49 B per point, a copy of ~444 B a point at I = 8, K = 4,
 // so its time is set by how many sectors its loads and stores touch; the
-// skinning reads 8 corners x 96 B of the
-// 50 MB weight voxel per lane (counted once per lane, as the sample's
-// input), the 24 bones' 3 x 3 rotations once, and writes 36 B.  KN reads
+// skinning reads 12 B a lane and the 48 B rows of the 25 MB transform
+// voxel that its corners touch (the weight voxel's rows are 96 B, and the
+// blend adds 24 x 9 products a lane), and writes 36 B a lane.  KN reads
 // 97 B a lane (root, validity, J^-1 and both cotangents) and the weight
 // rows its lanes' corners touch, ~1,000 flops a lane, and writes 288
 // floats: at the train step's 1,474,560 lanes (a quarter of the voxel's
@@ -77,12 +80,10 @@
 // tiles of 256 / G points, stage the tile's K slots of xc, j_inv and valid
 // in shared memory (they are contiguous in the outputs) and write them out
 // with 16-byte stores; the overflow is summed in the block and added with
-// one atomic a block.  One thread per kept lane for
-// the weight sample and blend, each corner read as 6 x float4 of the
-// channel-last voxel.  The arithmetic follows the plain versions' order,
-// so with -fmad=false the prologue's distances and the epilogue's filter
-// equal theirs.  The blend sums the 24 bones in order, where the plain
-// version's matrix product sums in the library's order.  KN is a reduction
+// one atomic a block.  The skinning gives a kept lane two threads, one for
+// each x side of its cell (skinning_kernel, below).  The arithmetic
+// follows the plain versions' order, so with -fmad=false the prologue's
+// distances and the epilogue's filter equal theirs.  KN is a reduction
 // of every lane into 288 floats, done without float atomics, so that it is
 // the same from run to run: pass 1 gives each of G blocks 288 threads; a
 // thread computes one lane's w and U into shared memory (a tile of 288
@@ -337,22 +338,80 @@ __device__ __forceinline__ void sample_weights(
   }
 }
 
-__global__ void skinning_kernel(const float* __restrict__ xc,
-                                const float* __restrict__ vox,
-                                const float* __restrict__ tfs, int64_t M,
-                                int D, int H, int W, float ox, float oy,
-                                float oz, float scale, float ratio,
-                                float* __restrict__ rot) {
-  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= M) return;
-  float w[kBones];
-  sample_weights(xc, q, vox, D, H, W, ox, oy, oz, scale, ratio, w);
-  for (int r = 0; r < 3; ++r)
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.f;
-      for (int b = 0; b < kBones; ++b) acc += w[b] * tfs[b * 16 + r * 4 + c];
-      rot[q * 9 + r * 3 + c] = acc;
+// KH skinning: two threads a lane (a point) over blocks of SKIN_POINTS
+// lanes.  Both threads of a lane compute its coordinates in the transform
+// voxel voxJ [D*H*W, 12] (channel-last, the blended [3, 4] transform of
+// each voxel, sum_b W_b tfs[b, :3, :4]) as sample_weights does (border
+// padding, align_corners); thread dx then takes the 4 corners of its x side
+// in (dy, dz) order, each row three 16-byte loads, and sums the 9 rotation
+// channels; one shuffle adds the two sides.  The x pair's rows are
+// neighbours in memory, so the two threads' loads share lines, and a
+// thread's chain of dependent loads is half a lane's.  The block stages its
+// [SKIN_POINTS, 9] output in shared memory for 16-byte stores.
+constexpr int SKIN_POINTS = 64;
+constexpr int SKIN_THREADS = 2 * SKIN_POINTS;
+
+__global__ void __launch_bounds__(SKIN_THREADS) skinning_kernel(
+    const float* __restrict__ xc, const float* __restrict__ voxJ, int64_t M,
+    int D, int H, int W, float ox, float oy, float oz, float scale,
+    float ratio, float* __restrict__ rot) {
+  __shared__ __align__(16) float s_rot[SKIN_POINTS * 9];
+  const int t = threadIdx.x, p = t >> 1, dx = t & 1;
+  const int64_t q0 = (int64_t)blockIdx.x * SKIN_POINTS;
+  const int rows = M - q0 < SKIN_POINTS ? (int)(M - q0) : SKIN_POINTS;
+  const bool live = p < rows;
+  const float* px = xc + (q0 + (live ? p : 0)) * 3;
+  const float cx = (__ldg(px) - ox) / scale;
+  const float cy = (__ldg(px + 1) - oy) / scale;
+  const float cz = (__ldg(px + 2) - oz) / scale * ratio;
+  const float ix = fminf(fmaxf((cx + 1.f) * 0.5f * (float)(W - 1), 0.f),
+                         (float)(W - 1));
+  const float iy = fminf(fmaxf((cy + 1.f) * 0.5f * (float)(H - 1), 0.f),
+                         (float)(H - 1));
+  const float iz = fminf(fmaxf((cz + 1.f) * 0.5f * (float)(D - 1), 0.f),
+                         (float)(D - 1));
+  const float x0f = floorf(ix), y0f = floorf(iy), z0f = floorf(iz);
+  const float fx = ix - x0f, fy = iy - y0f, fz = iz - z0f;
+  const int x0 = (int)x0f, y0 = (int)y0f, z0 = (int)z0f;
+  const int X = dx ? min(x0 + 1, W - 1) : x0;
+  const int Y[2] = {y0, min(y0 + 1, H - 1)};
+  const int Z[2] = {z0, min(z0 + 1, D - 1)};
+  float4 v[4][3];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4* row = reinterpret_cast<const float4*>(
+        voxJ + (((int64_t)Z[k & 1] * H + Y[k >> 1]) * W + X) * 12);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) v[k][a] = __ldg(row + a);
+  }
+  const float wx = dx ? fx : 1.f - fx;
+  float r[9];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) r[c] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int dy = k >> 1, dz = k & 1;
+    const float wy = dy ? fy : 1.f - fy;
+    const float wz = dz ? fz : 1.f - fz;
+    const float wc = wx * wy * wz;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      r[a * 3] = r[a * 3] + wc * v[k][a].x;
+      r[a * 3 + 1] = r[a * 3 + 1] + wc * v[k][a].y;
+      r[a * 3 + 2] = r[a * 3 + 2] + wc * v[k][a].z;
     }
+  }
+#pragma unroll
+  for (int c = 0; c < 9; ++c) {
+    const float o = __shfl_xor_sync(0xffffffffu, r[c], 1);
+    r[c] = dx ? o + r[c] : r[c] + o;
+  }
+  if (live && dx == 0) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c) s_rot[p * 9 + c] = r[c];
+  }
+  __syncthreads();
+  copy_out(rot + q0 * 9, s_rot, rows * 9);
 }
 
 constexpr int kEntries = kBones * 12;  // (b, a * 4 + c) of d tfs, a < 3
@@ -463,16 +522,18 @@ extern "C" int deform_epilogue_fwd(const float* x, const float* jinv,
   return launch_status();
 }
 
-extern "C" int deform_skinning_fwd(const float* xc, const float* vox,
-                                   const float* tfs, long long M, int D,
-                                   int H, int W, float ox, float oy, float oz,
-                                   float scale, float ratio, float* rot,
-                                   void* stream) {
+extern "C" int deform_skinning_fwd(const float* xc, const float* voxJ,
+                                   long long M, int D, int H, int W,
+                                   float ox, float oy, float oz, float scale,
+                                   float ratio, float* rot, void* stream) {
   if (M <= 0) return 0;
-  const int threads = 128;
-  unsigned blocks = (unsigned)((M + threads - 1) / threads);
-  skinning_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      xc, vox, tfs, M, D, H, W, ox, oy, oz, scale, ratio, rot);
+  // the 16-byte loads of the voxel's rows and stores of the staged rows
+  if ((reinterpret_cast<uintptr_t>(voxJ) | reinterpret_cast<uintptr_t>(rot))
+      & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const unsigned blocks = (unsigned)((M + SKIN_POINTS - 1) / SKIN_POINTS);
+  skinning_kernel<<<blocks, SKIN_THREADS, 0, (cudaStream_t)stream>>>(
+      xc, voxJ, M, D, H, W, ox, oy, oz, scale, ratio, rot);
   return launch_status();
 }
 

@@ -378,9 +378,21 @@ __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
 // set by its reductions, which the L2 serializes where many land on one
 // row.
 //
-// Design of pass 1: one thread per (point, level), levels fastest; nothing
-// is kept between the passes but enc and g_genc_cot (the corner weights are
-// recomputed from xn).
+// Design of pass 1 (KA's, csrc/hashgrid.cu): persistent blocks walk 64-point
+// tiles.  A block stages the tile's points and g_grad rows (coalesced
+// loads) and, once, the per-level scales, resolutions, dense flags and mask
+// in shared memory, so no thread reloads a point or divides in int64.  A
+// warp takes 32 points of one level, so the ray-ordered points of a warp
+// share a coarse level's corner sectors within one load.  For F = 2 a
+// corner row is one float2 and the x pair of corners one float4 where both
+// rows lie in one aligned pair of rows.  Each
+// (point, level) runs the one-thread-a-(point, level) kernel's arithmetic
+// in its order, so enc and g_genc_cot keep its bits.  A level the mask
+// zeroes is gathered all the same: its outputs are e * 0, which is -0 for
+// a negative e.  The tile's enc and g_genc_cot rows are staged in shared
+// memory at an odd stride and written out with 16-byte stores.  Nothing
+// is kept between the passes but enc and g_genc_cot (the corner weights
+// are recomputed from xn).
 //
 // Design of pass 2: persistent blocks walk 64-point tiles, as KA does.  A
 // block stages the tile's points, g_grad and its d_enc and g_enc rows
@@ -397,65 +409,195 @@ __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
 // d_xn takes no atomics: each (point, level) leaves its 3 partials in
 // shared memory, and the block sums them in level order and stores the
 // point's 3 floats once.
-__global__ void encode_mlp_sdfgrad_bwd_gather_kernel(
+constexpr int KB1_TILE = 64;  // points a tile, a multiple of 32
+constexpr int KB1_THREADS = 256;
+constexpr int KB1_WARPS = KB1_THREADS / 32;
+constexpr int KB1_SD = (MAX_LF + 3) | 1;  // odd stride of a staged row
+
+// One (point p, level l) item of pass 1: the 8 corner rows of the level at
+// p (px, its g_grad gn), blended with the corner weights into eo and with
+// u_k = s * g_grad . dw_k / dpos into go, masked.
+template <int F>
+__device__ __forceinline__ void gather_item(const float* __restrict__ tab,
+                                            const float* px, const float* gn,
+                                            float s, int r, bool dense,
+                                            uint32_t tmask, const float* mask,
+                                            float* eo, float* go) {
+  int c0[3];
+  float f[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float pos = __fadd_rn(__fmul_rn(px[a], s), 0.5f);
+    const float fl = floorf(pos);
+    c0[a] = (int)fl;
+    f[a] = pos - fl;
+  }
+  int X[2], Y[2], Z[2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    X[d] = axis_corner(c0[0], d, r, dense);
+    Y[d] = axis_corner(c0[1], d, r, dense);
+    Z[d] = axis_corner(c0[2], d, r, dense);
+  }
+  auto row = [&](int dx, int dy, int dz) {
+    return corner_index(X[dx], Y[dy], Z[dz], r, dense, tmask);
+  };
+  // v[k][c], corner k = dx * 4 + dy * 2 + dz
+  float v[8][F];
+  if constexpr (F == 2) {
+    const float4* t4 = reinterpret_cast<const float4*>(tab);
+    const float2* t2 = reinterpret_cast<const float2*>(tab);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t r0 = row(0, q >> 1, q & 1), r1 = row(1, q >> 1, q & 1);
+      const float4 pair = __ldg(t4 + (r0 >> 1));
+      v[q][0] = (r0 & 1) ? pair.z : pair.x;
+      v[q][1] = (r0 & 1) ? pair.w : pair.y;
+      if ((r0 >> 1) == (r1 >> 1)) {
+        v[q + 4][0] = (r1 & 1) ? pair.z : pair.x;
+        v[q + 4][1] = (r1 & 1) ? pair.w : pair.y;
+      } else {
+        const float2 b = __ldg(t2 + r1);
+        v[q + 4][0] = b.x;
+        v[q + 4][1] = b.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int c = 0; c < F; ++c)
+        v[k][c] = __ldg(tab + (int64_t)row(k >> 2, (k >> 1) & 1, k & 1) * F
+                        + c);
+  }
+  float e[F], u[F];
+#pragma unroll
+  for (int c = 0; c < F; ++c) {
+    e[c] = 0.f;
+    u[c] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    const float wx = dx ? f[0] : 1.f - f[0];
+    const float wy = dy ? f[1] : 1.f - f[1];
+    const float wz = dz ? f[2] : 1.f - f[2];
+    const float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f,
+                sz = dz ? 1.f : -1.f;
+    const float w = wx * wy * wz;
+    const float uk = s * (gn[0] * (sx * wy * wz) + gn[1] * (wx * sy * wz)
+                          + gn[2] * (wx * wy * sz));
+#pragma unroll
+    for (int c = 0; c < F; ++c) {
+      e[c] += w * v[k][c];
+      u[c] += uk * v[k][c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < F; ++c) {
+    eo[c] = e[c] * mask[c];
+    go[c] = u[c] * mask[c];
+  }
+}
+
+// Copy n floats of shared memory at stride sd a row of d floats to the
+// contiguous rows at dst (16-byte aligned): 16-byte stores, then the tail.
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float* src, int n, int d,
+                                           int sd) {
+  const int n4 = n >> 2;
+  for (int q = threadIdx.x; q < n4; q += blockDim.x) {
+    int p = (q * 4) / d, c = q * 4 - p * d;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = src[p * sd + c];
+      if (++c == d) {
+        c = 0;
+        ++p;
+      }
+    }
+    reinterpret_cast<float4*>(dst)[q] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  for (int e = n4 * 4 + threadIdx.x; e < n; e += blockDim.x) {
+    const int p = e / d;
+    dst[e] = src[p * sd + e - p * d];
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(KB1_THREADS)
+encode_mlp_sdfgrad_bwd_gather_kernel(
     const float* __restrict__ table, const float* __restrict__ x,
     const float* __restrict__ scales, const int* __restrict__ res,
     const float* __restrict__ level_mask, const float* __restrict__ g_grad,
     float* __restrict__ enc, float* __restrict__ gg, int64_t N, int L, int T,
-    int F, int include_xyz, float xyz_scale, float xyz_offset) {
-  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= N * L) return;
-  int64_t n = tid / L;
-  int l = (int)(tid - n * L);
-  int off = include_xyz ? 3 : 0;
-  int D = L * F + off;
-  const float* p = x + n * 3;
-  const float* gn = g_grad + n * 3;
-  float* eo = enc + n * D;
-  float* go = gg + n * D;
-  if (include_xyz && l == 0) {
-    for (int a = 0; a < 3; ++a) {
-      eo[a] = __fadd_rn(__fmul_rn(p[a], xyz_scale), xyz_offset);
-      go[a] = gn[a] * xyz_scale;
+    int include_xyz, float xyz_scale, float xyz_offset) {
+  __shared__ float s_x[KB1_TILE * 3], s_g[KB1_TILE * 3];
+  __shared__ float s_enc[KB1_TILE * KB1_SD], s_gg[KB1_TILE * KB1_SD];
+  __shared__ float s_scale[MAX_L], s_mask[MAX_LF];
+  __shared__ int s_res[MAX_L], s_dense[MAX_L];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int off = include_xyz ? 3 : 0;
+  const int D = L * F + off, SD = D | 1;
+  for (int l = tid; l < L; l += KB1_THREADS) {
+    s_scale[l] = scales[l];
+    s_res[l] = res[l];
+    s_dense[l] = level_is_dense(res[l], T);
+  }
+  for (int q = tid; q < L * F; q += KB1_THREADS) s_mask[q] = level_mask[q];
+  const uint32_t tmask = (uint32_t)(T - 1);
+  const int64_t n_tiles = (N + KB1_TILE - 1) / KB1_TILE;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t n0 = tile * KB1_TILE;
+    const int rows = N - n0 < KB1_TILE ? (int)(N - n0) : KB1_TILE;
+    __syncthreads();  // the previous tile is written out
+    for (int e = tid; e < rows * 3; e += KB1_THREADS) {
+      s_x[e] = x[n0 * 3 + e];
+      s_g[e] = g_grad[n0 * 3 + e];
     }
-  }
-  float s = scales[l];
-  int r = res[l];
-  bool dense = level_is_dense(r, T);
-  int c0[3];
-  float f[3];
-  for (int a = 0; a < 3; ++a) {
-    float pos = __fadd_rn(__fmul_rn(p[a], s), 0.5f);
-    float fl = floorf(pos);
-    c0[a] = (int)fl;
-    f[a] = pos - fl;
-  }
-  const float* tab = table + (int64_t)l * T * F;
-  uint32_t tmask = (uint32_t)(T - 1);
-  float e[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < 8; ++k) {
-    int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    float wx = dx ? f[0] : 1.f - f[0];
-    float wy = dy ? f[1] : 1.f - f[1];
-    float wz = dz ? f[2] : 1.f - f[2];
-    float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f, sz = dz ? 1.f : -1.f;
-    float w = wx * wy * wz;
-    float uk = s * (gn[0] * (sx * wy * wz) + gn[1] * (wx * sy * wz)
-                    + gn[2] * (wx * wy * sz));
-    int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r, dense, tmask);
-    const float* tr = tab + row * F;
-    for (int c = 0; c < F; ++c) {
-      float v = __ldg(tr + c);
-      e[c] += w * v;
-      u[c] += uk * v;
+    __syncthreads();
+    if (include_xyz) {
+      for (int e = tid; e < rows * 3; e += KB1_THREADS) {
+        const int p = e / 3, a = e - p * 3;
+        s_enc[p * SD + a] =
+            __fadd_rn(__fmul_rn(s_x[e], xyz_scale), xyz_offset);
+        s_gg[p * SD + a] = s_g[e] * xyz_scale;
+      }
     }
+    // warp item w: level w % L of the tile's points 32 (w / L) + lane
+    for (int w = tid >> 5; w < (KB1_TILE / 32) * L; w += KB1_WARPS) {
+      const int l = w % L, p = (w / L) * 32 + lane;
+      if (p >= rows) continue;
+      const int q = p * SD + off + l * F;
+      gather_item<F>(table + (int64_t)l * T * F, s_x + p * 3, s_g + p * 3,
+                     s_scale[l], s_res[l], s_dense[l] != 0, tmask,
+                     s_mask + l * F, s_enc + q, s_gg + q);
+    }
+    __syncthreads();
+    // the tile's rows are contiguous in each output (n0 * D is a multiple
+    // of 4 floats)
+    store_rows(enc + n0 * D, s_enc, rows * D, D, SD);
+    store_rows(gg + n0 * D, s_gg, rows * D, D, SD);
   }
-  for (int c = 0; c < F; ++c) {
-    int q = l * F + c;
-    float m = level_mask[q];
-    eo[off + q] = e[c] * m;
-    go[off + q] = u[c] * m;
-  }
+}
+
+template <int F>
+int launch_gather(const float* table, const float* x, const float* scales,
+                  const int* res, const float* level_mask,
+                  const float* g_grad, float* enc, float* gg, long long N,
+                  int L, int T, int include_xyz, float xyz_scale,
+                  float xyz_offset, cudaStream_t stream) {
+  static int resident[kMaxDevices] = {};
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_grid(
+      encode_mlp_sdfgrad_bwd_gather_kernel<F>, KB1_THREADS, 0,
+      (N + KB1_TILE - 1) / KB1_TILE, resident, blocks);
+  if (err != cudaSuccess) return (int)err;
+  encode_mlp_sdfgrad_bwd_gather_kernel<F><<<blocks, KB1_THREADS, 0, stream>>>(
+      table, x, scales, res, level_mask, g_grad, enc, gg, N, L, T,
+      include_xyz, xyz_scale, xyz_offset);
+  return launch_status();
 }
 
 constexpr int KB2_TILE = 64;  // points a tile, a multiple of 32
@@ -672,16 +814,27 @@ extern "C" int encode_mlp_sdfgrad_bwd_gather(
     const float* level_mask, const float* g_grad, float* enc, float* gg,
     long long N, int L, int T, int F, int include_xyz, float xyz_scale,
     float xyz_offset, void* stream) {
-  if (F > 4) return (int)cudaErrorInvalidValue;
+  if (F < 1 || F > 4 || L > MAX_L || L * F > MAX_LF)
+    return (int)cudaErrorInvalidValue;
+  // the 16-byte stores of the staged rows, and the table's row pairs as
+  // float4 (F = 2)
+  if (((reinterpret_cast<uintptr_t>(enc) | reinterpret_cast<uintptr_t>(gg))
+       & 15) ||
+      (F == 2 && (reinterpret_cast<uintptr_t>(table) & 15)))
+    return (int)cudaErrorMisalignedAddress;
   if (N <= 0) return 0;
-  const int threads = 256;
-  int64_t total = (int64_t)N * L;
-  unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  encode_mlp_sdfgrad_bwd_gather_kernel<<<blocks, threads, 0,
-                                         (cudaStream_t)stream>>>(
-      table, x, scales, res, level_mask, g_grad, enc, gg, N, L, T, F,
-      include_xyz, xyz_scale, xyz_offset);
-  return launch_status();
+  const cudaStream_t st = (cudaStream_t)stream;
+#define KB1_LAUNCH(FF)                                                     \
+  return launch_gather<FF>(table, x, scales, res, level_mask, g_grad, enc, \
+                           gg, N, L, T, include_xyz, xyz_scale, xyz_offset, \
+                           st)
+  switch (F) {
+    case 1: KB1_LAUNCH(1);
+    case 2: KB1_LAUNCH(2);
+    case 3: KB1_LAUNCH(3);
+    default: KB1_LAUNCH(4);
+  }
+#undef KB1_LAUNCH
 }
 
 extern "C" int encode_mlp_sdfgrad_bwd_scatter(

@@ -78,7 +78,7 @@ SIGNATURES = {
     "deform": {
         "deform_prologue_fwd": (P, P, P, I64, I32, I32, P, P),
         "deform_epilogue_fwd": (P, P, P, I64, I32, I32, F32, P, P, P, P, P),
-        "deform_skinning_fwd": (P, P, P, I64, I32, I32, I32, F32, F32, F32,
+        "deform_skinning_fwd": (P, P, I64, I32, I32, I32, F32, F32, F32,
                                 F32, F32, P, P),
         "deform_skinning_bwd": (P, P, P, P, P, P, I64, I32, I32, I32, F32,
                                 F32, F32, F32, F32, P, I32, P, P)},

@@ -168,6 +168,9 @@ def encode_mlp_sdfgrad_bwd_gather(spec: HashGridSpec, table, xn, level_mask,
         return encode_mlp_sdfgrad_bwd_gather_plain(spec, table, xn,
                                                    level_mask, g_grad)
     dev, N, L, T, F = _check(spec, table, xn, level_mask, g_grad)
+    if F == 2 and table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned for F = 2 (its row "
+                         "pairs are read as float4 words)")
     scales, res = level_tensors(spec, dev)
     enc = torch.empty((N, spec.n_output_dims), dtype=torch.float32,
                       device=dev)

@@ -4,14 +4,23 @@ gradient), the KH epilogue (duplicate filter, overflow count, first-K), KM
 backward's table scatter), KA' (the hash encode's backward), KF (merge
 importance resampling), KJ (secondary fine resampling), KG (valid-first
 compaction), the KH prologue (the search's init pruning), KK (the
-secondary march), KD weights (the volume-rendering weights) and KL (the
-seeded Broyden polish) of the PyTorch/CUDA port on one card, three ways.
+secondary march), KD weights (the volume-rendering weights), KL (the
+seeded Broyden polish), KH skinning (the LBS rotation at the roots) and
+KB' pass 1 (the encode backward's gather) of the PyTorch/CUDA port on one
+card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
-    python3 kernel_timing.py --kernels kd,kl      # of ka, kb, kh, km, kc,
+    python3 kernel_timing.py --kernels ksk --compare-dir D [--port-root R]
+                                                  # KH skinning's rows kept
+                                                  # in D, compared across
+                                                  # roots
+    python3 kernel_timing.py --diff-digests A B   # two saved runs' digests,
+                                                  # call by call
+    python3 kernel_timing.py --kernels ksk,kb1    # of ka, kb, kh, km, kc,
                                                   # kb2, ka2, kf, kj, kg,
-                                                  # khp, kk, kd, kl
+                                                  # khp, kk, kd, kl, ksk,
+                                                  # kb1
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -123,7 +132,24 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   valid equal to the twin's, x
   and J^-1 within 1e-5 of the largest entry, a digest of all three
   outputs' bytes, equal between two trees whose kernels compute the same
-  bits.
+  bits;
+- KH skinning on the published voxel in KC's pose at a phys step's
+  fine-pass stand-in (65,536 lanes: ``KL_FINE_SEEDED`` of them canonical
+  points near the template first, the rest the budget's padding at one
+  root), at a serve chunk's shading query (1,474,560 lanes: 368,640 points
+  in ray order through the template, 4 kept lanes a point, the first the
+  point, the others another root within ~5 cm at 30% and the origin
+  otherwise) and at 65,536 points beyond the voxel, whose coordinates
+  border padding clamps: within 1e-5 of the twin, the voxel rows touched,
+  a digest of the rotation rows (not equal across a redesign that sums in
+  another order) and, with ``--compare-dir DIR``, the largest difference
+  from the rows that another root's kernel wrote there on the same
+  inputs;
+- KB' pass 1 at a train step's shading call (552,960 ray-ordered points)
+  and its curvature call (92,160), random g_grad, a table uniform in
+  [-0.1, 0.1]: within 1e-5 of the largest entry of the twin, a digest of
+  enc and g_genc_cot, equal between two trees whose kernels compute the
+  same bits, and KA's device time on the same points (the gather alone).
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -277,11 +303,21 @@ def search_result(B, torch, dev, N, I, seed):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=None)
+    ap.add_argument("--compare-dir", default=None,
+                    help="ksk: save each call's rotation rows here and "
+                         "report their largest difference from those that "
+                         "other port roots saved there")
     ap.add_argument("--kernels",
-                    default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg,khp,kk,kd,kl",
+                    default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg,khp,kk,kd,kl,"
+                            "ksk,kb1",
                     help="comma-separated, of ka, kb, kh, km, kc, kb2, ka2, "
-                         "kf, kj, kg, khp, kk, kd, kl")
+                         "kf, kj, kg, khp, kk, kd, kl, ksk, kb1")
+    ap.add_argument("--diff-digests", nargs=2, metavar=("A", "B"),
+                    help="compare the digests of two saved outputs of this "
+                         "script, call by call, and time nothing")
     args = ap.parse_args()
+    if args.diff_digests:
+        sys.exit(diff_digests(*args.diff_digests))
     which = set(args.kernels.split(","))
     import torch
     if not torch.cuda.is_available():
@@ -300,7 +336,8 @@ def main():
                "km": "seedgrid", "kc": "broyden", "kb2": "encode_grad",
                "ka2": "hashgrid", "kf": "resample", "kj": "resample",
                "kg": "compact", "khp": "deform", "kk": "march",
-               "kd": "volrend", "kl": "broyden"}
+               "kd": "volrend", "kl": "broyden", "ksk": "deform",
+               "kb1": "encode_grad"}
     logs = kernels.build_all(tuple(sorted(
         {sources[k] for k in which} & set(kernels.SOURCES))), verbose=True)
     for name, log in logs.items():
@@ -339,8 +376,42 @@ def main():
         time_kd(torch, dev, report, failed)
     if "kl" in which:
         time_kl(torch, dev, report, failed)
+    if "ksk" in which:
+        time_ksk(torch, dev, report, failed, args.compare_dir, root)
+    if "kb1" in which:
+        time_kb1(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
+
+
+def diff_digests(path_a, path_b):
+    """Pair the JSON lines of two runs of this script (with the same
+    ``--kernels``, so their calls come in one order), print for each call
+    whether its output digest is the same in both (or that the call has
+    none), and return 1 if the runs made different calls."""
+    def calls(path):
+        return [json.loads(s) for s in open(path)
+                if s.startswith("{") and '"kernel"' in s]
+
+    a, b = calls(path_a), calls(path_b)
+    measured = {"root", "card", "digest"}
+    counts = {}
+    for x, y in zip(a, b):
+        if (x["kernel"], x.get("at")) != (y["kernel"], y.get("at")):
+            print(f"diff_digests: the runs part at {x['kernel']} / "
+                  f"{y['kernel']}")
+            return 1
+        call = {k: v for k, v in x.items() if k not in measured
+                and not k.endswith(("_ms", "_us", "_err", "relerr"))
+                and not isinstance(v, (float, dict))}
+        if x.get("digest") is None and y.get("digest") is None:
+            verdict = "no digest"
+        else:
+            verdict = "same" if x["digest"] == y.get("digest") else "DIFF"
+        counts[verdict] = counts.get(verdict, 0) + 1
+        print(verdict, json.dumps(call), x.get("digest"), y.get("digest"))
+    print(f"{len(a)} and {len(b)} calls: {json.dumps(counts)}")
+    return int(len(a) != len(b))
 
 
 def time_ka(torch, dev, report, failed):
@@ -370,23 +441,30 @@ def time_ka(torch, dev, report, failed):
                 print(f"kernel_timing: KA disagrees at {x.shape[0]} "
                       f"{order} points: {err}", flush=True)
                 failed.append(f"hashgrid_encode at {x.shape[0]}")
+            digest = digest_of([out])
             del out, ref
             ev, dv, hu = timings(
                 lambda: HG.hashgrid_encode(table, x, spec, mask),
                 "hashgrid_encode_kernel")
         report({"kernel": "hashgrid_encode", "points": x.shape[0],
                 "order": order, "max_abs_err": err, "tolerance": tol,
-                "event_ms": ev, "device_ms": dv, "host_us": hu})
+                "digest": digest, "event_ms": ev, "device_ms": dv,
+                "host_us": hu})
 
 
 def time_kh(torch, dev, report, failed):
     """The KH epilogue at a serve chunk's search, the phys step's secondary
     coarse call and the bake's last chunk."""
+    import inspect
+
     from intrinsicavatar_tpu_torch.anim import broyden as B
     I, K = 8, 4
+    # a parent's epilogue may take no voxel_J
+    skin = 4 if "voxel_J" in inspect.signature(
+        B.deform_epilogue).parameters else 3
     for lanes in (6_291_456, 2_097_152, 524_288):
         res = search_result(B, torch, dev, lanes // I, I, seed=lanes % 97)
-        args = (res, I, K, False, None, None, None)
+        args = (res, I, K, False) + (None,) * skin
         out = B.deform_epilogue(*args)
         ref = B.deform_epilogue_plain(*args)
         torch.cuda.synchronize()
@@ -398,8 +476,8 @@ def time_kh(torch, dev, report, failed):
                              "epilogue_kernel")
         report({"kernel": "deform_epilogue", "lanes": lanes, "I": I, "K": K,
                 "overflow": int(ref.overflow), "kept_valid":
-                int(ref.valid.sum()), "event_ms": ev, "device_ms": dv,
-                "host_us": hu})
+                int(ref.valid.sum()), "digest": digest_of(out[:4]),
+                "event_ms": ev, "device_ms": dv, "host_us": hu})
         del res, out, ref
 
 
@@ -425,6 +503,7 @@ def time_km(torch, dev, kernels, report, failed):
                              "seed_gather")
         line = {"kernel": "seed_gather", "C": C, "points": pts.shape[0],
                 "seeded": int(ref[1].sum()), "max_abs_err": err,
+                "digest": digest_of([t for t in out if t is not None]),
                 "event_ms": ev, "device_ms": dv, "host_us": hu}
         if C == 4:
             N = pts.shape[0]
@@ -513,6 +592,7 @@ def time_kb(torch, dev, report, failed):
                 "hashgrid_encode_kernel")
         report({"kernel": "encode_mlp_sdfgrad", "points": N,
                 "max_abs_err": err, "tolerance": 1e-4 * scale,
+                "digest": digest_of([fk, gk]),
                 "event_ms": ev, "device_ms": dv, "host_us": hu,
                 "hashgrid_encode_event_ms": kev,
                 "hashgrid_encode_device_ms": kdv})
@@ -638,11 +718,15 @@ def time_kb2(torch, dev, report, failed):
             print(f"kernel_timing: KB' pass 2 disagrees at {N}: {errs}",
                   flush=True)
             failed.append(f"encode_mlp_sdfgrad_bwd_scatter at {N}")
+        # the table's cotangent is added in the order the atomics land:
+        # only d_xn has a digest
+        digest = digest_of([out[1]]) if need_x else None
         del out, ref
         ev, dv, hu = timings(lambda: EG.encode_mlp_sdfgrad_bwd_scatter(*args),
                              "encode_mlp_sdfgrad_bwd_scatter_kernel")
         report({"kernel": "encode_mlp_sdfgrad_bwd_scatter", "points": N,
-                "d_xn": need_x, "relerr": errs, "event_ms": ev,
+                "d_xn": need_x, "relerr": errs, "digest": digest,
+                "event_ms": ev,
                 "device_ms": dv, "host_us": hu})
 
 
@@ -1098,6 +1182,128 @@ def time_kl(torch, dev, report, failed):
         line.update(event_ms=ev, device_ms=dv, host_us=hu)
         report(line)
         del args
+
+
+def skin_lanes(torch, dev, body, where, seed):
+    """KH skinning's points ``xc`` at the call ``where`` (see the module's
+    docstring)."""
+    rigid, statics = body[:2]
+    rng = np.random.default_rng(seed)
+    vs = statics.vs_template.cpu().numpy()
+    if where == "phys fine pass":
+        M = 65536
+        n = int(round(M * KL_FINE_SEEDED))
+        x = np.zeros((M, 3))
+        x[:n] = vs[rng.choice(len(vs), n)] + rng.normal(scale=0.02,
+                                                        size=(n, 3))
+    elif where == "serve shading query":
+        pts = body_rays(torch, dev, vs, 4096, 90, seed, 0.3).cpu().numpy()
+        x = np.repeat(pts, 4, 0).reshape(-1, 4, 3)
+        other = rng.random((len(pts), 3)) < 0.3
+        x[:, 1:] = np.where(other[..., None], x[:, 1:] + rng.normal(
+            scale=0.05, size=(len(pts), 3, 3)), 0.0)
+        x = x.reshape(-1, 3)
+    else:
+        x = rigid.spec.denormalize(torch.as_tensor(
+            rng.uniform(-1.6, 1.6, (65536, 3)))).numpy()
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+
+
+def compare_saved(torch, cmp_dir, key, root, out):
+    """Save ``out`` under ``cmp_dir`` as ``key`` of port root ``root``;
+    return the largest absolute difference from each other root's ``key``
+    saved there."""
+    import pathlib
+    d = pathlib.Path(cmp_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    tag = root.strip("./").replace("/", "_") or "checkout"
+    torch.save(out.cpu(), d / f"{key}@{tag}.pt")
+    diffs = {}
+    for f in sorted(d.glob(f"{key}@*.pt")):
+        other = f.stem.split("@", 1)[1]
+        if other != tag:
+            diffs[other] = (torch.load(f) - out.cpu()).abs().max().item()
+    return diffs
+
+
+def time_ksk(torch, dev, report, failed, cmp_dir=None, root="."):
+    """KH skinning at a phys step's fine pass, a serve chunk's shading
+    query and beyond the voxel; with ``cmp_dir``, each call's largest
+    difference from another port root's kernel on the same inputs."""
+    import inspect
+
+    from chip_smoke import lbs_rows_touched
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    body = posed_body(torch, dev)
+    rigid, statics, frame = body[:3]
+    spec, tfs = rigid.spec, frame.tfs.detach().contiguous()
+    # a parent's kernel may read the weight voxel and tfs, not voxel_J
+    voxel = "voxel_J" in inspect.signature(B.deform_skinning).parameters
+    for where in ("phys fine pass", "serve shading query", "border"):
+        xc = skin_lanes(torch, dev, body, where, seed=31)
+        args = (xc, statics.lbs_cl, spec, tfs) + (
+            (frame.voxel_J,) if voxel else ())
+        out = B.deform_skinning(*args)
+        ref = B.deform_skinning_plain(*args[:4])
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not err <= 1e-5:
+            print(f"kernel_timing: KH skinning disagrees at the {where}: "
+                  f"{err}", flush=True)
+            failed.append(f"deform_skinning at the {where}")
+        line = {"kernel": "deform_skinning", "at": where,
+                "lanes": xc.shape[0], "rows_touched":
+                lbs_rows_touched(xc, spec), "max_abs_err": err,
+                "digest": digest_of([out])}
+        if cmp_dir:
+            line["max_abs_diff_from"] = compare_saved(
+                torch, cmp_dir, "ksk-" + where.replace(" ", "-"), root, out)
+        del out, ref
+        ev, dv, hu = timings(lambda: B.deform_skinning(*args),
+                             "::skinning_kernel(")
+        line.update(event_ms=ev, device_ms=dv, host_us=hu)
+        report(line)
+        del args, xc
+
+
+def time_kb1(torch, dev, report, failed):
+    """KB' pass 1 at a train step's shading call and its curvature call."""
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    spec = HG.HashGridSpec(n_levels=16, n_features_per_level=2,
+                           log2_hashmap_size=19, include_xyz=True)
+    rng = np.random.default_rng(9)
+    table = torch.as_tensor(rng.uniform(-0.1, 0.1, (16, 1 << 19, 2)),
+                            dtype=torch.float32, device=dev)
+    mask = torch.ones(32, device=dev)
+    for where, rays, samples in (("shading call", 4096, 135),
+                                 ("curvature call", 1024, 90)):
+        x = ka_points(torch, dev, rays, samples, seed=samples + 1)
+        N = x.shape[0]
+        g_grad = torch.as_tensor(rng.normal(size=(N, 3)),
+                                 dtype=torch.float32, device=dev)
+        args = (spec, table, x, mask, g_grad)
+        out = EG.encode_mlp_sdfgrad_bwd_gather(*args)
+        ref = EG.encode_mlp_sdfgrad_bwd_gather_plain(*args)
+        torch.cuda.synchronize()
+        errs = [(a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(out, ref)]
+        if not max(errs) <= 1e-5:
+            print(f"kernel_timing: KB' pass 1 disagrees at the {where}: "
+                  f"{errs}", flush=True)
+            failed.append(f"encode_mlp_sdfgrad_bwd_gather at the {where}")
+        digest = digest_of(out)
+        del out, ref
+        ev, dv, hu = timings(
+            lambda: EG.encode_mlp_sdfgrad_bwd_gather(*args),
+            "encode_mlp_sdfgrad_bwd_gather_kernel")
+        # KA on the same points and table: the gather alone
+        _, kdv, _ = timings(lambda: HG.hashgrid_encode(table, x, spec, mask),
+                            "hashgrid_encode_kernel")
+        report({"kernel": "encode_mlp_sdfgrad_bwd_gather", "at": where,
+                "points": N, "relerr": errs, "digest": digest,
+                "event_ms": ev, "device_ms": dv, "host_us": hu,
+                "hashgrid_encode_device_ms": kdv})
 
 
 if __name__ == "__main__":

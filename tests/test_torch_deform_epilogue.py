@@ -133,6 +133,14 @@ def _search_result(js, N, valid_share, seed):
     return (x.astype(np.float32), jinv.astype(np.float32), valid)
 
 
+def _voxel_J(lbs_cl, spec, tfs):
+    """The transform voxel ``[D, H, W, 12]`` of the weights ``lbs_cl`` and
+    ``tfs`` (``sum_b W_b tfs[b, :3, :4]``), which KH skinning's kernel
+    reads in the rotation's place."""
+    return (lbs_cl @ tfs[:, :3, :].reshape(24, 12)).reshape(
+        *spec.shape_dhw, 12).contiguous()
+
+
 @pytest.mark.parametrize("case", ["no_roots", "some_roots", "over_k"])
 def test_epilogue_matches_jax(jax_deformer, case):
     jd, js, jf, td, lbs_cl = jax_deformer
@@ -155,8 +163,9 @@ def test_epilogue_matches_jax(jax_deformer, case):
     res = TB.BroydenResult(x=torch.as_tensor(x.reshape(-1, 3)),
                            j_inv=torch.as_tensor(jinv.reshape(-1, 9)),
                            valid=torch.as_tensor(valid.reshape(-1)))
-    out = TB.deform_epilogue(res, I, K, True, lbs_cl, td.spec,
-                             torch.as_tensor(np.array(jf.tfs)))
+    tfs = torch.as_tensor(np.array(jf.tfs))
+    out = TB.deform_epilogue(res, I, K, True, lbs_cl, td.spec, tfs,
+                             _voxel_J(lbs_cl, td.spec, tfs))
     # gathers: equal
     np.testing.assert_array_equal(out.xc.numpy(), np.asarray(xs))
     np.testing.assert_array_equal(
@@ -182,8 +191,9 @@ def test_epilogue_without_rotation(jax_deformer):
                            j_inv=torch.as_tensor(jinv.reshape(-1, 9)),
                            valid=torch.as_tensor(valid.reshape(-1)))
     tfs = torch.as_tensor(np.array(jf.tfs))
-    a = TB.deform_epilogue(res, I, K, False, lbs_cl, td.spec, tfs)
-    b = TB.deform_epilogue(res, I, K, True, lbs_cl, td.spec, tfs)
+    voxel_J = _voxel_J(lbs_cl, td.spec, tfs)
+    a = TB.deform_epilogue(res, I, K, False, lbs_cl, td.spec, tfs, voxel_J)
+    b = TB.deform_epilogue(res, I, K, True, lbs_cl, td.spec, tfs, voxel_J)
     assert a.fwd_rot is None and b.fwd_rot.shape == (64 * K, 9)
     for u, v in zip(a[:4], b[:4]):
         assert torch.equal(u, v)
@@ -225,7 +235,7 @@ def test_epilogue_matches_jax_at_16_inits(n_keep):
     res = TB.BroydenResult(x=torch.as_tensor(x.reshape(-1, 3)),
                            j_inv=torch.as_tensor(jinv.reshape(-1, 9)),
                            valid=torch.as_tensor(valid.reshape(-1)))
-    out = TB.deform_epilogue(res, I_, K_, False, None, None, None)
+    out = TB.deform_epilogue(res, I_, K_, False, None, None, None, None)
     np.testing.assert_array_equal(out.xc.numpy(), x.reshape(-1, 3)[lane])
     np.testing.assert_array_equal(out.j_inv.numpy(),
                                   jinv.reshape(-1, 9)[lane])
@@ -238,3 +248,64 @@ def test_epilogue_matches_jax_at_16_inits(n_keep):
     assert 0 < dropped.sum() < valid.sum()
     if K_ == 1:
         assert int(j_ovf) > 0
+
+
+@pytest.fixture(scope="module")
+def published_voxel():
+    """The JAX deformer at the published voxel (32 x 128 x 128) in the
+    pose, and the port's spec, weights and transform voxel from the same
+    weight voxel and ``tfs`` (``precompute_transform_voxels`` channel-last,
+    as ``FastSNARF.prepare`` bakes the frame's ``voxel_J``)."""
+    from intrinsicavatar_tpu_torch.anim.lbs_voxel import (
+        VoxelSpec, precompute_transform_voxels)
+    cfg = dict(RIGID, deformer_config=dict(RIGID["deformer_config"],
+                                           resolution=128))
+    jd = JD.FastSNARF(jwrap(cfg))
+    js = jd.initialize(np.zeros(10))
+    jf = jd.prepare(js, _smpl_params())
+    spec = VoxelSpec(resolution=128, offset=np.asarray(jd.spec.offset),
+                     scale=float(jd.spec.scale))
+    lbs = torch.as_tensor(np.array(js.lbs_voxel))
+    tfs = torch.as_tensor(np.array(jf.tfs))
+    _, voxel_J = precompute_transform_voxels(lbs, tfs, spec)
+    return (jd, js, jf, spec, TB.channel_last(lbs), tfs,
+            voxel_J.permute(1, 2, 3, 0).contiguous())
+
+
+@pytest.mark.parametrize("where", ["inside", "border"])
+def test_skinning_voxel_form_matches_weights_and_jax(published_voxel, where):
+    """KH skinning's kernel samples the 9 rotation channels of the frame's
+    transform voxel (``deform_skinning_voxel_plain``); its twin samples the
+    24 weights and blends ``tfs`` (``deform_skinning_plain``).  The sample
+    is linear in the voxel, so the two are one function with the sums in
+    another order: within 2e-6 (rotation rows of norm ~1, a few float32
+    roundings apart), and both within 1e-5 of JAX's ``query_weights`` +
+    ``forward_skinning_soa`` (its packed sampler sums the corners in one
+    einsum), at points near the body and at points beyond the voxel,
+    whose coordinates border padding clamps."""
+    jd, js, jf, spec, lbs_cl, tfs, voxel_J = published_voxel
+    rng = np.random.default_rng(21)
+    n = 3000
+    if where == "inside":
+        v = np.asarray(js.vs_template)
+        x = v[rng.choice(len(v), n)] + rng.normal(scale=0.05, size=(n, 3))
+    else:
+        x = spec.denormalize(torch.as_tensor(
+            rng.uniform(-1.6, 1.6, (n, 3)))).numpy()
+    x = torch.as_tensor(x.astype(np.float32))
+    out = np.abs(spec.normalize(x).numpy()) > 1.0
+    assert out.any(-1).mean() > (0.5 if where == "border" else -1.0)
+    rot_w = TB.deform_skinning_plain(x, lbs_cl, spec, tfs)
+    rot_v = TB.deform_skinning_voxel_plain(x, voxel_J, spec)
+    np.testing.assert_allclose(rot_v.numpy(), rot_w.numpy(), rtol=0,
+                               atol=2e-6)
+    xs = jnp.asarray(x.numpy())
+    w = jd.query_weights(js, xs)
+    _, j_rot = JB.forward_skinning_soa(xs[:, 0], xs[:, 1], xs[:, 2], w,
+                                       jf.tfs)
+    for rot in (rot_w, rot_v):
+        np.testing.assert_allclose(rot.numpy(), np.stack(j_rot, -1), rtol=0,
+                                   atol=1e-5)
+    # the CPU wrapper takes the twin
+    assert torch.equal(TB.deform_skinning(x, lbs_cl, spec, tfs, voxel_J),
+                       rot_w)

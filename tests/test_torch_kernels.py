@@ -424,11 +424,19 @@ def _skin_inputs(cuda, seed=10):
     return lbs_cl, spec, tfs
 
 
+def _voxel_J(lbs_cl, spec, tfs):
+    """The transform voxel ``[D, H, W, 12]`` of ``lbs_cl`` and ``tfs``
+    (``sum_b W_b tfs[b, :3, :4]``), which KH skinning's kernel samples."""
+    return (lbs_cl @ tfs[:, :3, :].reshape(24, 12)).reshape(
+        *spec.shape_dhw, 12).contiguous()
+
+
 @pytest.mark.parametrize("need_rot", [False, True])
 def test_deform_epilogue_kernel_matches_twin(cuda, need_rot):
     res = _search_result(cuda)
     lbs_cl, spec, tfs = _skin_inputs(cuda)
-    args = (res, 8, 4, need_rot, lbs_cl, spec, tfs)
+    args = (res, 8, 4, need_rot, lbs_cl, spec, tfs,
+            _voxel_J(lbs_cl, spec, tfs))
     before = kernels.launches["deform_skinning"]
     out = TB.deform_epilogue(*args)
     assert kernels.launches["deform_skinning"] == before + int(need_rot)
@@ -437,12 +445,71 @@ def test_deform_epilogue_kernel_matches_twin(cuda, need_rot):
         assert torch.equal(a, b)
     assert ref.overflow.item() > 0
     if need_rot:
-        # the blend sums the 24 bones in order, the twin's matrix product
-        # in cuBLAS's order
+        # the kernel samples the blended voxel, the twin blends the sampled
+        # weights (cuBLAS's order on both sides)
         torch.testing.assert_close(out.fwd_rot, ref.fwd_rot, rtol=0,
                                    atol=1e-5)
     else:
         assert out.fwd_rot is None and ref.fwd_rot is None
+
+
+def _posed_body(cuda, resolution=128):
+    """The synthetic body's rigid deformer (the published 32 x 128 x 128
+    voxel by default) in a pose, on the card: ``(deformer, statics,
+    frame)``."""
+    rigid = FastSNARF(wrap({"name": "fast-snarf", "model_path": "synthetic",
+                            "deformer_config": {"resolution": resolution}}))
+    statics = rigid.initialize(np.zeros(10), cuda)
+    pose = np.zeros(69, np.float32)
+    pose[2], pose[5], pose[52] = 0.4, -0.4, 0.9
+    z = lambda n: torch.zeros(1, n, device=cuda)
+    frame = rigid.prepare(statics, {
+        "betas": torch.zeros(10, device=cuda),
+        "body_pose": torch.as_tensor(pose, device=cuda),
+        "global_orient": torch.zeros(3, device=cuda),
+        "transl": torch.tensor([0.0, 0.3, 2.0], device=cuda),
+        "betas_correction": z(10), "pose_correction": z(69),
+        "global_orient_correction": z(3), "transl_correction": z(3)})
+    return rigid, statics, frame
+
+
+@pytest.mark.parametrize("where", ["fine pass", "border"])
+def test_skinning_kernel_matches_twin(cuda, where):
+    """KH skinning on the frame's transform voxel against its twin (the
+    weights sampled, then blended) within 1e-5, and against the voxel form
+    in plain PyTorch (the kernel's order): a phys step's fine-pass
+    stand-in (65,536 lanes, the recorded seeded share of 1,223 canonical
+    points near the body first, the rest the budget's padding at one
+    root), and 100,003 points (a ragged last block) beyond the voxel,
+    whose coordinates border padding clamps."""
+    rigid, statics, frame = _posed_body(cuda)
+    spec = rigid.spec
+    rng = np.random.default_rng(22)
+    if where == "fine pass":
+        M, n = 65_536, 1_223
+        vs = statics.vs_template.cpu().numpy()
+        x = np.zeros((M, 3), np.float32)
+        x[:n] = vs[rng.choice(len(vs), n)] + rng.normal(scale=0.02,
+                                                        size=(n, 3))
+        xc = torch.as_tensor(x, device=cuda)
+    else:
+        xc = spec.denormalize(torch.as_tensor(
+            rng.uniform(-1.6, 1.6, (100_003, 3)), dtype=torch.float32,
+            device=cuda)).contiguous()
+        assert (spec.normalize(xc).abs() > 1).any(-1).float().mean() > 0.5
+    tfs = frame.tfs.detach().contiguous()
+    before = kernels.launches["deform_skinning"]
+    out = TB.deform_skinning(xc, statics.lbs_cl, spec, tfs, frame.voxel_J)
+    assert kernels.launches["deform_skinning"] == before + 1
+    ref = TB.deform_skinning_plain(xc, statics.lbs_cl, spec, tfs)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    vox = TB.deform_skinning_voxel_plain(xc, frame.voxel_J, spec)
+    torch.testing.assert_close(out, vox, rtol=0, atol=1e-5)
+    # the wrapper refuses a voxel it cannot read as 16-byte words
+    flat = torch.empty(frame.voxel_J.numel() + 1, device=cuda)
+    with pytest.raises(ValueError):
+        TB.deform_skinning(xc, statics.lbs_cl, spec, tfs,
+                           flat[1:].view(frame.voxel_J.shape))
 
 
 def _border(x, rng):
@@ -533,6 +600,11 @@ def test_encode_grad_bwd_kernels_match_twins(cuda, include_xyz):
     # 1e-5 of its largest entry
     _close(enc, enc_r, rtol=0)
     _close(gg, gg_r, rtol=0)
+    # the xyz columns and the masked levels have no sums: equal
+    cols = torch.cat([torch.arange(3 if include_xyz else 0),
+                      (3 if include_xyz else 0) + torch.arange(28, 32)])
+    assert torch.equal(enc[:, cols], enc_r[:, cols])
+    assert torch.equal(gg[:, cols], gg_r[:, cols])
     _, d_enc, g_enc = mlp.pair_vjp(enc_r, weights, g_feat, gg_r)
     for need_x in (True, False):
         dt, dx = EG.encode_mlp_sdfgrad_bwd_scatter(spec, table, x, mask,
@@ -546,6 +618,67 @@ def test_encode_grad_bwd_kernels_match_twins(cuda, include_xyz):
             _close(dx, dx_r)
         else:
             assert dx is None
+
+
+def _gather_in_corner_order(spec, table, x, mask, g_grad):
+    """KB' pass 1 in plain PyTorch with the kernel's float32 operations in
+    its order: each (point, level) sums its 8 corners in corner order (the
+    twin sums them in an einsum)."""
+    L, T, F = table.shape
+    off = 3 if spec.include_xyz else 0
+    enc = torch.empty((x.shape[0], off + L * F), device=x.device)
+    gg = torch.empty_like(enc)
+    if off:
+        enc[:, :3] = x * spec.xyz_scale + spec.xyz_offset
+        gg[:, :3] = g_grad * spec.xyz_scale
+    for lvl in range(L):
+        s = float(np.float32(spec.scales[lvl]))
+        r = int(spec.resolutions[lvl])
+        c0, f = zip(*(HG.level_coords(x[:, a], s) for a in range(3)))
+        rows = table[lvl][HG.corner_rows(c0, r, bool(spec.dense_levels[lvl]),
+                                         T)]
+        w8 = HG.corner_weights(f)
+        dw = HG.corner_weight_grads(f)
+        e = torch.zeros((x.shape[0], F), device=x.device)
+        u = torch.zeros_like(e)
+        for k in range(8):
+            uk = s * (g_grad[:, 0] * dw[0][:, k] + g_grad[:, 1] * dw[1][:, k]
+                      + g_grad[:, 2] * dw[2][:, k])
+            e = e + w8[:, k, None] * rows[:, k]
+            u = u + uk[:, None] * rows[:, k]
+        q = off + lvl * F
+        enc[:, q:q + F] = e * mask[lvl * F:(lvl + 1) * F]
+        gg[:, q:q + F] = u * mask[lvl * F:(lvl + 1) * F]
+    return enc, gg
+
+
+@pytest.mark.parametrize("include_xyz", [False, True])
+def test_encode_grad_bwd_gather_kernel_keeps_corner_order_bits(cuda,
+                                                               include_xyz):
+    """KB' pass 1 bit for bit against its arithmetic in plain PyTorch
+    (``_gather_in_corner_order``), the sign of a masked level's zeros
+    included, at 100,003 points (a ragged last tile of 64) with two
+    levels and one feature of a third masked off, and within 1e-5 of the
+    largest entry of its twin."""
+    spec, table, x, mask = _grid(include_xyz, 100_003, seed=23)
+    rng = np.random.default_rng(24)
+    x = _border(x, rng)
+    mask[9] = 0.0
+    g_grad = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
+    table, x, mask, g_grad = (torch.as_tensor(a, device=cuda) for a in
+                              (table, x, mask, g_grad))
+    before = kernels.launches["encode_mlp_sdfgrad_bwd_gather"]
+    enc, gg = EG.encode_mlp_sdfgrad_bwd_gather(spec, table, x, mask, g_grad)
+    assert kernels.launches["encode_mlp_sdfgrad_bwd_gather"] == before + 1
+    enc_o, gg_o = _gather_in_corner_order(spec, table, x, mask, g_grad)
+    for a, b in ((enc, enc_o), (gg, gg_o)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # a negative sum at a masked level is -0 on both sides
+    assert bool((torch.signbit(enc) & (enc == 0)).any())
+    enc_r, gg_r = EG.encode_mlp_sdfgrad_bwd_gather_plain(spec, table, x,
+                                                         mask, g_grad)
+    _close(enc, enc_r, rtol=0)
+    _close(gg, gg_r, rtol=0)
 
 
 def test_composite_bwd_kernel_matches_twin(cuda):
@@ -758,9 +891,9 @@ def test_wrappers_refuse_bad_input(cuda):
     res = _search_result(cuda, N=16)
     with pytest.raises(ValueError):
         TB.deform_epilogue(res._replace(valid=res.valid.int()), 8, 4, False,
-                           None, None, None)
+                           None, None, None, None)
     with pytest.raises(ValueError):
-        TB.deform_epilogue(res, 8, 9, False, None, None, None)
+        TB.deform_epilogue(res, 8, 9, False, None, None, None, None)
     g = torch.zeros((16, spec.n_output_dims), device=cuda)
     with pytest.raises(ValueError):
         HG.hashgrid_encode_bwd(table, x, spec, g.double())
@@ -1395,7 +1528,7 @@ def test_deform_epilogue_kernel_groups(cuda, I, K, share):
     # 20,011 points: no multiple of a tile's 256 / G points
     N = 20_011
     res = _epilogue_case(cuda, N, I, share, seed=I * 100 + K)
-    args = (res, I, K, False, None, None, None)
+    args = (res, I, K, False, None, None, None, None)
     before = kernels.launches["deform_epilogue"]
     out = TB.deform_epilogue(*args)
     assert kernels.launches["deform_epilogue"] == before + 1

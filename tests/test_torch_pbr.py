@@ -112,6 +112,41 @@ def test_stratified_sphere_matches_jax():
     close(inv_t, inv_j)
 
 
+# the rows' sample error over eps32 / sin(theta) (_close_ggx_sample)
+GGX_C = 16.0
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _close_ggx_sample(s_t, s_j, u1, alpha):
+    """GGX samples within ``1e-5 + GGX_C eps32 / sin(theta)`` a row (and
+    1e-5 of each entry), ``sin(theta)`` in float64 from the row's draw
+    ``u1`` and roughness ``alpha``.
+
+    Both packages take ``sin = sqrt(1 - cos^2)`` of the half-vector's
+    ``cos = sqrt((1 - u1) / (1 + (alpha^2 - 1) u1))``, which cancels where
+    ``cos`` is near 1.  Each package rounds ``cos`` through six float32
+    operations, within 1.75 eps32 of the exact value, so the two differ by
+    up to 3.5 eps32; ``cos^2`` adds eps32 / 2 each side and ``1 - cos^2``
+    is exact (Sterbenz), so ``1 - cos^2`` differs by up to 8 eps32 and
+    ``sin`` by 8 eps32 / (2 sin) = 4 eps32 / sin.  The reflection ``2 (wi .
+    h) h - wi`` moves by at most 4 |dh|: GGX_C = 16.  A row over 1e-5 must
+    be one whose term exceeds 1e-5 (sin < GGX_C eps32 / 1e-5 = 0.19): a
+    port fault in a well-conditioned row still fails."""
+    u1 = np.asarray(u1, np.float64)
+    a2 = np.asarray(alpha, np.float64) ** 2
+    sin = np.sqrt(np.clip(1.0 - (1.0 - u1) / (1.0 + (a2 - 1.0) * u1),
+                          0.0, 1.0))
+    cond = GGX_C * EPS32 / np.maximum(sin, 1e-30)
+    a, b = np.asarray(s_t, np.float64), np.asarray(s_j, np.float64)
+    err = np.abs(a - b) - 1e-5 * np.abs(b)
+    bad = np.flatnonzero((err > (1e-5 + cond)[:, None]).any(-1))
+    assert not bad.size, f"sample rows {bad} off by {err[bad].max(-1)}"
+    over = (err > 1e-5).any(-1)
+    assert (cond[over] > 1e-5).all(), (
+        f"rows over 1e-5 with a well-conditioned sin: "
+        f"{np.flatnonzero(over & (cond <= 1e-5))}")
+
+
 @pytest.mark.parametrize("name", ["brdf-lambertian", "brdf-ggx",
                                   "brdf-multi-lobe"])
 def test_brdf_matches_jax(name):
@@ -144,7 +179,10 @@ def test_brdf_matches_jax(name):
         draws = np.concatenate([pair, pair, np.zeros((N, 1))], -1)
     s_j = jb.sample({}, key, jnp.asarray(n), jnp.asarray(wi), *ja)
     s_t = tb.sample(T(n), T(wi), *ta, T(draws.astype(np.float32)))
-    close(s_t, s_j, "sample")
+    if name == "brdf-ggx":
+        _close_ggx_sample(s_t, s_j, draws[:, 2], rough)
+    else:
+        close(s_t, s_j, "sample")
     close(tb.pdf(T(n), T(wi), T(wo), *ta),
           jb.pdf({}, jnp.asarray(n), jnp.asarray(wi), jnp.asarray(wo), *ja),
           "pdf")

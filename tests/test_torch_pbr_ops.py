@@ -319,8 +319,59 @@ def test_broyden_polish_twin_matches_jax(deformers, layout):
     assert not out.x.numpy()[~valid].any()
 
 
+def _check_polish_roots(td, tf, xd, seed_xc, ok, x):
+    """Assert that each valid root ``x`` of the port's seeded deform meets
+    the polish's own stopping rule, ``|J(x) x^ - x_d| < cvg_thresh`` with
+    ``J`` the frame's ``voxel_J`` sampled as the polish samples it; return
+    each lane's bound on its distance (max norm) to another root that meets
+    the rule: ``max(1e-5, 2 cvg_thresh |J^-1|_inf)``.
+
+    Both residuals lie below ``cvg_thresh``, so they differ by less than
+    ``2 cvg_thresh``; to first order the roots then differ by ``J^-1`` of
+    that, at most ``2 cvg_thresh |J^-1|_inf`` in each coordinate, with
+    ``J^-1`` the lane's own from the polish (Broyden's estimate at the
+    root).  Two packages whose float32 paths stop one iteration apart
+    differ by up to that much."""
+    res = TB.broyden_polish(T(xd), T(seed_xc), T(ok), tf.voxel_J,
+                            td.spec.offset, td.spec.scale_kernel,
+                            cvg_thresh=td.cvg_thresh,
+                            dvg_thresh=td.dvg_thresh,
+                            max_iters=td.seed_polish_iters)
+    v = res.valid.numpy()
+    np.testing.assert_array_equal(res.x.numpy()[v], x[v])
+    # the residual as TB._broyden_plain computes it where it converges
+    xt = T(x)
+    off = [float(a) for a in td.spec.offset]
+    sk = [float(a) for a in td.spec.scale_kernel]
+    norm = torch.stack([sk[a] * (xt[:, a] - off[a]) for a in range(3)], -1)
+    J = TB.grid_sample_3d(tf.voxel_J.reshape(-1, 12),
+                          tuple(tf.voxel_J.shape[:3]), norm).unbind(-1)
+    r = [J[4 * a] * xt[:, 0] + J[4 * a + 1] * xt[:, 1]
+         + J[4 * a + 2] * xt[:, 2] + J[4 * a + 3] - T(xd)[:, a]
+         for a in range(3)]
+    nsq = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]).numpy()
+    assert (nsq[v] < td.cvg_thresh ** 2).all()
+    j_inf = np.abs(res.j_inv.numpy().reshape(-1, 3, 3)).sum(-1).max(-1)
+    return np.maximum(1e-5, 2.0 * td.cvg_thresh * j_inf)
+
+
+def _seeded_outputs(ts, td, tf, tfn, xc):
+    """``deform_seeded``'s sdf, grad_obs, grad_cano and feature at valid
+    roots ``xc``, from the field ``tfn`` and the port's LBS rotation
+    (``deform_skinning_plain``)."""
+    (sdf, grad, feat), _ = tfn(xc)
+    rot = TB.deform_skinning_plain(xc, ts.lbs_cl, td.spec, tf.tfs.detach())
+    return (sdf, torch.einsum("mab,mb->ma", rot.reshape(-1, 3, 3), grad),
+            grad, feat)
+
+
 def test_deform_seeded_matches_jax(deformers):
-    """The seeded canonicalization with a sphere SDF as the field."""
+    """The seeded canonicalization with a sphere SDF as the field.  The
+    roots meet the polish's stopping rule and lie within
+    ``_check_polish_roots``' bound of JAX's (1e-5 where that is larger).
+    At a valid lane the other outputs equal the port's functions of its own
+    root within 1e-6, and those functions at JAX's root equal JAX's outputs
+    within 1e-5; at an invalid lane they equal JAX's within 1e-5."""
     jd, js, jf, td, ts, tf = deformers
     xd, seed_xc, ok = _seeds(deformers, 1500, 1)
 
@@ -341,11 +392,29 @@ def test_deform_seeded_matches_jax(deformers):
     tc = {}
     out = td.deform_seeded(ts, tf, T(xd), T(seed_xc), T(ok), tfn,
                            counters=tc)
-    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
-    for name, a, b in zip(("pts_cano", "sdf", "valid", "grad_obs",
-                           "grad_cano", "feature"), out, ref):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
-                                   err_msg=name)
+    valid = out[2].numpy()
+    np.testing.assert_array_equal(valid, np.asarray(ref[2]))
+    x_t, x_j = out[0].numpy(), np.asarray(ref[0])
+    bound = _check_polish_roots(td, tf, xd, seed_xc, ok, x_t)
+    d_x = np.abs(x_t - x_j).max(-1)
+    assert (d_x <= bound).all(), \
+        f"roots off JAX's: {d_x[d_x > bound]} > {bound[d_x > bound]}"
+    # the other outputs are functions of the root.  At a valid lane the
+    # port's outputs equal its functions at its own root within 1e-6, and
+    # the same functions at JAX's root equal JAX's outputs within 1e-5; an
+    # invalid lane's outputs are constants, held to JAX's within 1e-5
+    names = ("sdf", "grad_obs", "grad_cano", "feature")
+    outs, refs = out[1:2] + out[3:], ref[1:2] + ref[3:]
+    for name, x, want, tol in (("port root", x_t, outs, 1e-6),
+                               ("JAX root", x_j, refs, 1e-5)):
+        at = _seeded_outputs(ts, td, tf, tfn, torch.as_tensor(x))
+        for n, a, b in zip(names, at, want):
+            np.testing.assert_allclose(a.numpy()[valid], np.asarray(b)[valid],
+                                       rtol=0, atol=tol,
+                                       err_msg=f"{n} at the {name}")
+    for n, a, b in zip(names, outs, refs):
+        np.testing.assert_allclose(a.numpy()[~valid], np.asarray(b)[~valid],
+                                   rtol=0, atol=1e-5, err_msg=n)
     assert {k: int(v) for k, v in tc.items()} == \
         {k: int(v) for k, v in jc.items()}
     assert tc["sec_seed_polish_fail"] > 0

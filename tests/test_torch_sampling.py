@@ -295,7 +295,9 @@ def test_cpu_tensors_take_the_twins():
                            valid=torch.as_tensor(rng.random(512) < 0.5))
     spec = VoxelSpec(resolution=8, offset=np.zeros(3, np.float32), scale=2.0)
     lbs_cl = torch.full((2 * 8 * 8, 24), 1.0 / 24)
-    epi = (res, 8, 4, True, lbs_cl, spec, tfs)
+    voxel_J = (lbs_cl @ tfs[:, :3, :].reshape(24, 12)).reshape(
+        *spec.shape_dhw, 12)
+    epi = (res, 8, 4, True, lbs_cl, spec, tfs, voxel_J)
     pairs.append((TB.deform_epilogue(*epi), TB.deform_epilogue_plain(*epi)))
     for out, ref in pairs:
         for a, b in zip(out, ref):

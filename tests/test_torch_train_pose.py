@@ -124,9 +124,13 @@ def test_skinning_bwd_matches_jax_vjp(snarf, use_j_inv, rot_cotangent):
 
     t = torch.tensor(tfs, requires_grad=True)
     J = torch.as_tensor(jinv)
+    # the transform voxel of the same weights and tfs, which only the
+    # kernel reads (CPU tensors take the twin)
+    voxel_J = (ts.lbs_cl @ t.detach()[:, :3, :].reshape(24, 12)).reshape(
+        *tr.spec.shape_dhw, 12)
     out, rot = _SkinningCorrection.apply(
         torch.as_tensor(xc), J, torch.as_tensor(valid), t, ts.lbs_cl,
-        tr.spec, not use_j_inv)
+        tr.spec, voxel_J, not use_j_inv)
     np.testing.assert_array_equal(out.detach().numpy(), xc)
     c2w = J if use_j_inv else rot
     loss = torch.sum(out * torch.as_tensor(g_xc)) \
