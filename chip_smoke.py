@@ -82,7 +82,8 @@
    parameters and draws, whose loss and gradients must agree;
 8. trains with the pose correction on (``enable_pose_correction``): records
    KN's inputs in one full-width step at step 4,001, holds KN against its
-   twin (and two calls against each other, bit for bit) and times it
+   float64 sum within the rounding bound of its own order (and two calls
+   against each other, bit for bit; planted faults refused) and times it
    beside the twin and ``W.t() @ U``; with every launch counter set to 0
    just before and read just after and the plain backward twins (KN's
    included) set to fail if called, runs ``fit`` for 10 steps from step
@@ -92,7 +93,8 @@
    ``uniform_light``, with the PBR kernels' twins set to fail too), and
    holds KD weights at the step's shader-chunk call, KL at its fine pass
    (with the points seeded a call over all its calls) and KH skinning at
-   its fine pass against their twins, with their device times and bounds;
+   its fine pass against their twins, with their device times and bounds,
+   and KN's call as at step 4,001;
    profiles one phys step; and runs a 256-ray step at step 4,001 and a
    32-ray phys step at step 10,000 on the card and on the CPU twins, whose
    losses and gradients (the pose's included) must agree;
@@ -141,7 +143,9 @@ PEAK_TF32 = 495e12
 # serve chunk's shading query (1,474,560 lanes; device 0.101; 0.0092 at a
 # phys step's fine pass, 0.855 ms over 65 launches in its profile) and
 # KB' pass 1 at a train step's shading call (552,960 points; 0.786 ms over
-# 2 launches in its profile)
+# 2 launches in its profile), KN at a pose step's train call (1,474,560
+# lanes, its two launches; device 0.217 ms a phys step) and KI at the PBR
+# stage's [4096, 160] -> 512 call (device 0.0275)
 EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "0.0513-0.0740", "hashgrid_encode": "0.855",
               "deform_epilogue": "0.852-0.857", "broyden_search": "0.501",
@@ -154,7 +158,9 @@ EARLIER_MS = {"encode_mlp_sdfgrad": "6.887-6.892", "seed_gather":
               "secondary_march": "0.0486-0.0775",
               "volrend_weights": "0.0205", "broyden_polish": "0.0141",
               "deform_skinning": "0.108 (device 0.101)",
-              "encode_mlp_sdfgrad_bwd_gather": "0.684-0.697"}
+              "encode_mlp_sdfgrad_bwd_gather": "0.684-0.697",
+              "deform_skinning_bwd": "0.2198-0.2321",
+              "cdf_resample": "0.0617-0.0739 (device 0.0275)"}
 # the profiler's names of every kernel of the port (KG's count and scatter
 # passes apart); a kernel's wrapper counts its launches under the same
 # name (KG's under compact_indices)
@@ -189,7 +195,8 @@ REDESIGNED = ("encode_mlp_sdfgrad", "seed_gather", "hashgrid_encode",
               "merge_resample", "fine_resample", "compact_count",
               "compact_scatter", "deform_prologue", "secondary_march",
               "volrend_weights", "broyden_polish", "deform_skinning",
-              "encode_mlp_sdfgrad_bwd_gather")
+              "encode_mlp_sdfgrad_bwd_gather", "deform_skinning_bwd",
+              "cdf_resample")
 
 
 def fail(msg: str):
@@ -2826,13 +2833,45 @@ def tripwires(pairs):
     return [Tripwire(mods[m], name) for m, name in pairs]
 
 
+def kn_reading(args, where):
+    """KN on the call ``args`` against its function summed in float64,
+    each entry within the rounding bound of KN's summation order
+    (``deform_skinning_bwd_exact``), two calls bit for bit, each planted
+    fault refused; returns ``(the kernel's output, the twin's, a reading
+    with the worst error / bound of both and of each fault)``."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    out_k = B.deform_skinning_bwd(*args)
+    out_k2 = B.deform_skinning_bwd(*args)
+    out_p = B.deform_skinning_bwd_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, out_k2):
+        fail(f"deform_skinning_bwd differs between two calls at the {where}")
+    exact, limit = B.deform_skinning_bwd_exact(*args)
+    ratio = lambda o: ((o.double() - exact)[:, :3].abs()
+                       / limit[:, :3].clamp(min=1e-300)).max().item()
+    if B.deform_skinning_bwd_refused(out_k, exact, limit):
+        fail(f"deform_skinning_bwd is off its float64 sum by more than "
+             f"its rounding bound at the {where}: worst error / bound "
+             f"{ratio(out_k)}")
+    faults = {k: ratio(v) for k, v in B.deform_skinning_bwd_faults(
+        *args, out_k, limit).items()}
+    passed = [k for k, v in faults.items() if not v > 1.0]
+    if passed:
+        fail(f"the KN check passes planted faults at the {where}: {passed}")
+    return out_k, out_p, {
+        "where": where, "lanes": args[0].shape[0],
+        "rotation_cotangent": args[4] is not None,
+        "err_over_bound": ratio(out_k), "twin_err_over_bound": ratio(out_p),
+        "faults_err_over_bound": faults}
+
+
 def check_kn(rows, row, system, data, dev):
     """KN's inputs from one full-width train step at step 4,001 with the
-    pose correction on; KN against its function summed in float64, each
-    entry within the rounding bound of KN's summation order
-    (``deform_skinning_bwd_exact``), two calls bit for bit, each planted
-    fault refused; timed beside its twin and beside ``W.t() @ U``, the
-    product that is its reduction.  Returns KN's row."""
+    pose correction on; ``kn_reading`` of them; timed beside its twin and
+    beside ``W.t() @ U``, the product that is its reduction.  Returns KN's
+    row."""
     import torch
 
     from intrinsicavatar_tpu_torch.anim import broyden as B
@@ -2852,54 +2891,36 @@ def check_kn(rows, row, system, data, dev):
     args = rec.best[1]
     xc, valid, jinv, g_xc, g_rot, lbs_cl, spec = args
     M = xc.shape[0]
-    out_k = B.deform_skinning_bwd(*args)
-    out_k2 = B.deform_skinning_bwd(*args)
-    out_p = B.deform_skinning_bwd_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(out_k, out_k2):
-        fail("deform_skinning_bwd differs between two calls")
-    exact, limit = B.deform_skinning_bwd_exact(*args)
-    ratio = lambda o: ((o.double() - exact)[:, :3].abs()
-                       / limit[:, :3].clamp(min=1e-300)).max().item()
-    if B.deform_skinning_bwd_refused(out_k, exact, limit):
-        fail(f"deform_skinning_bwd is off its float64 sum by more than "
-             f"its rounding bound: worst error / bound {ratio(out_k)}")
-    faults = {k: ratio(v) for k, v in B.deform_skinning_bwd_faults(
-        *args, out_k, limit).items()}
-    passed = [k for k, v in faults.items() if not v > 1.0]
-    if passed:
-        fail(f"the KN check passes planted faults: {passed}")
+    out_k, out_p, reading = kn_reading(args, "pose step's train call")
     err = (out_k - out_p).abs().max().item()
     W, U, _ = B.skin_bwd_terms(*args)
     W, U = W.float().contiguous(), U.float().contiguous()
-    # the weight voxel's rows the lanes' 8 corners touch, each once
-    D, H, W_ = spec.shape_dhw
-    c = spec.normalize(xc)
-    i0 = [torch.floor(torch.clamp((c[:, k] + 1.0) * 0.5 * (n - 1), 0.0,
-                                  n - 1.0)).long()
-          for k, n in enumerate((W_, H, D))]
-    corners = [((torch.clamp(i0[2] + dz, max=D - 1) * H
-                 + torch.clamp(i0[1] + dy, max=H - 1)) * W_
-                + torch.clamp(i0[0] + dx, max=W_ - 1))
-               for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
-    rows_read = int(torch.unique(torch.cat(corners)).numel())
+    # the lanes that add anything (U = 0 at the others, whose root, J^-1,
+    # position cotangent and weight rows the function does not need)
+    adds = B.skin_bwd_adds(valid, g_rot)
+    n_adds = int(adds.sum())
+    rows_read = lbs_rows_touched(xc[adds], spec)
+    call = lambda: B.deform_skinning_bwd(*args)
     row("deform_skinning_bwd", "cuda",
         "intrinsicavatar_tpu_torch/csrc/deform.cu",
         "intrinsicavatar_tpu/anim/deformer.py:396", f"xc[{M}, 3]", err,
-        time_ms(lambda: B.deform_skinning_bwd(*args)),
+        time_ms(call),
         time_ms(lambda: B.deform_skinning_bwd_plain(*args), 3),
-        # root, validity, J^-1 and the two cotangents read once, the
-        # weight voxel's touched rows once, d tfs written once
-        M * (12 + 1 + 36 + 12 + (36 if g_rot is not None else 0))
-        + rows_read * 24 * 4 + 24 * 16 * 4,
-        M * (8 * 24 * 2 + 24 * 12 * 2 + 40),
+        # validity and the rotation cotangent of every lane read once, the
+        # adding lanes' root, J^-1 and position cotangent and the weight
+        # rows their corners touch read once, d tfs written once
+        M * (1 + (36 if g_rot is not None else 0))
+        + n_adds * (12 + 36 + 12) + rows_read * 24 * 4 + 24 * 16 * 4,
+        n_adds * (8 * 24 * 2 + 24 * 12 * 2 + 40),
         # the reduction alone, on the gathered weights
         time_ms(lambda: W.t() @ U))
-    print(f"KN at {M} lanes ({rows_read} of {D * H * W_} weight rows "
-          f"read): worst error / rounding bound {ratio(out_k):.3g} "
-          f"(the twin {ratio(out_p):.3g}); planted faults' worst error / "
-          f"bound {json.dumps(faults)}; bit-equal over two calls",
-          flush=True)
+    reading.update(adding_lanes=n_adds, rows_touched=rows_read,
+                   device_ms=device_ms(call,
+                                       PORT_KERNELS["deform_skinning_bwd"]),
+                   before_redesign_ms=EARLIER_MS["deform_skinning_bwd"])
+    print(f"KN at {M} lanes, {n_adds} adding ({rows_read} of "
+          f"{lbs_cl.shape[0]} weight rows read): {json.dumps(reading)}; "
+          f"bit-equal over two calls", flush=True)
     return rows[-1]
 
 
@@ -3008,6 +3029,7 @@ def train_pose_phys(rows, row, card, dev):
                       MostFrequent(lambda a: tuple(a[0].shape)))
     rec_sk = Recorder(DF, "deform_skinning",
                       MostFrequent(lambda a: a[0].shape[0]))
+    rec_kn = Recorder(DF, "deform_skinning_bwd", lambda a: a[0].shape[0])
     kernels.reset_launches()
     try:
         phys, _ = run_regime(system, data, PHYS_START, 3, cfg)
@@ -3016,7 +3038,7 @@ def train_pose_phys(rows, row, card, dev):
              f"({torch.cuda.max_memory_allocated()} bytes allocated at "
              f"the peak): {e}")
     launches = dict(kernels.launches)
-    for r in (rec_sk, rec_kd, rec_pro, rec_kc, rec):
+    for r in (rec_kn, rec_sk, rec_kd, rec_pro, rec_kc, rec):
         r.restore()
     for t in trips:
         t.restore()
@@ -3041,7 +3063,12 @@ def train_pose_phys(rows, row, card, dev):
                          launches.get("volrend_weights", 0) / 3)
     skin_phys = skinning_reading(rec_sk.best[1], "phys step's fine pass",
                                  card, launches.get("deform_skinning", 0) / 3)
-    del rec, rec_kc, rec_pro, rec_kd, rec_sk
+    kn_phys = kn_reading(rec_kn.best[1], "phys step's train call")[2]
+    kn_phys["device_ms"] = device_ms(
+        lambda: DF.deform_skinning_bwd(*rec_kn.best[1]),
+        PORT_KERNELS["deform_skinning_bwd"])
+    print(f"KN: {json.dumps(kn_phys)}", flush=True)
+    del rec, rec_kc, rec_pro, rec_kd, rec_sk, rec_kn
     wall_ms, by_kernel = profile_device(
         lambda: system.fit(data, system.step + 1, log_every=1))
     busy_ms = sum(ms for ms, _ in by_kernel.values())
@@ -3084,6 +3111,7 @@ def train_pose_phys(rows, row, card, dev):
             "kd_shader_chunk": kd_phys,
             "kl_fine_pass": kl_phys,
             "skinning_fine_pass": skin_phys,
+            "kn_phys_call": kn_phys,
             "cpu_checks": checks}
 
 

@@ -36,9 +36,10 @@ N_BONES = 24
 MAX_INIT = 16   # kMaxInit of csrc/deform.cu
 MAX_INIT_BONES = N_BONES   # kBones of csrc/deform.cu: the prologue's
 #                            limit on the rows of its table
-SKIN_BWD_TILE = N_BONES * 12   # kTile of csrc/deform.cu: lanes a tile
-SKIN_BWD_BLOCKS = 4 * 132      # KN's pass-1 blocks: 4 a streaming
-#                                multiprocessor of an H100
+SKIN_BWD_TILE = 288      # KN_TILE of csrc/deform.cu: lanes a tile
+SKIN_BWD_SLICES = 16     # KN_SLICES: the lane slices of a tile's reduction
+SKIN_BWD_BLOCKS = 3 * 132  # KN's persistent blocks: KN_BLOCKS_PER_SM on each
+#                            of an H100's streaming multiprocessors
 
 
 def grid_sample_3d(vox_cl: torch.Tensor, shape_dhw, coords: torch.Tensor,
@@ -496,8 +497,8 @@ def deform_skinning(xc, lbs_cl, spec, tfs, voxel_J) -> torch.Tensor:
 
 
 def skin_bwd_blocks(M: int) -> int:
-    """KN's pass-1 block count for ``M`` lanes: fixed for a given ``M``,
-    so that its sums run in one order."""
+    """KN's block count for ``M`` lanes: fixed for a given ``M``, so that
+    its sums run in one order."""
     return max(1, min(-(-M // SKIN_BWD_TILE), SKIN_BWD_BLOCKS))
 
 
@@ -549,8 +550,15 @@ def deform_skinning_bwd(xc, valid, jinv, g_xc, g_rot, lbs_cl,
                     (D * H * W, N_BONES))
     if lbs_cl.data_ptr() % 16:
         raise ValueError("lbs_cl must be 16-byte aligned")
+    # the kernel copies the lanes' validity and rotation cotangents in
+    # 16-byte words: a view that does not start 16-byte aligned is copied
+    if valid.data_ptr() % 16:
+        valid = valid.clone()
+    if g_rot is not None and g_rot.data_ptr() % 16:
+        g_rot = g_rot.clone()
     G = skin_bwd_blocks(M)
-    partial = torch.empty((G, SKIN_BWD_TILE), dtype=torch.float32,
+    # each block's sums, added by the last block to finish (one launch)
+    partial = torch.empty((G, N_BONES * 12), dtype=torch.float32,
                           device=dev)
     d_tfs = torch.empty((N_BONES, 4, 4), dtype=torch.float32, device=dev)
     err = kernels.lib("deform").deform_skinning_bwd(
@@ -564,12 +572,23 @@ def deform_skinning_bwd(xc, valid, jinv, g_xc, g_rot, lbs_cl,
     return d_tfs
 
 
+def skin_bwd_adds(valid, g_rot) -> torch.Tensor:
+    """``[M]`` bool: the lanes that KN adds.  A lane that is not valid and
+    has no rotation cotangent has ``U = 0`` (its ``rho`` is ``v`` times a
+    product), and KN skips it."""
+    adds = valid.clone()
+    if g_rot is not None:
+        adds |= (g_rot != 0).any(-1)
+    return adds
+
+
 def skin_bwd_terms(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec):
     """``(W [M, 24], U [M, 12], |U| bound [M, 12])`` of KN's function in
     float64: the weights are the float32 sample that KN takes (the twin's
     blend, each coordinate divided by the scale as the kernel divides it);
     ``Uabs = |J^-1|^T |g| |x^| + |R|`` bounds the magnitudes that KN's
-    float32 U rounds."""
+    float32 U rounds; U and Uabs are 0 at the lanes KN skips
+    (:func:`skin_bwd_adds`)."""
     M, f64 = xc.shape[0], torch.float64
     off = torch.as_tensor(np.asarray(spec.offset, np.float32),
                           device=xc.device)
@@ -591,44 +610,65 @@ def skin_bwd_terms(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec):
         R = g_rot.to(f64).reshape(M, 3, 3)
         U[:, :, :3] += R
         Uabs[:, :, :3] += R.abs()
-    return W, U.reshape(M, 12), Uabs.reshape(M, 12)
+    adds = skin_bwd_adds(valid, g_rot)[:, None]
+    U = torch.where(adds, U.reshape(M, 12), 0.0)
+    Uabs = torch.where(adds, Uabs.reshape(M, 12), 0.0)
+    return W, U, Uabs
 
 
 def deform_skinning_bwd_exact(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec):
     """KN's function summed in float64, and each entry's bound on KN's
     float32 rounding: ``(d_tfs [24, 4, 4], limit [24, 4, 4])``, float64.
 
-    KN rounds each term ``w U`` (its U within 5 eps of ``Uabs``, the
-    product within 1 eps) and sums the terms in a fixed order: block ``g``
-    of :func:`skin_bwd_blocks` takes tiles ``g, g + G, ...`` of
-    ``SKIN_BWD_TILE`` lanes and adds their terms lane by lane, then one
-    thread adds the ``G`` block sums in turn.  A recursive sum rounds by at
-    most eps times the sum of its running sums' magnitudes (Higham,
-    *Accuracy and Stability of Numerical Algorithms*, section 4.2), so
+    KN rounds each term ``w U`` (its U within 5 eps of ``Uabs``, its
+    weights a float32 sample) and sums the terms in a fixed order: tile
+    ``t`` of ``SKIN_BWD_TILE`` lanes goes to block ``t mod G``
+    (:func:`skin_bwd_blocks`); within a tile the lanes that KN adds
+    (:func:`skin_bwd_adds`) are numbered in lane order, number ``n`` goes
+    to slice ``n mod SKIN_BWD_SLICES``, and each (block, slice) keeps one
+    running sum over its numbers, tile by tile; a block then adds its
+    slices in order, and the block sums are added in block order.  A
+    recursive sum rounds by at most eps times the sum of its running sums'
+    magnitudes (Higham, *Accuracy and Stability of Numerical Algorithms*,
+    section 4.2; a fused multiply-add rounds its sum once), so
 
         limit = eps (1.01 sum_k |S_k| + 32 sum_m |w_m| Uabs_m)
 
-    over KN's running sums ``S_k`` of both passes (1.01: the computed
+    over KN's running sums ``S_k`` of the three levels (1.01: the computed
     running sums for the exact ones); 32 eps per term also covers a weight
-    that differs from the twin's by rounding."""
+    that differs from the twin's by rounding (KN adds each weight's 8
+    corners in the twin's order, with fused multiply-adds)."""
     W, U, Uabs = skin_bwd_terms(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec)
+    adds = skin_bwd_adds(valid, g_rot)
     M, E = xc.shape[0], N_BONES * 12
-    T, G = SKIN_BWD_TILE, skin_bwd_blocks(M)
+    T, S, G = SKIN_BWD_TILE, SKIN_BWD_SLICES, skin_bwd_blocks(M)
     dev, f64 = xc.device, torch.float64
-    run = torch.zeros((G, E), dtype=f64, device=dev)
+    run = torch.zeros((G, S, E), dtype=f64, device=dev)
     run_abs = torch.zeros(E, dtype=f64, device=dev)
-    lane = torch.arange(G * T, device=dev)
     for lo in range(0, M, G * T):
-        # one tile a block: lane g T + l of this round is in block g's tile
+        # one tile a block: lane g T + p of this round is lane p of block
+        # g's tile; its adding lanes go to their numbers n, in slice n mod S
         n = min(G * T, M - lo)
+        a = torch.zeros(G * T, dtype=torch.bool, device=dev)
+        a[:n] = adds[lo:lo + n]
+        a = a.reshape(G, T)
+        dest = (torch.arange(G, device=dev)[:, None] * T
+                + a.cumsum(1) - 1)[a]
+        sel = adds[lo:lo + n]
         terms = torch.zeros((G * T, E), dtype=f64, device=dev)
-        terms[:n] = (W[lo:lo + n, :, None] * U[lo:lo + n, None, :]
-                     ).reshape(n, E)
-        chain = run[:, None, :] + terms.reshape(G, T, E).cumsum(1)
-        # the padding's zero terms add nothing and round nothing
-        run_abs += (chain.abs() * (lane < n).reshape(G, T, 1)).sum((0, 1))
+        terms[dest] = (W[lo:lo + n][sel, :, None]
+                       * U[lo:lo + n][sel, None, :]).reshape(-1, E)
+        chain = run[:, None] + terms.reshape(G, T // S, S, E).cumsum(1)
+        # the numbers past a tile's adding lanes add nothing and round
+        # nothing
+        filled = torch.zeros(G * T, dtype=torch.bool, device=dev)
+        filled[dest] = True
+        run_abs += (chain.abs() * filled.reshape(G, T // S, S, 1)
+                    ).sum((0, 1, 2))
         run = chain[:, -1]
-    run_abs += run.cumsum(0).abs().sum(0)
+    blocks = run.cumsum(1)                      # each block's slices
+    run_abs += blocks.abs().sum((0, 1))
+    run_abs += blocks[:, -1].cumsum(0).abs().sum(0)
     mag = (W.abs().t() @ Uabs).reshape(E)
     limit = 2.0 ** -24 * (1.01 * run_abs + 32.0 * mag)
     d_tfs = torch.zeros((N_BONES, 4, 4), dtype=f64, device=dev)
@@ -644,7 +684,8 @@ def deform_skinning_bwd_faults(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec,
     :func:`deform_skinning_bwd_exact` must refuse, by name: all zeros, bone
     0 alone, KN without its position term, without its rotation term (when
     it has a nonzero one), and without the tile of ``SKIN_BWD_TILE`` lanes
-    that moves an entry most against its ``limit``."""
+    (KN's unit of work: a block stages, samples and adds one tile at a
+    time) that moves an entry most against its ``limit``."""
     M, T = xc.shape[0], SKIN_BWD_TILE
     args = (xc, valid, jinv, g_xc, g_rot, lbs_cl, spec)
     faults = {"zeros": torch.zeros_like(out),

@@ -47,12 +47,13 @@
 // skinning reads 12 B a lane and the 48 B rows of the 25 MB transform
 // voxel that its corners touch (the weight voxel's rows are 96 B, and the
 // blend adds 24 x 9 products a lane), and writes 36 B a lane.  KN reads
-// 97 B a lane (root, validity, J^-1 and both cotangents) and the weight
-// rows its lanes' corners touch, ~1,000 flops a lane, and writes 288
-// floats: at the train step's 1,474,560 lanes (a quarter of the voxel's
-// rows touched) its bound on an H100 is ~0.047 ms, by bytes (chip_smoke.py).
-// Its order of sums is fixed, so a check can bound its rounding
-// (anim/broyden.py:deform_skinning_bwd_exact).
+// 37 B a lane (validity and the rotation cotangent), and at the lanes it
+// adds (a lane with U = 0 adds nothing) 60 B more (root, J^-1, position
+// cotangent) and the weight rows their corners touch, ~1,000 flops an
+// adding lane, and writes 288 floats: at a train step's 1,474,560 lanes
+// (~10% of them adding) its bound on an H100 is ~0.02 ms, by bytes
+// (chip_smoke.py).  Its order of sums is fixed, so a check can bound its
+// rounding (anim/broyden.py:deform_skinning_bwd_exact).
 //
 // Design: the prologue is a thread a point over 128-point tiles with
 // nothing in local memory and no branch on the data.  The bone count is a
@@ -84,13 +85,13 @@
 // each x side of its cell (skinning_kernel, below).  The arithmetic
 // follows the plain versions' order, so with -fmad=false the prologue's
 // distances and the epilogue's filter equal theirs.  KN is a reduction
-// of every lane into 288 floats, done without float atomics, so that it is
-// the same from run to run: pass 1 gives each of G blocks 288 threads; a
-// thread computes one lane's w and U into shared memory (a tile of 288
-// lanes), then sums one of the 288 (b, a * 4 + c) entries over the tile,
-// and carries it across a grid-stride loop over tiles into a [G, 288]
-// scratch row; pass 2 sums the G rows in block order.  The reduction is a
-// [24 x M] . [M x 12] product that tensor cores could take: later work.
+// of every lane into 288 floats, done without float atomics in one launch,
+// so that it is the same from run to run: persistent blocks stage a tile
+// of lanes' flags, number the lanes that add anything, sample their
+// weights with the block's threads spread over whole weight rows, and add
+// them into a 4 x 4 block of the sum held in each thread's registers; the
+// last block to finish adds the blocks' sums in block order
+// (skinning_bwd_kernel, below).
 #include "common.cuh"
 
 namespace {
@@ -299,54 +300,15 @@ __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(
   }
 }
 
-// The 24 LBS weights at a canonical point: trilinear, border padding,
-// align_corners, corners summed in (dx, dy, dz) order with dz fastest.
-__device__ __forceinline__ void sample_weights(
-    const float* __restrict__ xc, int64_t q, const float* __restrict__ vox,
-    int D, int H, int W, float ox, float oy, float oz, float scale,
-    float ratio, float* w) {
-  const float cx = (xc[q * 3] - ox) / scale;
-  const float cy = (xc[q * 3 + 1] - oy) / scale;
-  const float cz = (xc[q * 3 + 2] - oz) / scale * ratio;
-  const float ix = fminf(fmaxf((cx + 1.f) * 0.5f * (float)(W - 1), 0.f),
-                         (float)(W - 1));
-  const float iy = fminf(fmaxf((cy + 1.f) * 0.5f * (float)(H - 1), 0.f),
-                         (float)(H - 1));
-  const float iz = fminf(fmaxf((cz + 1.f) * 0.5f * (float)(D - 1), 0.f),
-                         (float)(D - 1));
-  const float x0f = floorf(ix), y0f = floorf(iy), z0f = floorf(iz);
-  const float fx = ix - x0f, fy = iy - y0f, fz = iz - z0f;
-  const int x0 = (int)x0f, y0 = (int)y0f, z0 = (int)z0f;
-  for (int b = 0; b < kBones; ++b) w[b] = 0.f;
-  for (int k = 0; k < 8; ++k) {
-    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    const float wx = dx ? fx : 1.f - fx;
-    const float wy = dy ? fy : 1.f - fy;
-    const float wz = dz ? fz : 1.f - fz;
-    const float wc = wx * wy * wz;
-    const int px = min(x0 + dx, W - 1), py = min(y0 + dy, H - 1),
-              pz = min(z0 + dz, D - 1);
-    const float4* row = reinterpret_cast<const float4*>(
-        vox + (((int64_t)pz * H + py) * W + px) * kBones);
-    for (int c = 0; c < kBones / 4; ++c) {
-      const float4 a = __ldg(row + c);
-      w[4 * c] = w[4 * c] + wc * a.x;
-      w[4 * c + 1] = w[4 * c + 1] + wc * a.y;
-      w[4 * c + 2] = w[4 * c + 2] + wc * a.z;
-      w[4 * c + 3] = w[4 * c + 3] + wc * a.w;
-    }
-  }
-}
-
 // KH skinning: two threads a lane (a point) over blocks of SKIN_POINTS
 // lanes.  Both threads of a lane compute its coordinates in the transform
 // voxel voxJ [D*H*W, 12] (channel-last, the blended [3, 4] transform of
-// each voxel, sum_b W_b tfs[b, :3, :4]) as sample_weights does (border
-// padding, align_corners); thread dx then takes the 4 corners of its x side
-// in (dy, dz) order, each row three 16-byte loads, and sums the 9 rotation
-// channels; one shuffle adds the two sides.  The x pair's rows are
-// neighbours in memory, so the two threads' loads share lines, and a
-// thread's chain of dependent loads is half a lane's.  The block stages its
+// each voxel, sum_b W_b tfs[b, :3, :4]) as the twin's trilinear sample
+// does (border padding, align_corners); thread dx then takes the 4 corners
+// of its x side in (dy, dz) order, each row three 16-byte loads, and sums
+// the 9 rotation channels; one shuffle adds the two sides.  The x pair's
+// rows are neighbours in memory, so the two threads' loads share lines, and
+// a thread's chain of dependent loads is half a lane's.  The block stages its
 // [SKIN_POINTS, 9] output in shared memory for 16-byte stores.
 constexpr int SKIN_POINTS = 64;
 constexpr int SKIN_THREADS = 2 * SKIN_POINTS;
@@ -414,64 +376,308 @@ __global__ void __launch_bounds__(SKIN_THREADS) skinning_kernel(
   copy_out(rot + q0 * 9, s_rot, rows * 9);
 }
 
+// KN: persistent blocks of KN_THREADS threads walk over tiles of KN_TILE
+// lanes (tile t goes to block t mod G).  For each tile a block
+//  1. stages the lanes' validity and rotation cotangents in shared memory
+//     with asynchronous 16-byte copies (cp.async), double-buffered: the
+//     next tile's copies are in flight while this one is worked on;
+//  2. finds the lanes that add anything: a lane that is not valid and has
+//     no rotation cotangent has U = 0 (at a train step's call ~90% of the
+//     lanes: the search's invalid roots and the shading budget's padding),
+//     and only the others load their root, J^-1 and position cotangent
+//     (in flight while the lanes are numbered in lane order, by a ballot
+//     and a count a warp); a thread a lane, each adding lane's thread
+//     writes its U and its cell at its number;
+//  3. samples the adding lanes' weights: their (lane, 16-byte word) pairs,
+//     6 a weight row, spread over all the block's threads, the word
+//     fastest, so that a warp's load of one corner reads whole rows; a
+//     pair adds its word of the lane's 8 corner rows (all 8 loads in
+//     flight) in the twin's corner order;
+//  4. adds the adding lanes into registers: thread (slice s, sub-block k)
+//     owns the 4 bones x 4 entries (one row a of U) of sub-block k of the
+//     24 x 12 sum, and for the numbers s, s + 16, ... reads the 4 weights
+//     and the 4 U entries as two 16-byte words and does 16 multiply-adds
+//     (8 a shared-memory load, against 0.5 when a thread summed one entry;
+//     a warp's threads read few distinct words, which broadcast).
+// After its last tile a block adds its 16 slices' sums of each entry in
+// slice order into its row of `partial`, and the last block to finish (a
+// fence and a ticket) adds the G rows in block order into d_tfs and resets
+// the ticket.  Every sum runs in one fixed order, so two calls give the same
+// bits and anim/broyden.py:deform_skinning_bwd_exact models the order
+// exactly: per (block, slice) one running sum over the adding lanes of the
+// block's tiles by number, then the slices, then the blocks.  The sums and
+// the weights' sample use fused multiply-adds (__fmaf_rn), which round
+// once where a product and a sum round twice.  The ticket is a device
+// variable: calls on one device must not overlap (the port makes one call
+// a step, on one stream).
 constexpr int kEntries = kBones * 12;  // (b, a * 4 + c) of d tfs, a < 3
-constexpr int kTile = kEntries;        // lanes a tile = threads a block
-constexpr int kWStride = kBones + 1;   // odd row strides: no bank conflicts
-constexpr int kUStride = 13;
+constexpr int KN_THREADS = 288;
+constexpr int KN_TILE = KN_THREADS;       // lanes a tile, a thread a lane
+constexpr int KN_SLICES = 16;             // lane slices of the reduction
+constexpr int KN_SUBS = kEntries / 16;    // 18 sub-blocks of 4 x 4 entries
+constexpr int KN_STEPS = KN_TILE / KN_SLICES;  // lanes a thread adds a tile
+static_assert(KN_SLICES * KN_SUBS == KN_THREADS, "a thread a (slice, sub)");
+static_assert(KN_STEPS * KN_SLICES == KN_TILE, "whole slices a tile");
+// blocks resident on an SM (the launch bound); the wrapper's block count,
+// anim/broyden.py:SKIN_BWD_BLOCKS, is this times the H100's 132 SMs
+constexpr int KN_BLOCKS_PER_SM = 3;
 
-__global__ void __launch_bounds__(kTile) skinning_bwd_partial_kernel(
+__device__ unsigned int kn_ticket = 0;
+
+// Copies `bytes` bytes from global src to shared dst (both 16-byte aligned)
+// in 16-byte asynchronous copies spread over the block's threads; the tail
+// of the last copy is zero-filled (cp.async's source size).
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           int bytes) {
+  for (int c = threadIdx.x; c < (bytes + 15) / 16; c += blockDim.x) {
+    const unsigned d =
+        (unsigned)__cvta_generic_to_shared(static_cast<char*>(dst) + 16 * c);
+    const int n = bytes - 16 * c < 16 ? bytes - 16 * c : 16;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(static_cast<const char*>(src) + 16 * c), "r"(n)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// waits for every group of this thread's copies but the latest
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(KN_THREADS, KN_BLOCKS_PER_SM)
+skinning_bwd_kernel(
     const float* __restrict__ xc, const uint8_t* __restrict__ valid,
     const float* __restrict__ jinv, const float* __restrict__ g_xc,
     const float* __restrict__ g_rot, const float* __restrict__ vox,
     int64_t M, int D, int H, int W, float ox, float oy, float oz,
-    float scale, float ratio, float* __restrict__ partial) {
-  __shared__ float sw[kTile * kWStride];
-  __shared__ float su[kTile * kUStride];
-  const int t = threadIdx.x;
-  const int b = t / 12, k = t % 12;  // the entry this thread sums
-  float acc = 0.f;
-  const int64_t n_tiles = (M + kTile - 1) / kTile;
-  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int64_t q = tile * kTile + t;
-    float* w = sw + t * kWStride;
-    float* u = su + t * kUStride;
-    if (q < M) {
-      float wl[kBones];
-      sample_weights(xc, q, vox, D, H, W, ox, oy, oz, scale, ratio, wl);
-      for (int bb = 0; bb < kBones; ++bb) w[bb] = wl[bb];
-      const float v = valid[q] ? 1.f : 0.f;
-      const float* J = jinv + q * 9;
-      const float g0 = g_xc[q * 3], g1 = g_xc[q * 3 + 1],
-                  g2 = g_xc[q * 3 + 2];
-      const float xh[4] = {xc[q * 3], xc[q * 3 + 1], xc[q * 3 + 2], 1.f};
-      for (int a = 0; a < 3; ++a) {
-        const float rho = -(v * (J[a] * g0 + J[3 + a] * g1 + J[6 + a] * g2));
-        for (int c = 0; c < 4; ++c) {
-          float e = rho * xh[c];
-          if (c < 3 && g_rot != nullptr) e = e + g_rot[q * 9 + a * 3 + c];
-          u[a * 4 + c] = e;
-        }
+    float scale, float ratio, float* __restrict__ partial,
+    float* __restrict__ d_tfs) {
+  // in dynamic shared memory: the adding lanes' weights [KN_TILE, 24], U
+  // [KN_TILE, 12] and cells by number; after the last tile the block's
+  // [KN_SLICES, kEntries] sums in their place
+  extern __shared__ __align__(16) float kn_dyn[];
+  float* s_wu = kn_dyn;
+  // each adding lane's cell at its number: 8 words (the corner row (x0,
+  // y0, z0), the steps to its x, y and z neighbours, 0 at the voxel's
+  // border, and fx, fy, fz)
+  int* s_cell = reinterpret_cast<int*>(kn_dyn + KN_TILE * (kBones + 12));
+  // the staged validity and rotation cotangents, double-buffered: tile
+  // i + 1's copies run while tile i is worked on
+  __shared__ __align__(16) float s_r[2][KN_TILE * 9];
+  __shared__ __align__(16) uint8_t s_v[2][KN_TILE];
+  __shared__ int s_cnt[KN_THREADS / 32];
+  __shared__ bool s_last;
+  static_assert(KN_SLICES * kEntries <= KN_TILE * (kBones + 12),
+                "the block's sums fit over the tile");
+  float* s_w = s_wu;
+  float* s_u = s_wu + KN_TILE * kBones;
+  const int tid = threadIdx.x;
+  const int p = tid;  // the tile's lane this thread stages
+  const int slice = tid / KN_SUBS, sub = tid % KN_SUBS;
+  const int kb = sub / 3, ra = sub % 3;    // bones 4 kb .., row ra of U
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+  const int64_t n_tiles = (M + KN_TILE - 1) / KN_TILE;
+  // 1. a tile's flags, copied into buffer b with asynchronous 16-byte
+  // copies (the tile's spans start 16-byte aligned; the last chunk of a
+  // short tile is zero-filled)
+  auto stage = [&](int b, int64_t tile) {
+    const int64_t q0 = tile * KN_TILE;
+    const int rows = M - q0 < KN_TILE ? (int)(M - q0) : KN_TILE;
+    if (g_rot != nullptr) copy_async(s_r[b], g_rot + q0 * 9, rows * 36);
+    copy_async(s_v[b], valid + q0, rows);
+  };
+  if (blockIdx.x < n_tiles) stage(0, blockIdx.x);
+  cp_async_commit();
+  int buf = 0;
+  for (int64_t tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, buf ^= 1) {
+    const int64_t q0 = tile * KN_TILE;
+    const int rows = M - q0 < KN_TILE ? (int)(M - q0) : KN_TILE;
+    if (tile + gridDim.x < n_tiles) stage(buf ^ 1, tile + gridDim.x);
+    cp_async_commit();
+    cp_async_wait_prior();  // this tile's copies; the next tile's may run
+    __syncthreads();
+
+    // 2. the lanes that add anything: a lane that is not valid and has no
+    // rotation cotangent has U = 0 and is skipped (the compaction's padding,
+    // the search's invalid roots); the others load their root, J^-1 and
+    // position cotangent (in flight while the lanes are numbered), are
+    // numbered in lane order through a count a warp, and take their U and
+    // cell to that number
+    const bool live = p < rows;
+    const int q = live ? p : 0;
+    bool adds = live && s_v[buf][q] != 0;
+    if (g_rot != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) adds |= live && s_r[buf][q * 9 + k] != 0.f;
+    }
+    float x3[3], J[9], g3[3];
+    if (adds) {
+      const int64_t m = q0 + q;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        x3[k] = __ldg(xc + m * 3 + k);
+        g3[k] = __ldg(g_xc + m * 3 + k);
       }
-    } else {
-      for (int bb = 0; bb < kBones; ++bb) w[bb] = 0.f;
-      for (int e = 0; e < 12; ++e) u[e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) J[k] = __ldg(jinv + m * 9 + k);
+    }
+    const int wid = tid >> 5, wl = tid & 31;
+    const unsigned bits = __ballot_sync(0xffffffffu, adds);
+    if (wl == 0) s_cnt[wid] = __popc(bits);
+    __syncthreads();
+    int pc = __popc(bits & ((1u << wl) - 1u)), n_live = 0;
+#pragma unroll
+    for (int w = 0; w < KN_THREADS / 32; ++w) {
+      const int c = s_cnt[w];
+      pc += w < wid ? c : 0;
+      n_live += c;
+    }
+    if (adds) {
+      // the lane's U: U[a, c] = rho[a] x^[c] + (c < 3 ? R[a, c] : 0)
+      const float v = s_v[buf][q] ? 1.f : 0.f;
+      float rho[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        rho[a] = -(v * (J[a] * g3[0] + J[3 + a] * g3[1] + J[6 + a] * g3[2]));
+      float u[12];
+#pragma unroll
+      for (int e = 0; e < 12; ++e) {
+        const int a = e >> 2, c = e & 3;
+        float t = rho[a] * (c < 3 ? x3[c < 3 ? c : 0] : 1.f);
+        if (c < 3 && g_rot != nullptr) t = t + s_r[buf][q * 9 + a * 3 + c];
+        u[e] = t;
+      }
+      float4* du = reinterpret_cast<float4*>(s_u + pc * 12);
+#pragma unroll
+      for (int e = 0; e < 3; ++e)
+        du[e] = make_float4(u[4 * e], u[4 * e + 1], u[4 * e + 2], u[4 * e + 3]);
+      {
+        const float cx = (x3[0] - ox) / scale;
+        const float cy = (x3[1] - oy) / scale;
+        const float cz = (x3[2] - oz) / scale * ratio;
+        const float ix = fminf(fmaxf((cx + 1.f) * 0.5f * (float)(W - 1), 0.f),
+                               (float)(W - 1));
+        const float iy = fminf(fmaxf((cy + 1.f) * 0.5f * (float)(H - 1), 0.f),
+                               (float)(H - 1));
+        const float iz = fminf(fmaxf((cz + 1.f) * 0.5f * (float)(D - 1), 0.f),
+                               (float)(D - 1));
+        const float x0f = floorf(ix), y0f = floorf(iy), z0f = floorf(iz);
+        const int x0 = (int)x0f, y0 = (int)y0f, z0 = (int)z0f;
+        int* ci = s_cell + pc * 8;
+        ci[0] = (z0 * H + y0) * W + x0;
+        ci[1] = min(x0 + 1, W - 1) - x0;
+        ci[2] = (min(y0 + 1, H - 1) - y0) * W;
+        ci[3] = (min(z0 + 1, D - 1) - z0) * H * W;
+        float* cf = reinterpret_cast<float*>(ci);
+        cf[4] = ix - x0f;
+        cf[5] = iy - y0f;
+        cf[6] = iz - z0f;
+      }
     }
     __syncthreads();
-    for (int l = 0; l < kTile; ++l)
-      acc = acc + sw[l * kWStride + b] * su[l * kUStride + k];
-    __syncthreads();
-  }
-  partial[(int64_t)blockIdx.x * kEntries + t] = acc;
-}
 
-__global__ void __launch_bounds__(kEntries) skinning_bwd_sum_kernel(
-    const float* __restrict__ partial, int G, float* __restrict__ d_tfs) {
-  const int t = threadIdx.x;
-  float acc = 0.f;
-  for (int g = 0; g < G; ++g) acc = acc + partial[(int64_t)g * kEntries + t];
-  const int b = t / 12, k = t % 12;
-  d_tfs[b * 16 + k] = acc;  // row a = k / 4, column c = k % 4
+    // 3. the adding lanes' weights: the (lane, word) pairs of their 6
+    // 16-byte words of a weight row spread over the block's threads, the
+    // word fastest, so that a warp's load of one corner reads whole rows;
+    // each pair adds its word of the lane's 8 corner rows in the twin's
+    // corner order, the 8 loads in flight at once
+    for (int e = tid; e < n_live * 6; e += KN_THREADS) {
+      const int l = e / 6, c = e - 6 * l;
+      const int* ci = s_cell + l * 8;
+      const int r0 = ci[0], sx_ = ci[1], sy_ = ci[2], sz_ = ci[3];
+      const float* cf = reinterpret_cast<const float*>(ci);
+      const float fx = cf[4], fy = cf[5], fz = cf[6];
+      const float4* col = reinterpret_cast<const float4*>(vox) + c;
+      float4 a[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        a[k] = __ldg(col + (int64_t)(r0 + ((k >> 2) ? sx_ : 0)
+                                     + (((k >> 1) & 1) ? sy_ : 0)
+                                     + ((k & 1) ? sz_ : 0)) * (kBones / 4));
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+        const float wc = (dx ? fx : 1.f - fx) * (dy ? fy : 1.f - fy)
+                         * (dz ? fz : 1.f - fz);
+        w.x = __fmaf_rn(wc, a[k].x, w.x);
+        w.y = __fmaf_rn(wc, a[k].y, w.y);
+        w.z = __fmaf_rn(wc, a[k].z, w.z);
+        w.w = __fmaf_rn(wc, a[k].w, w.w);
+      }
+      reinterpret_cast<float4*>(s_w)[e] = w;
+    }
+    __syncthreads();
+
+    // 4. the adding lanes into this thread's 4 x 4 entries
+#pragma unroll
+    for (int j = 0; j < KN_STEPS; ++j) {
+      const int l = j * KN_SLICES + slice;
+      if (j * KN_SLICES >= n_live) break;  // the same for the whole block
+      if (l >= n_live) continue;
+      const float4 wv = reinterpret_cast<const float4*>(s_w)[l * 6 + kb];
+      const float4 uv = reinterpret_cast<const float4*>(s_u)[l * 3 + ra];
+      const float wb[4] = {wv.x, wv.y, wv.z, wv.w};
+      const float ub[4] = {uv.x, uv.y, uv.z, uv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[i][c] = __fmaf_rn(wb[i], ub[c], acc[i][c]);
+    }
+    // the next tile's barrier, after its copies land, keeps its weights
+    // from overwriting these before every thread has added them
+  }
+
+  cp_async_wait_all();
+  __syncthreads();  // every thread has added the last tile
+  // the block's sum of each entry, its slices in order
+  float* s_red = s_wu;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s_red[slice * kEntries + (4 * kb + i) * 12 + 4 * ra + c] = acc[i][c];
+  __syncthreads();
+  {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < KN_SLICES; ++k) s = s + s_red[k * kEntries + tid];
+    partial[(int64_t)blockIdx.x * kEntries + tid] = s;
+  }
+  // the last block to finish adds the blocks' sums in block order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&kn_ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  float s = 0.f;
+  const int G = (int)gridDim.x;
+  for (int g0 = 0; g0 < G; g0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = g0 + i < G ? __ldcg(partial + (int64_t)(g0 + i) * kEntries + tid)
+                        : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (g0 + i < G) s = s + v[i];
+  }
+  const int b = tid / 12, k = tid % 12;
+  d_tfs[b * 16 + k] = s;  // row a = k / 4, column c = k % 4
   if (k < 4) d_tfs[b * 16 + 12 + k] = 0.f;
+  if (tid == 0) kn_ticket = 0u;  // for the next call
 }
 
 }  // namespace
@@ -544,13 +750,27 @@ extern "C" int deform_skinning_bwd(const float* xc, const uint8_t* valid,
                                    float ox, float oy, float oz, float scale,
                                    float ratio, float* partial, int G,
                                    float* d_tfs, void* stream) {
-  if (G < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (M > 0)
-    skinning_bwd_partial_kernel<<<G, kTile, 0, s>>>(
-        xc, valid, jinv, g_xc, g_rot, vox, M, D, H, W, ox, oy, oz, scale,
-        ratio, partial);
-  skinning_bwd_sum_kernel<<<1, kEntries, 0, s>>>(partial, M > 0 ? G : 0,
-                                                 d_tfs);
+  if (G < 1 || M < 0) return (int)cudaErrorInvalidValue;
+  // the 16-byte loads of the weight rows and copies of the lanes' flags
+  if ((reinterpret_cast<uintptr_t>(vox) | reinterpret_cast<uintptr_t>(valid)
+       | reinterpret_cast<uintptr_t>(g_rot)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  // the adding lanes' weights, U and cells, above the 48 KB a block has
+  // without asking
+  constexpr int smem = KN_TILE * (kBones + 12 + 8) * 4;
+  static bool asked[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && !asked[dev]) {
+    err = cudaFuncSetAttribute(skinning_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    asked[dev] = err == cudaSuccess;
+  }
+  if (err != cudaSuccess) return (int)err;
+  skinning_bwd_kernel<<<G, KN_THREADS, smem, (cudaStream_t)stream>>>(
+      xc, valid, jinv, g_xc, g_rot, vox, M, D, H, W, ox, oy, oz, scale, ratio,
+      partial, d_tfs);
   return launch_status();
 }

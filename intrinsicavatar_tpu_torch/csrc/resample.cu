@@ -274,22 +274,44 @@ extern "C" int merge_resample_fwd(
 // (the serial kernel records it only when it walks past the crossing).
 //
 // What bounds it on an H100: bytes.  Per ray it reads S x 17 B and writes
-// B x 13 B + S x 4 B; the math is a log2(S)-step search per draw.
+// B x 13 B + S x 4 B (at the PBR stage's [4096, 160] -> 512 call ~0.012
+// ms).  What holds it back is instruction issue: every ray's warp is
+// resident at once (4,096 warps, 31 an SM), and its 512 draws took ~200
+// instructions each, a third of them a binary search of the CDF.
 //
 // Design: one warp per ray (4,096 rays, one thread each, would fill 2% of
 // the card).  The CDF is a warp scan over 32-slot chunks, summed in double
 // and rounded to float, as the plain twin's double cumsum: both round the
 // same sums, so the searches agree exactly.  cdf and cdf_prev live in
-// shared memory; lane l draws positions l, l + 32, ... (16 of 512); the
-// forward fill of pinned draws is a ballot over each 32-draw chunk (the
-// highest unpinned lane at or below this one) with the last unpinned t
-// carried from chunk to chunk.  fg_counts are shared-memory atomics.
+// shared memory.  A draw's slot is counted, not searched, where B <=
+// kCountMax: the u_b ascend, so slot i's first draw at or past its CDF
+// value, n_i = #{b : !(cdf_i <= u_b)}, follows from one division and a
+// check of its neighbours, and the slots a draw counts, #{i : n_i <= b},
+// are the prefix at b of the slots counted by n_i (a shared-memory array a
+// ray): one load a draw.  For a CDF that ascends (nonnegative weights; a
+// NaN suffix never counts) that is the binary search's count, and the
+// outputs are the same bits.  Lane l draws positions l, l + 32, ... (16 of
+// 512); the forward fill of pinned draws is a ballot over each 32-draw
+// chunk (the highest unpinned lane at or below this one) with the last
+// unpinned t carried from chunk to chunk.  fg_counts are shared-memory
+// atomics, and a background draw skips its interval's arithmetic.
+// Measured slower on the card and not kept: a block of 4 warps a ray (the
+// draws split between the warps, the fill's carry handed over in shared
+// memory), with 2 or 8 warps, with 4 chunks of draws interleaved, 4 draws a
+// thread with 16-byte stores, the row staged in shared memory by registers
+// or by asynchronous copies, two rays a warp (the next row copied in while
+// one is drawn), and counts for up to 1,024 draws: each costs registers or
+// shared memory, and then the 4,096 rays no longer fit on the card at once
+// (PERF.md §6).
 // ---------------------------------------------------------------------------
 
 namespace {
 
 constexpr int kCdfWarps = 4;
 constexpr int kCdfMaxS = 256;
+// draws a ray takes by counting (beyond them, by binary search); the
+// counts fit beside the CDF without costing the card a resident ray
+constexpr int kCountMax = 512;
 constexpr float kBgOffset = 10000.f;
 
 // warp-wide inclusive scan of one double per lane
@@ -312,6 +334,7 @@ __global__ void cdf_resample_kernel(
   __shared__ float s_cdf[kCdfWarps][kCdfMaxS];
   __shared__ float s_prev[kCdfWarps][kCdfMaxS];
   __shared__ int s_cnt[kCdfWarps][kCdfMaxS];
+  __shared__ int s_slots[kCdfWarps][kCountMax];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int64_t r = (int64_t)blockIdx.x * kCdfWarps + wid;
   if (r >= R) return;  // whole warps leave together
@@ -354,28 +377,81 @@ __global__ void cdf_resample_kernel(
   __syncwarp();
   const float fg_total = cdf[last];
 
+  // each draw's slot by counting (see above): slots[b] = #{i : n_i <= b}
+  int* slots = s_slots[wid];
+  const bool counted = B <= kCountMax;
+  if (counted) {
+    for (int e = lane; e < B; e += 32) slots[e] = 0;
+    __syncwarp();
+    for (int i = lane; i < S; i += 32) {
+      const float c = cdf[i];
+      int n;
+      if (!(c <= u0 + (float)(B - 1) * du)) {
+        n = B;  // past every draw (a NaN too)
+      } else if (!(du > 0.f)) {
+        n = 0;
+      } else {
+        // a guess, then the exact first b with c <= u_b (u_b as a draw
+        // computes it, so the comparisons are the search's)
+        n = min(max((int)ceilf(__fdividef(c - u0, du)), 0), B - 1);
+        while (n > 0 && c <= u0 + (float)(n - 1) * du) --n;
+        while (n < B && !(c <= u0 + (float)n * du)) ++n;
+      }
+      if (n < B) atomicAdd(&slots[n], 1);
+    }
+    __syncwarp();
+    // the inclusive prefix: a span of entries a lane, then a warp scan
+    const int per = (B + 32) / 32, e0 = lane * per, e1 = min(e0 + per, B);
+    int sum = 0;
+    for (int e = e0; e < e1; ++e) sum += slots[e];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += n;
+    }
+    int before = incl - sum;
+    for (int e = e0; e < e1; ++e) {
+      before += slots[e];
+      slots[e] = before;
+    }
+    __syncwarp();
+  }
+
   // pass 2: the draws, 32 at a time, with the pinned ones forward-filled
   const float t_bg = te[last] + kBgOffset;
   int bg_count = 0;
   bool have_src = false;
   float src_t = 0.f;
   float fallback = 0.f;
+  // this ray's output rows
+  float* ots = o_ts + r * B;
+  float* ooff = o_off + r * B;
+  int* oidx = o_idx + r * B;
+  uint8_t* obg = o_bg + r * B;
   for (int base = 0; base < B; base += 32) {
     const int b = base + lane;
     const bool live = b < B;
     const float u = u0 + (float)b * du;
-    int idx = min(max(count_le(cdf, S, u), 0), last);
+    int idx = min(max(counted ? slots[live ? b : 0] : count_le(cdf, S, u),
+                      0),
+                  last);
     const bool is_bg = (u >= fg_total) || steps == 0;
-    const float c_hi = cdf[idx], c_lo = prev[idx];
-    const float seg = fmaxf(c_hi - c_lo, 1e-20f);
-    const float dist = te[idx] - ts[idx];
-    const float offset = (u - c_lo) * dist / seg;
-    const float t_raw = ts[idx] + offset;
-    const float s_lo = sd[idx];
-    const float s_hi = sd[idx + 1 < S ? idx + 1 : 0];  // roll(sdfs, -1)
-    const float s_ap = s_lo + (s_hi - s_lo) * offset / fmaxf(dist, 1e-20f);
-    const bool pinned = live && !is_bg &&
-                        (idx > cross || (idx == cross && s_ap < 0.f));
+    // a background draw needs none of its interval's arithmetic (the draws
+    // ascend, so the background draws are whole chunks but one)
+    float offset = 0.f, t_raw = 0.f;
+    bool pinned = false;
+    if (!is_bg) {
+      const float c_hi = cdf[idx], c_lo = prev[idx];
+      const float seg = fmaxf(c_hi - c_lo, 1e-20f);
+      const float dist = te[idx] - ts[idx];
+      offset = (u - c_lo) * dist / seg;
+      t_raw = ts[idx] + offset;
+      const float s_lo = sd[idx];
+      const float s_hi = sd[idx + 1 < S ? idx + 1 : 0];  // roll(sdfs, -1)
+      const float s_ap = s_lo + (s_hi - s_lo) * offset / fmaxf(dist, 1e-20f);
+      pinned = live && (idx > cross || (idx == cross && s_ap < 0.f));
+    }
     if (base == 0) fallback = __shfl_sync(0xffffffffu, ts[idx], 0);
     const float t_cand = is_bg ? t_bg : t_raw;
     const unsigned unp = __ballot_sync(0xffffffffu, live && !pinned);
@@ -392,11 +468,10 @@ __global__ void cdf_resample_kernel(
     }
     bg_count += __popc(__ballot_sync(0xffffffffu, live && is_bg));
     if (live) {
-      const int64_t o = r * B + b;
-      o_ts[o] = t_out;
-      o_off[o] = is_bg ? kBgOffset : offset;
-      o_idx[o] = is_bg ? last : idx;
-      o_bg[o] = is_bg;
+      ots[b] = t_out;
+      ooff[b] = is_bg ? kBgOffset : offset;
+      oidx[b] = is_bg ? last : idx;
+      obg[b] = is_bg;
       if (!is_bg) atomicAdd(&cnt[idx], 1);
     }
   }

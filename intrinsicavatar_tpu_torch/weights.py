@@ -65,12 +65,15 @@ def unflatten(flat: dict) -> dict:
 
 def to_jax_tree(model, grads: bool = False) -> dict:
     """The port's parameters (or, with ``grads``, their ``.grad``, zeros
-    where unset) as numpy arrays in the JAX tree's layout."""
+    where unset) as numpy arrays in the JAX tree's layout.  The arrays are
+    copies: JAX on the CPU may take a numpy array's buffer as its own, and a
+    later in-place update of the model (an optimizer step) must not change
+    a JAX array made from them, nor race JAX's asynchronous dispatch."""
     flat = {}
     for name, p in model.named_parameters():
         t = p if not grads else (p.grad if p.grad is not None
                                  else torch.zeros_like(p))
-        flat[jax_key(name)] = t.detach().cpu().numpy()
+        flat[jax_key(name)] = t.detach().cpu().numpy().copy()
     return unflatten(flat)
 
 

@@ -5,9 +5,9 @@ backward's table scatter), KA' (the hash encode's backward), KF (merge
 importance resampling), KJ (secondary fine resampling), KG (valid-first
 compaction), the KH prologue (the search's init pruning), KK (the
 secondary march), KD weights (the volume-rendering weights), KL (the
-seeded Broyden polish), KH skinning (the LBS rotation at the roots) and
-KB' pass 1 (the encode backward's gather) of the PyTorch/CUDA port on one
-card, three ways.
+seeded Broyden polish), KH skinning (the LBS rotation at the roots), KB'
+pass 1 (the encode backward's gather), KN (the LBS blend's backward) and KI
+(scatter-point sampling) of the PyTorch/CUDA port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
@@ -17,10 +17,10 @@ card, three ways.
                                                   # roots
     python3 kernel_timing.py --diff-digests A B   # two saved runs' digests,
                                                   # call by call
-    python3 kernel_timing.py --kernels ksk,kb1    # of ka, kb, kh, km, kc,
+    python3 kernel_timing.py --kernels kn,ki,kf   # of ka, kb, kh, km, kc,
                                                   # kb2, ka2, kf, kj, kg,
                                                   # khp, kk, kd, kl, ksk,
-                                                  # kb1
+                                                  # kb1, kn, ki
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -33,7 +33,8 @@ parent.  For each call it prints one JSON line:
 - ``device_ms``: the kernel's own device time a launch, from
   ``torch.profiler``;
 - ``op_device_ms`` (KA', KG, the KH prologue, KK): the device time of
-  everything the call runs, from ``torch.profiler``;
+  everything the call runs, from ``torch.profiler`` (KN's ``device_ms`` is
+  this, since an earlier KN ran two kernels a call);
 - ``host_us``: the wrapper's host time a call (200 calls, no sync between);
   for KM also the pieces of it (an allocation, the stream pointer, the
   ``ctypes`` call with N = 0, which launches nothing).
@@ -86,8 +87,12 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   grid (a quarter of the rays miss), with weights in a bump about a point
   among each ray's valid edges, of mass 0, 0.5, 1 or 1.5; the second
   round's edges are the twin's merge of the first; the share of rays
-  equal to the twin on flags and indices (at least 0.999) and a digest of
-  all six outputs' bytes;
+  equal to the twin on flags and indices (at least 0.999), on those rays
+  each value within the bound that the CDF's conditioning gives
+  (``kf_draw_bound``: the twin's float32 cumsum on the card against KF's
+  double sum, amplified by |t1 - t0| / seg where the CDF is flat), the same
+  comparison with the twin on the CPU (whose cumsum sums in double, as KF
+  does), and a digest of all six outputs' bytes;
 - KJ at a shader chunk's call, [32768, 64] -> 4 intervals, in sdf and in
   plain mode, and at [32768, 16] in both, on left-packed rows (a sixth of
   the rays empty, a fifth with a rising SDF and so no crossing): the mask
@@ -149,7 +154,26 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   and its curvature call (92,160), random g_grad, a table uniform in
   [-0.1, 0.1]: within 1e-5 of the largest entry of the twin, a digest of
   enc and g_genc_cot, equal between two trees whose kernels compute the
-  same bits, and KA's device time on the same points (the gather alone).
+  same bits, and KA's device time on the same points (the gather alone);
+- KN on the published voxel in KC's pose at a train step's shading call:
+  1,474,560 lanes (368,640 points, the compaction's budget, x 4 kept
+  lanes), the first 38% of the points on rays through the template (one
+  valid root a point: 9.5% of the lanes valid, as in the calls that
+  ``chip_smoke.py`` records at steps 4,001 and 10,000), or 87% with a
+  second root on 30% of the other lanes (41% valid, a busier call), the
+  rest the budget's padding at the origin with no root; J^-1 near the
+  identity, random cotangents of both terms at the valid lanes and zero
+  at the others (as a step's backward gives them): within the rounding
+  bound of its own order
+  (``deform_skinning_bwd_exact``), bit-equal over two calls, each planted
+  fault refused, the bound over the weight rows touched, ``W.t() @ U``'s
+  device time, and a digest of d tfs (not equal across a redesign that
+  sums in another order);
+- KI at the PBR stage's [4096, 160] -> 512 call on ``fine_rows`` (an SDF
+  falling through zero on most rays, so draws are pinned; 69% of the draws
+  in the background bin): integer outputs equal to the twin's, floats
+  within 1e-5 of max(|ref|, 1), and a digest of all seven outputs, equal
+  between two trees whose kernels compute the same bits.
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -309,9 +333,9 @@ def main():
                          "other port roots saved there")
     ap.add_argument("--kernels",
                     default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg,khp,kk,kd,kl,"
-                            "ksk,kb1",
+                            "ksk,kb1,kn,ki",
                     help="comma-separated, of ka, kb, kh, km, kc, kb2, ka2, "
-                         "kf, kj, kg, khp, kk, kd, kl, ksk, kb1")
+                         "kf, kj, kg, khp, kk, kd, kl, ksk, kb1, kn, ki")
     ap.add_argument("--diff-digests", nargs=2, metavar=("A", "B"),
                     help="compare the digests of two saved outputs of this "
                          "script, call by call, and time nothing")
@@ -337,7 +361,7 @@ def main():
                "ka2": "hashgrid", "kf": "resample", "kj": "resample",
                "kg": "compact", "khp": "deform", "kk": "march",
                "kd": "volrend", "kl": "broyden", "ksk": "deform",
-               "kb1": "encode_grad"}
+               "kb1": "encode_grad", "kn": "deform", "ki": "resample"}
     logs = kernels.build_all(tuple(sorted(
         {sources[k] for k in which} & set(kernels.SOURCES))), verbose=True)
     for name, log in logs.items():
@@ -380,6 +404,10 @@ def main():
         time_ksk(torch, dev, report, failed, args.compare_dir, root)
     if "kb1" in which:
         time_kb1(torch, dev, report, failed)
+    if "kn" in which:
+        time_kn(torch, dev, report, failed)
+    if "ki" in which:
+        time_ki(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
@@ -824,29 +852,99 @@ def kf_rounds(torch, dev, G, RS, R=4096, S=128, res=64, seed=11):
             (m.vals, m.is_left, m.is_right, m.valid, w2, 16))
 
 
+def kf_draw_bound(RS, args, ref):
+    """``[R, E + B]``: how far each merged value of KF may lie from the
+    twin's on the card (see ``time_kf``).  A draw's t = t0 + (u - c_lo)
+    (t1 - t0) / seg reads the CDF; the twin's float32 cumsum on the card
+    and KF's double prefix sum rounded once differ by at most (E + 3) eps
+    c_hi in c_lo and as much again in seg, and t moves by that times
+    |t1 - t0| / seg: 2 (E + 3) eps c_hi |t1 - t0| / seg, plus 4 eps |t| for
+    t's own rounding.  An old edge is a copy: 0."""
+    import torch
+    vals, is_left, is_right, valid, weights, B = args
+    R, E = vals.shape
+    eps = 2.0 ** -24
+    d = lambda a: a.to(torch.float64)
+    steps = valid.sum(-1)
+    last = torch.clamp(steps - 1, min=0)[:, None]
+    nxt_valid = torch.roll(valid, -1, 1)
+    nxt_valid[:, -1] = False
+    real = valid & nxt_valid & is_left & torch.roll(is_right, -1, 1)
+    w = torch.where(real, weights, 0.0)
+    wsum = w.sum(-1, keepdim=True)
+    denom = wsum + torch.clamp(1.0 - wsum, min=0.0)
+    cdf = torch.cumsum(w, -1) / denom
+    u = RS.uniform_bins(B, vals.dtype, vals.device)[None].expand(R, B)
+    idx = torch.minimum(torch.searchsorted(cdf.contiguous(), u.contiguous(),
+                                           right=True), last)
+    g = lambda a, i: torch.gather(a, 1, i)
+    t0 = g(vals, idx)
+    t1 = g(vals, torch.clamp(idx + 1, max=E - 1))
+    c_hi = g(cdf, idx)
+    seg = torch.clamp(c_hi - g(cdf - w / denom, idx), min=1e-20)
+    # |t| <= max(|t0|, |t1|) where u lies in the interval's bracket
+    draw = (4 * eps * torch.maximum(d(t0).abs(), d(t1).abs())
+            + 2 * (E + 3) * eps * d(c_hi).abs() * d(t1 - t0).abs()
+            / d(seg))
+    bound = torch.zeros(ref.vals.shape, dtype=torch.float64,
+                        device=vals.device)
+    new = ref.gather_idx >= E
+    bound[new] = torch.gather(draw, 1, torch.clamp(ref.gather_idx - E, 0,
+                                                   B - 1))[new]
+    return bound, draw
+
+
 def time_kf(torch, dev, report, failed):
-    """KF at a 4,096-ray chunk's two importance rounds."""
+    """KF at a 4,096-ray chunk's two importance rounds: flags and indices
+    equal to the twin's on at least 0.999 of the rays, and on those rays
+    each merged value within ``kf_draw_bound`` of the twin's (the twin
+    sums its CDF in float32 on the card, KF in double rounded once; a
+    flat stretch of the CDF amplifies the difference), and beside it the
+    same comparison with the twin on the CPU, whose cumsum sums in double
+    as KF does."""
     from intrinsicavatar_tpu_torch.ops import grid_traversal as G
     from intrinsicavatar_tpu_torch.ops import resample as RS
     for rnd, args in enumerate(kf_rounds(torch, dev, G, RS)):
         out = RS.merge_resample_rays(*args)
         ref = RS.merge_resample_rays_plain(*args)
+        cpu = RS.merge_resample_rays_plain(
+            *(a.cpu() if torch.is_tensor(a) else a for a in args))
         torch.cuda.synchronize()
         R, E = args[0].shape
-        same = torch.ones(R, dtype=torch.bool, device=dev)
-        for a, b in list(zip(out, ref))[1:]:
-            same &= (a == b).all(-1)
+
+        def agree(ref):
+            same = torch.ones(R, dtype=torch.bool, device=ref.vals.device)
+            for a, b in list(zip(out, ref))[1:]:
+                same &= (a.to(b.device) == b).all(-1)
+            d = (out.vals.to(ref.vals.device) - ref.vals).abs()
+            return same, torch.where(same[:, None] & ref.valid, d, 0.0)
+
+        same, diff = agree(ref)
         share = same.float().mean().item()
-        err = (out.vals - ref.vals)[same[:, None] & ref.valid].abs().max()
-        if not (share >= 0.999 and err.item() <= 1e-5):
+        bound, draw = kf_draw_bound(RS, args, ref)
+        # the draws that are not placed (+inf on both sides) have no bound
+        held = same[:, None] & ref.valid
+        ratio = (diff.double()[held] / bound[held].clamp(min=1e-30)).max(
+            ).item() if bool(held.any()) else 0.0
+        over = diff > 1e-5
+        cpu_same, cpu_diff = agree(cpu)
+        if not (share >= 0.999 and ratio <= 1.0):
             print(f"kernel_timing: KF disagrees at [{R}, {E}]: {share} of "
-                  f"rays equal, err={err.item()}", flush=True)
+                  f"rays equal, worst error / bound {ratio}", flush=True)
             failed.append(f"merge_resample at [{R}, {E}]")
         line = {"kernel": "merge_resample", "round": rnd + 1, "rays": R,
                 "edges": E, "draws": args[5], "equal_share": share,
-                "placed": int(ref.is_new.sum()), "max_abs_err": err.item(),
+                "placed": int(ref.is_new.sum()),
+                "max_abs_err": diff.max().item(), "err_over_bound": ratio,
+                # the values more than 1e-5 off: how many, and how flat
+                # the CDF is there (the largest |t1 - t0| / seg bound)
+                "over_1e-5": int(over.sum()),
+                "over_1e-5_largest_bound": bound[over].max().item()
+                if bool(over.any()) else None,
+                "cpu_equal_share": cpu_same.float().mean().item(),
+                "cpu_max_abs_err": cpu_diff.max().item(),
                 "digest": digest_of(out)}
-        del out, ref
+        del out, ref, cpu, diff, bound, draw
         ev, dv, hu = timings(lambda: RS.merge_resample_rays(*args),
                              "merge_resample_kernel")
         line.update(event_ms=ev, device_ms=dv, host_us=hu)
@@ -1305,6 +1403,129 @@ def time_kb1(torch, dev, report, failed):
                 "event_ms": ev, "device_ms": dv, "host_us": hu,
                 "hashgrid_encode_device_ms": kdv})
 
+
+
+KN_POINTS = 368_640   # a train step's shading budget: 4 kept lanes a point
+
+
+def kn_inputs(torch, dev, body, share, others, seed):
+    """KN's arguments at a train step's shading call (see the module's
+    docstring): ``(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec)``; the first
+    ``share`` of the points on rays through the template, their other 3
+    lanes each a second root at probability ``others``."""
+    rigid, statics = body[:2]
+    rng = np.random.default_rng(seed)
+    vs = statics.vs_template.cpu().numpy()
+    n = int(round(KN_POINTS * share))
+    pts = np.zeros((KN_POINTS, 3))
+    pts[:n] = body_rays(torch, dev, vs, n // 90 + 1, 90, seed, 0.3
+                        ).cpu().numpy()[:n]
+    x = np.repeat(pts, 4, 0).reshape(-1, 4, 3)
+    other = (rng.random((KN_POINTS, 3)) < others) & (np.arange(KN_POINTS)
+                                                     < n)[:, None]
+    x[:, 1:] = np.where(other[..., None], x[:, 1:] + rng.normal(
+        scale=0.05, size=(KN_POINTS, 3, 3)), 0.0)
+    valid = np.concatenate([(np.arange(KN_POINTS) < n)[:, None], other], 1)
+    M = 4 * KN_POINTS
+    jinv = np.eye(3).reshape(1, 9) + 0.3 * rng.normal(size=(M, 9))
+    g = lambda k: np.where(valid.reshape(-1, 1), rng.normal(size=(M, k)),
+                           0.0)
+    t = lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=dev)
+    return (t(x.reshape(-1, 3)), t(valid.reshape(-1), torch.bool), t(jinv),
+            t(1e-3 * g(3)), t(1e-3 * g(9)), statics.lbs_cl, rigid.spec)
+
+
+def time_kn(torch, dev, report, failed):
+    """KN at a train step's shading call, with the recorded calls' share of
+    valid lanes and with a busier one: against
+    its float64 sum within the rounding bound of its own order, two calls
+    bit-equal, each planted fault refused; the device time of every kernel
+    a call runs (the parent's two launches, or one), and ``W.t() @ U``."""
+    from chip_smoke import lbs_rows_touched
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    body = posed_body(torch, dev)
+    for where, share, others in (("train-pose call", 0.38, 0.0),
+                                 ("busier call", 0.87, 0.3)):
+        args = kn_inputs(torch, dev, body, share, others, seed=41)
+        out = B.deform_skinning_bwd(*args)
+        out2 = B.deform_skinning_bwd(*args)
+        exact, limit = B.deform_skinning_bwd_exact(*args)
+        ratio = lambda o: ((o.double() - exact)[:, :3].abs()
+                           / limit[:, :3].clamp(min=1e-300)).max().item()
+        faults = {k: ratio(v) for k, v in B.deform_skinning_bwd_faults(
+            *args, out, limit).items()}
+        bad = (B.deform_skinning_bwd_refused(out, exact, limit)
+               or not torch.equal(out, out2)
+               or not all(v > 1.0 for v in faults.values()))
+        if bad:
+            print(f"kernel_timing: KN fails at the {where}: worst error / "
+                  f"bound {ratio(out)}, faults {faults}, bit-equal "
+                  f"{torch.equal(out, out2)}", flush=True)
+            failed.append(f"deform_skinning_bwd at the {where}")
+        xc, M = args[0], args[0].shape[0]
+        # every lane's validity and rotation cotangent; the adding lanes'
+        # root, J^-1, position cotangent and weight rows (chip_smoke.py)
+        adds = args[1] | (args[4] != 0).any(1)
+        n_adds = int(adds.sum())
+        rows = lbs_rows_touched(xc[adds], args[6])
+        nbytes = (M * (1 + 36) + n_adds * (12 + 36 + 12) + rows * 96
+                  + 24 * 16 * 4)
+        W, U, _ = B.skin_bwd_terms(*args)
+        W, U = W.float().contiguous(), U.float().contiguous()
+        line = {"kernel": "deform_skinning_bwd", "at": where, "lanes": M,
+                "valid": args[1].float().mean().item(),
+                "adding_lanes": n_adds, "rows_touched": rows,
+                "bound_ms": nbytes / 3.35e12 * 1e3,
+                "err_over_bound": ratio(out), "faults": faults,
+                "digest": digest_of([out])}
+        del out, out2, exact, limit
+        ev, _, hu = timings(lambda: B.deform_skinning_bwd(*args),
+                            "skinning_bwd_")
+        line.update(event_ms=ev, device_ms=op_device_ms(
+            lambda: B.deform_skinning_bwd(*args)), host_us=hu,
+            library_device_ms=op_device_ms(lambda: W.t() @ U))
+        report(line)
+        del args, W, U
+
+
+def time_ki(torch, dev, report, failed):
+    """KI at the PBR stage's [4096, 160] -> 512 call: integer outputs equal
+    to the twin's, the foreground draws' t and offsets within 1e-5 of
+    max(|ref|, 1), the background draws equal, and a digest of all seven
+    outputs."""
+    from intrinsicavatar_tpu_torch.ops import resample as RS
+    R, S, B = 4096, 160, 512
+    ts, te, _, w, sdf, mask = (torch.as_tensor(a, device=dev)
+                               for a in fine_rows(R, S, seed=S))
+    args = (ts, te, w, sdf, mask, B)
+    out, ref = RS.cdf_resample_rays(*args), RS.cdf_resample_rays_plain(*args)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(getattr(out, k), getattr(ref, k)) for k in (
+        "indices", "is_bg", "fg_counts", "bg_count", "surface_idx"))
+    fg = ~ref.is_bg
+    ok &= torch.equal(out.ts[~fg], ref.ts[~fg]) and torch.equal(
+        out.offsets[~fg], ref.offsets[~fg])
+    err = 0.0
+    for a, b in ((out.ts, ref.ts), (out.offsets, ref.offsets)):
+        d, r = (a - b).abs()[fg], b.abs()[fg]
+        ok &= bool((d <= 1e-5 * r.clamp(min=1.0)).all())
+        err = max(err, d.max().item() if d.numel() else 0.0)
+    if not ok:
+        print(f"kernel_timing: KI disagrees at [{R}, {S}] -> {B}: "
+              f"err={err}", flush=True)
+        failed.append(f"cdf_resample [{R}, {S}] -> {B}")
+    nbytes = R * S * 17 + R * B * 13 + R * S * 4 + R * 8
+    line = {"kernel": "cdf_resample", "rays": R, "slots": S, "draws": B,
+            "background": ref.is_bg.float().mean().item(),
+            "surface_rays": int((ref.surface_idx >= 0).sum()),
+            "bound_ms": nbytes / 3.35e12 * 1e3, "max_abs_err": err,
+            "digest": digest_of(out)}
+    del out, ref
+    ev, dv, hu = timings(lambda: RS.cdf_resample_rays(*args),
+                         "cdf_resample_kernel")
+    line.update(event_ms=ev, device_ms=dv, host_us=hu)
+    report(line)
 
 if __name__ == "__main__":
     main()

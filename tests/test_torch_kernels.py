@@ -802,8 +802,9 @@ def _kn_check(args):
 @pytest.mark.parametrize("with_rot", [False, True])
 def test_skinning_bwd_kernel_matches_twin(cuda, with_rot):
     """KN on random lanes (a count that is no multiple of its 288-lane
-    tile), some invalid and some outside the weight voxel (border
-    padding), with and without a rotation cotangent."""
+    tile, over more tiles than it has blocks), some invalid and some
+    outside the weight voxel (border padding), with and without a rotation
+    cotangent."""
     lbs_cl, spec, _ = _skin_inputs(cuda)
     rng = np.random.default_rng(13)
     M = 300_001
@@ -814,6 +815,64 @@ def test_skinning_bwd_kernel_matches_twin(cuda, with_rot):
             f(rng.normal(size=(M, 9))) if with_rot else None, lbs_cl, spec)
     _kn_check(args)
 
+
+
+@pytest.mark.parametrize("M", [1, 289, 114_049])
+def test_skinning_bwd_kernel_small_and_edge_calls(cuda, M):
+    """KN on one lane (one block), 289 lanes (two blocks, the second tile
+    one lane) and one lane more than a round of tiles over every block (the
+    next round's first tile one lane); and on no lane, which gives zeros."""
+    lbs_cl, spec, _ = _skin_inputs(cuda)
+    rng = np.random.default_rng(M)
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    # the first lane valid: with one lane, an invalid one has no position
+    # term, and the fault that drops it would change nothing
+    valid = rng.random(M) < 0.7
+    valid[0] = True
+    args = (f(rng.uniform(-1.2, 1.2, (M, 3))),
+            torch.as_tensor(valid, device=cuda),
+            f(rng.normal(size=(M, 9))), f(rng.normal(size=(M, 3))),
+            f(rng.normal(size=(M, 9))), lbs_cl, spec)
+    _kn_check(args)
+    none = TB.deform_skinning_bwd(*(a[:0] if a is not None else None
+                                    for a in args[:5]), lbs_cl, spec)
+    assert torch.equal(none, torch.zeros_like(none))
+
+
+def test_skinning_bwd_kernel_skips_lanes_without_terms(cuda):
+    """KN where most lanes add nothing, as a train step's call gives them
+    (10% of the lanes valid, the rotation cotangent zero at the others,
+    which KN skips), over 200,003 lanes."""
+    lbs_cl, spec, _ = _skin_inputs(cuda)
+    rng = np.random.default_rng(14)
+    M = 200_003
+    valid = rng.random(M) < 0.1
+    g_rot = np.where(valid[:, None], rng.normal(size=(M, 9)), 0.0)
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    args = (f(rng.uniform(-1.2, 1.2, (M, 3))),
+            torch.as_tensor(valid, device=cuda), f(rng.normal(size=(M, 9))),
+            f(rng.normal(size=(M, 3))), f(g_rot), lbs_cl, spec)
+    assert float(TB.skin_bwd_adds(args[1], args[4]).float().mean()) < 0.12
+    _kn_check(args)
+
+
+def test_skinning_bwd_kernel_takes_unaligned_views(cuda):
+    """KN on validity and rotation cotangents that are views not starting
+    16-byte aligned (the kernel copies them in 16-byte words; the wrapper
+    copies such a view first): the same bits as on aligned tensors."""
+    lbs_cl, spec, _ = _skin_inputs(cuda)
+    rng = np.random.default_rng(15)
+    M = 5_001
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    valid = torch.as_tensor(rng.random(M + 1) < 0.5, device=cuda)
+    g_rot = f(rng.normal(size=(M + 1, 9)))
+    args = [f(rng.uniform(-1.2, 1.2, (M, 3))), valid[1:],
+            f(rng.normal(size=(M, 9))), f(rng.normal(size=(M, 3))),
+            g_rot[1:], lbs_cl, spec]
+    assert args[1].data_ptr() % 16 and args[4].data_ptr() % 16
+    out = TB.deform_skinning_bwd(*args)
+    args[1], args[4] = args[1].clone(), args[4].clone()
+    assert torch.equal(out, TB.deform_skinning_bwd(*args))
 
 def test_skinning_bwd_kernel_on_recorded_inputs(cuda, monkeypatch):
     """KN on the inputs of a full-width train step at step 4,001 with the
@@ -975,6 +1034,59 @@ def test_cdf_resample_kernel_matches_twin(cuda, B):
         _close_where(a, b, fg)
     assert ref.is_bg[:16].all() and (ref.surface_idx >= 0).any()
 
+
+
+def _ki_pinned_rows(S):
+    """``[2 S, S]`` rows whose pinned draws start at every slot: row r has
+    all S slots valid with equal weights of total mass 1 (r < S) or 0.6
+    (r >= S, so the last 40% of the draws are background draws, which are
+    never pinned), and its first + to - SDF crossing at slot r % S, where
+    the interpolated SDF turns negative just past the slot's start, so
+    every draw from the first one in that slot on is pinned.  At B = 512
+    and S = 160, the row crossing at slot 39 pins draws 125 onwards: over
+    the boundary of the kernel's 32-draw chunks at draw 128, with every
+    later chunk wholly pinned (its draws take the carry of the chunks
+    before it)."""
+    R = 2 * S
+    t0 = np.cumsum(np.full((R, S), 0.01), 1) + 0.5
+    te = t0 + 0.01
+    w = np.full((R, S), 1.0 / S) * np.where(np.arange(R) < S, 1.0, 0.6)[
+        :, None]
+    c = np.arange(R) % S
+    ar = np.arange(S)[None]
+    sdf = np.where(ar <= c[:, None], 1.0, -1.0)
+    sdf[np.arange(R), c] = 1e-6
+    mask = np.ones((R, S), dtype=bool)
+    f = lambda a: a.astype(np.float32)
+    return f(t0), f(te), f(w), f(sdf), mask
+
+
+@pytest.mark.parametrize("B", [1, 33, 512, 513])
+def test_cdf_resample_kernel_pinned_runs_across_warps(cuda, B):
+    """KI where a run of pinned draws starts at every draw position, so
+    that it straddles each boundary between the forward fill's chunks of
+    32 draws and leaves whole chunks with no unpinned draw (their draws
+    take the last unpinned t of the chunks before them), at B of 1, 33 and
+    512 (each draw's slot counted) and 513 (searched); and on
+    ``_pbr_rows`` at B = 33."""
+    S = 160
+    pinned = _dev(cuda, *_ki_pinned_rows(S))
+    for args in (pinned,
+                 _dev(cuda, *_pbr_rows(np.random.default_rng(12), 4096, S))):
+        out = RS.cdf_resample_rays(*args, B)
+        ref = RS.cdf_resample_rays_plain(*args, B)
+        for name in ("indices", "is_bg", "fg_counts", "bg_count",
+                     "surface_idx"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        fg = ~ref.is_bg
+        for name in ("ts", "offsets"):
+            a, b = getattr(out, name), getattr(ref, name)
+            assert torch.equal(a[~fg], b[~fg]), name
+            _close_where(a, b, fg)
+        if args is pinned and B == 512:
+            # the run pinned from draw 125 of the row crossing at slot 39
+            ts = ref.ts[39]
+            assert bool((ts[125:] == ts[124]).all()) and ts[124] != ts[123]
 
 KJ_KINDS = ("rows", "no_valid", "zero_mass", "cross_at_0", "all_valid",
             "no_cross", "nan_val", "nan_val_before_cross", "nan_sdf")

@@ -155,6 +155,29 @@ def test_schedules_match_jax():
             JS.lr_schedule_host(step, jtiny().system), rel=1e-12)
 
 
+
+def test_to_jax_tree_copies_the_parameters():
+    """The arrays that ``to_jax_tree`` returns are copies: an in-place
+    update of the model (an optimizer step) changes neither them nor a JAX
+    array made from them.  JAX on the CPU may take a numpy array's buffer
+    as its own, so a shared buffer let ``test_adam_groups_match_optax``'s
+    torch step overwrite the parameters that JAX's update, dispatched
+    asynchronously, had not read yet: under the six test workers it
+    failed."""
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lin = torch.nn.Linear(64, 64)
+
+    model = Net()
+    tree = to_jax_tree(model)
+    j = jnp.asarray(tree["lin"]["weight"])
+    before = np.array(j)
+    with torch.no_grad():
+        model.lin.weight += 1.0
+    np.testing.assert_array_equal(np.asarray(j), before)
+    np.testing.assert_array_equal(tree["lin"]["weight"], before)
+
 def test_adam_groups_match_optax(setup):
     """Two Adam updates with the configured groups (pose correction at
     lr 1e-4 and decay 1e-5, the radiance table at decay 1e-4) against the

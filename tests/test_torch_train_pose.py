@@ -158,6 +158,84 @@ def test_skinning_bwd_matches_jax_vjp(snarf, use_j_inv, rot_cotangent):
         assert TB.deform_skinning_bwd_refused(bad, exact, limit), name
 
 
+
+def _kn_sums_float32(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec):
+    """KN's d tfs summed in float32 in KN's order (``csrc/deform.cu``: the
+    lanes it adds numbered in each tile, one running sum a (block, slice)
+    over its numbers, then each block's slices, then the blocks), from the
+    twin's weights and U computed as KN computes it, each product rounded
+    apart where KN fuses it into its sum."""
+    M, E = xc.shape[0], 24 * 12
+    W = TB.skin_bwd_terms(xc, valid, jinv, g_xc, g_rot, lbs_cl, spec)[0]
+    W = W.float()
+    J = jinv.reshape(M, 3, 3)
+    rho = -(valid.float()[:, None] * (J[:, 0] * g_xc[:, :1]
+                                      + J[:, 1] * g_xc[:, 1:2]
+                                      + J[:, 2] * g_xc[:, 2:]))
+    U = rho[:, :, None] * torch.cat([xc, torch.ones((M, 1))], 1)[:, None]
+    if g_rot is not None:
+        U[:, :, :3] = U[:, :, :3] + g_rot.reshape(M, 3, 3)
+    U = U.reshape(M, 12)
+    adds = TB.skin_bwd_adds(valid, g_rot)
+    T, S, G = TB.SKIN_BWD_TILE, TB.SKIN_BWD_SLICES, TB.skin_bwd_blocks(M)
+    run = torch.zeros((G, S, E))
+    for lo in range(0, M, G * T):
+        n = min(G * T, M - lo)
+        terms = torch.zeros((G * T, E))
+        for g in range(min(G, -(-n // T))):
+            lanes = torch.arange(lo + g * T, min(lo + (g + 1) * T, lo + n))
+            lanes = lanes[adds[lanes]]
+            terms[g * T:g * T + len(lanes)] = (
+                W[lanes, :, None] * U[lanes, None]).reshape(-1, E)
+        terms = terms.reshape(G, T // S, S, E)
+        for j in range(T // S):
+            run = run + terms[:, j]
+    blocks = torch.zeros((G, E))
+    for k in range(S):
+        blocks = blocks + run[:, k]
+    total = torch.zeros(E)
+    for g in range(G):
+        total = total + blocks[g]
+    d_tfs = torch.zeros((24, 4, 4))
+    d_tfs[:, :3] = total.reshape(24, 3, 4)
+    return d_tfs
+
+
+@pytest.mark.parametrize("M,rot", [(4001, "none"), (4001, "every lane"),
+                                   (120_011, "valid lanes")])
+def test_skinning_bwd_limit_holds_kn_order_and_refuses_faults(snarf, M,
+                                                              rot):
+    """KN's rounding bound (``deform_skinning_bwd_exact``) at random lanes,
+    some invalid and some outside the weight voxel: 4,001 lanes (14 tiles
+    on as many blocks, the last tile short), without a rotation cotangent
+    (KN adds the valid lanes) and with one at every lane (KN adds them
+    all), and 120,011 (a round of tiles over every block and a short
+    second) with 10% of the lanes valid and a rotation cotangent at those
+    only, as a train step gives them (KN skips the rest): KN's sums taken
+    in float32 in its order lie within the bound, and the bound refuses
+    each planted fault."""
+    _, _, tr, ts = snarf
+    rng = np.random.default_rng(M)
+    lo, hi = np.asarray(tr.bbox[0]), np.asarray(tr.bbox[1])
+    c, h = (lo + hi) / 2, (hi - lo) / 2
+    f = lambda a: torch.as_tensor(a.astype(np.float32))
+    valid = rng.random(M) < (0.1 if rot == "valid lanes" else 0.7)
+    g_rot = rng.normal(size=(M, 9))
+    if rot == "valid lanes":
+        g_rot[~valid] = 0.0
+    args = (f(c + h * rng.uniform(-1.3, 1.3, (M, 3))),
+            torch.as_tensor(valid), f(rng.normal(size=(M, 9))),
+            f(rng.normal(size=(M, 3))), None if rot == "none" else f(g_rot),
+            ts.lbs_cl, tr.spec)
+    exact, limit = TB.deform_skinning_bwd_exact(*args)
+    got = _kn_sums_float32(*args)
+    assert not TB.deform_skinning_bwd_refused(got, exact, limit)
+    faults = TB.deform_skinning_bwd_faults(*args, got, limit)
+    assert len(faults) == (4 if rot == "none" else 5)
+    for name, bad in faults.items():
+        assert TB.deform_skinning_bwd_refused(bad, exact, limit), name
+
+
 def test_pose_correction_leaves_cross_the_bridge(pose_setup):
     """``from_jax_params`` and ``to_jax_tree`` carry the four
     ``pose_correction`` leaves both ways, values and gradients."""
