@@ -98,11 +98,20 @@
    profiles one phys step; and runs a 256-ray step at step 4,001 and a
    32-ray phys step at step 10,000 on the card and on the CPU twins, whose
    losses and gradients (the pose's included) must agree;
-9. prints the ``kernels`` line, the serve, relight and train lines (each
+9. hands off from training to serving through the launcher at
+   ``configs/tiny-synthetic.yaml``'s size in a temporary ``--exp-dir``,
+   with every launch counter set to 0 just before and read just after:
+   trains 6 steps (a checkpoint and a validation at step 3), resumes from
+   ``ckpt/step3`` to step 6, validates from ``ckpt/final/params.npz`` and
+   from ``--resume ckpt/final`` (equal metrics) and tests from
+   ``--resume ckpt/final``; checks each run's checkpoints and log, and
+   that a checkpoint restored into a system on the card gives back its
+   state bit for bit;
+10. prints the ``kernels`` line, the serve, relight and train lines (each
    profile with the device ms, launches and share of busy time of the
    kernels of the port, KG's count and scatter passes apart, and whether
-   each was redesigned for the card, ``port_kernels``), and last the
-   device line.
+   each was redesigned for the card, ``port_kernels``), the hand-off line,
+   and last the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -196,7 +205,7 @@ REDESIGNED = ("encode_mlp_sdfgrad", "seed_gather", "hashgrid_encode",
               "compact_scatter", "deform_prologue", "secondary_march",
               "volrend_weights", "broyden_polish", "deform_skinning",
               "encode_mlp_sdfgrad_bwd_gather", "deform_skinning_bwd",
-              "cdf_resample")
+              "cdf_resample", "occupancy_march")
 
 
 def fail(msg: str):
@@ -457,20 +466,16 @@ def main():
         n * (4 + 4 + 1 + 12 + 12 + 4 + 4 + 4) + cargs[0].shape[0] * 32,
         n * 40)
 
-    # KE occupancy march (the chunk's march)
+    # KE occupancy march (the chunk's march): the same f32 operations in
+    # the same order as its twin, so every output is equal, bit for bit
     args, kw = ke[1], ke[2]
     ik = G.occupancy_sampling(*args, **kw)
     ip = G.occupancy_sampling_plain(*args, **kw)
     torch.cuda.synchronize()
     for name in ("is_left", "is_right", "valid", "vals"):
-        a, b = getattr(ik, name), getattr(ip, name)
-        if name != "vals" and not torch.equal(a, b):
+        if not torch.equal(getattr(ik, name), getattr(ip, name)):
             fail(f"occupancy_march: {name} differs from its twin")
-    if not torch.equal(torch.isinf(ik.vals), torch.isinf(ip.vals)):
-        fail("occupancy_march: +inf slots differ from its twin")
     err = (ik.vals - ip.vals)[ip.valid].abs().max().item()
-    if not err <= 1e-6:
-        fail(f"occupancy_march disagrees with its twin: {err}")
     R, E = ip.vals.shape
     res = args[2].shape[0]
     row("occupancy_march", "cuda", "intrinsicavatar_tpu_torch/csrc/march.cu",
@@ -726,6 +731,7 @@ def main():
     relight_line = relight(rows, row, card, dev)
     train_line = train(rows, row, card, dev)
     pose_phys_line = train_pose_phys(rows, row, card, dev)
+    handoff_line = handoff(card)
 
     # ---------------------------------------------------------- 7. report
     print(json.dumps({
@@ -748,6 +754,7 @@ def main():
     print(json.dumps({"relight": relight_line}), flush=True)
     print(json.dumps({"train": train_line}), flush=True)
     print(json.dumps({"train_pose_phys": pose_phys_line}), flush=True)
+    print(json.dumps({"handoff": handoff_line}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
           file=sys.stderr, flush=True)
     print(card, flush=True)
@@ -755,6 +762,143 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+# the kernels that the hand-off's runs launch at configs/tiny-synthetic.yaml's
+# size (steps 0-6: no importance rounds, so no KF and no KD weights; the
+# eval frames bake their seed grids)
+HANDOFF_KERNELS = ("occupancy_march", "hashgrid_encode", "encode_mlp_sdfgrad",
+                   "broyden_search", "deform_prologue", "deform_epilogue",
+                   "deform_skinning", "compact_indices",
+                   "volrend_composite", "hashgrid_encode_bwd",
+                   "encode_mlp_sdfgrad_bwd_gather",
+                   "encode_mlp_sdfgrad_bwd_scatter", "volrend_composite_bwd")
+
+
+def handoff(card):
+    """The hand-off from training to serving through the launcher, at
+    ``configs/tiny-synthetic.yaml``'s size on the card, in a temporary
+    ``--exp-dir``: ``--mode train`` for 6 steps with a checkpoint every 3
+    and validation every 3; ``--resume`` from ``ckpt/step3`` to step 6;
+    ``--mode validate`` from ``ckpt/final/params.npz`` (at the
+    checkpoint's step) and from ``--resume ckpt/final``, whose metrics
+    must be equal; ``--mode test --resume ckpt/final``.  A checkpoint
+    restored into a system on the card must give back its state bit for
+    bit.  The launch counters are set to 0 before the runs and read
+    after."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels, launch
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils import checkpoint as CK
+    from intrinsicavatar_tpu_torch.weights import flatten_tree
+
+    yaml = "configs/tiny-synthetic.yaml"
+    tmp = tempfile.mkdtemp(prefix="handoff-")
+    times = {}
+
+    def run(name, mode, *extra):
+        t0 = time.perf_counter()
+        d = os.path.join(tmp, name)
+        if launch.main(["--mode", mode, "--config", yaml, "--exp-dir", d,
+                        *extra]) != 0:
+            fail(f"handoff: launch --mode {mode} ({name}) failed")
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        found = glob.glob(os.path.join(d, "*", "*"))
+        if len(found) != 1:
+            fail(f"handoff: {name} made {len(found)} run directories")
+        return found[0]
+
+    def records(run_dir):
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            return [json.loads(x) for x in f]
+
+    def metrics(run_dir):
+        with open(os.path.join(run_dir, "metrics.json")) as f:
+            return json.load(f)
+
+    try:
+        kernels.reset_launches()
+        train_dir = run("train", "train", "trainer.max_steps=6",
+                        "trainer.ckpt_every_n_steps=3",
+                        "trainer.check_val_every_n_steps=3",
+                        "trainer.log_every_n_steps=1")
+        ck3 = os.path.join(train_dir, "ckpt", "step3")
+        final = os.path.join(train_dir, "ckpt", "final")
+        s3, sf = CK.restore_checkpoint(ck3), CK.restore_checkpoint(final)
+        recs = records(train_dir)
+        if (s3["step"], sf["step"]) != (4, 6) \
+                or [r["step"] for r in recs if "total" in r] \
+                != list(range(6)) \
+                or [r["step"] for r in recs if "val/psnr" in r] != [3] \
+                or not all(np.isfinite(r["total"]) for r in recs
+                           if "total" in r):
+            fail(f"handoff: the train run's checkpoints or log are off: "
+                 f"steps {s3['step']}, {sf['step']}, log {recs}")
+        # the restore on the card: a system set up from ckpt/step3 gives
+        # back its state, bit for bit
+        cfg = launch.build_config("train", yaml)
+        system = IntrinsicAvatarSystem(cfg, torch.device("cuda")).setup(
+            SyntheticDataset(cfg.dataset).betas, state=s3)
+        back = system.state_dict()
+        a, b = flatten_tree(back["params"]), flatten_tree(s3["params"])
+        same = set(a) == set(b) and all(torch.equal(torch.as_tensor(a[k]),
+                                                    torch.as_tensor(b[k]))
+                                        for k in a)
+        same = same and all(torch.equal(back["occ"][k], s3["occ"][k])
+                            for k in s3["occ"]) \
+            and torch.equal(back["rng"], s3["rng"]) \
+            and back["step"] == s3["step"]
+        for i, st in s3["opt_state"]["optimizer"]["state"].items():
+            for k, v in st.items():
+                same = same and torch.equal(
+                    back["opt_state"]["optimizer"]["state"][i][k], v)
+        if not same:
+            fail("handoff: a checkpoint restored on the card differs from "
+                 "the saved state")
+        del system
+        resume_dir = run("resume", "train", "--resume", ck3,
+                         "trainer.max_steps=6", "trainer.log_every_n_steps=1")
+        rrecs = records(resume_dir)
+        rf = CK.restore_checkpoint(os.path.join(resume_dir, "ckpt", "final"))
+        moved = any(not torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+                    for x, y in zip(flatten_tree(rf["params"]).values(),
+                                    flatten_tree(s3["params"]).values()))
+        if [r["step"] for r in rrecs if "total" in r] != [4, 5] \
+                or rf["step"] != 6 or not moved:
+            fail(f"handoff: the resumed run is off: log {rrecs}, step "
+                 f"{rf['step']}, parameters moved {moved}")
+        by_params = metrics(run(
+            "validate_params", "validate", "--params",
+            os.path.join(final, "params.npz"), "trainer.eval_step=6"))
+        by_resume = metrics(run("validate_resume", "validate", "--resume",
+                                final))
+        if by_params != by_resume or not all(
+                np.isfinite(v) for v in by_params.values()):
+            fail(f"handoff: validate from params.npz {by_params} differs "
+                 f"from validate from the checkpoint {by_resume}")
+        by_test = metrics(run("test_resume", "test", "--resume", final))
+        if not all(np.isfinite(v) for v in by_test.values()):
+            fail(f"handoff: test from the checkpoint: {by_test}")
+        launches = dict(kernels.launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in HANDOFF_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"handoff: kernels not launched in the hand-off's runs: "
+             f"{missing} (launched: {launches})")
+    line = {"config": yaml, "steps": 6, "checkpoint_steps": [3],
+            "validate": by_params, "test": by_test,
+            "run_s": times, "launches": launches, "card": card}
+    print(f"handoff: {json.dumps(line)}", flush=True)
+    return line
 
 
 def kg_row(row, rows, mask, budget, sample_major, at, card):

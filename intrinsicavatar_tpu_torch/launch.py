@@ -8,7 +8,11 @@
     python -m intrinsicavatar_tpu_torch.launch --mode validate \\
         --config configs/tiny-synthetic.yaml --params params.npz --device cpu
     python -m intrinsicavatar_tpu_torch.launch --mode train \\
-        trainer.max_steps=100
+        trainer.max_steps=100 trainer.ckpt_every_n_steps=50
+    python -m intrinsicavatar_tpu_torch.launch --mode train \\
+        --resume exp/intrinsic-avatar/<run>/ckpt/step50 trainer.max_steps=100
+    python -m intrinsicavatar_tpu_torch.launch --mode test \\
+        --resume exp/intrinsic-avatar/<run>/ckpt/final
 
 Without ``--config`` a validate run uses :func:`serve_config` (the default
 model at its published widths on the synthetic dataset, eval step 5000), a
@@ -23,21 +27,41 @@ from ``model.phys_kick_in_step`` (10,000) on renders the PBR maps; a test
 run whose frames carry an ``albedo`` fits the albedo alignment ratio first.
 Every eval frame bakes its seed grid once (``model.eval_seed_grid``, on by
 default; ``model.eval_seed_grid=false`` renders by the searched path).
-Training runs from step 0 to ``trainer.max_steps`` (25,000; the phys
-regime from ``model.phys_kick_in_step``) and prints the losses every
-``trainer.log_every_n_steps`` steps;
+Training runs from step 0 (or the restored step) to ``trainer.max_steps``
+(25,000; the phys regime from ``model.phys_kick_in_step``), prints the
+losses every ``trainer.log_every_n_steps`` steps and logs them to the run
+directory's ``metrics.jsonl``, validates on up to 2 frames of the val split
+every ``trainer.check_val_every_n_steps`` (2,000) steps, saves
+``ckpt/step<N>`` every ``trainer.ckpt_every_n_steps`` steps (0: never) and
+``ckpt/final`` at the end, and stops early past the wall-clock time
+``trainer.deadline_ts`` (0: none);
 ``model.pose_correction.enable_pose_correction=true`` trains the per-frame
 pose corrections from ``pose_correction_start_step`` (4,000) on.
-``--params`` loads an ``.npz`` of the JAX parameter tree flattened to
-dotted keys (as :func:`weights.flatten_tree` names them); without it the parameters are random, drawn from the config's
-seed.  The run is on ``cuda`` unless ``--device`` names another device.
+
+Every run makes its directory ``--exp-dir``/<name>/<YYYYmmdd-HHMMSS> with
+``config.json`` and, inside a git checkout, a copy of the tracked sources
+under ``code/``; an eval run writes its mean metrics there as
+``metrics.json``.  ``--resume`` restores a checkpoint directory
+(``utils/checkpoint.py``): in train mode the whole training state (the
+budget boost and the data's position start afresh, as in the JAX
+package), in test mode the parameters but the pose corrections, and the
+step (``filter_for_test``: every frame builds its own grids), in validate
+and predict mode the parameters and the step; an eval run renders at the
+checkpoint's step when it is past 0.  ``--params`` loads an ``.npz`` of
+the JAX parameter tree flattened to dotted keys (as
+:func:`weights.flatten_tree` names them; every checkpoint holds one as
+``params.npz``); without either the parameters are random, drawn from the
+config's seed.  The run is on ``cuda`` unless ``--device`` names another
+device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import time
 
 import numpy as np
 
@@ -49,6 +73,10 @@ def main(argv=None):
     parser.add_argument("--config", default=None)
     parser.add_argument("--params", default=None,
                         help="npz of the JAX parameter tree, dotted keys")
+    parser.add_argument("--resume", default=None,
+                        help="a checkpoint directory (ckpt/step<N>, "
+                             "ckpt/final)")
+    parser.add_argument("--exp-dir", default="exp")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
     parser.add_argument("overrides", nargs="*")
@@ -63,38 +91,34 @@ def main(argv=None):
     from intrinsicavatar_tpu_torch.data import make as make_dataset
     from intrinsicavatar_tpu_torch.render.renderer import IntrinsicAvatar
     from intrinsicavatar_tpu_torch.train import evaluate as EV
-    from intrinsicavatar_tpu_torch.utils.config import (
-        apply_dotlist, load_yaml, merge, resolve,
-    )
-    from intrinsicavatar_tpu_torch.utils.default_config import (
-        default_config, relight_config, serve_config, train_config,
-    )
+    from intrinsicavatar_tpu_torch.utils import checkpoint as ckpt
     from intrinsicavatar_tpu_torch.utils.device import resolve_device
-    from intrinsicavatar_tpu_torch.weights import from_jax_params, unflatten
+    from intrinsicavatar_tpu_torch.weights import (
+        from_jax_params, to_jax_tree, unflatten,
+    )
 
     device = resolve_device(args.device)
     train = args.mode == "train"
     validate = args.mode == "validate"
-    cfg = (train_config() if train else serve_config() if validate
-           else relight_config())
-    if args.config:
-        cfg = merge(train_config() if train else default_config(),
-                    load_yaml(args.config))
-        if not train:
-            # the bf16 scopes are not ported: the YAML's model runs in
-            # float32 (an explicit override to bfloat16 still raises)
-            cfg = merge(cfg, {"model": {"primary_dtype": "float32",
-                                        "secondary_coarse_dtype": "float32"}})
-            print("--config: the bf16 scopes are not ported yet; this run "
-                  "sets model.primary_dtype=float32 and "
-                  "model.secondary_coarse_dtype=float32", file=sys.stderr)
-    if args.overrides:
-        cfg = apply_dotlist(cfg, args.overrides)
-    cfg = resolve(cfg)
+    cfg = build_config(args.mode, args.config, args.overrides)
     seed = int(cfg.get("seed", 42))
+    run_dir = os.path.join(args.exp_dir, cfg.get("name", "intrinsic-avatar"),
+                           time.strftime("%Y%m%d-%H%M%S"))
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2, default=str)
+    _snapshot_code(run_dir)
     if train:
-        return _train(cfg, device, seed, args.params)
-    step = int(cfg.trainer.get("eval_step", 5000 if validate else 25000))
+        return _train(cfg, device, seed, args.params, args.resume, run_dir)
+    restored = None
+    if args.resume:
+        restored = ckpt.restore_checkpoint(args.resume)
+        if args.mode == "test":
+            restored = ckpt.filter_for_test(restored)
+    if restored is not None and int(restored["step"]) > 0:
+        step = int(restored["step"])
+    else:
+        step = int(cfg.trainer.get("eval_step", 5000 if validate else 25000))
     flags = EV.eval_flags(cfg.model, step)
 
     model = IntrinsicAvatar(cfg.model).to(device)
@@ -102,6 +126,12 @@ def main(argv=None):
         from_jax_params(model, unflatten(dict(np.load(args.params))))
     else:
         model.init(torch.Generator().manual_seed(seed))
+    if restored is not None:
+        # the restored parameters over the model's (a test restore has no
+        # pose corrections)
+        tree = to_jax_tree(model)
+        tree.update(restored["params"])
+        from_jax_params(model, tree)
     split = "val" if validate else "test"
     dataset = make_dataset(cfg.dataset.get("name", "synthetic"), cfg.dataset,
                            split=split, mode=args.mode if args.mode ==
@@ -142,23 +172,92 @@ def main(argv=None):
         print(f"frame {i}: " + " ".join(f"{k}={v:.3f}" for k, v in m.items()),
               flush=True)
     if all_metrics:
-        print("mean:", json.dumps({k: float(np.mean([m[k] for m in
-                                                     all_metrics]))
-                                   for k in all_metrics[0]}))
+        agg = {k: float(np.mean([m[k] for m in all_metrics]))
+               for k in all_metrics[0]}
+        print("mean:", json.dumps(agg))
+        with open(os.path.join(run_dir, "metrics.json"), "w") as f:
+            json.dump(agg, f, indent=2)
     return 0
 
 
-def _train(cfg, device, seed, params_path):
+def build_config(mode: str, config=None, overrides=()):
+    """The run's resolved config: a ``--config`` YAML over the default
+    config (eval) or :func:`train_config` (train), else
+    :func:`serve_config` (validate), :func:`relight_config` (test,
+    predict) or :func:`train_config`; then the dotlist ``overrides``."""
+    from intrinsicavatar_tpu_torch.utils.config import (
+        apply_dotlist, load_yaml, merge, resolve,
+    )
+    from intrinsicavatar_tpu_torch.utils.default_config import (
+        default_config, relight_config, serve_config, train_config,
+    )
+
+    train = mode == "train"
+    cfg = (train_config() if train else serve_config() if mode == "validate"
+           else relight_config())
+    if config:
+        cfg = merge(train_config() if train else default_config(),
+                    load_yaml(config))
+        if not train:
+            # the bf16 scopes are not ported: the YAML's model runs in
+            # float32 (an explicit override to bfloat16 still raises)
+            cfg = merge(cfg, {"model": {"primary_dtype": "float32",
+                                        "secondary_coarse_dtype": "float32"}})
+            print("--config: the bf16 scopes are not ported yet; this run "
+                  "sets model.primary_dtype=float32 and "
+                  "model.secondary_coarse_dtype=float32", file=sys.stderr)
+    if overrides:
+        cfg = apply_dotlist(cfg, list(overrides))
+    return resolve(cfg)
+
+
+def _snapshot_code(run_dir):
+    """Copy the tracked source tree into ``<run_dir>/code``; skipped
+    outside a git checkout."""
+    import shutil
+    import subprocess
+
+    try:
+        root = subprocess.run(["git", "rev-parse", "--show-toplevel"],
+                              capture_output=True, text=True,
+                              check=True).stdout.strip()
+        files = subprocess.run(["git", "ls-files"], cwd=root,
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return
+    dst_root = os.path.join(run_dir, "code")
+    for rel in files:
+        src = os.path.join(root, rel)
+        if not os.path.isfile(src):
+            continue
+        dst = os.path.join(dst_root, rel)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copy2(src, dst)
+
+
+def _train(cfg, device, seed, params_path, resume, run_dir):
+    import torch
+
     from intrinsicavatar_tpu_torch.data import make as make_dataset
+    from intrinsicavatar_tpu_torch.train import evaluate as EV
     from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils import checkpoint as ckpt
+    from intrinsicavatar_tpu_torch.utils.logging import MetricLogger
     from intrinsicavatar_tpu_torch.weights import unflatten
 
-    dataset = make_dataset(cfg.dataset.get("name", "synthetic"), cfg.dataset,
-                           split="train", mode="train",
+    name = cfg.dataset.get("name", "synthetic")
+    dataset = make_dataset(name, cfg.dataset, split="train", mode="train",
                            rng=np.random.default_rng(seed))
     system = IntrinsicAvatarSystem(cfg, device)
     params = unflatten(dict(np.load(params_path))) if params_path else None
-    system.setup(dataset.betas, params)
+    state = ckpt.restore_checkpoint(resume) if resume else None
+    system.setup(dataset.betas, params, state)
+    tcfg = cfg.trainer
+    val_every = int(tcfg.get("check_val_every_n_steps", 2000))
+    chunk = int(cfg.model.get("ray_chunk", 4096))
+    logger = MetricLogger(run_dir, use_wandb=cfg.get("use_wandb", False),
+                          config=cfg)
 
     def log(step, scalars):
         print(f"[{step}] " + " ".join(f"{k}={v:.5g}" for k, v in
@@ -167,11 +266,55 @@ def _train(cfg, device, seed, params_path):
     def all_frames():
         return [dataset.pose_batch(i) for i in range(len(dataset))]
 
-    history = system.fit(dataset.train_iter(np.random.default_rng(seed + 1)),
-                         int(cfg.trainer.get("max_steps", 25000)),
-                         log_every=int(cfg.trainer.get("log_every_n_steps",
-                                                       100)),
-                         callback=log, all_frames_fn=all_frames)
+    # in-training validation on up to 2 frames of the val split
+    val_fn = None
+    try:
+        val_ds = make_dataset(name, cfg.dataset, split="val", mode="val")
+    except Exception as e:
+        print(f"no in-training validation: the val split does not build "
+              f"({e!r})", file=sys.stderr)
+        val_ds = None
+    if val_ds is not None and val_every > 0:
+        def val_fn(system, step):
+            flags = system.flags_for_step(step, training=False)
+            agg: dict = {}
+            for i in range(min(len(val_ds), 2)):
+                b_np = val_ds[i]
+                out = EV.render_frame(
+                    system.model, system.statics,
+                    EV.batch_to_device(b_np, device), step, flags,
+                    ray_chunk=chunk,
+                    generator=torch.Generator().manual_seed(step + i))
+                m = EV.frame_metrics(out, b_np)
+                # eval budget overflows show in validation too
+                for k, v in out["counters"].items():
+                    if k.startswith("ovf_") and v:
+                        m[k] = m.get(k, 0) + int(v)
+                for k, v in m.items():
+                    agg.setdefault(k, []).append(v)
+            mean = {k: float(np.mean(v)) for k, v in agg.items()}
+            print(f"[val @ {step}] " + " ".join(
+                f"{k}={v:.3f}" for k, v in sorted(mean.items())), flush=True)
+            return mean
+
+    def ckpt_fn(state, step):
+        ckpt.save_checkpoint(os.path.join(run_dir, "ckpt", f"step{step}"),
+                             state)
+
+    try:
+        history = system.fit(
+            dataset.train_iter(np.random.default_rng(seed + 1)),
+            int(tcfg.get("max_steps", 25000)),
+            log_every=int(tcfg.get("log_every_n_steps", 100)),
+            callback=log, all_frames_fn=all_frames, logger=logger,
+            val_fn=val_fn, val_every=val_every, ckpt_fn=ckpt_fn,
+            ckpt_every=int(tcfg.get("ckpt_every_n_steps", 0)),
+            deadline_ts=float(tcfg.get("deadline_ts", 0.0)))
+    finally:
+        logger.close()
+    final = os.path.join(run_dir, "ckpt", "final")
+    ckpt.save_checkpoint(final, system.state_dict())
+    print("saved checkpoint to", final, flush=True)
     if history:
         print("last:", json.dumps(history[-1][1]))
     return 0

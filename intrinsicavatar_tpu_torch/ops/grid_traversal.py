@@ -104,15 +104,16 @@ def occupancy_sampling(rays_o, rays_d, binaries, aabb, step_size: float,
             kernels.require(t, name, f32, dev, (R,))
         opt.append(None if t is None else t.data_ptr())
     vals = torch.empty((R, S + 1), dtype=f32, device=dev)
-    flags = [torch.empty((R, S + 1), dtype=torch.bool, device=dev)
-             for _ in range(3)]
+    # is_left, is_right and valid: views of one buffer
+    flags = torch.empty((3, R, S + 1), dtype=torch.bool, device=dev)
+    fp, n = flags.data_ptr(), R * (S + 1)
     err = kernels.lib("march").occupancy_march_fwd(
         rays_o.data_ptr(), rays_d.data_ptr(), *opt, binaries.data_ptr(),
-        aabb.data_ptr(), R, S, res, float(step_size), vals.data_ptr(),
-        *(f.data_ptr() for f in flags), kernels.stream_ptr(dev))
+        aabb.data_ptr(), R, S, res, float(step_size), vals.data_ptr(), fp,
+        fp + n, fp + 2 * n, kernels.stream_ptr(dev))
     kernels.check(err, "occupancy_march")
     kernels.launches["occupancy_march"] += 1
-    return RayIntervals(vals, *flags)
+    return RayIntervals(vals, *flags.unbind(0))
 
 
 def intervals_to_samples(iv: RayIntervals):

@@ -21,6 +21,7 @@ update) or drawn from the system's ``torch.Generator``.
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,7 +43,8 @@ from intrinsicavatar_tpu_torch.train.optim import (
 )
 from intrinsicavatar_tpu_torch.train.schedules import C, lr_schedule_host
 from intrinsicavatar_tpu_torch.utils.device import resolve_device
-from intrinsicavatar_tpu_torch.weights import from_jax_params
+from intrinsicavatar_tpu_torch.utils.logging import Throughput
+from intrinsicavatar_tpu_torch.weights import from_jax_params, to_jax_tree
 
 BUDGET_COUNTERS = ("ovf_shading", "ovf_query", "ovf_candidate_query")
 
@@ -95,9 +97,11 @@ class IntrinsicAvatarSystem:
 
     # ------------------------------------------------------------ setup
 
-    def setup(self, betas, params=None):
+    def setup(self, betas, params=None, state=None):
         """Statics, parameters (random from the system's generator, or the
-        JAX tree ``params``), optimizer and an all-occupied grid."""
+        JAX tree ``params``), optimizer and an all-occupied grid; then,
+        with ``state`` (a :meth:`state_dict`, e.g. a restored checkpoint),
+        everything that it holds."""
         self.statics = self.model.initialize(betas)
         if params is None:
             self.model.init(self.generator)
@@ -112,7 +116,45 @@ class IntrinsicAvatarSystem:
             resolution=self.config.model.get("occ_resolution", 64),
             device=self.device)
         self.step = 0
+        if state is not None:
+            self.load_state(state)
         return self
+
+    def state_dict(self) -> dict:
+        """The training state as the JAX ``TrainState``'s fields (see
+        ``utils/checkpoint.py``), copied to the CPU: a snapshot that later
+        steps, which update the parameters in place, do not change.  The
+        budget boost and the data's position are not part of it, as in
+        the JAX package."""
+        copy = lambda t: t.detach().to("cpu", copy=True)
+
+        def tree(x):
+            if isinstance(x, dict):
+                return {k: tree(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(tree(v) for v in x)
+            if isinstance(x, torch.Tensor):
+                return copy(x)
+            if isinstance(x, np.ndarray):
+                return torch.from_numpy(x)
+            return x
+
+        return {"params": tree(to_jax_tree(self.model)),
+                "opt_state": {"optimizer": tree(self.optimizer.state_dict()),
+                              "scheduler": self.scheduler.state_dict()},
+                "occ": {k: copy(v) for k, v in self.occ._asdict().items()},
+                "step": int(self.step),
+                "rng": self.generator.get_state()}
+
+    def load_state(self, state: dict) -> None:
+        """Take every field of a :meth:`state_dict` (on any device)."""
+        from_jax_params(self.model, state["params"])
+        self.optimizer.load_state_dict(state["opt_state"]["optimizer"])
+        self.scheduler.load_state_dict(state["opt_state"]["scheduler"])
+        self.occ = OccGridState(**{k: torch.as_tensor(v).to(self.device)
+                                   for k, v in state["occ"].items()})
+        self.step = int(state["step"])
+        self.generator.set_state(torch.as_tensor(state["rng"]).cpu())
 
     def to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v, device=self.device)
@@ -361,51 +403,119 @@ class IntrinsicAvatarSystem:
     # ------------------------------------------------------------ loop
 
     def fit(self, data_iter, max_steps: int, log_every: int = 100,
-            callback=None, all_frames_fn=None, draws_fn=None):
+            callback=None, all_frames_fn=None, draws_fn=None, logger=None,
+            val_fn=None, val_every: int = 0, ckpt_fn=None,
+            ckpt_every: int = 0, deadline_ts: float = 0.0):
         """The training loop from ``self.step`` to ``max_steps``.
 
         ``data_iter`` yields ``(batch, t_idx)`` (numpy arrays or tensors);
         ``all_frames_fn()`` returns one pose batch per training frame, for
         the grid re-init at the milestone steps; ``draws_fn(step)`` returns
-        the draws of that step's occupancy update and train step.  Returns
-        the ``(step, scalars)`` history of the log steps; a logged nonzero
-        budget-overflow counter raises ``budget_boost`` by one level.
+        the draws of that step's occupancy update and train step.
+        ``logger`` (a ``utils.logging.MetricLogger``) gets the scalars of
+        every log step; ``val_fn(system, step) -> dict`` runs every
+        ``val_every`` steps, its scalars logged with a ``val/`` prefix;
+        ``ckpt_fn(state, step)`` saves the ``state_dict()`` taken after
+        the step, every ``ckpt_every`` steps, on a worker thread with one
+        save in flight at most; past the wall-clock time ``deadline_ts``
+        the loop stops after the step.  Returns the ``(step, scalars)``
+        history of the log steps; a logged nonzero budget-overflow counter
+        raises ``budget_boost`` by one level.
         """
+        tput = Throughput()
         history = []
         ovf_window: dict = {}
+        # the host's wall time a log window, anchored at the log step's
+        # read of the losses (which waits for the device), and its
+        # non-step time by section
         t0, step0, rays = time.perf_counter(), self.step, 0
-        for step in range(self.step, max_steps):
-            batch, t_idx = next(data_iter)
-            batch = self.to_device(batch)
-            draws = draws_fn(step) if draws_fn is not None else None
-            if step in self.reinit_occ_steps and all_frames_fn is not None:
-                self.reinit_occupancy_grid(
-                    [self.to_device(b) for b in all_frames_fn()])
-            if step % self.occ_update_every == 0:
-                self.occ_update_step(batch, t_idx, draws)
-            losses = self.train_step(batch, t_idx, self.flags_for_step(step),
-                                     draws)
-            rays += int(batch["rays"].shape[0])
-            for k in BUDGET_COUNTERS:
-                if k in losses:
-                    ovf_window[k] = ovf_window.get(k, 0) + losses[k]
-            if step % log_every != 0:
-                continue
-            scalars = {k: float(v) for k, v in losses.items() if v.dim() == 0}
-            now = time.perf_counter()
-            if step > step0:
-                scalars["steps_per_sec_wall"] = (step - step0) / (now - t0)
-                scalars["rays_per_sec_wall"] = rays / (now - t0)
-            t0, step0, rays = now, step, 0
-            ovf = sum(int(v) for v in ovf_window.values())
-            ovf_window = {}
-            if ovf > 0 and self._budget_boost < self._budget_boost_max:
-                self._budget_boost += 1
-                scalars["budget_boost"] = float(self._budget_boost)
-                print(f"[{step}] budget overflow ({ovf} lanes) -> boost "
-                      f"{self._budget_boost}", flush=True)
-            scalars["lr"] = lr_schedule_host(step, self.config.system)
-            if callback is not None:
-                callback(step, scalars)
-            history.append((step, scalars))
+        sect_t = dict.fromkeys(("data", "occ", "val", "ckpt", "dispatch"),
+                               0.0)
+        ckpt_pool = ThreadPoolExecutor(max_workers=1,
+                                       thread_name_prefix="ckpt")
+        ckpt_future = None
+        try:
+            for step in range(self.step, max_steps):
+                _t = time.perf_counter()
+                batch, t_idx = next(data_iter)
+                batch = self.to_device(batch)
+                sect_t["data"] += time.perf_counter() - _t
+                draws = draws_fn(step) if draws_fn is not None else None
+                if step in self.reinit_occ_steps and all_frames_fn is not None:
+                    _t = time.perf_counter()
+                    self.reinit_occupancy_grid(
+                        [self.to_device(b) for b in all_frames_fn()])
+                    sect_t["occ"] += time.perf_counter() - _t
+                if step % self.occ_update_every == 0:
+                    _t = time.perf_counter()
+                    self.occ_update_step(batch, t_idx, draws)
+                    sect_t["occ"] += time.perf_counter() - _t
+                _t = time.perf_counter()
+                losses = self.train_step(batch, t_idx,
+                                         self.flags_for_step(step), draws)
+                sect_t["dispatch"] += time.perf_counter() - _t
+                n_rays = int(batch["rays"].shape[0])
+                tput.tick(n_rays)
+                rays += n_rays
+                for k in BUDGET_COUNTERS:
+                    if k in losses:
+                        ovf_window[k] = ovf_window.get(k, 0) + losses[k]
+                if step % log_every == 0:
+                    scalars = {k: float(v) for k, v in losses.items()
+                               if v.dim() == 0}
+                    scalars["rays_per_sec"] = tput.rays_per_sec
+                    now = time.perf_counter()
+                    if step > step0:
+                        scalars["steps_per_sec_wall"] = (step - step0) \
+                            / (now - t0)
+                        scalars["rays_per_sec_wall"] = rays / (now - t0)
+                        for k, v in sect_t.items():
+                            if v > 0:
+                                scalars[f"wall_{k}_s"] = v
+                    scalars["wall_time"] = time.time()
+                    t0, step0, rays = now, step, 0
+                    sect_t = dict.fromkeys(sect_t, 0.0)
+                    ovf = sum(int(v) for v in ovf_window.values())
+                    ovf_window = {}
+                    if ovf > 0 and self._budget_boost < self._budget_boost_max:
+                        self._budget_boost += 1
+                        scalars["budget_boost"] = float(self._budget_boost)
+                        print(f"[{step}] budget overflow ({ovf} lanes) -> "
+                              f"boost {self._budget_boost}", flush=True)
+                    scalars["lr"] = lr_schedule_host(step, self.config.system)
+                    if callback is not None:
+                        callback(step, scalars)
+                    if logger is not None:
+                        logger.log(step, scalars)
+                    history.append((step, scalars))
+                if val_fn is not None and val_every > 0 and step > 0 \
+                        and step % val_every == 0:
+                    _t = time.perf_counter()
+                    metrics = val_fn(self, step)
+                    sect_t["val"] += time.perf_counter() - _t
+                    if logger is not None and metrics:
+                        logger.log(step, {f"val/{k}": v
+                                          for k, v in metrics.items()
+                                          if np.ndim(v) == 0})
+                if ckpt_fn is not None and ckpt_every > 0 and step > 0 \
+                        and step % ckpt_every == 0:
+                    _t = time.perf_counter()
+                    # the snapshot is taken here, before the next step
+                    # updates the parameters in place; only the write runs
+                    # on the worker
+                    if ckpt_future is not None:
+                        ckpt_future.result()
+                    ckpt_future = ckpt_pool.submit(ckpt_fn, self.state_dict(),
+                                                   step)
+                    sect_t["ckpt"] += time.perf_counter() - _t
+                # a bounded run stops cleanly: the caller saves ckpt/final
+                if deadline_ts and time.time() > deadline_ts:
+                    print(f"[{step}] wall deadline reached "
+                          f"({time.time() - deadline_ts:.0f}s past): "
+                          "stopping training early", flush=True)
+                    break
+            if ckpt_future is not None:
+                ckpt_future.result()
+        finally:
+            ckpt_pool.shutdown(wait=True)
         return history

@@ -6,8 +6,9 @@ importance resampling), KJ (secondary fine resampling), KG (valid-first
 compaction), the KH prologue (the search's init pruning), KK (the
 secondary march), KD weights (the volume-rendering weights), KL (the
 seeded Broyden polish), KH skinning (the LBS rotation at the roots), KB'
-pass 1 (the encode backward's gather), KN (the LBS blend's backward) and KI
-(scatter-point sampling) of the PyTorch/CUDA port on one card, three ways.
+pass 1 (the encode backward's gather), KN (the LBS blend's backward), KI
+(scatter-point sampling) and KE (the primary march) of the PyTorch/CUDA
+port on one card, three ways.
 
     python3 kernel_timing.py                      # the port in this checkout
     python3 kernel_timing.py --port-root DIR      # the port under DIR
@@ -17,10 +18,10 @@ pass 1 (the encode backward's gather), KN (the LBS blend's backward) and KI
                                                   # roots
     python3 kernel_timing.py --diff-digests A B   # two saved runs' digests,
                                                   # call by call
-    python3 kernel_timing.py --kernels kn,ki,kf   # of ka, kb, kh, km, kc,
+    python3 kernel_timing.py --kernels ke,kk      # of ka, kb, kh, km, kc,
                                                   # kb2, ka2, kf, kj, kg,
                                                   # khp, kk, kd, kl, ksk,
-                                                  # kb1, kn, ki
+                                                  # kb1, kn, ki, ke
 
 ``--port-root`` imports ``intrinsicavatar_tpu_torch`` from another checkout
 (e.g. a parent commit unpacked with ``git archive``), so that two versions
@@ -173,7 +174,15 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
   falling through zero on most rays, so draws are pinned; 69% of the draws
   in the background bin): integer outputs equal to the twin's, floats
   within 1e-5 of max(|ref|, 1), and a digest of all seven outputs, equal
-  between two trees whose kernels compute the same bits.
+  between two trees whose kernels compute the same bits;
+- KE at a 4,096-ray chunk's call (S = 128, a 64^3 grid, a body-shaped blob
+  filling ~4% of it, rays from a ring of cameras through the blob, near and
+  far at the box, a quarter of the rays turned away), the same with a
+  stratified shift (a train step's call), at 16,384 rays (a serve frame's
+  rays in one call, a stand-in) and at the tiny config's S = 32 on a 16^3
+  grid (256 rays): the four outputs equal to the twin's, bit for bit, a
+  digest of their bytes, and the bound (each ray's 36 B read, the grid
+  once, (S + 1) x 7 B written).
 
 A disagreement is printed, the timings go on, and the script exits nonzero
 at the end.  The card's name and power limit come first, then each
@@ -333,9 +342,9 @@ def main():
                          "other port roots saved there")
     ap.add_argument("--kernels",
                     default="ka,kb,kh,km,kc,kb2,ka2,kf,kj,kg,khp,kk,kd,kl,"
-                            "ksk,kb1,kn,ki",
+                            "ksk,kb1,kn,ki,ke",
                     help="comma-separated, of ka, kb, kh, km, kc, kb2, ka2, "
-                         "kf, kj, kg, khp, kk, kd, kl, ksk, kb1, kn, ki")
+                         "kf, kj, kg, khp, kk, kd, kl, ksk, kb1, kn, ki, ke")
     ap.add_argument("--diff-digests", nargs=2, metavar=("A", "B"),
                     help="compare the digests of two saved outputs of this "
                          "script, call by call, and time nothing")
@@ -361,7 +370,8 @@ def main():
                "ka2": "hashgrid", "kf": "resample", "kj": "resample",
                "kg": "compact", "khp": "deform", "kk": "march",
                "kd": "volrend", "kl": "broyden", "ksk": "deform",
-               "kb1": "encode_grad", "kn": "deform", "ki": "resample"}
+               "kb1": "encode_grad", "kn": "deform", "ki": "resample",
+               "ke": "march"}
     logs = kernels.build_all(tuple(sorted(
         {sources[k] for k in which} & set(kernels.SOURCES))), verbose=True)
     for name, log in logs.items():
@@ -408,6 +418,8 @@ def main():
         time_kn(torch, dev, report, failed)
     if "ki" in which:
         time_ki(torch, dev, report, failed)
+    if "ke" in which:
+        time_ke(torch, dev, report, failed)
     if failed:
         sys.exit(f"kernel_timing: disagrees with the twin: {failed}")
 
@@ -1526,6 +1538,68 @@ def time_ki(torch, dev, report, failed):
                          "cdf_resample_kernel")
     line.update(event_ms=ev, device_ms=dv, host_us=hu)
     report(line)
+
+
+def ke_inputs(torch, dev, R, S, res, strat, seed=16):
+    """A chunk's primary rays: a body-shaped blob in a ``res``^3 grid over
+    the skeleton's box, rays from a ring of cameras 2.5-3.5 m out aimed at
+    points of the blob, a quarter of them turned away (they miss), near
+    and far 1.6 m either side of the box's centre; with ``strat`` a
+    stratified shift a ray."""
+    rng = np.random.default_rng(seed)
+    aabb = np.asarray([-1.25, -1.55, -1.25, 1.25, 0.95, 1.25], np.float32)
+    c = (np.arange(res) + 0.5) / res
+    X, Y, Z = np.meshgrid(*(aabb[a] + c * (aabb[3 + a] - aabb[a])
+                            for a in range(3)), indexing="ij")
+    axes = np.asarray([0.45, 1.1, 0.3])
+    grid = ((X / axes[0]) ** 2 + ((Y + 0.3) / axes[1]) ** 2
+            + (Z / axes[2]) ** 2) < 1.0
+    ang = rng.uniform(0.0, 2.0 * np.pi, R)
+    dist = rng.uniform(2.5, 3.5, R)
+    o = np.stack([dist * np.cos(ang), rng.uniform(-0.6, 0.4, R),
+                  dist * np.sin(ang)], -1)
+    tgt = rng.normal(size=(R, 3)) * axes * 0.6 + [0.0, -0.3, 0.0]
+    d = tgt - o
+    d[: R // 4] *= -1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    diag = float(np.linalg.norm(aabb[3:] - aabb[:3]))
+    t = lambda a, dt=torch.float32: torch.as_tensor(
+        np.ascontiguousarray(a), dtype=dt, device=dev)
+    return (t(o), t(d), t(grid, torch.bool), t(aabb), diag / S, S), {
+        "near": t(dist - 1.6), "far": t(dist + 1.6),
+        "stratified_u": t(rng.random(R)) if strat else None}
+
+
+def time_ke(torch, dev, report, failed):
+    """KE at a chunk's call (without and with a stratified shift), at a
+    serve frame's 16,384 rays in one call and at the tiny config's S = 32
+    on a 16^3 grid."""
+    from intrinsicavatar_tpu_torch.ops import grid_traversal as G
+    for R, S, res, strat in ((4096, 128, 64, False), (4096, 128, 64, True),
+                             (16384, 128, 64, False), (256, 32, 16, True)):
+        args, kw = ke_inputs(torch, dev, R, S, res, strat)
+        out = G.occupancy_sampling(*args, **kw)
+        ref = G.occupancy_sampling_plain(*args, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out, ref))
+        if not same:
+            print(f"kernel_timing: KE differs from its twin at [{R}, {S}] "
+                  f"res {res}", flush=True)
+            failed.append(f"occupancy_march [{R}, {S}] res {res}")
+        E = S + 1
+        nbytes = R * (12 + 12 + 4 + 4 + (4 if strat else 0)) + res ** 3 \
+            + 24 + R * E * 7
+        line = {"kernel": "occupancy_march", "rays": R, "steps": S,
+                "res": res, "stratified": strat,
+                "valid_edges": int(ref.valid.sum()), "equal": same,
+                "bound_ms": nbytes / 3.35e12 * 1e3,
+                "digest": digest_of(out)}
+        del out, ref
+        call = lambda: G.occupancy_sampling(*args, **kw)
+        ev, dv, hu = timings(call, "occupancy_march_kernel")
+        line.update(event_ms=ev, device_ms=dv, host_us=hu)
+        report(line)
+
 
 if __name__ == "__main__":
     main()

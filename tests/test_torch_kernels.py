@@ -247,6 +247,39 @@ def test_march_kernel_matches_twin(cuda, fill):
         assert ref.valid.any(-1).float().mean() > 0.3
 
 
+
+@pytest.mark.parametrize("R,S,res,fill,shift", [
+    (4096, 128, 64, "random", 0.0), (4099, 128, 64, "full", 0.0),
+    (1001, 32, 16, "random", 0.0), (333, 1, 8, "full", 0.0),
+    (517, 100, 64, "random", 0.0), (300, 129, 64, "full", 0.0),
+    (260, 500, 32, "random", 0.0), (4096, 128, 64, "random", 1.0)])
+def test_march_kernel_bits_at_any_shape(cuda, R, S, res, fill, shift):
+    """All four outputs equal to the twin's, bit for bit: rays not a
+    multiple of a block's, S not a multiple of a lane's 8 steps or of a
+    round, edge S closing a ray's last step (the full grid), rows staged
+    in shared memory and written in place (S = 500), flag planes of one
+    buffer that start off 16-byte boundaries (R (S + 1) not a multiple of
+    16), and (``shift``) a box whose lower x bound is 0, where the kernel
+    divides by the box's extent with `/`."""
+    o, d, grid, aabb, step, S, near, far, u = _march_inputs(cuda, fill, R,
+                                                            S, res)
+    aabb = aabb.clone()
+    aabb[[0, 3]] += shift
+    o = o.clone()
+    o[:, 0] += shift
+    if fill == "full":
+        step = step / 2        # S steps then end inside most hit rays
+    for kw in ({"near": near, "far": far, "stratified_u": u},
+               {"far": far}, {}):
+        out = G.occupancy_sampling(o, d, grid, aabb, step, S, **kw)
+        ref = G.occupancy_sampling_plain(o, d, grid, aabb, step, S, **kw)
+        for name in ("vals", "is_left", "is_right", "valid"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        assert ref.valid.any()
+        if fill == "full" and not kw:
+            # a ray whose every step is a sample keeps edge S
+            assert bool(ref.valid[:, S].any())
+
 def test_resample_kernel_matches_twin(cuda):
     o, d, grid, aabb, step, S, near, far, u = _march_inputs(cuda, "random")
     iv = G.occupancy_sampling_plain(o, d, grid, aabb, step, S, near=near,

@@ -486,10 +486,11 @@ def test_deform_train_mode_refuses_a_pose_gradient(setup):
     assert np.linalg.norm(got.numpy() - ref) <= 1e-4 * np.linalg.norm(ref)
 
 
-def test_launcher_trains_on_the_cpu(capsys):
+def test_launcher_trains_on_the_cpu(capsys, tmp_path):
     from intrinsicavatar_tpu_torch.launch import main
     assert main(["--mode", "train", "--device", "cpu", "--config",
-                 "configs/tiny-synthetic.yaml", "trainer.max_steps=2",
-                 "trainer.log_every_n_steps=1", "dataset.n_rays=32"]) == 0
+                 "configs/tiny-synthetic.yaml", "--exp-dir", str(tmp_path),
+                 "trainer.max_steps=2", "trainer.log_every_n_steps=1",
+                 "dataset.n_rays=32"]) == 0
     out = capsys.readouterr().out
     assert "[1] " in out and "rgb_l1=" in out

@@ -515,7 +515,7 @@ def test_deform_train_mode_without_a_pose_gradient_is_eval_mode(snarf):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
-def test_launcher_validates_with_config(capsys, monkeypatch):
+def test_launcher_validates_with_config(capsys, monkeypatch, tmp_path):
     """The launcher docstring's eval ``--config`` run, cut to one frame of
     256 rays, a 16^3 seed grid and a 16^3 test grid (the launcher's is
     64^3, which the CPU twins search for over a minute): it runs in float32
@@ -527,7 +527,8 @@ def test_launcher_validates_with_config(capsys, monkeypatch):
     monkeypatch.setattr(EV, "build_test_occ_grid", lambda *a, **k: build(
         *a, **{**k, "resolution": 16}))
     args = ["--mode", "validate", "--config", "configs/tiny-synthetic.yaml",
-            "--device", "cpu", "dataset.n_frames=1", "dataset.n_rays=256",
+            "--device", "cpu", "--exp-dir", str(tmp_path),
+            "dataset.n_frames=1", "dataset.n_rays=256",
             "model.seed_grid_resolution=16"]
     assert main(args) == 0
     cap = capsys.readouterr()
