@@ -2,7 +2,46 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// A table entry as a float: float32 tables as they are, bf16 tables (the
+// bf16-row forms of KA and KB) widened, which is exact.
+__device__ __forceinline__ float entry(float v) { return v; }
+__device__ __forceinline__ float entry(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Rows of F = 2 entries: one row (Row) and an aligned pair of rows (Pair,
+// rows 2m and 2m + 1), read with one load each and widened to float2s.
+template <typename E>
+struct Rows2;
+template <>
+struct Rows2<float> {
+  using Row = float2;   // 8 bytes
+  using Pair = float4;  // 16 bytes
+  static __device__ __forceinline__ float2 row(Row r) { return r; }
+  static __device__ __forceinline__ float2 lo(Pair p) {
+    return make_float2(p.x, p.y);
+  }
+  static __device__ __forceinline__ float2 hi(Pair p) {
+    return make_float2(p.z, p.w);
+  }
+};
+template <>
+struct Rows2<__nv_bfloat16> {
+  using Row = __nv_bfloat162;  // 4 bytes
+  using Pair = uint2;          // 8 bytes: two bf16 pairs
+  static __device__ __forceinline__ float2 row(Row r) {
+    return __bfloat1622float2(r);
+  }
+  static __device__ __forceinline__ float2 word(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+  }
+  static __device__ __forceinline__ float2 lo(Pair p) { return word(p.x); }
+  static __device__ __forceinline__ float2 hi(Pair p) { return word(p.y); }
+};
 
 // tcnn's spatial-hash primes (instant-ngp), applied in uint32 arithmetic.
 __device__ __forceinline__ uint32_t hash_corner(int x, int y, int z,

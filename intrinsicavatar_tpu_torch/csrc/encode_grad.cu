@@ -37,6 +37,21 @@
 //  3. Epilogue: out + b2, and the gradient g_enc . (xyz_scale | mask * jac)
 //     summed over the quad of lanes that share a point, staged in shared
 //     memory and written out coalesced.
+//
+// The bf16 form (encode_mlp_sdfgrad_fwd_bf16) replaces the same op inside
+// the JAX package's bf16 scope (intrinsicavatar_tpu/ops/encode_grad.py:103,
+// the rows gathered bf16, and nets/mlp.py:29-37, the products on bf16
+// operands with float32 accumulation): the same kernel with the element
+// type a template parameter.  The gather reads bf16 rows (half the bytes)
+// and widens them (exact); enc, jac and the gradient stay float32.  The
+// three products run on mma.sync m16n8k16 bf16 with float32 accumulators,
+// one pass a k16 step where 3xTF32 takes six m16n8k8 passes, their
+// operands rounded to nearest even where JAX's casts round: the encoding,
+// softplus100(H + b1), sigmoid(100 (H + b1)) * W2[:, 0] and the weights
+// (the wrapper's effective, weight-normed ones).  The bias adds and W2[:, 0]
+// stay float32.  In m16n8k16 the accumulator fragment of H is the A
+// fragment of the next products with no permutation (n-tiles 2m and 2m + 1
+// are the k16 step m), so the weights are staged in plain k order.
 #include "common.cuh"
 
 namespace {
@@ -113,8 +128,26 @@ __device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
   for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
 }
 
+// two floats rounded to nearest even into a bf16 pair, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+constexpr int KS16_IN = (MAX_IN + 15) / 16, KS16_HID = MAX_HIDDEN / 16;
+
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
-    const float* __restrict__ table, const float* __restrict__ x,
+    const E* __restrict__ table, const float* __restrict__ x,
     const float* __restrict__ scales, const int* __restrict__ res,
     const float* __restrict__ level_mask, const float* __restrict__ W1,
     const float* __restrict__ b1, const float* __restrict__ W2,
@@ -128,35 +161,65 @@ __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
   const int off = include_xyz ? 3 : 0;
   const int LF = L * F;
 
-  // weights in B-fragment order, zero-padded: b0 at k position tig, b1 at
-  // tig + 4, n = gid.  The first product's K is the input index; the other
-  // two take the hidden unit 8j + 2t at position t and 8j + 2t + 1 at t + 4.
-  float2* w1a = reinterpret_cast<float2*>(sm + SM_W1A);
-  float2* w2f = reinterpret_cast<float2*>(sm + SM_W2);
-  float2* w1c = reinterpret_cast<float2*>(sm + SM_W1C);
+  constexpr bool BF16 = sizeof(E) == 2;
   auto w1 = [&](int i, int u) {
     return (i < d_in && u < hidden) ? W1[i * hidden + u] : 0.f;
   };
   auto w2 = [&](int u, int o) {
     return (u < hidden && o < d_out) ? W2[u * d_out + o] : 0.f;
   };
-  for (int e = tid; e < KS_IN * NT_HID * 32; e += THREADS) {
-    const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_HID,
-              ks = (e >> 5) / NT_HID;
-    w1a[e] = make_float2(w1(ks * 8 + t, nt * 8 + g), w1(ks * 8 + t + 4,
-                                                        nt * 8 + g));
+  // bf16: the weights rounded in B-fragment order of m16n8k16, zero-padded:
+  // the pair (k 2t, 2t + 1) in .x and (2t + 8, 2t + 9) in .y, n = gid, k
+  // in plain order for all three products
+  uint2* v1a = reinterpret_cast<uint2*>(sm + SM_W1A);  // [KS16_IN][8][32]
+  uint2* v2f = reinterpret_cast<uint2*>(sm + SM_W2);   // [KS16_HID][2][32]
+  uint2* v1c = reinterpret_cast<uint2*>(sm + SM_W1C);  // [KS16_HID][5][32]
+  if constexpr (BF16) {
+    for (int e = tid; e < KS16_IN * NT_HID * 32; e += THREADS) {
+      const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_HID,
+                k = ((e >> 5) / NT_HID) * 16 + 2 * t, u = nt * 8 + g;
+      v1a[e] = make_uint2(pack_bf16(w1(k, u), w1(k + 1, u)),
+                          pack_bf16(w1(k + 8, u), w1(k + 9, u)));
+    }
+    for (int e = tid; e < KS16_HID * NT_OUT * 32; e += THREADS) {
+      const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_OUT,
+                k = ((e >> 5) / NT_OUT) * 16 + 2 * t, o = nt * 8 + g;
+      v2f[e] = make_uint2(pack_bf16(w2(k, o), w2(k + 1, o)),
+                          pack_bf16(w2(k + 8, o), w2(k + 9, o)));
+    }
+    for (int e = tid; e < KS16_HID * KS_IN * 32; e += THREADS) {
+      const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % KS_IN,
+                k = ((e >> 5) / KS_IN) * 16 + 2 * t, i = nt * 8 + g;
+      v1c[e] = make_uint2(pack_bf16(w1(i, k), w1(i, k + 1)),
+                          pack_bf16(w1(i, k + 8), w1(i, k + 9)));
+    }
   }
-  for (int e = tid; e < NT_HID * NT_OUT * 32; e += THREADS) {
-    const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_OUT,
-              j = (e >> 5) / NT_OUT;
-    w2f[e] = make_float2(w2(j * 8 + 2 * t, nt * 8 + g),
-                         w2(j * 8 + 2 * t + 1, nt * 8 + g));
-  }
-  for (int e = tid; e < NT_HID * KS_IN * 32; e += THREADS) {
-    const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % KS_IN,
-              j = (e >> 5) / KS_IN;
-    w1c[e] = make_float2(w1(nt * 8 + g, j * 8 + 2 * t),
-                         w1(nt * 8 + g, j * 8 + 2 * t + 1));
+  // float32: weights in B-fragment order, zero-padded: b0 at k position
+  // tig, b1 at tig + 4, n = gid.  The first product's K is the input index;
+  // the other two take the hidden unit 8j + 2t at position t and 8j + 2t + 1
+  // at t + 4.
+  float2* w1a = reinterpret_cast<float2*>(sm + SM_W1A);
+  float2* w2f = reinterpret_cast<float2*>(sm + SM_W2);
+  float2* w1c = reinterpret_cast<float2*>(sm + SM_W1C);
+  if constexpr (!BF16) {
+    for (int e = tid; e < KS_IN * NT_HID * 32; e += THREADS) {
+      const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_HID,
+                ks = (e >> 5) / NT_HID;
+      w1a[e] = make_float2(w1(ks * 8 + t, nt * 8 + g), w1(ks * 8 + t + 4,
+                                                          nt * 8 + g));
+    }
+    for (int e = tid; e < NT_HID * NT_OUT * 32; e += THREADS) {
+      const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % NT_OUT,
+                j = (e >> 5) / NT_OUT;
+      w2f[e] = make_float2(w2(j * 8 + 2 * t, nt * 8 + g),
+                           w2(j * 8 + 2 * t + 1, nt * 8 + g));
+    }
+    for (int e = tid; e < NT_HID * KS_IN * 32; e += THREADS) {
+      const int l = e & 31, t = l & 3, g = l >> 2, nt = (e >> 5) % KS_IN,
+                j = (e >> 5) / KS_IN;
+      w1c[e] = make_float2(w1(nt * 8 + g, j * 8 + 2 * t),
+                           w1(nt * 8 + g, j * 8 + 2 * t + 1));
+    }
   }
   for (int u = tid; u < MAX_HIDDEN; u += THREADS) {
     sm[SM_B1 + u] = u < hidden ? b1[u] : 0.f;
@@ -206,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
       }
       float e4[4] = {0.f, 0.f, 0.f, 0.f};
       float j4[4][3] = {};
-      const float* tab = table + (int64_t)l * T * F;
+      const E* tab = table + (int64_t)l * T * F;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
@@ -220,11 +283,11 @@ __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
                     dwz = wx * wy * sz;
         const int64_t row = corner_row(c0[0], c0[1], c0[2], dx, dy, dz, r,
                                        dense, tmask);
-        const float* tr = tab + row * F;
+        const E* tr = tab + row * F;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (c < F) {
-            const float v = __ldg(tr + c);
+            const float v = entry(__ldg(tr + c));
             e4[c] += w * v;
             j4[c][0] += dwx * v;
             j4[c][1] += dwy * v;
@@ -254,47 +317,95 @@ __global__ void __launch_bounds__(THREADS, 2) encode_mlp_sdfgrad_kernel(
 #pragma unroll
     for (int j = 0; j < NT_HID; ++j)
       h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS_IN; ++ks) {
-      const float a[4] = {e0[ks * 8 + tig], e8[ks * 8 + tig],
-                          e0[ks * 8 + tig + 4], e8[ks * 8 + tig + 4]};
-      uint32_t ah[4], al[4];
-      split4(a, ah, al);
-#pragma unroll
-      for (int j = 0; j < NT_HID; ++j)
-        mma3(h[j], ah, al, w1a[(ks * NT_HID + j) * 32 + lane]);
-    }
     float o[NT_OUT][4], gi[KS_IN][4];
 #pragma unroll
     for (int t = 0; t < NT_OUT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
 #pragma unroll
     for (int t = 0; t < KS_IN; ++t)
       gi[t][0] = gi[t][1] = gi[t][2] = gi[t][3] = 0.f;
+    if constexpr (BF16) {
+      // H = enc . W1: enc rounded, a k16 step's columns 16 ks + 2 tig (+1)
+      // and + 8 (+9); inputs from MAX_IN = 40 on are zero
 #pragma unroll
-    for (int j = 0; j < NT_HID; ++j) {
-      // accumulator (row, unit): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
-      // c3 (g+8, 2t+1) -> A fragment {c0, c2, c1, c3}
-      const int u = j * 8 + 2 * tig;
-      const float bb0 = sm[SM_B1 + u], bb1 = sm[SM_B1 + u + 1];
-      const float v0 = sm[SM_W20 + u], v1 = sm[SM_W20 + u + 1];
-      const float hh[4] = {h[j][0] + bb0, h[j][2] + bb0, h[j][1] + bb1,
-                           h[j][3] + bb1};
-      const float wv[4] = {v0, v0, v1, v1};
-      float act[4], rev[4];
+      for (int ks = 0; ks < KS16_IN; ++ks) {
+        const int k = ks * 16 + 2 * tig;
+        const float2 p0 = *reinterpret_cast<const float2*>(e0 + k);
+        const float2 p8 = *reinterpret_cast<const float2*>(e8 + k);
+        uint32_t a[4] = {pack_bf16(p0.x, p0.y), pack_bf16(p8.x, p8.y), 0u,
+                         0u};
+        if (k + 8 < MAX_IN) {
+          const float2 q0 = *reinterpret_cast<const float2*>(e0 + k + 8);
+          const float2 q8 = *reinterpret_cast<const float2*>(e8 + k + 8);
+          a[2] = pack_bf16(q0.x, q0.y);
+          a[3] = pack_bf16(q8.x, q8.y);
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        act[i] = softplus100(hh[i]);
-        rev[i] = wv[i] * (1.f / (1.f + expf(-100.f * hh[i])));
+        for (int j = 0; j < NT_HID; ++j)
+          mma_bf16(h[j], a, v1a[(ks * NT_HID + j) * 32 + lane]);
       }
-      uint32_t ah[4], al[4];
-      split4(act, ah, al);
+      // k16 step m of the hidden units: n-tiles 2m (k 0-7) and 2m + 1
+      // (k 8-15) of H; register 2 * half + (row gid + 8)
 #pragma unroll
-      for (int t = 0; t < NT_OUT; ++t)
-        mma3(o[t], ah, al, w2f[(j * NT_OUT + t) * 32 + lane]);
-      split4(rev, ah, al);
+      for (int m = 0; m < KS16_HID; ++m) {
+        uint32_t aa[4], ar[4];
 #pragma unroll
-      for (int t = 0; t < KS_IN; ++t)
-        mma3(gi[t], ah, al, w1c[(j * KS_IN + t) * 32 + lane]);
+        for (int half = 0; half < 2; ++half) {
+          const int j = 2 * m + half, u = j * 8 + 2 * tig;
+          const float bb0 = sm[SM_B1 + u], bb1 = sm[SM_B1 + u + 1];
+          const float v0 = sm[SM_W20 + u], v1 = sm[SM_W20 + u + 1];
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const float h0 = h[j][2 * rh] + bb0, h1 = h[j][2 * rh + 1] + bb1;
+            aa[2 * half + rh] = pack_bf16(softplus100(h0), softplus100(h1));
+            ar[2 * half + rh] =
+                pack_bf16(v0 * (1.f / (1.f + expf(-100.f * h0))),
+                          v1 * (1.f / (1.f + expf(-100.f * h1))));
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < NT_OUT; ++t)
+          mma_bf16(o[t], aa, v2f[(m * NT_OUT + t) * 32 + lane]);
+#pragma unroll
+        for (int t = 0; t < KS_IN; ++t)
+          mma_bf16(gi[t], ar, v1c[(m * KS_IN + t) * 32 + lane]);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KS_IN; ++ks) {
+        const float a[4] = {e0[ks * 8 + tig], e8[ks * 8 + tig],
+                            e0[ks * 8 + tig + 4], e8[ks * 8 + tig + 4]};
+        uint32_t ah[4], al[4];
+        split4(a, ah, al);
+#pragma unroll
+        for (int j = 0; j < NT_HID; ++j)
+          mma3(h[j], ah, al, w1a[(ks * NT_HID + j) * 32 + lane]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT_HID; ++j) {
+        // accumulator (row, unit): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
+        // c3 (g+8, 2t+1) -> A fragment {c0, c2, c1, c3}
+        const int u = j * 8 + 2 * tig;
+        const float bb0 = sm[SM_B1 + u], bb1 = sm[SM_B1 + u + 1];
+        const float v0 = sm[SM_W20 + u], v1 = sm[SM_W20 + u + 1];
+        const float hh[4] = {h[j][0] + bb0, h[j][2] + bb0, h[j][1] + bb1,
+                             h[j][3] + bb1};
+        const float wv[4] = {v0, v0, v1, v1};
+        float act[4], rev[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          act[i] = softplus100(hh[i]);
+          rev[i] = wv[i] * (1.f / (1.f + expf(-100.f * hh[i])));
+        }
+        uint32_t ah[4], al[4];
+        split4(act, ah, al);
+#pragma unroll
+        for (int t = 0; t < NT_OUT; ++t)
+          mma3(o[t], ah, al, w2f[(j * NT_OUT + t) * 32 + lane]);
+        split4(rev, ah, al);
+#pragma unroll
+        for (int t = 0; t < KS_IN; ++t)
+          mma3(gi[t], ah, al, w1c[(j * KS_IN + t) * 32 + lane]);
+      }
     }
 
     // ---- 3. epilogue: out + b2 and the point gradient, staged in this
@@ -864,12 +975,14 @@ extern "C" int encode_mlp_sdfgrad_bwd_scatter(
 #undef KB2_LAUNCH
 }
 
-extern "C" int encode_mlp_sdfgrad_fwd(
-    const float* table, const float* x, const float* scales, const int* res,
-    const float* level_mask, const float* W1, const float* b1,
-    const float* W2, const float* b2, float* feat, float* grad, long long N,
-    int L, int T, int F, int include_xyz, int d_in, int hidden, int d_out,
-    float xyz_scale, float xyz_offset, void* stream) {
+// KB (float32 table) or its bf16 form (bf16 table).
+template <typename E>
+int launch_fwd(const E* table, const float* x, const float* scales,
+               const int* res, const float* level_mask, const float* W1,
+               const float* b1, const float* W2, const float* b2, float* feat,
+               float* grad, long long N, int L, int T, int F, int include_xyz,
+               int d_in, int hidden, int d_out, float xyz_scale,
+               float xyz_offset, void* stream) {
   if (d_in > MAX_IN || hidden > MAX_HIDDEN || d_out > MAX_OUT || d_out < 1 ||
       L * F > MAX_LF || F > 4 || d_in != L * F + (include_xyz ? 3 : 0))
     return (int)cudaErrorInvalidValue;
@@ -877,12 +990,37 @@ extern "C" int encode_mlp_sdfgrad_fwd(
   static int resident[kMaxDevices] = {};
   unsigned blocks = 0;
   const cudaError_t err =
-      persistent_grid(encode_mlp_sdfgrad_kernel, THREADS, SM_BYTES,
+      persistent_grid(encode_mlp_sdfgrad_kernel<E>, THREADS, SM_BYTES,
                       (N + TILE - 1) / TILE, resident, blocks);
   if (err != cudaSuccess) return (int)err;
-  encode_mlp_sdfgrad_kernel<<<blocks, THREADS, SM_BYTES,
-                              (cudaStream_t)stream>>>(
+  encode_mlp_sdfgrad_kernel<E><<<blocks, THREADS, SM_BYTES,
+                                 (cudaStream_t)stream>>>(
       table, x, scales, res, level_mask, W1, b1, W2, b2, feat, grad, N, L, T,
       F, include_xyz, d_in, hidden, d_out, xyz_scale, xyz_offset);
   return launch_status();
+}
+
+extern "C" int encode_mlp_sdfgrad_fwd(
+    const float* table, const float* x, const float* scales, const int* res,
+    const float* level_mask, const float* W1, const float* b1,
+    const float* W2, const float* b2, float* feat, float* grad, long long N,
+    int L, int T, int F, int include_xyz, int d_in, int hidden, int d_out,
+    float xyz_scale, float xyz_offset, void* stream) {
+  return launch_fwd(table, x, scales, res, level_mask, W1, b1, W2, b2, feat,
+                    grad, N, L, T, F, include_xyz, d_in, hidden, d_out,
+                    xyz_scale, xyz_offset, stream);
+}
+
+// The bf16 form: `table` holds bf16 entries; the weights are float32 and
+// rounded in the kernel.
+extern "C" int encode_mlp_sdfgrad_fwd_bf16(
+    const void* table, const float* x, const float* scales, const int* res,
+    const float* level_mask, const float* W1, const float* b1,
+    const float* W2, const float* b2, float* feat, float* grad, long long N,
+    int L, int T, int F, int include_xyz, int d_in, int hidden, int d_out,
+    float xyz_scale, float xyz_offset, void* stream) {
+  return launch_fwd(static_cast<const __nv_bfloat16*>(table), x, scales, res,
+                    level_mask, W1, b1, W2, b2, feat, grad, N, L, T, F,
+                    include_xyz, d_in, hidden, d_out, xyz_scale, xyz_offset,
+                    stream);
 }

@@ -31,6 +31,14 @@
 // stride, so the 32 points of one level write 32 banks) and written out
 // with coalesced 16-byte stores; D = L * F, plus 3 with include_xyz, and a
 // ragged last tile.
+//
+// The bf16-row form (hashgrid_encode_fwd_bf16) replaces the same op inside
+// the JAX package's bf16 scope (intrinsicavatar_tpu/ops/hashgrid.py:220,
+// the table cast before the gathers): the same kernel on a bf16 table
+// (the element type a template parameter), so an F = 2 row is 4 bytes and
+// an aligned pair of rows one 8-byte load; the rows are widened to float32
+// (exact) and blended, masked and written in float32 as above.  Its bytes
+// are half the float32 form's; its arithmetic is the same.
 #include "common.cuh"
 
 namespace {
@@ -43,8 +51,8 @@ constexpr int KA_MAX_SD = (KA_MAX_LF + 3) | 1;  // odd output row stride
 
 // One (point, level) item: the trilinear blend of the level's 8 corner rows
 // at point p (x in shared memory), masked, into the output row o.
-template <int F>
-__device__ __forceinline__ void encode_item(const float* __restrict__ tab,
+template <int F, typename E>
+__device__ __forceinline__ void encode_item(const E* __restrict__ tab,
                                             const float* px, float s, int r,
                                             bool dense, uint32_t tmask,
                                             const float* mask, float* o) {
@@ -72,20 +80,21 @@ __device__ __forceinline__ void encode_item(const float* __restrict__ tab,
   for (int c = 0; c < F; ++c) acc[c] = 0.f;
   if constexpr (F == 2) {
     // v[k], k = dx * 4 + q, q = dy * 2 + dz: the x pair of each (dy, dz)
-    const float4* t4 = reinterpret_cast<const float4*>(tab);
-    const float2* t2 = reinterpret_cast<const float2*>(tab);
+    using R = Rows2<E>;
+    using Pair = typename R::Pair;
+    using Row = typename R::Row;
+    const Pair* t4 = reinterpret_cast<const Pair*>(tab);
+    const Row* t2 = reinterpret_cast<const Row*>(tab);
     float2 v[8];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const uint32_t r0 = row(0, q >> 1, q & 1), r1 = row(1, q >> 1, q & 1);
-      const float4 pair = __ldg(t4 + (r0 >> 1));
-      v[q] = (r0 & 1) ? make_float2(pair.z, pair.w)
-                      : make_float2(pair.x, pair.y);
+      const Pair pair = __ldg(t4 + (r0 >> 1));
+      v[q] = (r0 & 1) ? R::hi(pair) : R::lo(pair);
       if ((r0 >> 1) == (r1 >> 1))
-        v[q + 4] = (r1 & 1) ? make_float2(pair.z, pair.w)
-                            : make_float2(pair.x, pair.y);
+        v[q + 4] = (r1 & 1) ? R::hi(pair) : R::lo(pair);
       else
-        v[q + 4] = __ldg(t2 + r1);
+        v[q + 4] = R::row(__ldg(t2 + r1));
     }
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -101,18 +110,18 @@ __device__ __forceinline__ void encode_item(const float* __restrict__ tab,
       const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
       const float w = (dx ? f[0] : 1.f - f[0]) * (dy ? f[1] : 1.f - f[1])
                       * (dz ? f[2] : 1.f - f[2]);
-      const float* tr = tab + (int64_t)row(dx, dy, dz) * F;
+      const E* tr = tab + (int64_t)row(dx, dy, dz) * F;
 #pragma unroll
-      for (int c = 0; c < F; ++c) acc[c] += w * __ldg(tr + c);
+      for (int c = 0; c < F; ++c) acc[c] += w * entry(__ldg(tr + c));
     }
   }
 #pragma unroll
   for (int c = 0; c < F; ++c) o[c] = acc[c] * mask[c];
 }
 
-template <int F>
+template <int F, typename E>
 __global__ void __launch_bounds__(KA_THREADS, 4) hashgrid_encode_kernel(
-    const float* __restrict__ table, const float* __restrict__ x,
+    const E* __restrict__ table, const float* __restrict__ x,
     const float* __restrict__ scales, const int* __restrict__ res,
     const float* __restrict__ level_mask, float* __restrict__ out, int64_t N,
     int L, int T, int include_xyz, float xyz_scale, float xyz_offset) {
@@ -149,9 +158,9 @@ __global__ void __launch_bounds__(KA_THREADS, 4) hashgrid_encode_kernel(
     for (int w = tid >> 5; w < (KA_TILE / 32) * L; w += KA_THREADS / 32) {
       const int l = w % L, p = (w / L) * 32 + lane;
       if (p >= rows) continue;
-      encode_item<F>(table + (int64_t)l * T * F, s_x + p * 3, s_scale[l],
-                     s_res[l], s_dense[l] != 0, tmask, s_mask + l * F,
-                     s_out + p * SD + off + l * F);
+      encode_item<F, E>(table + (int64_t)l * T * F, s_x + p * 3,
+                        s_scale[l], s_res[l], s_dense[l] != 0, tmask,
+                        s_mask + l * F, s_out + p * SD + off + l * F);
     }
     __syncthreads();
     // the tile's rows are contiguous in `out`: 16-byte stores, then the
@@ -178,18 +187,18 @@ __global__ void __launch_bounds__(KA_THREADS, 4) hashgrid_encode_kernel(
   }
 }
 
-template <int F>
-int launch_encode(const float* table, const float* x, const float* scales,
+template <int F, typename E>
+int launch_encode(const E* table, const float* x, const float* scales,
                   const int* res, const float* level_mask, float* out,
                   long long N, int L, int T, int include_xyz, float xyz_scale,
                   float xyz_offset, cudaStream_t stream) {
   static int resident[kMaxDevices] = {};
   unsigned blocks = 0;
   const cudaError_t err =
-      persistent_grid(hashgrid_encode_kernel<F>, KA_THREADS, 0,
+      persistent_grid(hashgrid_encode_kernel<F, E>, KA_THREADS, 0,
                       (N + KA_TILE - 1) / KA_TILE, resident, blocks);
   if (err != cudaSuccess) return (int)err;
-  hashgrid_encode_kernel<F><<<blocks, KA_THREADS, 0, stream>>>(
+  hashgrid_encode_kernel<F, E><<<blocks, KA_THREADS, 0, stream>>>(
       table, x, scales, res, level_mask, out, N, L, T, include_xyz, xyz_scale,
       xyz_offset);
   return launch_status();
@@ -493,36 +502,58 @@ extern "C" int hashgrid_encode_bwd(const float* table, const float* x,
 #undef KA2_LAUNCH
 }
 
-extern "C" int hashgrid_encode_fwd(const float* table, const float* x,
-                                   const float* scales, const int* res,
-                                   const float* level_mask, float* out,
-                                   long long N, int L, int T, int F,
-                                   int include_xyz, float xyz_scale,
-                                   float xyz_offset, void* stream) {
+// The forward for a float32 or a bf16 table.
+template <typename E>
+int encode_fwd(const E* table, const float* x, const float* scales,
+               const int* res, const float* level_mask, float* out,
+               long long N, int L, int T, int F, int include_xyz,
+               float xyz_scale, float xyz_offset, void* stream) {
   // the tile's shared memory holds L <= 32 levels and rows of L * F <= 64
   // features; a level's table has a power-of-two number of rows (the hash
   // mask), at least one aligned pair
   if (F < 1 || F > 4 || L < 1 || L > KA_MAX_L || L * F > KA_MAX_LF || T < 2 ||
       (T & (T - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  // the float4 pair loads and stores
-  if ((reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out))
-      & 15)
+  // the pair loads (16 bytes in float32, 8 in bf16) and the float4 stores
+  if ((reinterpret_cast<uintptr_t>(table) & (4 * sizeof(E) - 1)) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorMisalignedAddress;
   if (N <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (F) {
-    case 1: return launch_encode<1>(table, x, scales, res, level_mask, out,
-                                    N, L, T, include_xyz, xyz_scale,
-                                    xyz_offset, s);
-    case 2: return launch_encode<2>(table, x, scales, res, level_mask, out,
-                                    N, L, T, include_xyz, xyz_scale,
-                                    xyz_offset, s);
-    case 3: return launch_encode<3>(table, x, scales, res, level_mask, out,
-                                    N, L, T, include_xyz, xyz_scale,
-                                    xyz_offset, s);
-    default: return launch_encode<4>(table, x, scales, res, level_mask, out,
-                                     N, L, T, include_xyz, xyz_scale,
-                                     xyz_offset, s);
+    case 1: return launch_encode<1, E>(table, x, scales, res, level_mask, out,
+                                       N, L, T, include_xyz, xyz_scale,
+                                       xyz_offset, s);
+    case 2: return launch_encode<2, E>(table, x, scales, res, level_mask, out,
+                                       N, L, T, include_xyz, xyz_scale,
+                                       xyz_offset, s);
+    case 3: return launch_encode<3, E>(table, x, scales, res, level_mask, out,
+                                       N, L, T, include_xyz, xyz_scale,
+                                       xyz_offset, s);
+    default: return launch_encode<4, E>(table, x, scales, res, level_mask,
+                                        out, N, L, T, include_xyz, xyz_scale,
+                                        xyz_offset, s);
   }
+}
+
+extern "C" int hashgrid_encode_fwd(const float* table, const float* x,
+                                   const float* scales, const int* res,
+                                   const float* level_mask, float* out,
+                                   long long N, int L, int T, int F,
+                                   int include_xyz, float xyz_scale,
+                                   float xyz_offset, void* stream) {
+  return encode_fwd(table, x, scales, res, level_mask, out, N, L, T, F,
+                    include_xyz, xyz_scale, xyz_offset, stream);
+}
+
+// The bf16-row form: `table` holds bf16 entries.
+extern "C" int hashgrid_encode_fwd_bf16(const void* table, const float* x,
+                                        const float* scales, const int* res,
+                                        const float* level_mask, float* out,
+                                        long long N, int L, int T, int F,
+                                        int include_xyz, float xyz_scale,
+                                        float xyz_offset, void* stream) {
+  return encode_fwd(static_cast<const __nv_bfloat16*>(table), x, scales, res,
+                    level_mask, out, N, L, T, F, include_xyz, xyz_scale,
+                    xyz_offset, stream);
 }

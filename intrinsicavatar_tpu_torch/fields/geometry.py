@@ -3,7 +3,10 @@
 MLP; channel 0 of the output is the SDF.  The analytic SDF gradient runs
 through the fused kernel KB (``ops/encode_grad.py``), whose backward KB'
 keeps the training loss's gradient of the gradient first-order; the
-curvature proxy is the PermutoSDF tangent-perturbation angle."""
+curvature proxy is the PermutoSDF tangent-perturbation angle.  Inside a
+bf16 compute scope (``ops/precision.py``) the encodes and the MLP read the
+scope themselves: :meth:`VolumeSDF.features`, :meth:`sdf_grad_feature` and
+:meth:`tangent_laplace` then gather bf16 rows and multiply bf16 operands."""
 
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """Default radiance field (counterpart of the JAX package's
 ``fields/radiance.py`` ``VolumeRefDirRadiance``): its own progressive hash
 grid over canonical xyz (kernel KA) + SH(4) of the reflected view direction
-with a progressive band mask."""
+with a progressive band mask.  Inside a bf16 compute scope the encode
+gathers bf16 rows (KA's bf16-row form) and the MLP multiplies bf16
+operands (``ops/precision.py``)."""
 
 from __future__ import annotations
 

@@ -41,10 +41,15 @@ SIGNATURES = {
     "hashgrid": {
         "hashgrid_encode_fwd": (
             P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, F32, P),
+        "hashgrid_encode_fwd_bf16": (
+            P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, F32, P),
         "hashgrid_encode_bwd": (
             P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, F32, P)},
     "encode_grad": {
         "encode_mlp_sdfgrad_fwd": (
+            P, P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
+            I32, I32, I32, F32, F32, P),
+        "encode_mlp_sdfgrad_fwd_bf16": (
             P, P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32,
             I32, I32, I32, F32, F32, P),
         "encode_mlp_sdfgrad_bwd_gather": (

@@ -21,8 +21,10 @@ the physically based maps are rendered) and a train run
 :func:`train_config` (the same model, 4096 rays per step); a ``--config``
 YAML is merged onto the default config (validate, test, predict; eval step
 5000, or 25,000 for test and predict, unless ``trainer.eval_step`` says
-otherwise; in float32, said on stderr, since the bf16 scopes are not ported)
-or onto :func:`train_config` (train).  An eval run at a step
+otherwise) or onto :func:`train_config` (train).  Every mode runs at the JAX
+package's default precision (the shading pass and the queried secondary
+coarse pass in the bf16 scope); ``model.primary_dtype=float32`` and
+``model.secondary_coarse_dtype=float32`` select the exact path.  An eval run at a step
 from ``model.phys_kick_in_step`` (10,000) on renders the PBR maps; a test
 run whose frames carry an ``albedo`` fits the albedo alignment ratio first.
 Every eval frame bakes its seed grid once (``model.eval_seed_grid``, on by
@@ -198,14 +200,6 @@ def build_config(mode: str, config=None, overrides=()):
     if config:
         cfg = merge(train_config() if train else default_config(),
                     load_yaml(config))
-        if not train:
-            # the bf16 scopes are not ported: the YAML's model runs in
-            # float32 (an explicit override to bfloat16 still raises)
-            cfg = merge(cfg, {"model": {"primary_dtype": "float32",
-                                        "secondary_coarse_dtype": "float32"}})
-            print("--config: the bf16 scopes are not ported yet; this run "
-                  "sets model.primary_dtype=float32 and "
-                  "model.secondary_coarse_dtype=float32", file=sys.stderr)
     if overrides:
         cfg = apply_dotlist(cfg, list(overrides))
     return resolve(cfg)

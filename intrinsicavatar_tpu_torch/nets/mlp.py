@@ -3,7 +3,9 @@ and weight normalization, and the material head's ``LipschitzMLP``
 (counterpart of the JAX package's ``nets/mlp.py``).
 
 Weights are stored ``[in, out]`` as in JAX, so the parameter tree carries
-over unchanged (``weights.from_jax_params``).
+over unchanged (``weights.from_jax_params``).  ``VanillaMLP``'s products
+honor the scoped compute dtype (``ops/precision.py``, :func:`matmul`);
+``LipschitzMLP`` stays float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +15,50 @@ import math
 import torch
 from torch import nn
 
+from intrinsicavatar_tpu_torch.ops import precision
 from intrinsicavatar_tpu_torch.ops.math import get_activation
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the scoped compute dtype (the JAX ``_matmul``,
+    ``nets/mlp.py:29-37``).  Inside a bf16 scope both operands are rounded
+    to bf16 and multiplied with float32 accumulation and a float32 result:
+    on the card by one bf16 GEMM with a float32 output (``torch.mm``'s
+    ``out_dtype``: one cast an operand, where a float32 GEMM of the rounded
+    operands takes two and reads twice the bytes; PERF.md, PR 17), on the
+    CPU by a float32 GEMM of the rounded operands (a bf16 x bf16 product is
+    exact in float32, so both are JAX's dot up to summation order).  The
+    cotangents of ``x`` and ``w`` are rounded to bf16, as JAX's transposes
+    of the scoped dot round them (autograd does so at the casts)."""
+    d = precision.current_dtype()
+    if d is None:
+        return x @ w
+    if x.is_cuda:
+        return _LowMatmul.apply(x, w, d)
+    return x.to(d).to(torch.float32) @ w.to(d).to(torch.float32)
+
+
+class _LowMatmul(torch.autograd.Function):
+    """``x @ w`` with both operands rounded to ``dtype`` by one GEMM with a
+    float32 result; the backward's cotangents are float32 products rounded
+    to ``dtype``, as the JAX transposes of the scoped dot compute them."""
+
+    @staticmethod
+    def forward(ctx, x, w, dtype):
+        xl, wl = x.to(dtype), w.to(dtype)
+        ctx.save_for_backward(xl, wl)
+        return torch.mm(xl, wl, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        xl, wl = ctx.saved_tensors
+        f32 = torch.float32
+        d_x = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_x = (ct @ wl.to(f32).T).to(xl.dtype).to(f32)
+        if ctx.needs_input_grad[1]:
+            d_w = (xl.to(f32).T @ ct).to(wl.dtype).to(f32)
+        return d_x, d_w, None
 
 
 def softplus100(x: torch.Tensor) -> torch.Tensor:
@@ -103,29 +148,30 @@ class VanillaMLP(nn.Module):
     def forward(self, x):
         ws = self.effective_weights()
         for i, (w, b) in enumerate(ws):
-            x = x @ w + b
+            x = matmul(x, w) + b
             if i < len(ws) - 1:
                 x = self.act(x)
         return self.output_activation(x)
 
     def value_and_input_grad(self, x, out_channel: int = 0, weights=None):
         """Forward pass + d out[..., out_channel] / d input by manual
-        backprop.  Returns ``(out [N, dim_out], grad [N, dim_in])``."""
+        backprop (its products in the scoped compute dtype, as the
+        forward's).  Returns ``(out [N, dim_out], grad [N, dim_in])``."""
         ws = self.effective_weights() if weights is None else weights
         z = x
         pre = []
         for w, b in ws[:-1]:
-            h = z @ w + b
+            h = matmul(z, w) + b
             pre.append(h)
             z = self.act(h)
-        out = z @ ws[-1][0] + ws[-1][1]
+        out = matmul(z, ws[-1][0]) + ws[-1][1]
         g = ws[-1][0][:, out_channel][None, :].expand(x.shape[0], -1)
         for i in range(len(ws) - 2, -1, -1):
             if self.sphere_init:
                 dact = torch.sigmoid(100.0 * pre[i])
             else:
                 dact = (pre[i] > 0).to(x.dtype)
-            g = (g * dact) @ ws[i][0].T
+            g = matmul(g * dact, ws[i][0].T)
         return self.output_activation(out), g
 
     def pair_vjp(self, x, weights, g_out, g_grad, out_channel: int = 0):

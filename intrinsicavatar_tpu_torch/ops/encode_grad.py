@@ -14,6 +14,12 @@ KB' (``csrc/encode_grad.cu``); CPU tensors take the plain twins
 :func:`encode_mlp_sdfgrad_plain`, :func:`encode_mlp_sdfgrad_bwd_gather_plain`
 and :func:`encode_mlp_sdfgrad_bwd_scatter_plain`.  The Function takes the
 MLP's effective weights, so weight normalization chains through autograd.
+
+Inside a bf16 compute scope (``ops/precision.py``) the forward gathers bf16
+rows of the table rounded once per version and runs the MLP's products on
+bf16 operands with float32 accumulation (KB's bf16 form, or the twin on the
+rounded table under the scope); the backward runs in float32 on the float32
+table, as the JAX custom VJP's backward is traced outside the scope.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from intrinsicavatar_tpu_torch import kernels
+from intrinsicavatar_tpu_torch.ops import precision
 from intrinsicavatar_tpu_torch.ops.hashgrid import (
     HashGridSpec, corner_rows, corner_weight_grads, corner_weights,
     level_coords, level_tensors,
@@ -34,7 +41,9 @@ _SGN = [[2.0 * ((k >> s) & 1) - 1.0 for k in range(8)] for s in (2, 1, 0)]
 def encode_mlp_sdfgrad_plain(spec: HashGridSpec, mlp, table, xn, level_mask,
                              weights=None):
     """Plain twin of kernel KB: ``(feat [N, d_out], grad [N, 3])`` with
-    ``grad = d feat[:, 0] / d xn`` from the same gathered rows."""
+    ``grad = d feat[:, 0] / d xn`` from the same gathered rows.  A bf16 table
+    gives KB's bf16 form, with the MLP's products in the scoped compute
+    dtype (call it inside the scope)."""
     N = xn.shape[0]
     L, T, F = table.shape
     cache, parts = [], []
@@ -42,7 +51,8 @@ def encode_mlp_sdfgrad_plain(spec: HashGridSpec, mlp, table, xn, level_mask,
         s = float(spec.scales[lvl])
         r = int(spec.resolutions[lvl])
         c0, f = zip(*(level_coords(xn[:, a], s) for a in range(3)))
-        rows = table[lvl][corner_rows(c0, r, bool(spec.dense_levels[lvl]), T)]
+        rows = table[lvl][corner_rows(c0, r, bool(spec.dense_levels[lvl]),
+                                      T)].to(xn.dtype)
         w8 = corner_weights(f)
         parts.append(torch.einsum("nk,nkf->nf", w8, rows))
         cache.append((s, rows, f))
@@ -145,7 +155,8 @@ def encode_mlp_sdfgrad_bwd_scatter_plain(spec: HashGridSpec, table, xn,
     return d_table, d_xn
 
 
-def _check(spec: HashGridSpec, table, xn, level_mask, g_grad=None):
+def _check(spec: HashGridSpec, table, xn, level_mask, g_grad=None,
+           table_dtype=torch.float32):
     dev = xn.device
     L, T, F = table.shape
     N = xn.shape[0]
@@ -153,7 +164,7 @@ def _check(spec: HashGridSpec, table, xn, level_mask, g_grad=None):
                      spec.n_features_per_level) or L * F > 32 or F > 4:
         raise ValueError(f"table shape {tuple(table.shape)} does not match "
                          f"the spec (or L*F > 32, F > 4)")
-    kernels.require(table, "table", torch.float32, dev, (L, T, F))
+    kernels.require(table, "table", table_dtype, dev, (L, T, F))
     kernels.require(xn, "xn", torch.float32, dev, (N, 3))
     kernels.require(level_mask, "level_mask", torch.float32, dev, (L * F,))
     if g_grad is not None:
@@ -217,9 +228,13 @@ def encode_mlp_sdfgrad_bwd_scatter(spec: HashGridSpec, table, xn,
 
 
 def _launch_fwd(spec: HashGridSpec, mlp, table, xn, level_mask, weights):
+    """KB, or its bf16 form ``encode_mlp_sdfgrad_bf16`` for a bf16 table."""
     if len(weights) != 2 or not mlp.sphere_init:
         raise ValueError("kernel KB takes a one-hidden-layer sphere-init MLP")
-    dev, N, L, T, F = _check(spec, table, xn, level_mask)
+    low = table.dtype == torch.bfloat16
+    dev, N, L, T, F = _check(spec, table, xn, level_mask,
+                             table_dtype=torch.bfloat16 if low
+                             else torch.float32)
     (W1, b1), (W2, b2) = [(w.contiguous(), b.contiguous())
                           for w, b in weights]
     d_in, hidden = W1.shape
@@ -232,31 +247,36 @@ def _launch_fwd(spec: HashGridSpec, mlp, table, xn, level_mask, weights):
     scales, res = level_tensors(spec, dev)
     feat = torch.empty((N, d_out), dtype=torch.float32, device=dev)
     grad = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    err = kernels.lib("encode_grad").encode_mlp_sdfgrad_fwd(
+    fn = "encode_mlp_sdfgrad_fwd_bf16" if low else "encode_mlp_sdfgrad_fwd"
+    err = getattr(kernels.lib("encode_grad"), fn)(
         table.data_ptr(), xn.data_ptr(), scales.data_ptr(), res.data_ptr(),
         level_mask.data_ptr(), W1.data_ptr(), b1.data_ptr(), W2.data_ptr(),
         b2.data_ptr(), feat.data_ptr(), grad.data_ptr(), N, L, T, F,
         int(spec.include_xyz), d_in, hidden, d_out, float(spec.xyz_scale),
         float(spec.xyz_offset), kernels.stream_ptr(dev))
-    kernels.check(err, "encode_mlp_sdfgrad")
-    kernels.launches["encode_mlp_sdfgrad"] += 1
+    name = "encode_mlp_sdfgrad_bf16" if low else "encode_mlp_sdfgrad"
+    kernels.check(err, name)
+    kernels.launches[name] += 1
     return feat, grad
 
 
 class _EncodeMLPSDFGrad(torch.autograd.Function):
     """``(table, xn, W1, b1, ..., Wn, bn) -> (feat, grad)`` with the
     closed-form backward of the JAX ``_bwd``; the level mask is a function
-    of the step only and gets no gradient."""
+    of the step only and gets no gradient.  ``low`` is the table in the
+    scope's compute dtype (None outside a scope): the forward gathers its
+    rows; the backward runs in float32 on ``table``."""
 
     @staticmethod
-    def forward(ctx, spec, mlp, level_mask, table, xn, *flat_w):
+    def forward(ctx, spec, mlp, level_mask, low, table, xn, *flat_w):
         weights = list(zip(flat_w[0::2], flat_w[1::2]))
         ctx.spec, ctx.mlp = spec, mlp
         ctx.save_for_backward(level_mask, table, xn, *flat_w)
+        src = table if low is None else low
         if xn.device.type == "cpu":
-            return encode_mlp_sdfgrad_plain(spec, mlp, table, xn,
+            return encode_mlp_sdfgrad_plain(spec, mlp, src, xn,
                                             level_mask, weights)
-        return _launch_fwd(spec, mlp, table, xn, level_mask, weights)
+        return _launch_fwd(spec, mlp, src, xn, level_mask, weights)
 
     @staticmethod
     @once_differentiable
@@ -265,16 +285,17 @@ class _EncodeMLPSDFGrad(torch.autograd.Function):
         spec = ctx.spec
         weights = list(zip(flat_w[0::2], flat_w[1::2]))
         g_grad = g_grad.contiguous()
-        enc, g_genc_cot = encode_mlp_sdfgrad_bwd_gather(
-            spec, table, xn, level_mask, g_grad)
-        d_w, d_enc, g_enc = ctx.mlp.pair_vjp(enc, weights,
-                                             g_feat.contiguous(), g_genc_cot)
-        need_x = ctx.needs_input_grad[4]
-        d_table, d_xn = encode_mlp_sdfgrad_bwd_scatter(
-            spec, table, xn, level_mask, g_grad, d_enc.contiguous(),
-            g_enc.contiguous(), need_x)
-        return (None, None, None,
-                d_table if ctx.needs_input_grad[3] else None, d_xn,
+        with precision.scope(None):
+            enc, g_genc_cot = encode_mlp_sdfgrad_bwd_gather(
+                spec, table, xn, level_mask, g_grad)
+            d_w, d_enc, g_enc = ctx.mlp.pair_vjp(
+                enc, weights, g_feat.contiguous(), g_genc_cot)
+            need_x = ctx.needs_input_grad[5]
+            d_table, d_xn = encode_mlp_sdfgrad_bwd_scatter(
+                spec, table, xn, level_mask, g_grad, d_enc.contiguous(),
+                g_enc.contiguous(), need_x)
+        return (None, None, None, None,
+                d_table if ctx.needs_input_grad[4] else None, d_xn,
                 *[d for pair in d_w for d in pair])
 
 
@@ -285,10 +306,14 @@ def encode_mlp_sdfgrad(spec: HashGridSpec, mlp, table, xn, level_mask=None):
 
     CPU tensors take the plain twins; CUDA tensors launch kernel KB, which
     takes a one-hidden-layer sphere-init (Softplus(100)) MLP, and KB' in the
-    backward.
+    backward.  Inside a bf16 scope the forward is KB's bf16 form on the
+    table rounded to bf16 (:func:`precision.cast_table`).
     """
     L, T, F = table.shape
     if level_mask is None:
         level_mask = torch.ones(L * F, dtype=xn.dtype, device=xn.device)
     flat_w = [t for w, b in mlp.effective_weights() for t in (w, b)]
-    return _EncodeMLPSDFGrad.apply(spec, mlp, level_mask, table, xn, *flat_w)
+    low = precision.cast_table(table)
+    return _EncodeMLPSDFGrad.apply(spec, mlp, level_mask,
+                                   None if low is table else low, table, xn,
+                                   *flat_w)

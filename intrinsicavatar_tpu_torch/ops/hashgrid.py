@@ -6,6 +6,12 @@ is differentiable in the table and the points (the JAX custom VJP,
 KA and its backward kernel KA' (both ``csrc/hashgrid.cu``); CPU tensors take
 the plain twins :func:`hashgrid_encode_plain` and
 :func:`hashgrid_encode_bwd_plain`.
+
+Inside a bf16 compute scope (``ops/precision.py``) the forward gathers bf16
+rows of the table rounded once per version (KA's bf16-row form, or the twin
+on the rounded table); the blend and the output stay float32, and the
+backward stays float32 on the float32 table, as the JAX custom VJP's
+backward runs outside the scope.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from intrinsicavatar_tpu_torch import kernels
+from intrinsicavatar_tpu_torch.ops import precision
 
 # tcnn's spatial hash primes (instant-ngp, Mueller et al. 2022)
 _PRIMES = (1, 2654435761, 805459861)
@@ -128,7 +135,9 @@ def corner_weights(f):
 
 
 def hashgrid_encode_plain(table, x, spec: HashGridSpec, level_mask=None):
-    """Plain PyTorch twin of kernel KA (the JAX ``hashgrid_encode_raw``)."""
+    """Plain PyTorch twin of kernel KA (the JAX ``hashgrid_encode_raw``); a
+    bf16 table gives its bf16-row form (rows widened to float32 before the
+    blend, as JAX promotes them)."""
     L, T, F = table.shape
     outs = []
     for lvl in range(L):
@@ -137,7 +146,7 @@ def hashgrid_encode_plain(table, x, spec: HashGridSpec, level_mask=None):
         c0, f = zip(*(level_coords(x[:, a], s) for a in range(3)))
         rows = corner_rows(c0, r, bool(spec.dense_levels[lvl]), T)
         w = corner_weights(f)
-        feats = table[lvl][rows]                        # [N, 8, F]
+        feats = table[lvl][rows].to(x.dtype)            # [N, 8, F]
         acc = torch.zeros((x.shape[0], F), dtype=x.dtype, device=x.device)
         for k in range(8):
             acc = acc + feats[:, k] * w[:, k, None]
@@ -202,7 +211,8 @@ def hashgrid_encode_bwd_plain(table, x, spec: HashGridSpec, g,
     return d_table, d_x
 
 
-def _check(table, x, spec: HashGridSpec, level_mask):
+def _check(table, x, spec: HashGridSpec, level_mask,
+           table_dtype=torch.float32):
     """Shape, dtype, device and layout checks before a launch; returns
     ``(device, N, L, T, F)``."""
     dev = x.device
@@ -212,7 +222,7 @@ def _check(table, x, spec: HashGridSpec, level_mask):
                      spec.n_features_per_level) or F > 4:
         raise ValueError(f"table shape {tuple(table.shape)} does not match "
                          f"the spec (or F > 4)")
-    kernels.require(table, "table", torch.float32, dev, (L, T, F))
+    kernels.require(table, "table", table_dtype, dev, (L, T, F))
     kernels.require(x, "x", torch.float32, dev, (N, 3))
     if level_mask is not None:
         kernels.require(level_mask, "level_mask", torch.float32, dev, (L * F,))
@@ -220,18 +230,23 @@ def _check(table, x, spec: HashGridSpec, level_mask):
 
 
 def _launch_fwd(table, x, spec: HashGridSpec, level_mask):
-    dev, N, L, T, F = _check(table, x, spec, level_mask)
+    """KA, or its bf16-row form ``hashgrid_encode_bf16`` for a bf16 table."""
+    low = table.dtype == torch.bfloat16
+    dev, N, L, T, F = _check(table, x, spec, level_mask,
+                             torch.bfloat16 if low else torch.float32)
     scales, res = level_tensors(spec, dev)
     out = torch.empty((N, spec.n_output_dims), dtype=torch.float32,
                       device=dev)
-    err = kernels.lib("hashgrid").hashgrid_encode_fwd(
+    fn = "hashgrid_encode_fwd_bf16" if low else "hashgrid_encode_fwd"
+    err = getattr(kernels.lib("hashgrid"), fn)(
         table.data_ptr(), x.data_ptr(), scales.data_ptr(), res.data_ptr(),
         level_mask.data_ptr() if level_mask is not None else None,
         out.data_ptr(), N, L, T, F, int(spec.include_xyz),
         float(spec.xyz_scale), float(spec.xyz_offset),
         kernels.stream_ptr(dev))
-    kernels.check(err, "hashgrid_encode")
-    kernels.launches["hashgrid_encode"] += 1
+    name = "hashgrid_encode_bf16" if low else "hashgrid_encode"
+    kernels.check(err, name)
+    kernels.launches[name] += 1
     return out
 
 
@@ -265,15 +280,18 @@ def hashgrid_encode_bwd(table, x, spec: HashGridSpec, g, level_mask=None,
 
 class _HashgridEncode(torch.autograd.Function):
     """The encode with its closed-form backward; the level mask is a
-    function of the step only and gets no gradient."""
+    function of the step only and gets no gradient.  ``low`` is the table
+    in the scope's compute dtype (None outside a scope): the forward
+    gathers its rows, the backward uses the float32 ``table``."""
 
     @staticmethod
-    def forward(ctx, table, x, spec, level_mask):
+    def forward(ctx, table, x, spec, level_mask, low):
         ctx.spec = spec
         ctx.save_for_backward(table, x, level_mask)
+        src = table if low is None else low
         if x.device.type == "cpu":
-            return hashgrid_encode_plain(table, x, spec, level_mask)
-        return _launch_fwd(table, x, spec, level_mask)
+            return hashgrid_encode_plain(src, x, spec, level_mask)
+        return _launch_fwd(src, x, spec, level_mask)
 
     @staticmethod
     @once_differentiable
@@ -281,17 +299,20 @@ class _HashgridEncode(torch.autograd.Function):
         table, x, level_mask = ctx.saved_tensors
         need_table, need_x = ctx.needs_input_grad[:2]
         if not (need_table or need_x):
-            return None, None, None, None
+            return None, None, None, None, None
         d_table, d_x = hashgrid_encode_bwd(table, x, ctx.spec,
                                            g.contiguous(), level_mask,
                                            need_x)
-        return (d_table if need_table else None), d_x, None, None
+        return (d_table if need_table else None), d_x, None, None, None
 
 
 def hashgrid_encode(table, x, spec: HashGridSpec, level_mask=None):
     """Encode points ``x in [0,1]^3`` -> ``[N, n_output_dims]`` features.
 
     CPU tensors take the plain twins; CUDA tensors launch kernel KA (and
-    KA' in the backward).
+    KA' in the backward).  Inside a bf16 scope the forward gathers the rows
+    of the table rounded to bf16 (:func:`precision.cast_table`).
     """
-    return _HashgridEncode.apply(table, x, spec, level_mask)
+    low = precision.cast_table(table)
+    return _HashgridEncode.apply(table, x, spec, level_mask,
+                                 None if low is table else low)

@@ -21,7 +21,9 @@ training gradients reach the materials and normals through
 ``scatterer.eval``, the emitter through its radiance, and the primary
 weights through the Monte-Carlo weights and the kd/ks composition.  Its
 randomness comes through ``draws`` (see :func:`pbr_forward`) or from a
-``torch.Generator``.  The bf16 scopes are not ported yet.
+``torch.Generator``.  The queried secondary coarse pass runs in the
+``secondary_coarse_dtype`` compute scope (bf16 by default, as in JAX), the
+fine shading query in ``secondary_fine_dtype`` (float32 by default).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from intrinsicavatar_tpu_torch.ops import precision
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
 from intrinsicavatar_tpu_torch.ops.compact import compact_apply
@@ -100,14 +103,6 @@ def compute_indirect_radiance(model, statics, frame, cond, sched, binaries,
     if float(model.config.get("secondary_active_compaction", 0.0)):
         raise NotImplementedError(
             "secondary_active_compaction is not ported yet")
-    scopes = [("secondary_fine_dtype", "float32")]
-    if not _baked(model, seed_grid):
-        # the baked coarse pass runs no field query, so has no scope
-        scopes.append(("secondary_coarse_dtype", "bfloat16"))
-    for key, default in scopes:
-        if model.config.get(key, default) != "float32":
-            raise ValueError(f"the bf16 secondary scopes are not ported "
-                             f"yet: set model.{key}=float32")
     M = rays_o.shape[0]
     chunk = int(model.config.get("secondary_shader_chunk", 32768))
     if M <= chunk:
@@ -172,11 +167,16 @@ def _indirect_impl(model, statics, frame, cond, sched, binaries, aabb,
             xc_coarse = xc_coarse.reshape(M, S, 3)
             ok_coarse = ok_full.reshape(M, S) & smask
         else:
-            out = model._deform_query(
-                statics, frame, cond, pos, sched, with_grad=False,
-                global_step=step, mask=smask.reshape(-1), mask2d=smask,
-                budget=budget, counters=counters,
-                seed=model._grid_seed(seed_grid, pos), seed_iters=s_iters)
+            # it only places the fine samples: the secondary coarse scope
+            # (bf16 by default; the baked pass above runs no field query)
+            with precision.scope(model.config.get("secondary_coarse_dtype",
+                                                  "bfloat16")):
+                out = model._deform_query(
+                    statics, frame, cond, pos, sched, with_grad=False,
+                    global_step=step, mask=smask.reshape(-1), mask2d=smask,
+                    budget=budget, counters=counters,
+                    seed=model._grid_seed(seed_grid, pos),
+                    seed_iters=s_iters)
             sdf = out[1].reshape(M, S)
             xc_coarse = out[0].reshape(M, S, 3)
             ok_coarse = out[2].reshape(M, S) & smask
@@ -215,20 +215,24 @@ def _indirect_impl(model, statics, frame, cond, sched, binaries, aabb,
     elif seed_grid is not None:
         seed = model._grid_seed(seed_grid, pos)
         fine_iters = s_iters
-    out = model._deform_query(
-        statics, frame, cond, pos, sched, with_grad=True, global_step=step,
-        mask=smask.reshape(-1), mask2d=smask,
-        budget=secondary_budget(model, smask, fine=importance,
-                                boost=flags.budget_boost),
-        counters=counters, seed=seed, seed_iters=fine_iters)
-    pos_cano, sdf, _, sdf_grad, _, feat = out[:6]
-    rigid = model.deformer.rigid
-    normal_world = rigid.transform_dirs_s2w(frame, sdf_grad)
-    dirs_world = rigid.transform_dirs_s2w(
-        frame, torch.repeat_interleave(rays_d, Sf, dim=0))
-    rgbs, _ = model.radiance(pos_cano, feat, dirs_world, normal_world,
-                             level_mask=sched["rad_mask"],
-                             sh_mask=sched["sh_mask"])
+    # the fine shading query and its radiance: the secondary fine scope
+    # (float32 by default)
+    with precision.scope(model.config.get("secondary_fine_dtype",
+                                          "float32")):
+        out = model._deform_query(
+            statics, frame, cond, pos, sched, with_grad=True,
+            global_step=step, mask=smask.reshape(-1), mask2d=smask,
+            budget=secondary_budget(model, smask, fine=importance,
+                                    boost=flags.budget_boost),
+            counters=counters, seed=seed, seed_iters=fine_iters)
+        pos_cano, sdf, _, sdf_grad, _, feat = out[:6]
+        rigid = model.deformer.rigid
+        normal_world = rigid.transform_dirs_s2w(frame, sdf_grad)
+        dirs_world = rigid.transform_dirs_s2w(
+            frame, torch.repeat_interleave(rays_d, Sf, dim=0))
+        rgbs, _ = model.radiance(pos_cano, feat, dirs_world, normal_world,
+                                 level_mask=sched["rad_mask"],
+                                 sh_mask=sched["sh_mask"])
     alphas = model.get_alpha(sdf, (t_ends - t_starts).reshape(-1),
                              step).reshape(-1, Sf)
     w, _ = V.render_weight_from_alpha(alphas.contiguous(),

@@ -22,8 +22,12 @@ At eval a per-frame seed grid (:meth:`IntrinsicAvatar.bake_seed_grid`,
 importance rounds' SDF from its gather (kernel KM, ``baked_importance``) and
 seeds the shading pass's inverse skinning, polished by kernel KL for
 ``seed_grid_polish_iters`` in place of the multi-init search;
-``eval_seed_grid: false`` gives the searched path.  The bf16 scopes come
-with a later slice.
+``eval_seed_grid: false`` gives the searched path.
+
+The shading pass runs in the ``primary_dtype`` compute scope
+(``ops/precision.py``; bf16 by default, as in JAX): hash rows gathered as
+bf16 (kernels KA and KB in their bf16-row forms) and the MLP products on
+bf16 operands with float32 accumulation.
 
 Randomness is passed in through ``draws`` (a dict; see :meth:`forward`) or
 drawn from a ``torch.Generator``, so a caller can reproduce another
@@ -39,6 +43,7 @@ import torch
 from torch import nn
 
 from intrinsicavatar_tpu_torch.anim import seedgrid as SG
+from intrinsicavatar_tpu_torch.ops import precision
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
 from intrinsicavatar_tpu_torch.ops.compact import (
@@ -52,6 +57,12 @@ from intrinsicavatar_tpu_torch.registry import make, register
 from intrinsicavatar_tpu_torch.render import pbr as PBR
 from intrinsicavatar_tpu_torch.render.occupancy import OccGridState, level_of
 from intrinsicavatar_tpu_torch.utils.diag import record
+
+
+# the compute-dtype keys of the model config and JAX's defaults
+PRECISION_KEYS = (("primary_dtype", "bfloat16"),
+                  ("secondary_coarse_dtype", "bfloat16"),
+                  ("secondary_fine_dtype", "float32"))
 
 
 class RenderFlags(NamedTuple):
@@ -98,9 +109,12 @@ class IntrinsicAvatar(nn.Module):
         self.emitter = (make(config.light.name, config.light)
                         if config.get("light") else None)
 
-        if config.get("primary_dtype", "bfloat16") != "float32":
-            raise ValueError("the bf16 primary scope is not ported yet: set "
-                             "model.primary_dtype=float32")
+        # the compute dtypes of the primary shading pass and the secondary
+        # passes (JAX's defaults; "float32" gives the exact path), read at
+        # each forward as JAX reads them at each trace: refuse any other
+        # value now
+        for key, default in PRECISION_KEYS:
+            precision.as_dtype(config.get(key, default))
         if config.get("march_concentrate", 0):
             raise ValueError("march_concentrate is not ported yet")
         self.scene_aabb = np.asarray(config.scene_aabb, np.float32)
@@ -479,77 +493,88 @@ class IntrinsicAvatar(nn.Module):
             pos_q, dirs_q = pos, dirs
             qmask = None if flags.full_budget else smask.reshape(-1)
 
-        # at eval the grid seeds the shading pass's inverse skinning
-        out = self._deform_query(statics, frame, cond, pos_q, sched,
-                                 with_grad=True, global_step=step, mask=qmask,
-                                 boost=flags.budget_boost, counters=counters,
-                                 eval_mode=not flags.training,
-                                 seed=self._grid_seed(seed_grid, pos_q),
-                                 seed_iters=self.grid_iters())
-        pos_cano, sdf, valid, sdf_grad, sdf_grad_cano, feat = out[:6]
+        # The shading pass runs in the primary compute scope (JAX's
+        # `render/renderer.py:611` block: the deformer's queries, the
+        # curvature proxy, the radiance head, the alphas and the material
+        # head with its jittered clone): bf16 gathers and MLP products with
+        # float32 accumulation by default; ``primary_dtype: float32`` is
+        # the exact path.  The test grid, the importance rounds and the
+        # seed grid's bake stay float32.
+        with precision.scope(self.config.get("primary_dtype", "bfloat16")):
+            # at eval the grid seeds the shading pass's inverse skinning
+            out = self._deform_query(
+                statics, frame, cond, pos_q, sched, with_grad=True,
+                global_step=step, mask=qmask, boost=flags.budget_boost,
+                counters=counters, eval_mode=not flags.training,
+                seed=self._grid_seed(seed_grid, pos_q),
+                seed_iters=self.grid_iters())
+            pos_cano, sdf, valid, sdf_grad, sdf_grad_cano, feat = out[:6]
 
-        # curvature on a with-replacement subsample of the shading lanes
-        # (an unbiased estimator of the per-sample mean the loss reads)
-        laplace = laplace_mask = None
-        if with_lap:
-            q_valid = valid & (spicked if use_compact else smask.reshape(-1))
-            frac_lap = float(self.config.get("curvature_subsample", 0.25))
-            nq = pos_cano.shape[0]
-            if frac_lap >= 1.0:
-                x_sub, grad_sub, laplace_mask = pos_cano, sdf_grad_cano, \
-                    q_valid
-            else:
-                nsub = min(max(int(np.ceil(nq * frac_lap / 128.0)) * 128,
-                               128), nq)
-                sub = get_draw(draws, "lap_sub",
-                               lambda g: torch.randint(0, nq, (nsub,),
-                                                       generator=g),
-                               generator, dev).to(torch.int64)
-                x_sub, grad_sub = pos_cano[sub], sdf_grad_cano[sub]
-                laplace_mask = q_valid[sub]
-            lap_u = get_draw(draws, "lap_u",
-                             lambda g: torch.rand((x_sub.shape[0], 3),
-                                                  generator=g),
-                             generator, dev)
-            laplace = self.geometry.tangent_laplace(
-                x_sub, grad_sub, sched["geo_mask"], lap_u)
-
-        dirs_world = self.deformer.rigid.transform_dirs_s2w(frame, dirs_q)
-        normal_world_q = self.deformer.rigid.transform_dirs_s2w(frame,
-                                                                sdf_grad)
-        rgbs, rgb_feat = self.radiance(pos_cano, feat, dirs_world,
-                                       normal_world_q,
-                                       level_mask=sched["rad_mask"],
-                                       sh_mask=sched["sh_mask"])
-
-        mats = mats_q = mats_jitter = jsub = None
-        if flags.enable_phys:
-            mats = self.material(self._material_features(feat, rgb_feat))
-            if albedo_align_ratio is not None:
-                # the fitted per-channel ratio aligns the albedo the relight
-                # uses (`models/intrinsic_avatar.py:1114-1115`)
-                mats = torch.cat([mats[:, :3] * albedo_align_ratio[None, :],
-                                  mats[:, 3:]], -1)
-            mats_q = mats
-            if flags.training and flags.jitter_materials:
-                # the jittered clone for the smoothness losses, on the
-                # compacted path on a with-replacement subsample of the
-                # lanes (an unbiased estimator of the means they read;
-                # `render/renderer.py:674-713` of the JAX package)
+            # curvature on a with-replacement subsample of the shading lanes
+            # (an unbiased estimator of the per-sample mean the loss reads)
+            laplace = laplace_mask = None
+            if with_lap:
+                q_valid = valid & (spicked if use_compact
+                                   else smask.reshape(-1))
+                frac_lap = float(self.config.get("curvature_subsample", 0.25))
                 nq = pos_cano.shape[0]
-                frac_j = float(self.config.get("smoothness_subsample", 0.25))
-                if use_compact and frac_j < 1.0:
-                    nsub = min(max(int(np.ceil(nq * frac_j / 128.0)) * 128,
-                                   128), nq)
-                    jsub = get_draw(draws, "jit_sub",
-                                    lambda g: torch.randint(0, nq, (nsub,),
-                                                            generator=g),
-                                    generator, dev).to(torch.int64)
-                    mats_jitter = self._jitter_materials(
-                        pos_cano[jsub], sched, draws, generator)
+                if frac_lap >= 1.0:
+                    x_sub, grad_sub, laplace_mask = pos_cano, sdf_grad_cano, \
+                        q_valid
                 else:
-                    mats_jitter = self._jitter_materials(pos_cano, sched,
-                                                         draws, generator)
+                    nsub = min(max(int(np.ceil(nq * frac_lap / 128.0)) * 128,
+                                   128), nq)
+                    sub = get_draw(draws, "lap_sub",
+                                   lambda g: torch.randint(0, nq, (nsub,),
+                                                           generator=g),
+                                   generator, dev).to(torch.int64)
+                    x_sub, grad_sub = pos_cano[sub], sdf_grad_cano[sub]
+                    laplace_mask = q_valid[sub]
+                lap_u = get_draw(draws, "lap_u",
+                                 lambda g: torch.rand((x_sub.shape[0], 3),
+                                                      generator=g),
+                                 generator, dev)
+                laplace = self.geometry.tangent_laplace(
+                    x_sub, grad_sub, sched["geo_mask"], lap_u)
+
+            dirs_world = self.deformer.rigid.transform_dirs_s2w(frame, dirs_q)
+            normal_world_q = self.deformer.rigid.transform_dirs_s2w(frame,
+                                                                    sdf_grad)
+            rgbs, rgb_feat = self.radiance(pos_cano, feat, dirs_world,
+                                           normal_world_q,
+                                           level_mask=sched["rad_mask"],
+                                           sh_mask=sched["sh_mask"])
+
+            mats = mats_q = mats_jitter = jsub = None
+            if flags.enable_phys:
+                mats = self.material(self._material_features(feat, rgb_feat))
+                if albedo_align_ratio is not None:
+                    # the fitted per-channel ratio aligns the albedo the
+                    # relight uses (`models/intrinsic_avatar.py:1114-1115`)
+                    mats = torch.cat(
+                        [mats[:, :3] * albedo_align_ratio[None, :],
+                         mats[:, 3:]], -1)
+                mats_q = mats
+                if flags.training and flags.jitter_materials:
+                    # the jittered clone for the smoothness losses, on the
+                    # compacted path on a with-replacement subsample of the
+                    # lanes (an unbiased estimator of the means they read;
+                    # `render/renderer.py:674-713` of the JAX package)
+                    nq = pos_cano.shape[0]
+                    frac_j = float(self.config.get("smoothness_subsample",
+                                                   0.25))
+                    if use_compact and frac_j < 1.0:
+                        nsub = min(max(int(np.ceil(nq * frac_j / 128.0)) * 128,
+                                       128), nq)
+                        jsub = get_draw(draws, "jit_sub",
+                                        lambda g: torch.randint(0, nq, (nsub,),
+                                                                generator=g),
+                                        generator, dev).to(torch.int64)
+                        mats_jitter = self._jitter_materials(
+                            pos_cano[jsub], sched, draws, generator)
+                    else:
+                        mats_jitter = self._jitter_materials(pos_cano, sched,
+                                                             draws, generator)
 
         n_mat = 0 if mats is None else mats.shape[-1]
         pack_jitter = mats_jitter is not None and jsub is None

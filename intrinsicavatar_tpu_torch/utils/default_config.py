@@ -308,16 +308,16 @@ def tiny_config(dataset_length: int = 4) -> ConfigNode:
 def serve_config() -> ConfigNode:
     """The eval render this package serves: the default model at its
     published widths, rendered at step 5000 (importance sampling on, PBR
-    off), on the seeded synthetic body and dataset, in float32 (the
-    secondary coarse pass's too, where it is queried at eval steps with
-    PBR), with the default eval seed grid (a 96^3 bake per frame; set
-    ``model.eval_seed_grid=false`` for the searched path).  Built in Python
-    so that no YAML parser is needed to run it."""
+    off), on the seeded synthetic body and dataset, at the JAX package's
+    default precision (the shading pass in the bf16 scope, and the
+    secondary coarse pass where it is queried at eval steps with PBR;
+    ``model.primary_dtype=float32`` for the exact path), with the default
+    eval seed grid (a 96^3 bake per frame; set ``model.eval_seed_grid=false``
+    for the searched path).  Built in Python so that no YAML parser is
+    needed to run it."""
     cfg = default_config()
     return merge(cfg, {
         "dataset": {"name": "synthetic", "n_rays": 16384, "n_frames": 2},
-        "model": {"primary_dtype": "float32",
-                  "secondary_coarse_dtype": "float32"},
         "trainer": {"eval_step": 5000},
     })
 
@@ -335,11 +335,12 @@ def relight_config() -> ConfigNode:
 def train_config() -> ConfigNode:
     """The training this package runs: the default model at its published
     widths on the seeded synthetic body and dataset, 4096 rays per step
-    (the published sampler's ``num_sample``), in float32 (the phys
-    regime's secondary coarse pass too) and without the eval seed grid."""
+    (the published sampler's ``num_sample``), at the JAX package's default
+    precision (the shading pass and the phys regime's secondary coarse
+    pass in the bf16 scope, their backward in float32 where JAX's is) and
+    without the eval seed grid."""
     cfg = default_config()
     return merge(cfg, {
         "dataset": {"name": "synthetic", "n_rays": 4096, "n_frames": 8},
-        "model": {"eval_seed_grid": False, "primary_dtype": "float32",
-                  "secondary_coarse_dtype": "float32"},
+        "model": {"eval_seed_grid": False},
     })

@@ -47,12 +47,17 @@ published widths (16 levels x 2 features, 2^19 tables, base 16, scale
 - KA at 1,179,648 ray-ordered points (4,096 rays x 288 samples, the serve
   path's largest call), 552,960 uniform random points (KB's shape below)
   and 65,536 ray-ordered points (1,024 rays x 64 samples, a relight fine
-  pass), held to its twin within 1e-6 + 1e-5 max|ref|;
+  pass), held to its twin within 1e-6 + 1e-5 max|ref|; then its bf16-row
+  form (``hashgrid_encode_bf16``) in the bf16 scope at the same inputs,
+  held to the twin on the same bf16 table as tightly;
 - KB at 552,960 points (the searched shading query of a 4,096-ray chunk)
   and 65,536 (a relight fine pass), a 35 -> 64 -> 13 sphere-init MLP with
   noise on every weight (the init zeroes the first layer's rows of the
   hash features), held within 1e-4 of max(1, |feat|, |grad|), and KA on
-  the same points;
+  the same points; then its bf16 form (``encode_mlp_sdfgrad_bf16``) in
+  the bf16 scope at the same inputs, held to the twin in the scope within
+  one bf16 ulp (2^-8) of that scale, and KA's bf16-row form beside it
+  (the bf16 forms are skipped for a ``--port-root`` without the scope);
 - the KH epilogue (I = 8 inits, K = 4 kept) at 6,291,456 lanes (a serve
   chunk's search), 2,097,152 (the phys step's searched secondary coarse
   call, 262,144 points) and 524,288 (the bake's last chunk): lanes with
@@ -192,6 +197,7 @@ kernel's registers, stack frame and spills from ``ptxas``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -454,6 +460,28 @@ def diff_digests(path_a, path_b):
     return int(len(a) != len(b))
 
 
+def forms(name):
+    """``[(kernel name, scope)]``: the float32 form of KA or KB (``name``)
+    and, where the port has the compute scope (``ops/precision.py``; a
+    parent's may not), its bf16-row form inside the bf16 scope."""
+    out = [(name, contextlib.nullcontext)]
+    try:
+        from intrinsicavatar_tpu_torch.ops import precision as P
+    except ImportError:
+        return out
+    return out + [(name + "_bf16", lambda: P.scope("bfloat16"))]
+
+
+def low(table):
+    """The table as the active scope's forward reads it (its bf16 rounding
+    in a bf16 scope)."""
+    try:
+        from intrinsicavatar_tpu_torch.ops.precision import cast_table
+    except ImportError:
+        return table
+    return cast_table(table)
+
+
 def time_ka(torch, dev, report, failed):
     """KA at the serve path's largest call, on uniform random points and at
     a relight fine pass."""
@@ -471,25 +499,26 @@ def time_ka(torch, dev, report, failed):
             device=dev)),
         ("ray-ordered", ka_points(torch, dev, 1024, 64, 5)))
     for order, x in shapes:
-        with torch.no_grad():
-            out = HG.hashgrid_encode(table, x, spec, mask)
-            ref = HG.hashgrid_encode_plain(table, x, spec, mask)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            tol = 1e-6 + 1e-5 * ref.abs().max().item()
-            if not err <= tol:
-                print(f"kernel_timing: KA disagrees at {x.shape[0]} "
-                      f"{order} points: {err}", flush=True)
-                failed.append(f"hashgrid_encode at {x.shape[0]}")
-            digest = digest_of([out])
-            del out, ref
-            ev, dv, hu = timings(
-                lambda: HG.hashgrid_encode(table, x, spec, mask),
-                "hashgrid_encode_kernel")
-        report({"kernel": "hashgrid_encode", "points": x.shape[0],
-                "order": order, "max_abs_err": err, "tolerance": tol,
-                "digest": digest, "event_ms": ev, "device_ms": dv,
-                "host_us": hu})
+        for name, scope in forms("hashgrid_encode"):
+            with torch.no_grad(), scope():
+                out = HG.hashgrid_encode(table, x, spec, mask)
+                ref = HG.hashgrid_encode_plain(low(table), x, spec, mask)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                tol = 1e-6 + 1e-5 * ref.abs().max().item()
+                if not err <= tol:
+                    print(f"kernel_timing: {name} disagrees at "
+                          f"{x.shape[0]} {order} points: {err}", flush=True)
+                    failed.append(f"{name} at {x.shape[0]}")
+                digest = digest_of([out])
+                del out, ref
+                ev, dv, hu = timings(
+                    lambda: HG.hashgrid_encode(table, x, spec, mask),
+                    "hashgrid_encode_kernel")
+            report({"kernel": name, "points": x.shape[0],
+                    "order": order, "max_abs_err": err, "tolerance": tol,
+                    "digest": digest, "event_ms": ev, "device_ms": dv,
+                    "host_us": hu})
 
 
 def time_kh(torch, dev, report, failed):
@@ -611,31 +640,37 @@ def time_kb(torch, dev, report, failed):
     for N in (552_960, 65_536):
         x = torch.as_tensor(rng.uniform(0.0, 1.0, (N, 3)),
                             dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            fk, gk = EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
-            fp, gp = EG.encode_mlp_sdfgrad_plain(
-                spec, mlp, table, x, mask, mlp.effective_weights())
-            torch.cuda.synchronize()
-            err = max((fk - fp).abs().max().item(),
-                      (gk - gp).abs().max().item())
-            scale = max(1.0, fp.abs().max().item(), gp.abs().max().item())
-            if not err <= 1e-4 * scale:
-                print(f"kernel_timing: KB disagrees at {N}: {err}",
-                      flush=True)
-                failed.append(f"encode_mlp_sdfgrad at {N}")
-            ev, dv, hu = timings(
-                lambda: EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask),
-                "encode_mlp_sdfgrad_kernel")
-            # KA on the same points and table: the gather alone
-            kev, kdv, _ = timings(
-                lambda: HG.hashgrid_encode(table, x, spec, mask),
-                "hashgrid_encode_kernel")
-        report({"kernel": "encode_mlp_sdfgrad", "points": N,
-                "max_abs_err": err, "tolerance": 1e-4 * scale,
-                "digest": digest_of([fk, gk]),
-                "event_ms": ev, "device_ms": dv, "host_us": hu,
-                "hashgrid_encode_event_ms": kev,
-                "hashgrid_encode_device_ms": kdv})
+        for name, scope in forms("encode_mlp_sdfgrad"):
+            # the bf16 form within one bf16 ulp of the scale (chip_smoke.py
+            # KB_BF16_TOL): an operand's rounding may flip where its
+            # float32 sums differ in the last place
+            rel = 2.0 ** -8 if name.endswith("_bf16") else 1e-4
+            with torch.no_grad(), scope():
+                fk, gk = EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
+                fp, gp = EG.encode_mlp_sdfgrad_plain(
+                    spec, mlp, low(table), x, mask, mlp.effective_weights())
+                torch.cuda.synchronize()
+                err = max((fk - fp).abs().max().item(),
+                          (gk - gp).abs().max().item())
+                scale = max(1.0, fp.abs().max().item(),
+                            gp.abs().max().item())
+                if not err <= rel * scale:
+                    print(f"kernel_timing: {name} disagrees at {N}: {err}",
+                          flush=True)
+                    failed.append(f"{name} at {N}")
+                ev, dv, hu = timings(
+                    lambda: EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask),
+                    "encode_mlp_sdfgrad_kernel")
+                # KA on the same points and table: the gather alone
+                kev, kdv, _ = timings(
+                    lambda: HG.hashgrid_encode(table, x, spec, mask),
+                    "hashgrid_encode_kernel")
+            report({"kernel": name, "points": N,
+                    "max_abs_err": err, "tolerance": rel * scale,
+                    "digest": digest_of([fk, gk]),
+                    "event_ms": ev, "device_ms": dv, "host_us": hu,
+                    "hashgrid_encode_event_ms": kev,
+                    "hashgrid_encode_device_ms": kdv})
 
 
 def body_rays(torch, dev, verts, rays, samples, seed, span):

@@ -162,6 +162,10 @@ def _perturbed(params, seed):
             for layer in jax.tree.map(np.asarray, params)]
 
 
+# the jitted JAX pullbacks, made once for the module (by width)
+_PULLBACKS = {}
+
+
 # f32 on both sides; the table cotangent is summed in another order (JAX
 # sort-aggregates) and the MLP's VJP reassociates: each leaf within 1e-4 of
 # its largest entry
@@ -187,10 +191,14 @@ def test_backward_matches_jax_vjp(include_xyz, masked):
     rng = np.random.default_rng(6)
     g_feat = rng.normal(size=(x.shape[0], 13)).astype(np.float32)
     g_grad = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
-    _, vjp = jax.vjp(lambda t, mp, p: j_fused(jspec, jmlp.value_and_input_grad,
-                                              t, mp, p, jnp.asarray(mask)),
-                     jnp.asarray(table), jparams, jnp.asarray(x))
-    dt_r, dmlp_r, dx_r = vjp((jnp.asarray(g_feat), jnp.asarray(g_grad)))
+    # one jit for each width (op by op, the first call of each op compiles)
+    if include_xyz not in _PULLBACKS:
+        _PULLBACKS[include_xyz] = jax.jit(lambda t, mp, p, m, cots: jax.vjp(
+            lambda tt, mpp, pp: j_fused(jspec, jmlp.value_and_input_grad,
+                                        tt, mpp, pp, m), t, mp, p)[1](cots))
+    dt_r, dmlp_r, dx_r = _PULLBACKS[include_xyz](
+        jnp.asarray(table), jparams, jnp.asarray(x), jnp.asarray(mask),
+        (jnp.asarray(g_feat), jnp.asarray(g_grad)))
     t = torch.tensor(table, requires_grad=True)
     p = torch.tensor(x, requires_grad=True)
     feat, grad = encode_mlp_sdfgrad(tspec, tmlp, t, p, torch.as_tensor(mask))
@@ -260,11 +268,16 @@ def test_backward_matches_jax_vjp_at_published_widths(masked):
     mask = (np.arange(32) < (24 if masked else 32)).astype(np.float32)
     g_feat = rng.normal(size=(x.shape[0], 13)).astype(np.float32)
     g_grad = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
-    _, vjp = jax.vjp(lambda t, mp, p: j_fused(jspec, jmlp.value_and_input_grad,
-                                              t, mp, p, jnp.asarray(mask)),
-                     jnp.asarray(table), jax.tree.map(jnp.asarray, params),
-                     jnp.asarray(x))
-    dt_r, dmlp_r, dx_r = vjp((jnp.asarray(g_feat), jnp.asarray(g_grad)))
+    # under one jit for both cases: op by op, the pullback of the 64 MB
+    # tables compiles each of its ops on its first call (~45 s on a CPU)
+    if "published" not in _PULLBACKS:
+        _PULLBACKS["published"] = jax.jit(lambda t, mp, p, m, cots: jax.vjp(
+            lambda tt, mpp, pp: j_fused(jspec, jmlp.value_and_input_grad,
+                                        tt, mpp, pp, m), t, mp, p)[1](cots))
+    dt_r, dmlp_r, dx_r = _PULLBACKS["published"](
+        jnp.asarray(table), jax.tree.map(jnp.asarray, params),
+        jnp.asarray(x), jnp.asarray(mask),
+        (jnp.asarray(g_feat), jnp.asarray(g_grad)))
     t = torch.tensor(table, requires_grad=True)
     p = torch.tensor(x, requires_grad=True)
     feat, grad = encode_mlp_sdfgrad(tspec, tmlp, t, p, torch.as_tensor(mask))

@@ -23,6 +23,7 @@ from intrinsicavatar_tpu_torch.ops import compact as C
 from intrinsicavatar_tpu_torch.ops import encode_grad as EG
 from intrinsicavatar_tpu_torch.ops import grid_traversal as G
 from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+from intrinsicavatar_tpu_torch.ops import precision as P
 from intrinsicavatar_tpu_torch.ops import resample as RS
 from intrinsicavatar_tpu_torch.ops import volrend as V
 from intrinsicavatar_tpu_torch.utils.config import merge, wrap
@@ -50,32 +51,101 @@ def _grid(include_xyz, n, seed=0):
     return spec, table, x, mask
 
 
+# the compute dtypes of the forward kernels: float32, and the bf16 scope's
+# bf16-row forms of KA and KB (``ops/precision.py``)
+DTYPES = ["float32", "bfloat16"]
+KA_NAME = {"float32": "hashgrid_encode", "bfloat16": "hashgrid_encode_bf16"}
+KB_NAME = {"float32": "encode_mlp_sdfgrad",
+           "bfloat16": "encode_mlp_sdfgrad_bf16"}
+
+
+def _ka_pair(table, x, spec, mask, dtype):
+    """KA (or its bf16-row form, in the scope) and its twin on the same
+    (rounded) table; the launch counted once."""
+    before = kernels.launches[KA_NAME[dtype]]
+    with P.scope(dtype):
+        out = HG.hashgrid_encode(table, x, spec, mask)
+        ref = HG.hashgrid_encode_plain(P.cast_table(table), x, spec, mask)
+    assert kernels.launches[KA_NAME[dtype]] == before + 1
+    return out, ref
+
+
+def _kb_pair(spec, mlp, table, x, mask, dtype):
+    """KB (or its bf16 form, in the scope) and its twin in the same scope on
+    the same (rounded) table; the launch counted once."""
+    before = kernels.launches[KB_NAME[dtype]]
+    with torch.no_grad(), P.scope(dtype):
+        feat, grad = EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
+        ref = EG.encode_mlp_sdfgrad_plain(spec, mlp, P.cast_table(table), x,
+                                          mask)
+    assert kernels.launches[KB_NAME[dtype]] == before + 1
+    return (feat, grad), ref
+
+
+def _kb_close(out, ref, dtype):
+    """float32: the kernel's 3xTF32 tensor-core products vs cuBLAS,
+    reassociated sums.  bf16: the products on bf16 operands, summed on the
+    tensor cores and by cuBLAS in other orders, where an operand whose
+    float32 sum differs in the last place may round to the neighbouring
+    bf16 value: every output within one bf16 ulp (2^-8) of max(1, |feat|,
+    |grad|), and 99% of the points within 1e-5 of it (measured on an H100:
+    9.3e-4 at most, 99.9% of the entries within 2.2e-7; chip_smoke.py's
+    KB_BF16_TOL and KB_BF16_BULK)."""
+    (feat, grad), (feat_r, grad_r) = out, ref
+    if dtype == "float32":
+        torch.testing.assert_close(feat, feat_r, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(grad, grad_r, rtol=1e-4, atol=1e-4)
+        return
+    scale = max(1.0, feat_r.abs().max().item(), grad_r.abs().max().item())
+    err = torch.maximum((feat - feat_r).abs().amax(-1),
+                        (grad - grad_r).abs().amax(-1))
+    assert err.max().item() <= 2.0 ** -8 * scale, (err.max().item(), scale)
+    assert (err <= 1e-5 * scale).float().mean().item() >= 0.99
+
+
+def test_scoped_matmul_on_the_card(cuda):
+    """The bf16 scope's MLP product on the card (``nets/mlp.py:matmul``,
+    one bf16 GEMM with a float32 result where PyTorch has it) against the
+    float32 GEMM of the rounded operands: the same products, summed in
+    another order; its cotangents bf16 values within one bf16 ulp of the
+    rounded float32 products'."""
+    from intrinsicavatar_tpu_torch.nets.mlp import matmul
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn((4099, 35), generator=gen).to(cuda).requires_grad_()
+    w = torch.randn((35, 64), generator=gen).to(cuda).requires_grad_()
+    ct = torch.randn((4099, 64), generator=gen).to(cuda)
+    with P.scope("bfloat16"):
+        y = matmul(x, w)
+    bf = torch.bfloat16
+    ref = x.detach().to(bf).float() @ w.detach().to(bf).float()
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    y.backward(ct)
+    for g, r in ((x.grad, (ct @ w.detach().to(bf).float().T)),
+                 (w.grad, (x.detach().to(bf).float().T @ ct))):
+        assert torch.equal(g, g.to(bf).float())
+        assert ((g - r).abs() <= 2.0 ** -8 * r.abs() + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("include_xyz", [False, True])
-def test_hashgrid_kernel_matches_twin(cuda, include_xyz):
+def test_hashgrid_kernel_matches_twin(cuda, include_xyz, dtype):
     spec, *arrays = _grid(include_xyz, 200_000)
     table, x, mask = (torch.as_tensor(a, device=cuda) for a in arrays)
-    before = kernels.launches["hashgrid_encode"]
-    out = HG.hashgrid_encode(table, x, spec, mask)
-    assert kernels.launches["hashgrid_encode"] == before + 1
-    ref = HG.hashgrid_encode_plain(table, x, spec, mask)
-    # same f32 operations in the same order
+    out, ref = _ka_pair(table, x, spec, mask, dtype)
+    # same f32 operations in the same order (on the widened bf16 rows)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("include_xyz", [False, True])
-def test_encode_grad_kernel_matches_twin(cuda, include_xyz):
+def test_encode_grad_kernel_matches_twin(cuda, include_xyz, dtype):
     spec, *arrays = _grid(include_xyz, 100_000, seed=1)
     table, x, mask = (torch.as_tensor(a, device=cuda) for a in arrays)
     mlp = VanillaMLP(spec.n_output_dims, 13, n_neurons=64, n_hidden_layers=1,
                      sphere_init=True, weight_norm=True).to(cuda)
     mlp.init(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        feat, grad = EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
-        feat_r, grad_r = EG.encode_mlp_sdfgrad_plain(spec, mlp, table, x,
-                                                     mask)
-    # the kernel's serial dot products vs cuBLAS: reassociated f32 sums
-    torch.testing.assert_close(feat, feat_r, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(grad, grad_r, rtol=1e-4, atol=1e-4)
+    _kb_close(*_kb_pair(spec, mlp, table, x, mask, dtype), dtype)
 
 
 def _kb_case(cuda, n_levels, log2_size, include_xyz, hidden, n, seed):
@@ -107,6 +177,7 @@ def _kb_case(cuda, n_levels, log2_size, include_xyz, hidden, n, seed):
 # published widths (35 -> 64 -> 13, or 32 without xyz), the tiny config's
 # (19 -> 64 -> 13) and 32 hidden units, each through the same 128-point
 # tiles: one point, and counts that leave the last tile ragged
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n_levels,log2_size,include_xyz,hidden,n", [
     (16, 19, True, 64, 1),
     (16, 19, True, 64, 128 * 37 + 5),
@@ -117,19 +188,13 @@ def _kb_case(cuda, n_levels, log2_size, include_xyz, hidden, n, seed):
 ])
 def test_encode_grad_kernel_widths_and_ragged_tiles(cuda, n_levels,
                                                     log2_size, include_xyz,
-                                                    hidden, n):
+                                                    hidden, n, dtype):
     spec, mlp, table, x, mask = _kb_case(cuda, n_levels, log2_size,
                                          include_xyz, hidden, n, seed=n)
-    before = kernels.launches["encode_mlp_sdfgrad"]
-    with torch.no_grad():
-        feat, grad = EG.encode_mlp_sdfgrad(spec, mlp, table, x, mask)
-        feat_r, grad_r = EG.encode_mlp_sdfgrad_plain(spec, mlp, table, x,
-                                                     mask)
-    assert kernels.launches["encode_mlp_sdfgrad"] == before + 1
-    assert feat.shape == (n, 13) and grad.shape == (n, 3)
+    out, ref = _kb_pair(spec, mlp, table, x, mask, dtype)
+    assert out[0].shape == (n, 13) and out[1].shape == (n, 3)
     # the same tolerances as test_encode_grad_kernel_matches_twin
-    torch.testing.assert_close(feat, feat_r, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(grad, grad_r, rtol=1e-4, atol=1e-4)
+    _kb_close(out, ref, dtype)
 
 
 def test_encode_grad_kernel_refuses_widths_beyond_its_tile(cuda):
@@ -751,15 +816,18 @@ def roughen(model, gen):
         v[3:] += 0.05 * torch.randn(v[3:].shape, generator=gen).to(v.device)
 
 
-def test_train_step_gradients_match_cpu_twins(cuda):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_train_step_gradients_match_cpu_twins(cuda, dtype):
     """A step of the full-width default model on the card gives every
     trainable leaf of the fields (geometry table and MLP, radiance table and
     MLP, beta) a finite, nonzero gradient, equal to the same step's on the
     CPU with the plain twins: the kernels' backwards are wired into
-    autograd."""
+    autograd.  By the exact float32 path and at the default bf16 primary
+    pass, whose tolerances are chip_smoke.py's BF16_STEP_TOL."""
     from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
     from intrinsicavatar_tpu_torch.utils.default_config import train_config
-    cfg = merge(train_config(), {"dataset": {"n_rays": 128}})
+    cfg = merge(train_config(), {"dataset": {"n_rays": 128},
+                                 "model": {"primary_dtype": dtype}})
     from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
     ds = SyntheticDataset(cfg.dataset)
     card = IntrinsicAvatarSystem(cfg, cuda).setup(ds.betas)
@@ -785,7 +853,9 @@ def test_train_step_gradients_match_cpu_twins(cuda):
     lp = cpu.train_step(cpu.to_device(batch), t_idx,
                         cpu.flags_for_step(2000), draws)
     assert int(lc["shading_total_samples"]) == R * S
-    assert float(lc["total"]) == pytest.approx(float(lp["total"]), rel=1e-4)
+    bf16 = dtype == "bfloat16"
+    assert float(lc["total"]) == pytest.approx(float(lp["total"]),
+                                               rel=1e-3 if bf16 else 1e-4)
     params_cpu = dict(cpu.model.named_parameters())
     for name, p in card.model.named_parameters():
         # the radiance regime reads neither the emitter nor the material
@@ -799,7 +869,9 @@ def test_train_step_gradients_match_cpu_twins(cuda):
         # 5% for the geometry table, whose gradient the curvature proxy
         # dominates near the initial sphere (arccos of a dot within ~1e-6 of
         # 1: its f32 rounding moves with every reordered sum)
-        tol = 5e-2 if name == "geometry.table" else 1e-2
+        # (bf16: 3%, the kernel's bf16 products summed on the tensor
+        # cores, where a rounding may flip)
+        tol = 5e-2 if name == "geometry.table" else 3e-2 if bf16 else 1e-2
         err = float((gc.cpu() - gp).norm())
         assert err <= tol * float(gp.norm()), (name, err, float(gp.norm()))
 
@@ -1521,13 +1593,14 @@ def _ka_points(n, ordered, seed):
     return x.astype(np.float32)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ordered", [True, False])
 @pytest.mark.parametrize("include_xyz", [False, True])
 @pytest.mark.parametrize("n", [0, 1, KA_TILE - 1, KA_TILE + 1,
                                3 * KA_TILE + 5, 20_011])
 @pytest.mark.parametrize("which", list(KA_SPECS))
 def test_hashgrid_kernel_tiles_and_orders(cuda, ka_tables, which, n,
-                                          include_xyz, ordered):
+                                          include_xyz, ordered, dtype):
     kw = KA_SPECS[which]
     spec = HG.HashGridSpec(include_xyz=include_xyz, **kw)
     table = ka_tables[which]
@@ -1537,10 +1610,7 @@ def test_hashgrid_kernel_tiles_and_orders(cuda, ka_tables, which, n,
     mask[[1, L - 3, L - 1]] = 0.0
     mask = torch.as_tensor(mask.reshape(-1), device=cuda)
     x = torch.as_tensor(_ka_points(n, ordered, seed=n + 7), device=cuda)
-    before = kernels.launches["hashgrid_encode"]
-    out = HG.hashgrid_encode(table, x, spec, mask)
-    assert kernels.launches["hashgrid_encode"] == before + 1
-    ref = HG.hashgrid_encode_plain(table, x, spec, mask)
+    out, ref = _ka_pair(table, x, spec, mask, dtype)
     assert out.shape == (n, spec.n_output_dims) == ref.shape
     if n:
         # the wrapper's tolerance in chip_smoke.py: the same f32 operations
@@ -1550,11 +1620,13 @@ def test_hashgrid_kernel_tiles_and_orders(cuda, ka_tables, which, n,
         assert not out[:, -F:].any()
 
 
-@pytest.mark.parametrize("kernel", ["ka", "ka_bwd", "kb", "kb_bwd"])
+@pytest.mark.parametrize("kernel", ["ka", "ka_bwd", "kb", "kb_bwd",
+                                    "ka_bf16", "kb_bf16"])
 def test_corner_rule_at_saturated_cells(cuda, ka_tables, kernel):
-    """KA, KA', KB and KB' share one corner rule (csrc/common.cuh): where a
-    point's cell saturates the float-to-int cast (|x| ~ 1e7 at the finest
-    levels' scale of ~4,000), each reads and adds into the twin's rows."""
+    """KA, KA', KB and KB' (and the bf16-row forms of KA and KB) share one
+    corner rule (csrc/common.cuh): where a point's cell saturates the
+    float-to-int cast (|x| ~ 1e7 at the finest levels' scale of ~4,000),
+    each reads and adds into the twin's rows."""
     spec = HG.HashGridSpec(**PUBLISHED)
     table = ka_tables["published"]
     x = _ka_points(4099, True, seed=3)
@@ -1564,9 +1636,9 @@ def test_corner_rule_at_saturated_cells(cuda, ka_tables, kernel):
     rng = np.random.default_rng(5)
     normal = lambda *shape: torch.as_tensor(
         rng.normal(size=shape).astype(np.float32), device=cuda)
-    if kernel == "ka":
-        out = HG.hashgrid_encode(table, x, spec)
-        ref = HG.hashgrid_encode_plain(table, x, spec)
+    dtype = "bfloat16" if kernel.endswith("_bf16") else "float32"
+    if kernel in ("ka", "ka_bf16"):
+        out, ref = _ka_pair(table, x, spec, None, dtype)
         assert (out - ref).abs().max() <= 1e-6 + 1e-5 * ref.abs().max()
     elif kernel == "ka_bwd":
         g = normal(x.shape[0], spec.n_output_dims)
@@ -1590,14 +1662,9 @@ def test_corner_rule_at_saturated_cells(cuda, ka_tables, kernel):
             for p in mlp.parameters():
                 p.add_(0.3 * normal(*p.shape))
         ones = torch.ones(spec.n_levels * 2, device=cuda)
-        if kernel == "kb":
-            with torch.no_grad():
-                feat, grad = EG.encode_mlp_sdfgrad(spec, mlp, table, x, ones)
-                feat_r, grad_r = EG.encode_mlp_sdfgrad_plain(spec, mlp,
-                                                             table, x, ones)
+        if kernel in ("kb", "kb_bf16"):
             # as test_encode_grad_kernel_matches_twin
-            torch.testing.assert_close(feat, feat_r, rtol=1e-4, atol=1e-5)
-            torch.testing.assert_close(grad, grad_r, rtol=1e-4, atol=1e-4)
+            _kb_close(*_kb_pair(spec, mlp, table, x, ones, dtype), dtype)
             return
         # as test_encode_grad_bwd_kernels_match_twins
         g_grad, g_feat = normal(x.shape[0], 3), normal(x.shape[0], 13)

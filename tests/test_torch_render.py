@@ -76,12 +76,14 @@ def _jflags():
                   randomized=False)
 
 
-def _compare(jo, to):
+def _compare(jo, to, tol=TOL, min_fraction=MIN_FRACTION, worst=None):
     for k in KEYS:
         err = np.abs(np.asarray(jo[k]) - to[k]).max(-1)
-        frac = float(np.mean(err < TOL))
-        assert frac >= MIN_FRACTION, (
-            f"{k}: {frac:.4f} of rays within {TOL}; the others took a "
+        if worst is not None:
+            assert float(err.max()) <= worst, (k, float(err.max()))
+        frac = float(np.mean(err < tol))
+        assert frac >= min_fraction, (
+            f"{k}: {frac:.4f} of rays within {tol}; the others took a "
             f"discrete branch apart (Broyden convergence step, candidate "
             f"argmin or budget), max error {err.max():.3g}")
     assert {k: int(v) for k, v in to["counters"].items()} == \
@@ -99,28 +101,55 @@ def test_flags_match_jax_system(setup):
         assert getattr(tf, name) == getattr(jf, name), name
 
 
-def test_forward_matches_jax(setup):
-    """One given occupancy grid; the chunked forward of both packages."""
+def _models(s, dtype):
+    """The JAX system and the port's model and statics of ``setup``, or both
+    again with the primary shading pass at ``dtype`` (the same
+    parameters)."""
+    if dtype == "float32":
+        return s["system"], s["model"], s["statics"]
+    over = {"model": {"primary_dtype": dtype}}
+    jm = JModel(jmerge(jmerge(jtiny(), OVERRIDES), over).model)
+    js = jm.initialize(np.zeros(10))
+    model = IntrinsicAvatar(merge(s["cfg"], over).model)
+    statics = model.initialize(np.zeros(10))
+    from_jax_params(model, jax.tree.map(np.asarray, s["jp"]))
+    return types.SimpleNamespace(model=jm, statics=js), model, statics
+
+
+# at JAX's default bf16 primary pass both sides round the same operands and
+# sum in float32 in other orders, where a bf16 operand's rounding can flip:
+# the float32 bulk tolerance, and every ray within 5e-4 (measured: every
+# ray within 8.6e-5, the normal's worst; the bf16 and float32 renders of
+# the port differ by up to 1.2e-3, so the bound tells the scopes apart)
+BF16_WORST = 5e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_matches_jax(setup, dtype):
+    """One given occupancy grid; the chunked forward of both packages, with
+    the primary shading pass at float32 (the exact path) and at JAX's
+    default bf16 scope."""
     s = setup
+    system, model, statics = _models(s, dtype)
     binaries = s["rng"].random((RES, RES, RES)) < 0.7
     aabb = np.asarray(s["cfg"].model.scene_aabb, np.float32)
     jocc = make_occ_grid(aabb[None], RES)._replace(
         binaries=jnp.asarray(binaries)[None])
     jb = {k: jnp.asarray(v) for k, v in s["batch"].items()}
-    jframe, jcond = s["jm"].prepare(s["jp"], s["js"], jb, STEP)
-    jo = JE.render_frame(s["system"], s["jp"], jb, STEP,
+    jframe, jcond = system.model.prepare(s["jp"], system.statics, jb, STEP)
+    jo = JE.render_frame(system, s["jp"], jb, STEP,
                          jax.random.PRNGKey(2), _jflags(), ray_chunk=CHUNK,
                          occ=jocc, frame=jframe, cond=jcond)
     tb = TE.batch_to_device(s["batch"], "cpu")
-    frame, cond = s["model"].prepare(s["statics"], tb, STEP)
+    frame, cond = model.prepare(statics, tb, STEP)
     occ = OccGridState(torch.zeros(1, RES ** 3),
                        torch.as_tensor(binaries)[None],
                        torch.as_tensor(aabb)[None])
-    to = TE.render_frame(s["model"], s["statics"], tb, STEP,
-                         TE.eval_flags(s["cfg"].model, STEP),
+    to = TE.render_frame(model, statics, tb, STEP,
+                         TE.eval_flags(model.config, STEP),
                          ray_chunk=CHUNK, occ=occ, frame=frame, cond=cond)
     assert float(np.mean(to["opacity"] > 0.5)) > 0.2
-    _compare(jo, to)
+    _compare(jo, to, worst=None if dtype == "float32" else BF16_WORST)
 
 
 def test_render_frame_matches_jax(setup):

@@ -16,6 +16,7 @@ from intrinsicavatar_tpu.ops.math import linear_to_srgb as j_srgb
 from intrinsicavatar_tpu.render.occupancy import (
     make_occ_grid as j_make_occ, update_occ_grid as j_update_occ,
 )
+from intrinsicavatar_tpu.render.renderer import IntrinsicAvatar as JModel
 from intrinsicavatar_tpu.train import schedules as JS
 from intrinsicavatar_tpu.train.optim import make_optimizer as j_make_opt
 from intrinsicavatar_tpu.train.system import IntrinsicAvatarSystem as JSystem
@@ -189,6 +190,9 @@ def test_adam_groups_match_optax(setup):
     tx = j_make_opt(tree, scfg.optimizer, scfg.scheduler, scfg.warmup_steps)
     params = jax.tree.map(jnp.asarray, tree)
     opt_state = tx.init(params)
+    # under jit: op by op, the first update compiles each leaf's ops (~13 s
+    # on a CPU)
+    update = jax.jit(tx.update)
     rng = np.random.default_rng(1)
     names = dict(model.named_parameters())
     for _ in range(2):
@@ -198,7 +202,7 @@ def test_adam_groups_match_optax(setup):
         for key, g in flat_g.items():
             if port_key(key) in names:
                 names[port_key(key)].grad = torch.as_tensor(g)
-        updates, opt_state = tx.update(grads, opt_state, params)
+        updates, opt_state = update(grads, opt_state, params)
         params = jax.tree.map(lambda p, u: p + u, params, updates)
         sys_.optimizer.step()
         sys_.scheduler.step()
@@ -278,9 +282,11 @@ def test_update_occ_grid_matches_jax():
     assert 0 < int(ts.binaries.sum()) < RES ** 3
 
 
-def _jax_grads(jsys, state, jb, t_idx, draws):
+def _jax_grads(jsys, state, jb, t_idx, draws, model=None):
     """The body of the JAX ``train_step_impl`` (`train/system.py:324-355`)
-    with its gradients returned."""
+    with its gradients returned; ``model`` (default ``jsys.model``)
+    renders."""
+    model = model or jsys.model
     flags = jsys.flags_for_step(int(state.step))
     intervals, _, _ = jsys.sample_step(state, jb, t_idx, flags)
     bg = jnp.asarray(draws["bg"])
@@ -289,8 +295,8 @@ def _jax_grads(jsys, state, jb, t_idx, draws):
           "rgb": jb["rgb"] * fg + j_srgb(bg)[None, :] * (1.0 - fg)}
 
     def loss_fn(params):
-        frame, cond = jsys.model.prepare(params, jsys.statics, jb, state.step)
-        out = jsys.model.forward(
+        frame, cond = model.prepare(params, jsys.statics, jb, state.step)
+        out = model.forward(
             params, jsys.statics, frame, cond, state.occ, jb["rays"],
             draws["k_fwd"], state.step, flags, t_idx=t_idx,
             background_color=bg, intervals=intervals)
@@ -298,23 +304,47 @@ def _jax_grads(jsys, state, jb, t_idx, draws):
 
     (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         state.params)
-    updates, _ = jsys.tx.update(grads, state.opt_state, state.params)
+    # under jit: op by op, the first update compiles each leaf's ops
+    updates, _ = jax.jit(jsys.tx.update)(grads, state.opt_state,
+                                         state.params)
     new = jax.tree.map(lambda p, u: p + u, state.params, updates)
     return losses, grads, new
 
 
-def test_train_step_matches_jax(setup):
+# at JAX's default bf16 primary pass (the shading query, the curvature
+# proxy and the radiance head in the scope; the fused op's backward in
+# float32 and the radiance MLP's cotangents rounded to bf16 at the casts, on
+# both sides) the float32 case's tolerances hold as they are: measured, the
+# losses within 1.2e-4 relative (the curvature 2.2e-4), each leaf's
+# gradient within 0.71% of its norm (the geometry table; the float32 case
+# 0.92%), where the bf16 and float32 steps differ by up to 6.0% (JAX and
+# port alike), so the bound tells the scopes apart
+BF16_OVERRIDES = {"model": {"primary_dtype": "bfloat16"}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_matches_jax(setup, dtype):
     """One occupancy update and one train step at step 2000: the losses,
-    every parameter's gradient and the updated parameters."""
+    every parameter's gradient and the updated parameters, with the
+    primary shading pass at float32 (the exact path) and at JAX's default
+    bf16 scope."""
     jsys, state, t_idx = setup["jsys"], setup["state"], setup["t_idx"]
+    cfg = jmodel = None
+    if dtype == "bfloat16":
+        # the bf16 model renders; the occupancy update and the importance
+        # rounds (float32 in both scopes) keep the module's compiles
+        jmodel = JModel(jmerge(jmerge(jtiny(), OVERRIDES),
+                               BF16_OVERRIDES).model)
+        jmodel.initialize(np.zeros(10))
+        cfg = merge(setup["cfg"], BF16_OVERRIDES)
     draws_fn = JaxDraws(state.rng, 64, 48)
     draws = draws_fn(STEP)
     state = jsys.occ_update_step(state, setup["jbatch"], t_idx)
     assert np.array_equal(np.asarray(draws_fn.rng), np.asarray(
         jax.random.split(state.rng, 3)[0]))
     ref_losses, ref_grads, ref_new = _jax_grads(jsys, state, setup["jbatch"],
-                                                t_idx, draws)
-    sys_ = _port(setup)
+                                                t_idx, draws, jmodel)
+    sys_ = _port(setup, cfg)
     batch = sys_.to_device(setup["batch"])
     sys_.occ_update_step(batch, t_idx, draws)
     np.testing.assert_array_equal(sys_.occ.binaries.numpy(),
@@ -473,7 +503,10 @@ def test_deform_train_mode_refuses_a_pose_gradient(setup):
                             with_jac=True, eval_mode=False)
         return loss(out, jnp), out[2]
 
-    (_, jvalid), ref = jax.value_and_grad(jloss, has_aux=True)(jframe.tfs)
+    # under jit: op by op, the search's iterations compile each op on its
+    # first call (~30 s on a CPU)
+    (_, jvalid), ref = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jframe.tfs)
     tfs = frame.tfs.clone().requires_grad_()
     out = rigid.deform(sys_.statics, frame._replace(tfs=tfs),
                        torch.as_tensor(pts), lambda x: field(x, torch),

@@ -518,21 +518,29 @@ def test_deform_train_mode_without_a_pose_gradient_is_eval_mode(snarf):
 def test_launcher_validates_with_config(capsys, monkeypatch, tmp_path):
     """The launcher docstring's eval ``--config`` run, cut to one frame of
     256 rays, a 16^3 seed grid and a 16^3 test grid (the launcher's is
-    64^3, which the CPU twins search for over a minute): it runs in float32
-    (said on stderr) and exits 0; an explicit bf16 override still
-    raises."""
+    64^3, which the CPU twins search for over a minute): it renders at the
+    JAX package's default precision, its shading pass gathering the bf16
+    tables, and exits 0; ``model.primary_dtype=float32`` still renders, by
+    the exact path."""
     from intrinsicavatar_tpu_torch.launch import main
+    from intrinsicavatar_tpu_torch.ops import precision
     from intrinsicavatar_tpu_torch.train import evaluate as EV
     build = EV.build_test_occ_grid
     monkeypatch.setattr(EV, "build_test_occ_grid", lambda *a, **k: build(
         *a, **{**k, "resolution": 16}))
+    scoped = []
+    cast = precision.cast_table
+    monkeypatch.setattr(precision, "cast_table", lambda t: (
+        scoped.append(precision.current_dtype()), cast(t))[1])
     args = ["--mode", "validate", "--config", "configs/tiny-synthetic.yaml",
             "--device", "cpu", "--exp-dir", str(tmp_path),
             "dataset.n_frames=1", "dataset.n_rays=256",
             "model.seed_grid_resolution=16"]
-    assert main(args) == 0
-    cap = capsys.readouterr()
-    assert "model.primary_dtype=float32" in cap.err
-    assert "frame 0: psnr=" in cap.out
-    with pytest.raises(ValueError, match="bf16 primary scope"):
-        main(args + ["model.primary_dtype=bfloat16"])
+    for dtype in ("bfloat16", "float32"):
+        scoped.clear()
+        extra = [] if dtype == "bfloat16" else ["model.primary_dtype=float32"]
+        assert main(args + extra) == 0
+        cap = capsys.readouterr()
+        assert "frame 0: psnr=" in cap.out
+        assert "float32" not in cap.err
+        assert (torch.bfloat16 in scoped) == (dtype == "bfloat16"), dtype

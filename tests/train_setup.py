@@ -170,7 +170,9 @@ def jax_step(jsys, grad_fn, state, jb, t_idx, draws, flags):
     losses = dict(losses)
     for k, v in s_counters.items():
         losses[k] = losses[k] + v if k in losses else v
-    updates, opt_state = jsys.tx.update(grads, state.opt_state, state.params)
+    # under jit: op by op, the first update compiles each leaf's ops
+    updates, opt_state = jax.jit(jsys.tx.update)(grads, state.opt_state,
+                                                 state.params)
     params = jax.tree.map(lambda p, u: p + u, state.params, updates)
     rng = jax.random.split(state.rng, 3)[0]
     return losses, grads, state._replace(params=params, opt_state=opt_state,
