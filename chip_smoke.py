@@ -119,11 +119,27 @@
    ``--resume ckpt/final``; checks each run's checkpoints and log, and
    that a checkpoint restored into a system on the card gives back its
    state bit for bit;
-10. prints the ``kernels`` line, the serve, relight and train lines (each
+10. runs the image path (``capsule``): ``configs/tiny-capsule.yaml`` (the
+   capsule body's sphere-traced images, ``synthetic-image``) through the
+   launcher for its 500 steps with validation every 100 (from the JAX
+   package's init of the same seed), then validates its final checkpoint
+   by the searched path (and by the grid path), whose PSNR, SSIM and
+   normal error are printed beside the JAX package's committed run and must
+   reach at least what that run reached at step 100;
+   ``configs/capsule-m3c.yaml`` at its widths cut to 6 steps through its
+   phys regime (``M3C_CUT``) and
+   validated from its final checkpoint, with every launch counter set to 0
+   just before and read just after and every plain twin set to fail on a
+   CUDA tensor (its step times, metrics and launches; every kernel of
+   ``CAPSULE_KERNELS`` launched); and two phys steps at capsule-m3c's
+   widths in each of ``light``, ``mats`` and ``mis`` (and ``uniform_light``
+   beside them; finite losses, the emitter's gradient in ``light`` and
+   ``mis``);
+11. prints the ``kernels`` line, the serve, relight and train lines (each
    profile with the device ms, launches and share of busy time of the
    kernels of the port, KG's count and scatter passes apart, and whether
    each was redesigned for the card, ``port_kernels``), the hand-off line,
-   and last the device line.
+   the capsule line, and last the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -788,6 +804,7 @@ def main():
     train_line = train(rows, row, card, dev)
     pose_phys_line = train_pose_phys(rows, row, card, dev)
     handoff_line = handoff(card)
+    capsule_line = capsule(card)
 
     # ---------------------------------------------------------- 7. report
     print(json.dumps({
@@ -812,6 +829,7 @@ def main():
     print(json.dumps({"train": train_line}), flush=True)
     print(json.dumps({"train_pose_phys": pose_phys_line}), flush=True)
     print(json.dumps({"handoff": handoff_line}), flush=True)
+    print(json.dumps({"capsule": capsule_line}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
           file=sys.stderr, flush=True)
     print(card, flush=True)
@@ -3459,6 +3477,292 @@ def train_pose_phys(rows, row, card, dev):
             "kn_phys_call": kn_phys,
             "cpu_checks": checks}
 
+
+
+
+# the kernels of the capsule phase's capsule-m3c runs: every TPU kernel's
+# counterpart whose row of the port's kernel table is on this path (KN only
+# with pose correction, off in the capsule configs); the radiance steps,
+# the phys steps (the secondary pass: KI, KK, KJ, KL, KB's float32 form)
+# and the validation (the eval seed grid: KM)
+CAPSULE_KERNELS = ("hashgrid_encode", "hashgrid_encode_bf16",
+                   "hashgrid_encode_bwd", "encode_mlp_sdfgrad",
+                   "encode_mlp_sdfgrad_bf16", "encode_mlp_sdfgrad_bwd_gather",
+                   "encode_mlp_sdfgrad_bwd_scatter", "broyden_search",
+                   "deform_prologue", "deform_epilogue", "deform_skinning",
+                   "occupancy_march", "merge_resample", "volrend_weights",
+                   "volrend_composite", "volrend_composite_bwd",
+                   "compact_indices", "cdf_resample", "fine_resample",
+                   "secondary_march", "broyden_polish", "seed_gather")
+# every plain twin of those kernels, by module
+CAPSULE_TWINS = (("hashgrid", "hashgrid_encode_plain"),
+                 ("hashgrid", "hashgrid_encode_bwd_plain"),
+                 ("encode_grad", "encode_mlp_sdfgrad_plain"),
+                 ("encode_grad", "encode_mlp_sdfgrad_bwd_gather_plain"),
+                 ("encode_grad", "encode_mlp_sdfgrad_bwd_scatter_plain"),
+                 ("grid_traversal", "occupancy_sampling_plain"),
+                 ("grid_traversal", "secondary_march_plain"),
+                 ("compact", "compact_indices_plain"),
+                 ("resample", "merge_resample_rays_plain"),
+                 ("resample", "cdf_resample_rays_plain"),
+                 ("resample", "sdf_fine_resample_rays_plain"),
+                 ("resample", "fine_resample_rays_plain"),
+                 ("volrend", "render_weight_from_alpha_plain"),
+                 ("volrend", "composite_plain"),
+                 ("volrend", "composite_bwd_plain"),
+                 ("broyden", "deform_prologue_plain"),
+                 ("broyden", "broyden_search_plain"),
+                 ("broyden", "broyden_polish_plain"),
+                 ("broyden", "deform_epilogue_plain"),
+                 ("broyden", "deform_skinning_voxel_plain"),
+                 ("broyden", "deform_skinning_bwd_plain"),
+                 ("seedgrid", "gather_from_grid_plain"))
+# capsule-m3c cut to 6 steps, its phys regime from step 3 and its
+# importance rounds from step 2 (at 100 and 1,300 in the config)
+M3C_CUT = ("model.phys_kick_in_step=3",
+           "model.importance_sample_kick_in_step=1", "trainer.max_steps=6",
+           "dataset.max_frames=4")
+
+
+class DeviceTripwire(Tripwire):
+    """A plain twin's stand-in that counts only the calls given a CUDA
+    tensor: such a call bypassed its kernel on the card."""
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        if any(torch.is_tensor(a) and a.is_cuda
+               for a in (*args, *kwargs.values())):
+            self.calls += 1
+        return self.fn(*args, **kwargs)
+
+
+def _launch_run(tmp, name, mode, config, *extra):
+    """``launch.main`` in ``mode`` on ``config`` in its own ``--exp-dir``
+    under ``tmp``; returns the run directory and the seconds it took."""
+    import glob
+    import os
+
+    import torch
+
+    from intrinsicavatar_tpu_torch import launch
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, name)
+    if launch.main(["--mode", mode, "--config", config, "--exp-dir", d,
+                    *extra]) != 0:
+        fail(f"capsule: launch --mode {mode} --config {config} failed")
+    torch.cuda.synchronize()
+    found = glob.glob(os.path.join(d, "*", "*"))
+    if len(found) != 1:
+        fail(f"capsule: {name} made {len(found)} run directories")
+    return found[0], time.perf_counter() - t0
+
+
+def _run_records(run_dir, name="metrics.jsonl"):
+    import os
+    with open(os.path.join(run_dir, name)) as f:
+        return [json.loads(x) for x in f] if name.endswith(".jsonl") \
+            else json.load(f)
+
+
+def capsule(card):
+    """Step 10: the image path.  ``configs/tiny-capsule.yaml`` through the
+    launcher on the card, its 500 steps with validation every 100 (from the
+    JAX package's init of the config's seed, ``weights.jax_init``), then
+    ``--mode validate`` from its final checkpoint by the searched path and
+    by the grid path: the metrics beside the JAX package's committed run
+    (``results/tiny-capsule``, the searched path), the searched path's held
+    to what that run reached at step 100.  ``configs/capsule-m3c.yaml`` at its
+    widths, cut to 6 steps through its phys regime (``M3C_CUT``; its pose
+    cache is absent, so synthetic trajectories) and validated from its
+    final checkpoint, with every launch counter set to 0 just before and
+    read just after and every plain twin set to fail on a CUDA tensor:
+    its step times, metrics and launches.  Then two phys steps at
+    capsule-m3c's widths in each sampled render mode (``light``, ``mats``,
+    ``mis``; ``uniform_light`` beside them), the first a warm-up: their
+    wall times and losses, finite, and the emitter's gradient in ``light``
+    and ``mis``.  Returns the line."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels, launch
+    from intrinsicavatar_tpu_torch.data import make as make_dataset
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+
+    print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
+          flush=True)
+    keys = ("psnr", "ssim", "normal_error_deg")
+    jax_final = _run_records("results/tiny-capsule",
+                             "final_val_metrics.json")
+    jax_curve = _run_records("results/tiny-capsule", "val_curve.json")
+    floor = next(r for r in jax_curve if r["step"] == 100)
+    tmp = tempfile.mkdtemp(prefix="capsule-")
+    line = {"card": card}
+    try:
+        # ------------------------------------------ a. tiny-capsule
+        kernels.reset_launches()
+        tiny = "configs/tiny-capsule.yaml"
+        run_dir, train_s = _launch_run(tmp, "tiny_train", "train", tiny)
+        tiny_launches = dict(kernels.launches)
+        recs = _run_records(run_dir)
+        curve = [{"step": r["step"], **{k: r[f"val/{k}"] for k in keys}}
+                 for r in recs if "val/psnr" in r]
+        losses = [r["total"] for r in recs if "total" in r]
+        # the final checkpoint by the searched path, as the in-training
+        # validation and JAX's committed run (which predates the eval seed
+        # grid) render, and by the grid path, the launcher's default
+        final_dir, val_s = _launch_run(
+            tmp, "tiny_validate", "validate", tiny, "--resume",
+            os.path.join(run_dir, "ckpt", "final"),
+            "model.eval_seed_grid=false")
+        final = _run_records(final_dir, "metrics.json")
+        grid_dir, _ = _launch_run(
+            tmp, "tiny_validate_grid", "validate", tiny, "--resume",
+            os.path.join(run_dir, "ckpt", "final"))
+        tiny_line = {
+            "steps": 500, "train_s": train_s, "validate_s": val_s,
+            "losses_finite": bool(np.all(np.isfinite(losses))),
+            "val_curve": curve, "final": final,
+            "final_grid_path": _run_records(grid_dir, "metrics.json"),
+            "jax_curve": [{"step": r["step"], **{
+                k: r[f"val/{k}"] for k in keys}} for r in jax_curve],
+            "jax_final": jax_final,
+            "jax_step100": {k: floor[f"val/{k}"] for k in keys},
+            "jax_run": "results/tiny-capsule (commit 1878dc6): a CPU run "
+                       "of the JAX package from the same seed's init, at "
+                       "its own data and sampling streams",
+            "launches": tiny_launches}
+        print(f"capsule tiny-capsule: {json.dumps(tiny_line)}", flush=True)
+        print("capsule tiny-capsule after 500 steps: " + ", ".join(
+            f"{k} {final[k]:.4f} (JAX {jax_final[k]:.4f})" for k in keys),
+            flush=True)
+        if not tiny_line["losses_finite"] or len(curve) != 4:
+            fail(f"capsule: tiny-capsule's run is off: {tiny_line}")
+        short = [k for k in keys if not (
+            final[k] <= floor[f"val/{k}"] if k == "normal_error_deg"
+            else final[k] >= floor[f"val/{k}"])]
+        if short:
+            fail(f"capsule: tiny-capsule after 500 steps is short of JAX's "
+                 f"step 100 in {short}: {final} against {floor}")
+        line["tiny_capsule"] = tiny_line
+
+        # ------------------------------------------ b. capsule-m3c
+        m3c = "configs/capsule-m3c.yaml"
+        trips = [DeviceTripwire(m, name) for m, name in _capsule_modules(
+            CAPSULE_TWINS)]
+        kernels.reset_launches()
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            run_dir, train_s = _launch_run(
+                tmp, "m3c_train", "train", m3c, *M3C_CUT,
+                "trainer.log_every_n_steps=1")
+            final_dir, val_s = _launch_run(
+                tmp, "m3c_validate", "validate", m3c, "--resume",
+                os.path.join(run_dir, "ckpt", "final"), *M3C_CUT)
+        m3c_launches = dict(kernels.launches)
+        for t in trips:
+            t.restore()
+        twins = {t.name: t.calls for t in trips if t.calls}
+        recs = [r for r in _run_records(run_dir) if "total" in r]
+        wall = [r["wall_time"] for r in recs]
+        m3c_line = {
+            "cut": list(M3C_CUT),
+            "pose_cache": sorted({str(w.message) for w in said
+                                  if "pose_path" in str(w.message)})
+            or "found",
+            "step_s": {"radiance": np.diff(wall)[:2].tolist(),
+                       "phys": np.diff(wall)[2:].tolist()},
+            # the host's data time of each step: a frame's GT is
+            # sphere-traced on its first use
+            "data_s": [r.get("wall_data_s") for r in recs[1:]],
+            "first_steps_s": "step 0 and step 3 (the first phys step) "
+                             "include their warm-up",
+            "train_s": train_s, "validate_s": val_s,
+            "losses": {k: [r.get(k) for r in recs] for k in (
+                "total", "rgb_l1", "rgb_phys_l1", "rgb_demodulated")},
+            "validate": _run_records(final_dir, "metrics.json"),
+            "launches": m3c_launches, "twins_on_cuda_tensors": twins}
+        print(f"capsule capsule-m3c: {json.dumps(m3c_line)}", flush=True)
+        if [r["step"] for r in recs] != list(range(6)) or not all(
+                np.isfinite(r["total"]) for r in recs) or "rgb_phys_l1" \
+                not in recs[-1]:
+            fail(f"capsule: capsule-m3c's steps are off: {recs}")
+        if not all(np.isfinite(v) for v in m3c_line["validate"].values()):
+            fail(f"capsule: capsule-m3c's validation: "
+                 f"{m3c_line['validate']}")
+        missing = [k for k in CAPSULE_KERNELS if not m3c_launches.get(k)]
+        if missing or twins:
+            fail(f"capsule: capsule-m3c: kernels not launched {missing}, "
+                 f"plain twins on CUDA tensors {twins}")
+        line["capsule_m3c"] = m3c_line
+
+        # ------------------------------------------ c. sampled modes
+        # two phys steps a mode at capsule-m3c's widths from the config's
+        # phys kick-in (the first one warms up); uniform_light beside them
+        sampled = {}
+        for mode in ("uniform_light", "light", "mats", "mis"):
+            cfg = launch.build_config("train", m3c, [
+                f"model.render_mode={mode}", "dataset.max_frames=4"])
+            ds = make_dataset(cfg.dataset.name, cfg.dataset,
+                              rng=np.random.default_rng(SEED))
+            system = IntrinsicAvatarSystem(cfg, torch.device("cuda")).setup(
+                ds.betas)
+            system.step = int(cfg.model.phys_kick_in_step)
+            stamps = [time.perf_counter()]
+
+            def stamp(step, scalars):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            hist = system.fit(ds.train_iter(np.random.default_rng(SEED)),
+                              system.step + 2, log_every=1, callback=stamp)
+            em = {n: float(p.grad.abs().sum()) if p.grad is not None
+                  else 0.0 for n, p in
+                  system.model.emitter.named_parameters()}
+            sampled[mode] = {
+                "steps": [h[0] for h in hist],
+                "step_s": np.diff(stamps).tolist(),
+                # of which the host's data time (a new frame's GT render)
+                "data_s": [h[1].get("wall_data_s") for h in hist],
+                "losses": [{k: h[1][k] for k in (
+                    "total", "rgb_l1", "rgb_phys_l1", "rgb_demodulated",
+                    "normal_orientation", "albedo_smoothness")
+                    if k in h[1]} for h in hist],
+                "emitter_grad_abs_sum": em}
+            print(f"capsule {mode} phys steps: "
+                  f"{json.dumps(sampled[mode])}", flush=True)
+            if not all("rgb_phys_l1" in h[1] for h in hist) or not all(
+                    np.isfinite(v) for ls in sampled[mode]["losses"]
+                    for v in ls.values()):
+                fail(f"capsule: the {mode} phys steps: {sampled[mode]}")
+            if mode in ("light", "mis") and not any(
+                    v > 0 for v in em.values()):
+                fail(f"capsule: the emitter got no gradient in {mode}: {em}")
+            del system
+        line["sampled_modes"] = sampled
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
+          flush=True)
+    return line
+
+
+def _capsule_modules(pairs):
+    from intrinsicavatar_tpu_torch.anim import broyden as B
+    from intrinsicavatar_tpu_torch.anim import seedgrid as SG
+    from intrinsicavatar_tpu_torch.ops import compact as C
+    from intrinsicavatar_tpu_torch.ops import encode_grad as EG
+    from intrinsicavatar_tpu_torch.ops import grid_traversal as G
+    from intrinsicavatar_tpu_torch.ops import hashgrid as HG
+    from intrinsicavatar_tpu_torch.ops import resample as RS
+    from intrinsicavatar_tpu_torch.ops import volrend as V
+    mods = {"hashgrid": HG, "encode_grad": EG, "volrend": V, "broyden": B,
+            "resample": RS, "grid_traversal": G, "compact": C,
+            "seedgrid": SG}
+    return [(mods[m], name) for m, name in pairs]
 
 
 if __name__ == "__main__":

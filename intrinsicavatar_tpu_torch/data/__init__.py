@@ -1,4 +1,6 @@
-"""Dataset registry of the port (this slice has the synthetic dataset)."""
+"""Dataset registry of the port: ``synthetic`` (generated poses, procedural
+targets) and ``synthetic-image`` (the sphere-traced capsule body's images
+with GT masks, albedo and normals)."""
 
 _DATASETS = {}
 
@@ -11,8 +13,9 @@ def register(name):
 
 
 def make(name, config, **kwargs):
+    import intrinsicavatar_tpu_torch.data.capsule  # noqa: F401
     import intrinsicavatar_tpu_torch.data.synthetic  # noqa: F401
     if name not in _DATASETS:
-        raise KeyError(f"dataset {name!r} is not ported yet; this slice "
-                       f"has {sorted(_DATASETS)}")
+        raise KeyError(f"dataset {name!r} is not ported yet; the port has "
+                       f"{sorted(_DATASETS)}")
     return _DATASETS[name](config, **kwargs)

@@ -10,18 +10,23 @@
     python -m intrinsicavatar_tpu_torch.launch --mode train \\
         trainer.max_steps=100 trainer.ckpt_every_n_steps=50
     python -m intrinsicavatar_tpu_torch.launch --mode train \\
+        --config configs/tiny-capsule.yaml
+    python -m intrinsicavatar_tpu_torch.launch --mode train \\
         --resume exp/intrinsic-avatar/<run>/ckpt/step50 trainer.max_steps=100
     python -m intrinsicavatar_tpu_torch.launch --mode test \\
         --resume exp/intrinsic-avatar/<run>/ckpt/final
 
 Without ``--config`` a validate run uses :func:`serve_config` (the default
-model at its published widths on the synthetic dataset, eval step 5000), a
+model at its published widths on the ``synthetic`` dataset, eval step 5000), a
 test or predict run :func:`relight_config` (the same at step 25,000, where
 the physically based maps are rendered) and a train run
 :func:`train_config` (the same model, 4096 rays per step); a ``--config``
 YAML is merged onto the default config (validate, test, predict; eval step
 5000, or 25,000 for test and predict, unless ``trainer.eval_step`` says
-otherwise) or onto :func:`train_config` (train).  Every mode runs at the JAX
+otherwise) or onto :func:`train_config` (train); a config may name either
+dataset, ``synthetic`` or the capsule body's images, ``synthetic-image``
+(``configs/tiny-capsule.yaml``, ``configs/capsule-m3c.yaml``), whose frames
+add SSIM and the normal error to the metrics.  Every mode runs at the JAX
 package's default precision (the shading pass and the queried secondary
 coarse pass in the bf16 scope); ``model.primary_dtype=float32`` and
 ``model.secondary_coarse_dtype=float32`` select the exact path.  An eval run at a step
@@ -52,9 +57,9 @@ and predict mode the parameters and the step; an eval run renders at the
 checkpoint's step when it is past 0.  ``--params`` loads an ``.npz`` of
 the JAX parameter tree flattened to dotted keys (as
 :func:`weights.flatten_tree` names them; every checkpoint holds one as
-``params.npz``); without either the parameters are random, drawn from the
-config's seed.  The run is on ``cuda`` unless ``--device`` names another
-device.
+``params.npz``); without either the parameters are the JAX package's
+random init from the config's seed (``weights.jax_init``), in training
+too.  The run is on ``cuda`` unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -96,7 +101,7 @@ def main(argv=None):
     from intrinsicavatar_tpu_torch.utils import checkpoint as ckpt
     from intrinsicavatar_tpu_torch.utils.device import resolve_device
     from intrinsicavatar_tpu_torch.weights import (
-        from_jax_params, to_jax_tree, unflatten,
+        from_jax_params, jax_init, to_jax_tree, unflatten,
     )
 
     device = resolve_device(args.device)
@@ -127,7 +132,7 @@ def main(argv=None):
     if args.params:
         from_jax_params(model, unflatten(dict(np.load(args.params))))
     else:
-        model.init(torch.Generator().manual_seed(seed))
+        jax_init(model, seed)
     if restored is not None:
         # the restored parameters over the model's (a test restore has no
         # pose corrections)
@@ -168,14 +173,14 @@ def main(argv=None):
             print(f"frame {i}: budget overflow {ovf}", flush=True)
         if "rgb" not in batch_np:
             continue
-        m = EV.frame_metrics(out, batch_np,
+        m = EV.frame_metrics(out, batch_np, getattr(dataset, "img_wh", None),
                              albedo_prealigned=ratio is not None)
         all_metrics.append(m)
-        print(f"frame {i}: " + " ".join(f"{k}={v:.3f}" for k, v in m.items()),
-              flush=True)
+        print(f"frame {i}: " + " ".join(f"{k}={v:.3f}" for k, v in m.items()
+                                        if np.ndim(v) == 0), flush=True)
     if all_metrics:
         agg = {k: float(np.mean([m[k] for m in all_metrics]))
-               for k in all_metrics[0]}
+               for k in all_metrics[0] if np.ndim(all_metrics[0][k]) == 0}
         print("mean:", json.dumps(agg))
         with open(os.path.join(run_dir, "metrics.json"), "w") as f:
             json.dump(agg, f, indent=2)
@@ -279,7 +284,8 @@ def _train(cfg, device, seed, params_path, resume, run_dir):
                     EV.batch_to_device(b_np, device), step, flags,
                     ray_chunk=chunk,
                     generator=torch.Generator().manual_seed(step + i))
-                m = EV.frame_metrics(out, b_np)
+                m = EV.frame_metrics(out, b_np,
+                                     getattr(val_ds, "img_wh", None))
                 # eval budget overflows show in validation too
                 for k, v in out["counters"].items():
                     if k.startswith("ovf_") and v:

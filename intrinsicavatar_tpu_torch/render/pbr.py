@@ -19,7 +19,11 @@ The scattering-point draw and the secondary rays run without autograd (the
 JAX package's ``stop_gradient``, the reference's ``torch.no_grad``); in
 training gradients reach the materials and normals through
 ``scatterer.eval``, the emitter through its radiance, and the primary
-weights through the Monte-Carlo weights and the kd/ks composition.  Its
+weights through the Monte-Carlo weights and the kd/ks composition.  In
+every mode that samples (``light``, ``mats``, ``mis``) the emitter's
+sampling tables are built without autograd; the BRDF-sampled directions,
+``mats``'s pdf and the MIS weights are detached, as the JAX package's
+``stop_gradient`` places them (`render/pbr.py:455-520`).  Its
 randomness comes through ``draws`` (see :func:`pbr_forward`) or from a
 ``torch.Generator``.  The queried secondary coarse pass runs in the
 ``secondary_coarse_dtype`` compute scope (bf16 by default, as in JAX), the
@@ -267,9 +271,6 @@ def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
     B = model.samples_per_pixel
     dev = rays_o.device
     mode = flags.render_mode
-    if flags.training and mode != "uniform_light":
-        raise NotImplementedError(f"render_mode {mode!r} in training is not "
-                                  f"ported yet (uniform_light is)")
     trans_map = 1.0 - V.accumulate_along_rays(weights, None, smask)[..., 0]
     vi = sample_volume_interaction(rays_o, rays_d, t_starts, t_ends, smask,
                                    weights, sdf, normals_smpl,
@@ -301,8 +302,12 @@ def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
         return Li, tr
 
     def state():
-        return emitter.update_pdf() if emitter_state is None \
-            else emitter_state
+        # the sampling tables carry no gradient (the JAX package's
+        # stop_gradient of update_pdf)
+        if emitter_state is not None:
+            return emitter_state
+        with torch.no_grad():
+            return emitter.update_pdf()
 
     vis = None
     if mode == "uniform_light":
@@ -341,17 +346,17 @@ def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
     elif mode == "mats":
         dirs = safe_normalize(scatterer.sample(
             *brdf, *mat_args,
-            get_draw(draws, "brdf_u", (R * B, 5), generator, dev)))
+            get_draw(draws, "brdf_u", (R * B, 5), generator, dev))).detach()
         Li, tr = light_terms(dirs, fg)
         pdf = scatterer.pdf(*brdf, dirs, *mat_args)
-        pdf = torch.where(pdf > 0, pdf, 1.0)
+        pdf = torch.where(pdf > 0, pdf, 1.0).detach()
         diff, spec = scatterer.eval(*brdf, dirs, *mat_args)
         Lo_diff, Lo_spec = Li * diff / pdf, Li * spec / pdf
     elif mode == "mis":
         st = state()
         d_sc = safe_normalize(scatterer.sample(
             *brdf, *mat_args,
-            get_draw(draws, "brdf_u", (R * B, 5), generator, dev)))
+            get_draw(draws, "brdf_u", (R * B, 5), generator, dev))).detach()
         d_li = rigid.transform_dirs_w2s(frame, emitter.sample(
             st, get_draw(draws, "light_u", (R * B, 4), generator, dev)))
         Lo_diff = Lo_spec = 0.0
@@ -361,7 +366,8 @@ def pbr_forward(model, statics, frame, cond, occ, sched, rays_o, rays_d,
             Li, tr = light_terms(dirs, fg)
             p_sc = scatterer.pdf(*brdf, dirs, *mat_args)
             p_li = emitter.pdf(st, rigid.transform_dirs_s2w(frame, dirs))
-            mis_w = torch.where(p_sc + p_li > 1e-6, 1.0 / (p_sc + p_li), 0.0)
+            mis_w = torch.where(p_sc + p_li > 1e-6, 1.0 / (p_sc + p_li),
+                                0.0).detach()
             diff, spec = scatterer.eval(*brdf, dirs, *mat_args)
             Lo_diff = Lo_diff + Li * diff * mis_w
             Lo_spec = Lo_spec + Li * spec * mis_w

@@ -5,6 +5,8 @@ grid, chunked full-frame render (with the PBR stage from
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -166,22 +168,54 @@ def fit_albedo_ratio(model, statics, batch, step, flags: RenderFlags,
                            device=batch["rays"].device)
 
 
-def frame_metrics(out: dict, batch: dict,
+_LPIPS_FN = "unset"
+
+
+def _lpips_cached():
+    """The LPIPS callable of ``utils/metrics.lpips_fn`` (None without
+    weights, said once on stderr), built once a process."""
+    global _LPIPS_FN
+    if _LPIPS_FN == "unset":
+        _LPIPS_FN = M.lpips_fn()
+        if _LPIPS_FN is None:
+            print("frame metrics: no LPIPS-VGG weights "
+                  "(INTRINSICAVATAR_LPIPS_WEIGHTS names no .npz), so no "
+                  "lpips", file=sys.stderr)
+    return _LPIPS_FN
+
+
+def frame_metrics(out: dict, batch: dict, img_wh=None,
                   albedo_prealigned: bool = False) -> dict:
-    """PSNR of the white-background composite against the GT (composited
-    over white by its alpha), of the physically based composite
-    (``psnr_phys``), and of the albedo where the batch has one: plain when
-    the render applied the pre-pass ratio (``albedo_prealigned``), else
-    after a per-channel least-squares alignment."""
+    """The JAX package's metrics of one frame: PSNR of the white-background
+    composite against the GT (composited over white by its alpha), of the
+    physically based composite (``psnr_phys``); with ``img_wh`` the SSIM
+    over the GT mask's bbox and, where LPIPS weights are given, ``lpips``;
+    the mean normal error over the foreground (``normal_error_deg``) where
+    the batch has normals; and the albedo PSNR where it has an albedo:
+    plain when the render applied the pre-pass ratio
+    (``albedo_prealigned``), else after a per-channel least-squares
+    alignment (its scales as ``albedo_scale``)."""
+    m: dict = {}
     gt = np.asarray(batch["rgb"])
     if "alpha" in batch:
+        # clip: ZJU's ignore label (alpha = 100) keeps the GT value
         a = np.clip(np.asarray(batch["alpha"]).reshape(-1, 1), 0.0, 1.0)
         gt = gt * a + 1.0 * (1.0 - a)
     mask = np.asarray(batch.get("valid_mask",
                                 np.ones(gt.shape[0], bool))).astype(bool)
-    m = {"psnr": M.masked_psnr(out["comp_rgb_full"], gt, mask)}
+    pred = out["comp_rgb_full"]
+    m["psnr"] = M.masked_psnr(pred, gt, mask)
+    if img_wh is not None:
+        W, H = img_wh
+        alpha2d = np.asarray(batch["alpha"]).reshape(H, W)
+        m["ssim"] = M.cropped_ssim(pred.reshape(H, W, 3),
+                                   gt.reshape(H, W, 3), alpha2d > 0)
     if "comp_rgb_phys_full" in out:
         m["psnr_phys"] = M.masked_psnr(out["comp_rgb_phys_full"], gt, mask)
+    if "normal" in batch:
+        m["normal_error_deg"] = M.normal_angular_error_deg(
+            out["comp_normal"], np.asarray(batch["normal"]),
+            mask & (np.asarray(batch["alpha"]) > 0))
     if "albedo" in batch and "comp_albedo_full" in out:
         fg = mask & (np.asarray(batch["alpha"]) > 0)
         if albedo_prealigned:
@@ -189,6 +223,11 @@ def frame_metrics(out: dict, batch: dict,
                 np.clip(out["comp_albedo_full"], 0.0, 1.0),
                 np.asarray(batch["albedo"]), fg)
         else:
-            m["albedo_psnr"], _ = M.albedo_aligned_metrics(
+            m["albedo_psnr"], m["albedo_scale"] = M.albedo_aligned_metrics(
                 out["comp_albedo_full"], np.asarray(batch["albedo"]), fg)
+    lp = _lpips_cached()
+    if lp is not None and img_wh is not None:
+        W, H = img_wh
+        m["lpips"] = lp(pred.reshape(H, W, 3), gt.reshape(H, W, 3),
+                        np.asarray(batch["alpha"]).reshape(H, W) > 0)
     return m

@@ -1,7 +1,8 @@
 """The training system: loss assembly, the train step, the occupancy cadence
 and the training loop (counterpart of the JAX package's ``train/system.py``):
 the radiance regime, and from ``phys_kick_in_step`` the phys regime in
-``uniform_light``; with pose correction the per-frame corrections train from
+each render mode (``uniform_light``, ``light``, ``mats``, ``mis``); with pose
+correction the per-frame corrections train from
 ``pose_correction_start_step`` on (kernel KN in the backward).
 
 One step (``train_step``): the sampling stage without gradient, then the
@@ -13,7 +14,8 @@ grid live on the system and are updated in place.
 
 Randomness is passed in through ``draws`` (``bg`` [3], ``strat_u`` [R],
 ``lap_sub`` [n], ``lap_u`` [n, 3] for a step, in the phys regime also
-``jit_sub``, ``jit_noise``, ``sphere_u`` and ``strata_u`` (see
+``jit_sub``, ``jit_noise`` and the PBR draws, ``sphere_u`` and ``strata_u``
+or, in the sampled modes, ``light_u`` and ``brdf_u`` (see
 :meth:`IntrinsicAvatar.forward`); ``occ_u`` [res^3, 1, 3] for an occupancy
 update) or drawn from the system's ``torch.Generator``.
 """
@@ -44,7 +46,9 @@ from intrinsicavatar_tpu_torch.train.optim import (
 from intrinsicavatar_tpu_torch.train.schedules import C, lr_schedule_host
 from intrinsicavatar_tpu_torch.utils.device import resolve_device
 from intrinsicavatar_tpu_torch.utils.logging import Throughput
-from intrinsicavatar_tpu_torch.weights import from_jax_params, to_jax_tree
+from intrinsicavatar_tpu_torch.weights import (
+    from_jax_params, jax_init, to_jax_tree,
+)
 
 BUDGET_COUNTERS = ("ovf_shading", "ovf_query", "ovf_candidate_query")
 
@@ -98,13 +102,14 @@ class IntrinsicAvatarSystem:
     # ------------------------------------------------------------ setup
 
     def setup(self, betas, params=None, state=None):
-        """Statics, parameters (random from the system's generator, or the
-        JAX tree ``params``), optimizer and an all-occupied grid; then,
+        """Statics, parameters (the JAX package's init from the config's
+        seed, ``weights.jax_init``, or the JAX tree ``params``), optimizer
+        and an all-occupied grid; then,
         with ``state`` (a :meth:`state_dict`, e.g. a restored checkpoint),
         everything that it holds."""
         self.statics = self.model.initialize(betas)
         if params is None:
-            self.model.init(self.generator)
+            jax_init(self.model, int(self.config.get("seed", 42)))
         else:
             from_jax_params(self.model, params)
         scfg = self.config.system

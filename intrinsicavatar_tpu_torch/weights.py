@@ -9,10 +9,15 @@ under ``mlp``, hash tables ``[L, T, F]`` under ``table``, the density
 pose encoder and the scatterer.  Weights are ``[in, out]`` on both sides.
 :func:`to_jax_tree` is the inverse of :func:`from_jax_params`: the port's
 parameters as a JAX-shaped tree.  :func:`seed_grid_from_jax` carries a seed
-grid baked by the JAX package across.
+grid baked by the JAX package across.  :func:`jax_init` draws the JAX
+package's ``IntrinsicAvatar.init(PRNGKey(seed))`` without JAX, by its key
+path in numpy (``utils/jax_random.py``), so that a seed gives both packages
+the same initial model.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -118,3 +123,103 @@ def seed_grid_from_jax(grid):
     return SeedGrid(grid=node_records(as_t(packed[:, :C]
                                            .reshape(res, res, res, C))),
                     center=as_t(grid.center), half=as_t(grid.half))
+
+
+def _vanilla_mlp(key, mlp) -> list:
+    """The JAX ``VanillaMLP.init`` (`nets/mlp.py:73-104` of the JAX
+    package) for the port's ``mlp``, each op rounded to float32 as JAX's
+    eager ops round."""
+    from intrinsicavatar_tpu_torch.utils import jax_random as JR
+    f32 = np.float32
+    n = len(mlp.dims) - 1
+    keys = JR.split(key, n)
+    layers = []
+    for i in range(n):
+        d_in, d_out = mlp.dims[i], mlp.dims[i + 1]
+        b = np.zeros(d_out, f32)
+        if mlp.sphere_init:
+            if i == n - 1:
+                w = JR.normal(keys[i], (d_in, d_out)) * f32(1e-4) \
+                    + f32(math.sqrt(math.pi) / math.sqrt(d_in))
+                b = np.full(d_out, -mlp.sphere_init_radius, f32)
+            else:
+                rows = min(3, d_in) if i == 0 else d_in
+                w = np.zeros((d_in, d_out), f32)
+                w[:rows] = JR.normal(keys[i], (rows, d_out)) \
+                    * f32(math.sqrt(2)) / f32(math.sqrt(d_out))
+        else:
+            bound = math.sqrt(6.0 / d_in)
+            w = JR.uniform(keys[i], (d_in, d_out), -bound, bound)
+        if mlp.weight_norm:
+            g = np.sqrt(np.sum(w.astype(np.float64) ** 2, 0, keepdims=True))
+            layers.append({"v": w, "g": g.astype(f32), "b": b})
+        else:
+            layers.append({"w": w, "b": b})
+    return layers
+
+
+def _lipschitz_mlp(key, mlp) -> list:
+    """The JAX ``LipschitzMLP.init`` (`nets/mlp.py:270-283`)."""
+    from intrinsicavatar_tpu_torch.utils import jax_random as JR
+    keys = JR.split(key, len(mlp.dims) - 1)
+    layers = []
+    for k, d_in, d_out in zip(keys, mlp.dims[:-1], mlp.dims[1:]):
+        bound = 1.0 / math.sqrt(d_in)
+        w = JR.uniform(k, (d_in, d_out), -bound, bound)
+        b = JR.uniform(JR.fold_in(k, 1), (d_out,), -bound, bound)
+        c = np.abs(w).sum(0, dtype=np.float64).max() * 2.0
+        layers.append({"w": w, "b": b, "c": np.full(1, c, np.float32)})
+    return layers
+
+
+def _mlp(key, mlp) -> list:
+    from intrinsicavatar_tpu_torch.nets.mlp import LipschitzMLP, VanillaMLP
+    if isinstance(mlp, LipschitzMLP):
+        return _lipschitz_mlp(key, mlp)
+    if isinstance(mlp, VanillaMLP):
+        return _vanilla_mlp(key, mlp)
+    raise NotImplementedError(f"jax_init: no JAX init for {type(mlp)}")
+
+
+@torch.no_grad()
+def jax_init(model, seed: int) -> dict:
+    """Load the JAX package's ``IntrinsicAvatar.init(PRNGKey(seed))``
+    (`render/renderer.py:115-131`) into the port's ``model``; returns the
+    tree.  The hash tables, the uniform MLP layers and the emitter's draws
+    are JAX's bits; the sphere-initialized SDF layers (``jax.random.normal``)
+    within a few ulp of them.  Leaves drawn from no key (the density's
+    beta, the emitter's lobe axes and sharpness, the pose corrections) are
+    the model's own init's."""
+    from intrinsicavatar_tpu_torch.pbr.envlight import (
+        EnvLightSG, EnvLightTensor,
+    )
+    from intrinsicavatar_tpu_torch.utils import jax_random as JR
+    model.init(torch.Generator().manual_seed(0))
+    tree = to_jax_tree(model)
+    ks = JR.split(JR.prng_key(seed), 8)
+
+    def field(key, module):
+        k_table, k_mlp = JR.split(key)
+        return {"table": JR.uniform(k_table, tuple(module.table.shape),
+                                    -1e-4, 1e-4),
+                "mlp": _mlp(k_mlp, module.mlp)}
+
+    tree["geometry"] = field(ks[0], model.geometry)
+    tree["radiance"] = field(ks[1], model.radiance)
+    tree["material"] = {"mlp": _mlp(ks[3], model.material.mlp)}
+    em = model.emitter
+    if em is not None:
+        k_em = JR.fold_in(ks[7], 1)
+        if isinstance(em, EnvLightSG):
+            tree["emitter"]["amplitude"] = JR.uniform(
+                k_em, tuple(em.amplitude.shape)) * np.float32(0.5) \
+                + np.float32(0.25)
+        elif isinstance(em, EnvLightTensor):
+            tree["emitter"]["base"] = JR.uniform(
+                k_em, tuple(em.base.shape)) * np.float32(em.scale) \
+                + np.float32(em.bias)
+        else:
+            raise NotImplementedError(f"jax_init: no JAX init for "
+                                      f"{type(em)}")
+    from_jax_params(model, tree)
+    return tree

@@ -54,7 +54,10 @@ def make_setup():
     cfg = merge(tiny_config(), OVERRIDES)
     jm = JModel(jcfg.model)
     js = jm.initialize(np.zeros(10))
-    jp = jm.init(jax.random.PRNGKey(0))
+    # jitted: eager JAX compiles each op of the init and the SMPL forward
+    # on its first call (~10 s a module); both packages take these
+    # parameters
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
     model = IntrinsicAvatar(cfg.model)
     statics = model.initialize(np.zeros(10))
     from_jax_params(model, jax.tree.map(np.asarray, jp))
@@ -72,7 +75,7 @@ def make_setup():
     jocc = make_occ_grid(aabb[None], RES)._replace(
         binaries=jnp.asarray(binaries)[None])
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    jframe, jcond = jm.prepare(jp, js, jb, STEP)
+    jframe, jcond = jax.jit(lambda p, b: jm.prepare(p, js, b, STEP))(jp, jb)
     tb = TE.batch_to_device(batch, "cpu")
     frame, cond = model.prepare(statics, tb, STEP)
     occ = OccGridState(torch.zeros(1, RES ** 3),
@@ -84,44 +87,55 @@ def make_setup():
                 system=types.SimpleNamespace(model=jm, statics=js))
 
 
+def light_u(key, n):
+    """The U[0, 1) draws ``[n, 4]`` of the JAX emitter's
+    ``_sample_from_pdf`` from ``key``."""
+    u = jax.random.uniform
+    k1, k2 = jax.random.split(key)
+    k3, k4 = jax.random.split(k2)
+    return np.stack([np.asarray(u(k, (n,))) for k in (k1, k2, k3, k4)], -1)
+
+
+def brdf_u(key, n):
+    """The U[0, 1) draws ``[n, 5]`` of the JAX ``MultiLobe.sample`` from
+    ``key``."""
+    u = jax.random.uniform
+    k1, k2, k3 = jax.random.split(key, 3)
+    return np.concatenate([np.asarray(u(k1, (n, 2))),
+                           np.asarray(u(k2, (n, 2))),
+                           np.asarray(u(k3, (n, 1)))], -1)
+
+
+def pbr_draws(k_pbr, mode, R, spp):
+    """The draws of the JAX ``pbr_forward`` in ``mode`` from its key
+    ``k_pbr`` for ``R`` rays: it splits the key into ``k_dirs, k_scatter``
+    (and an unused third key)."""
+    k_dirs, k_scatter, _ = jax.random.split(k_pbr, 3)
+    u = jax.random.uniform
+    n = R * spp
+    if mode == "uniform_light":
+        n1 = max(spp // 32, 1)
+        k1, k2 = jax.random.split(k_dirs)
+        d = {"sphere_u": np.stack([np.asarray(u(k1, (n1, spp // n1))),
+                                   np.asarray(u(k2, (n1, spp // n1)))]),
+             "strata_u": np.asarray(u(k_scatter, (R, spp)))}
+    elif mode == "light":
+        d = {"light_u": light_u(k_dirs, n)}
+    elif mode == "mats":
+        d = {"brdf_u": brdf_u(k_dirs, n)}
+    else:
+        d = {"brdf_u": brdf_u(k_dirs, n), "light_u": light_u(k_scatter, n)}
+    return {k: torch.as_tensor(np.array(v)) for k, v in d.items()}
+
+
 def chunk_draws(key, mode, n_chunks, spp):
     """The PBR draws of the JAX key path of ``render_frame``: per chunk
     ``key, k = split(key)``; the forward's ``k_pbr`` is the fourth of
-    ``split(k, 4)``; ``pbr_forward`` splits it into ``k_dirs, k_scatter``
-    (and an unused third key)."""
-    u = jax.random.uniform
+    ``split(k, 4)``."""
     out = []
     for _ in range(n_chunks):
         key, k = jax.random.split(key)
-        k_pbr = jax.random.split(k, 4)[3]
-        k_dirs, k_scatter, _ = jax.random.split(k_pbr, 3)
-        n = CHUNK * spp
-
-        def light_u(key):                      # _sample_from_pdf
-            k1, k2 = jax.random.split(key)
-            k3, k4 = jax.random.split(k2)
-            return np.stack([np.asarray(u(k, (n,))) for k in
-                             (k1, k2, k3, k4)], -1)
-
-        def brdf_u(key):                       # MultiLobe.sample
-            k1, k2, k3 = jax.random.split(key, 3)
-            return np.concatenate([np.asarray(u(k1, (n, 2))),
-                                   np.asarray(u(k2, (n, 2))),
-                                   np.asarray(u(k3, (n, 1)))], -1)
-
-        if mode == "uniform_light":
-            n1 = max(spp // 32, 1)
-            k1, k2 = jax.random.split(k_dirs)
-            d = {"sphere_u": np.stack([np.asarray(u(k1, (n1, spp // n1))),
-                                       np.asarray(u(k2, (n1, spp // n1)))]),
-                 "strata_u": np.asarray(u(k_scatter, (CHUNK, spp)))}
-        elif mode == "light":
-            d = {"light_u": light_u(k_dirs)}
-        elif mode == "mats":
-            d = {"brdf_u": brdf_u(k_dirs)}
-        else:
-            d = {"brdf_u": brdf_u(k_dirs), "light_u": light_u(k_scatter)}
-        out.append({k2: torch.as_tensor(np.array(v)) for k2, v in d.items()})
+        out.append(pbr_draws(jax.random.split(k, 4)[3], mode, CHUNK, spp))
     return out
 
 

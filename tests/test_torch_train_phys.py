@@ -254,24 +254,6 @@ def test_phys_losses_match_jax():
                                                              rel=1e-6)
 
 
-def test_training_refuses_the_emitter_sampled_modes():
-    """``light`` / ``mats`` / ``mis`` are not ported in training (their
-    emitter state and BRDF draws): a phys train step in one raises, and
-    says which mode is ported."""
-    over = TS.deep_merge(TS.BASE, {"model": {"render_mode": "light"},
-                                   "dataset": {"n_rays": 16}})
-    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
-    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
-    cfg = merge(tiny_config(), over)
-    sys_ = IntrinsicAvatarSystem(cfg, "cpu").setup(np.zeros(10))
-    sys_.step = KICK
-    batch = SyntheticDataset(cfg.dataset)[0]
-    t_idx = batch.pop("t_idx")
-    with pytest.raises(NotImplementedError, match="uniform_light"):
-        sys_.train_step(sys_.to_device(batch), t_idx,
-                        sys_.flags_for_step(KICK))
-
-
 def test_unread_leaves_keep_the_optax_adam_count(phys):
     """A leaf the loss does not read (the material head and emitter before
     the phys kick-in, the pose corrections before step 4,001) takes Adam

@@ -1,6 +1,7 @@
 """Every key and shape of the JAX parameter tree lands in the port
-(``intrinsicavatar_tpu_torch.weights.from_jax_params``), and the port's own
-``init`` gives the same parameter set."""
+(``intrinsicavatar_tpu_torch.weights.from_jax_params``), the port's own
+``init`` gives the same parameter set, and ``weights.jax_init`` draws the
+JAX package's init from the same seed."""
 
 import jax
 import numpy as np
@@ -73,6 +74,30 @@ def test_own_init_has_the_same_parameters(trees):
     w = state["material.mlp.layers.0.w"]
     assert float(state["material.mlp.layers.0.c"]) == pytest.approx(
         2.0 * float(torch.abs(w).sum(0).max()))
+
+
+def test_jax_init_draws_the_jax_packages_init(trees):
+    """``jax_init(model, 0)`` is the JAX package's ``init(PRNGKey(0))``:
+    every uniform draw (hash tables, the radiance and material layers, the
+    emitter) bit for bit, the sphere-initialized SDF layers (normal draws
+    through XLA's erf_inv) and the sums over them (weight norms, Lipschitz
+    bounds) within 2e-7 of each leaf's largest entry."""
+    from intrinsicavatar_tpu_torch.weights import jax_init
+    jp, cfg = trees
+    model = IntrinsicAvatar(cfg.model)
+    got = flatten_tree(jax_init(model, 0))
+    ref = flatten_tree(jp)
+    assert set(got) == set(ref)
+    state = model.state_dict()
+    for key, arr in ref.items():
+        np.testing.assert_array_equal(
+            state[key.replace(".mlp.", ".mlp.layers.")].numpy(), got[key])
+        if key.startswith("geometry.mlp.") or key.endswith(".c"):
+            np.testing.assert_allclose(got[key], arr, rtol=0,
+                                       atol=2e-7 * np.abs(arr).max(),
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], arr, err_msg=key)
 
 
 def test_missing_leaf_is_refused(trees):
