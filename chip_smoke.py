@@ -135,11 +135,26 @@
    widths in each of ``light``, ``mats`` and ``mis`` (and ``uniform_light``
    beside them; finite losses, the emitter's gradient in ``light`` and
    ``mis``);
-11. prints the ``kernels`` line, the serve, relight and train lines (each
+11. runs the real-data path (``realdata``) in a temporary directory: an
+   SMPL model file at the real model's shapes and a PeopleSnapshot
+   subject at 1080 x 1080 written by the port's own writers; the flagship
+   ``configs/peoplesnapshot-male-3-casual.yaml`` trained through the
+   launcher as shipped (``grad_accum: 2``, published widths) for 10 steps
+   with a validation of the full 1080^2 val frame and a checkpoint; phys
+   steps of that system from step 10,000 with ``grad_accum`` 2 and 1 in
+   turn (time, peak memory); ``--mode test`` from its final checkpoint (image
+   grids, ``mesh.obj``, the env map); ``configs/animation-aist.yaml``
+   predicted from it on an animation fixture with an ``.hdr``; and
+   ``configs/rana-relight-subject-01.yaml`` tested from the JAX package's
+   init on a RANA fixture (GT albedo and normals, a ``.hdr`` a frame) --
+   with every launch counter set to 0 just before and read just after and
+   every plain twin set to fail on a CUDA tensor; every kernel of
+   ``REALDATA_KERNELS`` must launch;
+12. prints the ``kernels`` line, the serve, relight and train lines (each
    profile with the device ms, launches and share of busy time of the
    kernels of the port, KG's count and scatter passes apart, and whether
    each was redesigned for the card, ``port_kernels``), the hand-off line,
-   the capsule line, and last the device line.
+   the capsule line, the realdata line, and last the device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -805,6 +820,7 @@ def main():
     pose_phys_line = train_pose_phys(rows, row, card, dev)
     handoff_line = handoff(card)
     capsule_line = capsule(card)
+    realdata_line = realdata(card)
 
     # ---------------------------------------------------------- 7. report
     print(json.dumps({
@@ -830,6 +846,7 @@ def main():
     print(json.dumps({"train_pose_phys": pose_phys_line}), flush=True)
     print(json.dumps({"handoff": handoff_line}), flush=True)
     print(json.dumps({"capsule": capsule_line}), flush=True)
+    print(json.dumps({"realdata": realdata_line}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
           file=sys.stderr, flush=True)
     print(card, flush=True)
@@ -3536,7 +3553,7 @@ class DeviceTripwire(Tripwire):
         return self.fn(*args, **kwargs)
 
 
-def _launch_run(tmp, name, mode, config, *extra):
+def _launch_run(tmp, name, mode, config, *extra, phase="capsule"):
     """``launch.main`` in ``mode`` on ``config`` in its own ``--exp-dir``
     under ``tmp``; returns the run directory and the seconds it took."""
     import glob
@@ -3549,11 +3566,11 @@ def _launch_run(tmp, name, mode, config, *extra):
     d = os.path.join(tmp, name)
     if launch.main(["--mode", mode, "--config", config, "--exp-dir", d,
                     *extra]) != 0:
-        fail(f"capsule: launch --mode {mode} --config {config} failed")
+        fail(f"{phase}: launch --mode {mode} --config {config} failed")
     torch.cuda.synchronize()
     found = glob.glob(os.path.join(d, "*", "*"))
     if len(found) != 1:
-        fail(f"capsule: {name} made {len(found)} run directories")
+        fail(f"{phase}: {name} made {len(found)} run directories")
     return found[0], time.perf_counter() - t0
 
 
@@ -3747,6 +3764,427 @@ def capsule(card):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
           flush=True)
+    return line
+
+
+# the realdata phase: the flagship, the animation and the RANA relight
+# configs, each run as shipped but for the overrides its runs name
+FLAGSHIP = "configs/peoplesnapshot-male-3-casual.yaml"
+ANIMATION = "configs/animation-aist.yaml"
+RANA_RELIGHT = "configs/rana-relight-subject-01.yaml"
+PS_SIZE = 1080       # PeopleSnapshot's frames
+PS_UNIQUE = 8        # distinct frames on disk ...
+PS_LISTED = 676      # ... listed as frames 0-675, the config's three ranges
+# the pose caches' frames: the train and val ranges as shipped, the test
+# range cut to its first 2 frames (``dataset.opt.test.end=460``)
+PS_SPLITS = {"train": 114, "val": 1, "test": 2}
+FLAGSHIP_STEPS = 10
+# the kernels of the phase: its train steps, validation and test (radiance
+# regime), the phys steps at 10,000 and the RANA test at step 25,000 (the
+# PBR stage, the eval seed grid); no pose correction in these configs, so
+# no KN
+REALDATA_KERNELS = CAPSULE_KERNELS
+
+
+def smpl_model_file(path, seed=SEED):
+    """An SMPL model file at the real model's array shapes, built from the
+    port's synthetic body: 6,890 vertices (the body's 6,866 surface points
+    and its 24 joint markers), 13,776 faces, ``shapedirs [6890, 3, 10]``,
+    nonzero ``posedirs [6890, 3, 207]``, ``J_regressor [24, 6890]`` as a
+    scipy sparse matrix (the markers), ``weights [6890, 24]``; a latin-1
+    pickle as the official files are."""
+    import pickle
+
+    import scipy.sparse
+
+    from intrinsicavatar_tpu_torch.anim.smpl import (
+        PARENTS, make_synthetic_body_model,
+    )
+    body = make_synthetic_body_model(n_surface_verts=23 * 299)
+    V, J = 6890, 24
+    verts = np.concatenate([body.v_template[:V - J], body.v_template[-J:]])
+    weights = np.concatenate([body.lbs_weights[:V - J],
+                              body.lbs_weights[-J:]])
+    jreg = np.zeros((J, V), np.float64)
+    jreg[:, -J:] = np.eye(J)
+    rng = np.random.default_rng(seed)
+    d = {"v_template": verts.astype(np.float64),
+         "shapedirs": rng.normal(scale=0.002, size=(V, 3, 10)),
+         "posedirs": rng.normal(scale=1e-3, size=(V, 3, 207)),
+         "J_regressor": scipy.sparse.csc_matrix(jreg),
+         "weights": weights.astype(np.float64),
+         "f": rng.integers(0, V, (13776, 3)).astype(np.uint32),
+         "kintree_table": np.stack([PARENTS, np.arange(J)])}
+    with open(path, "wb") as f:
+        pickle.dump(d, f, protocol=2)
+    return path
+
+
+def _poses(n, transl, seed):
+    """``n`` frames of a smooth motion, upright in a camera whose y axis
+    points down (the root turned by pi about x), at ``transl``."""
+    t = np.linspace(0, 2 * np.pi, n, endpoint=False)[:, None]
+    r = np.random.default_rng(seed)
+    body = (r.uniform(0, 0.25, (1, 69)) * np.sin(
+        r.uniform(0.5, 1.5, (1, 69)) * t)).astype(np.float32)
+    orient = np.tile(np.asarray([[np.pi, 0.0, 0.0]], np.float32), (n, 1))
+    orient[:, 1] = 0.3 * np.sin(t[:, 0])
+    return {"betas": np.zeros((1, 10), np.float32), "body_pose": body,
+            "global_orient": orient,
+            "transl": np.tile(np.asarray([transl], np.float32), (n, 1))}
+
+
+def _frame(body, poses, i, K, H, W):
+    """A frame of the body at pose ``i``: its vertices splatted through
+    ``K`` and dilated into a mask, a shaded gradient on a grey backdrop
+    (``[H, W, 3]`` uint8, ``[H, W]`` uint8)."""
+    import torch
+    from scipy.ndimage import maximum_filter
+
+    from intrinsicavatar_tpu_torch.anim.smpl import smpl_forward
+    t = lambda k: torch.as_tensor(poses[k][i])
+    with torch.no_grad():
+        v = smpl_forward(body, torch.as_tensor(poses["betas"][0]),
+                         t("body_pose"), t("global_orient"),
+                         t("transl")).vertices[0].numpy()
+    uv = v @ K.T
+    uv = np.round(uv[:, :2] / uv[:, 2:]).astype(np.int64)
+    ok = (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) \
+        & (uv[:, 1] < H)
+    m = np.zeros((H, W), np.uint8)
+    m[uv[ok, 1], uv[ok, 0]] = 1
+    m = maximum_filter(m, size=max(3, H // 40))
+    yy, xx = np.mgrid[0:H, 0:W]
+    fg = np.stack([60 + 150 * yy / H, 80 + 100 * xx / W,
+                   np.full((H, W), 120.0)], -1)
+    img = np.where(m[..., None] > 0, fg, 128.0).astype(np.uint8)
+    return img, m
+
+
+def peoplesnapshot_fixture(root, model_path):
+    """A PeopleSnapshot subject at the dataset's resolution: ``cameras.npz``
+    (1080 x 1080), ``PS_UNIQUE`` distinct frames (PNG by ``write_png``,
+    masks as uint8 ``.npy``, as the preprocessing writes them) listed as
+    frames 0-675 by symbolic links, so that the flagship's train (114
+    frames), val (1) and test (55) ranges read as shipped, and
+    ``poses/anim_nerf_{train,val,test}.npz`` of 114, 1 and 2 frames (the
+    test run cuts its range to 2).  Returns the seconds the frames took
+    to write."""
+    import os
+
+    from intrinsicavatar_tpu_torch.anim.smpl import load_body_model
+    from intrinsicavatar_tpu_torch.utils.image_io import write_png
+
+    H = W = PS_SIZE
+    K = np.asarray([[1100.0, 0, W / 2], [0, 1100.0, H / 2], [0, 0, 1]],
+                   np.float32)
+    for d in ("frames", "images", "masks", "poses"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    np.savez(os.path.join(root, "cameras.npz"), intrinsic=K,
+             extrinsic=np.eye(4, dtype=np.float32), height=H, width=W)
+    for k, (split, n) in enumerate(PS_SPLITS.items()):
+        np.savez(os.path.join(root, "poses", f"anim_nerf_{split}.npz"),
+                 **_poses(n, [0.0, 0.1, 3.0], SEED + k))
+    body = load_body_model(model_path)
+    poses = _poses(PS_UNIQUE, [0.0, 0.1, 3.0], SEED)
+    t0 = time.perf_counter()
+    for i in range(PS_UNIQUE):
+        img, m = _frame(body, poses, i, K, H, W)
+        write_png(os.path.join(root, "frames", f"frame_{i}.png"), img)
+        np.save(os.path.join(root, "frames", f"mask_{i}.npy"), m)
+    write_s = time.perf_counter() - t0
+    for i in range(PS_LISTED):
+        os.symlink(f"../frames/frame_{i % PS_UNIQUE}.png",
+                   os.path.join(root, "images", f"image_{i:04d}.png"))
+        os.symlink(f"../frames/mask_{i % PS_UNIQUE}.npy",
+                   os.path.join(root, "masks", f"mask_{i:04d}.npy"))
+    return write_s
+
+
+def animation_fixture(root, hdri):
+    """An AIST-style motion: 3 frames of packed ``thetas`` in ``poses.npz``,
+    per-frame extrinsics in ``cameras.npz`` at 1024 x 1024, and an HDRI
+    written by ``write_hdr``."""
+    import os
+
+    from intrinsicavatar_tpu_torch.data.capsule import procedural_hdri
+    from intrinsicavatar_tpu_torch.utils.image_io import write_hdr
+
+    os.makedirs(root)
+    n = 3
+    ext = np.stack([np.eye(4, dtype=np.float32)] * n)
+    ext[:, 0, 3] = np.linspace(-0.1, 0.1, n)
+    np.savez(os.path.join(root, "cameras.npz"), height=np.full(n, 1024),
+             width=np.full(n, 1024), intrinsic=np.stack([np.eye(3)] * n),
+             extrinsic=ext)
+    p = _poses(n, [0.0, 0.1, 5.0], SEED + 7)
+    np.savez(os.path.join(root, "poses.npz"), betas=p["betas"][0],
+             transl=p["transl"], thetas=np.concatenate(
+                 [p["global_orient"], p["body_pose"]], 1))
+    write_hdr(hdri, procedural_hdri(64, seed=3))
+
+
+def rana_fixture(root, model_path, size=128):
+    """A RANA subject of 2 test frames at ``size`` x ``size``: images,
+    masks, GT albedo and normal PNGs, ``poses/anim_nerf_test.npz`` and
+    ``hdri_files.json`` naming a ``.hdr`` (``write_hdr``) for each frame."""
+    import os
+
+    from intrinsicavatar_tpu_torch.anim.smpl import load_body_model
+    from intrinsicavatar_tpu_torch.data.capsule import procedural_hdri
+    from intrinsicavatar_tpu_torch.utils.image_io import write_hdr, write_png
+
+    H = W = size
+    K = np.asarray([[1.1 * W, 0, W / 2], [0, 1.1 * W, H / 2], [0, 0, 1]],
+                   np.float32)
+    for d in ("images", "masks", "poses", "albedo", "normal", "hdri"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    np.savez(os.path.join(root, "cameras.npz"), intrinsic=K,
+             extrinsic=np.eye(4, dtype=np.float32), height=H, width=W)
+    poses = _poses(2, [0.0, 0.1, 3.0], SEED + 11)
+    np.savez(os.path.join(root, "poses", "anim_nerf_test.npz"), **poses)
+    body = load_body_model(model_path)
+    names = {}
+    for i in range(2):
+        img, m = _frame(body, poses, i, K, H, W)
+        write_png(os.path.join(root, "images", f"{i:04d}.png"), img)
+        np.save(os.path.join(root, "masks", f"{i:04d}.npy"), m)
+        write_png(os.path.join(root, "albedo", f"{i:04d}.png"),
+                  (img * 0.8).astype(np.uint8))
+        nrm = np.zeros((H, W, 3), np.uint8)
+        nrm[..., 2] = 255 * m
+        write_png(os.path.join(root, "normal", f"{i:04d}.png"), nrm)
+        write_hdr(os.path.join(root, "hdri", f"sky{i}.hdr"),
+                  procedural_hdri(32, seed=i))
+        names[str(i)] = f"sky{i}.hdr"
+    with open(os.path.join(root, "hdri_files.json"), "w") as f:
+        json.dump(names, f)
+
+
+def decode_ms(path, reps=5):
+    """The host's ms to read a PNG frame (median of ``reps`` reads), and to
+    undo its rows as if all were Paeth-filtered (the anti-diagonal decode,
+    on the same bytes: what a frame written with average or Paeth rows
+    costs)."""
+    import struct
+    import zlib
+
+    from intrinsicavatar_tpu_torch.utils import image_io as IO
+
+    def med(fn):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    data = open(path, "rb").read()
+    W, H = struct.unpack(">II", data[16:24])
+    idat = b"".join(b for k, b in IO._chunks(data) if k == b"IDAT")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, -1)
+    paeth = raw.copy()
+    paeth[:, 0] = 4
+    return {"frame": f"{W}x{H} RGB, unfiltered rows (write_png)",
+            "read_png_ms": med(lambda: IO.read_png(path)),
+            "paeth_rows_ms": med(lambda: IO._unfilter(paeth, H, 3 * W, 3))}
+
+
+def realdata(card):
+    """Step 11: the real-data path, in a temporary directory.  Writes an SMPL
+    model file at the real model's shapes (``smpl_model_file``) and a
+    PeopleSnapshot subject at 1080 x 1080 (``peoplesnapshot_fixture``);
+    trains the flagship ``configs/peoplesnapshot-male-3-casual.yaml``
+    through the launcher as shipped (``grad_accum: 2``, the edge sampler,
+    the published widths), cut to ``FLAGSHIP_STEPS`` steps with one
+    validation of the full 1080^2 val frame and a checkpoint at step 5;
+    runs phys-regime steps of the same system from step 10,000 with
+    ``grad_accum`` 2 and 1 in turn, a warm-up step at each, then two
+    each (each step's time and peak memory); tests from ``ckpt/final`` on
+    2 test frames at downscale 4 (image grids, ``mesh.obj``, the env map);
+    predicts
+    ``configs/animation-aist.yaml`` from that checkpoint on an animation
+    fixture (``animation_fixture``) at downscale 8; and tests
+    ``configs/rana-relight-subject-01.yaml`` from the JAX package's init of
+    its seed on a RANA fixture of 2 frames of 128 x 128 (``rana_fixture``:
+    GT albedo and normals, a ``.hdr`` a frame by ``hdri_files.json``; the
+    first card run of ``envlight-tensor`` with a per-frame base).  Every
+    launch counter is set to 0 just before and read just after, and every
+    plain twin is set to fail on a CUDA tensor.  The cuts, besides each
+    config's ``dataroot`` and ``model_path`` (and the animation's
+    ``hdri_filepath``): the step count and the validation / checkpoint
+    cadence; the test range (``dataset.opt.test.end``) and its downscale;
+    the animation's downscale; the fixtures' frame counts and the RANA
+    frames' size.  Returns the ``realdata`` line."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels, launch
+    from intrinsicavatar_tpu_torch.data import make as make_dataset
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils.image_io import read_hdr
+
+    print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all", flush=True)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="realdata-")
+    line = {"card": card}
+    trips = [DeviceTripwire(m, name) for m, name in _capsule_modules(
+        CAPSULE_TWINS)]
+    try:
+        t0 = time.perf_counter()
+        smpl = smpl_model_file(os.path.join(tmp, "SMPL_MALE.pkl"))
+        ps = os.path.join(tmp, "peoplesnapshot")
+        write_s = peoplesnapshot_fixture(ps, smpl)
+        line["fixture_s"] = time.perf_counter() - t0
+        line["frame_write_s"] = write_s / PS_UNIQUE
+        line["decode"] = decode_ms(os.path.join(ps, "frames", "frame_0.png"))
+        print(f"realdata: fixtures in {line['fixture_s']:.1f} s; host "
+              f"decode {json.dumps(line['decode'])} ({card})", flush=True)
+        kernels.reset_launches()
+
+        # ------------------------------------------ a. train the flagship
+        ov = [f"dataset.dataroot={ps}",
+              f"model.deformer.rigid_deformer.model_path={smpl}"]
+        run_dir, train_s = _launch_run(
+            tmp, "train", "train", FLAGSHIP, *ov,
+            f"trainer.max_steps={FLAGSHIP_STEPS}",
+            "trainer.check_val_every_n_steps=5",
+            "trainer.ckpt_every_n_steps=5", "trainer.log_every_n_steps=1",
+            phase="realdata")
+        recs = _run_records(run_dir)
+        steps = [r for r in recs if "total" in r]
+        vals = [r for r in recs if "val/psnr" in r]
+        wall = [r["wall_time"] for r in steps]
+        grid = os.path.join(run_dir, "val", "it5_f0.png")
+        line["train"] = {
+            "steps": [r["step"] for r in steps], "train_s": train_s,
+            "step_s": np.diff(wall).tolist(),
+            "data_s": [r.get("wall_data_s") for r in steps[1:]],
+            "losses": [r["total"] for r in steps],
+            "val": {k: v for r in vals for k, v in r.items()},
+            "val_grid": os.path.exists(grid),
+            "checkpoints": sorted(os.listdir(os.path.join(run_dir, "ckpt")))}
+        print(f"realdata train: {json.dumps(line['train'])}", flush=True)
+        if [r["step"] for r in steps] != list(range(FLAGSHIP_STEPS)) \
+                or not all(np.isfinite(line["train"]["losses"])) \
+                or [r["step"] for r in vals] != [5] \
+                or not line["train"]["val_grid"] \
+                or "step5" not in line["train"]["checkpoints"]:
+            fail(f"realdata: the flagship's training is off: "
+                 f"{line['train']}")
+        final = os.path.join(run_dir, "ckpt", "final")
+
+        # ------------------------------------------ b. phys steps, accum 2/1
+        cfg = launch.build_config("train", FLAGSHIP, ov)
+        ds = make_dataset(cfg.dataset.name, cfg.dataset, split="train",
+                          mode="train", rng=np.random.default_rng(SEED))
+        system = IntrinsicAvatarSystem(cfg, torch.device("cuda")).setup(
+            ds.betas)
+        system.step = int(cfg.model.phys_kick_in_step)
+        it = ds.train_iter(np.random.default_rng(SEED))
+        phys = []
+        # a warm-up step at each n, then n = 2 and 1 in turn, twice
+        for n in (2, 1, 2, 1, 2, 1):
+            system.grad_accum = n
+            batch, t_idx = next(it)
+            batch = system.to_device(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses = system.train_step(batch, t_idx,
+                                       system.flags_for_step(system.step))
+            torch.cuda.synchronize()
+            phys.append({"grad_accum": n, "step": system.step - 1,
+                         "s": time.perf_counter() - t0,
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "total": float(losses["total"]),
+                         "rgb_phys_l1": float(losses.get("rgb_phys_l1",
+                                                         np.nan))})
+        del system, batch
+        line["phys_steps"] = {"warm_up": phys[:2],
+                              "accum_2": phys[2::2], "accum_1": phys[3::2]}
+        print(f"realdata phys steps: {json.dumps(line['phys_steps'])}",
+              flush=True)
+        if not np.all(np.isfinite([[p["total"], p["rgb_phys_l1"]]
+                                   for p in phys])):
+            fail(f"realdata: the phys steps: {phys}")
+
+        # ------------------------------------------ c. test from ckpt/final
+        test_dir, test_s = _launch_run(
+            tmp, "test", "test", FLAGSHIP, "--resume", final, *ov,
+            "dataset.opt.test.end=460", "dataset.opt.test.downscale=4",
+            phase="realdata")
+        save = os.path.join(test_dir, "save")
+        mesh = os.path.join(save, "mesh.obj")
+        n_faces = sum(x.startswith("f ") for x in open(mesh)) \
+            if os.path.exists(mesh) else 0
+        env = os.path.join(save, "envmap.hdr")
+        line["test"] = {
+            "s": test_s, "metrics": _run_records(test_dir, "metrics.json"),
+            "grids": sorted(f for f in os.listdir(save) if f.endswith(
+                ".png")),
+            "mesh_faces": n_faces,
+            "envmap": list(read_hdr(env).shape) if os.path.exists(env)
+            else None}
+        print(f"realdata test: {json.dumps(line['test'])}", flush=True)
+        if line["test"]["grids"] != ["test_0000.png", "test_0001.png"] \
+                or n_faces == 0 or line["test"]["envmap"] is None \
+                or not all(np.isfinite(v) for v in
+                           line["test"]["metrics"].values()):
+            fail(f"realdata: the flagship's test run: {line['test']}")
+
+        # ------------------------------------------ d. predict an animation
+        anim = os.path.join(tmp, "aist")
+        hdri = os.path.join(tmp, "city.hdr")
+        animation_fixture(anim, hdri)
+        pred_dir, pred_s = _launch_run(
+            tmp, "predict", "predict", ANIMATION, "--resume", final,
+            f"dataset.dataroot={anim}", f"dataset.hdri_filepath={hdri}",
+            f"model.deformer.rigid_deformer.model_path={smpl}",
+            "dataset.opt.predict.downscale=8", phase="realdata")
+        psave = os.path.join(pred_dir, "save")
+        line["predict"] = {"s": pred_s, "grids": sorted(os.listdir(psave))
+                           if os.path.isdir(psave) else []}
+        print(f"realdata predict: {json.dumps(line['predict'])}", flush=True)
+        if line["predict"]["grids"] != [f"test_{i:04d}.png"
+                                        for i in range(3)]:
+            fail(f"realdata: the animation's predict run: "
+                 f"{line['predict']}")
+
+        # ------------------------------------------ e. RANA relight test
+        rana = os.path.join(tmp, "rana_subject")
+        rana_fixture(rana, smpl)
+        rana_dir, rana_s = _launch_run(
+            tmp, "rana", "test", RANA_RELIGHT, f"dataset.dataroot={rana}",
+            f"model.deformer.rigid_deformer.model_path={smpl}",
+            phase="realdata")
+        rsave = os.path.join(rana_dir, "save")
+        line["rana"] = {"s": rana_s,
+                        "metrics": _run_records(rana_dir, "metrics.json"),
+                        "files": sorted(os.listdir(rsave))}
+        print(f"realdata rana: {json.dumps(line['rana'])}", flush=True)
+        m = line["rana"]["metrics"]
+        if not {"psnr", "psnr_phys", "albedo_psnr", "normal_error_deg"} \
+                <= set(m) or not all(np.isfinite(v) for v in m.values()) \
+                or "mesh.obj" not in line["rana"]["files"]:
+            fail(f"realdata: the RANA relight test: {line['rana']}")
+        launches = dict(kernels.launches)
+    finally:
+        for t in trips:
+            t.restore()
+        shutil.rmtree(tmp, ignore_errors=True)
+    twins = {t.name: t.calls for t in trips if t.calls}
+    line["launches"] = launches
+    line["twins_on_cuda_tensors"] = twins
+    line["phase_s"] = time.perf_counter() - t_phase
+    missing = [k for k in REALDATA_KERNELS if not launches.get(k)]
+    if missing or twins:
+        fail(f"realdata: kernels not launched {missing}, plain twins on "
+             f"CUDA tensors {twins}")
+    print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all", flush=True)
     return line
 
 

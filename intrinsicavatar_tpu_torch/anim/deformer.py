@@ -36,8 +36,8 @@ from intrinsicavatar_tpu_torch.anim.lbs_voxel import (
     make_voxel_spec, make_weight_voxel, precompute_transform_voxels,
 )
 from intrinsicavatar_tpu_torch.anim.smpl import (
-    get_bbox_from_verts, get_predefined_rest_pose, make_synthetic_body_model,
-    smpl_forward,
+    get_bbox_from_verts, get_predefined_rest_pose, load_body_model,
+    make_synthetic_body_model, smpl_forward,
 )
 from intrinsicavatar_tpu_torch.ops.compact import (
     compact_indices, scatter_compacted,
@@ -95,10 +95,11 @@ class FastSNARF(nn.Module):
         self.seed_polish_iters = int(dcfg.get("seed_polish_iters", 4))
         self.candidate_compaction = dcfg.get("candidate_compaction", 0.375)
         model_path = config.get("model_path", None)
-        if model_path not in (None, "synthetic"):
-            raise ValueError("only the synthetic body model is ported: the "
-                             "licensed SMPL files are not in the repository")
-        self.body_model = make_synthetic_body_model()
+        if model_path in (None, "synthetic"):
+            self.body_model = make_synthetic_body_model()
+        else:
+            self.body_model = load_body_model(model_path,
+                                              config.get("gender", "neutral"))
         self.spec = None
         self.bbox = None
         self.init_segs = None     # [13, 2, 3] canonical bone segments

@@ -1,5 +1,6 @@
 """SMPL body model (counterpart of the JAX package's ``anim/smpl.py``):
-the synthetic SMPL-topology body, the kinematic chain and the SMPL forward.
+an official model file's loader, the synthetic SMPL-topology body, the
+kinematic chain and the SMPL forward.
 
 The body model is host numpy; :func:`smpl_forward` takes torch tensors and
 runs on their device.
@@ -8,6 +9,7 @@ runs on their device.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +42,38 @@ class SmplOutput(NamedTuple):
     vertices: torch.Tensor    # [1, V, 3]
     joints: torch.Tensor      # [1, 24, 3]
     A: torch.Tensor           # [1, 24, 4, 4] rest->posed per-joint transforms
+
+
+def load_body_model(path: str, gender: str = "neutral") -> BodyModel:
+    """An official SMPL model file (``.pkl``, read as latin-1 pickle, or
+    ``.npz``): sparse arrays densified, the first 10 shape directions,
+    ``posedirs [V, 3, 207]`` as ``[207, V * 3]`` (the JAX package's
+    ``load_body_model``; ``gender`` names the file's body, which the path
+    already selects)."""
+    if path.endswith(".npz"):
+        d = dict(np.load(path, allow_pickle=True))
+    else:
+        with open(path, "rb") as f:
+            d = pickle.load(f, encoding="latin1")
+
+    def arr(x):
+        if hasattr(x, "todense"):
+            x = np.asarray(x.todense())
+        return np.asarray(x, np.float32)
+
+    posedirs = arr(d["posedirs"])
+    posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T \
+        if posedirs.ndim == 3 else posedirs
+    return BodyModel(
+        v_template=arr(d["v_template"]),
+        shapedirs=arr(d["shapedirs"])[..., :10],
+        posedirs=np.ascontiguousarray(posedirs, np.float32),
+        j_regressor=arr(d["J_regressor"]),
+        lbs_weights=arr(d["weights"]),
+        parents=PARENTS,
+        faces=np.asarray(d["f"], np.int64) if "f" in d
+        else np.zeros((0, 3), np.int64),
+    )
 
 
 def make_synthetic_body_model(n_surface_verts: int = 2000,

@@ -1,6 +1,7 @@
 """Dataset registry of the port: ``synthetic`` (generated poses, procedural
-targets) and ``synthetic-image`` (the sphere-traced capsule body's images
-with GT masks, albedo and normals)."""
+targets), ``synthetic-image`` (the sphere-traced capsule body's images
+with GT masks, albedo and normals), and the real-data loaders
+``peoplesnapshot``, ``synthetichuman``, ``rana`` and ``animation``."""
 
 _DATASETS = {}
 
@@ -13,8 +14,11 @@ def register(name):
 
 
 def make(name, config, **kwargs):
+    import intrinsicavatar_tpu_torch.data.animation  # noqa: F401
     import intrinsicavatar_tpu_torch.data.capsule  # noqa: F401
+    import intrinsicavatar_tpu_torch.data.peoplesnapshot  # noqa: F401
     import intrinsicavatar_tpu_torch.data.synthetic  # noqa: F401
+    import intrinsicavatar_tpu_torch.data.synthetichuman  # noqa: F401
     if name not in _DATASETS:
         raise KeyError(f"dataset {name!r} is not ported yet; the port has "
                        f"{sorted(_DATASETS)}")

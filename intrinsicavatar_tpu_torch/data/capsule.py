@@ -27,6 +27,7 @@ import numpy as np
 from intrinsicavatar_tpu_torch.anim.smpl import PARENTS
 from intrinsicavatar_tpu_torch.data import register
 from intrinsicavatar_tpu_torch.data.rays import make_rays, near_far_from_transl
+from intrinsicavatar_tpu_torch.utils.image_io import read_any
 
 
 def capsule_spec():
@@ -269,13 +270,15 @@ class CapsuleImageDataset:
         self.hdri = None
         hp = config.get("hdri_filepath", None)
         if mode == "test" and hp:
-            if hp != "procedural":
-                raise NotImplementedError(
-                    f"hdri_filepath {hp!r}: reading an HDR image file needs "
-                    f"cv2's reader, which the port does not have; use "
-                    f"'procedural'")
-            self.hdri = procedural_hdri(int(config.get("hdri_height", 64)),
-                                        seed=int(config.get("hdri_seed", 11)))
+            if hp == "procedural":
+                self.hdri = procedural_hdri(
+                    int(config.get("hdri_height", 64)),
+                    seed=int(config.get("hdri_seed", 11)))
+            else:
+                if not os.path.exists(hp):
+                    raise FileNotFoundError(
+                        f"hdri_filepath {hp!r} missing or unreadable")
+                self.hdri = read_any(hp).astype(np.float32)
 
         self.sampler = None
         if mode == "train":

@@ -15,18 +15,34 @@
         --resume exp/intrinsic-avatar/<run>/ckpt/step50 trainer.max_steps=100
     python -m intrinsicavatar_tpu_torch.launch --mode test \\
         --resume exp/intrinsic-avatar/<run>/ckpt/final
+    python -m intrinsicavatar_tpu_torch.launch --mode train \\
+        --config configs/peoplesnapshot-male-3-casual.yaml \\
+        dataset.dataroot=<subject dir> \\
+        model.deformer.rigid_deformer.model_path=<SMPL_MALE.pkl>
+    python -m intrinsicavatar_tpu_torch.launch --mode predict \\
+        --config configs/animation-aist.yaml --resume <run>/ckpt/final \\
+        dataset.dataroot=<motion dir> dataset.hdri_filepath=<sky.hdr> \\
+        model.deformer.rigid_deformer.model_path=<SMPL_FEMALE.pkl>
 
 Without ``--config`` a validate run uses :func:`serve_config` (the default
 model at its published widths on the ``synthetic`` dataset, eval step 5000), a
 test or predict run :func:`relight_config` (the same at step 25,000, where
 the physically based maps are rendered) and a train run
 :func:`train_config` (the same model, 4096 rays per step); a ``--config``
-YAML is merged onto the default config (validate, test, predict; eval step
-5000, or 25,000 for test and predict, unless ``trainer.eval_step`` says
-otherwise) or onto :func:`train_config` (train); a config may name either
-dataset, ``synthetic`` or the capsule body's images, ``synthetic-image``
+YAML is merged onto the default config in every mode, as the JAX
+launcher's is (eval step 5000, or 25,000 for test and predict, unless
+``trainer.eval_step`` says otherwise), so a train run's validation takes
+the default eval path, the seed grid's.  A config may name the
+``synthetic`` dataset, the capsule body's images, ``synthetic-image``
 (``configs/tiny-capsule.yaml``, ``configs/capsule-m3c.yaml``), whose frames
-add SSIM and the normal error to the metrics.  Every mode runs at the JAX
+add SSIM and the normal error to the metrics, or a real dataset on disk:
+``peoplesnapshot``, ``synthetichuman``, ``rana`` (with GT albedo, normals
+and per-frame test HDRIs) or, for ``--mode predict``, ``animation``
+(poses only); those name an SMPL model file
+(``model.deformer.rigid_deformer.model_path``, ``.pkl`` or ``.npz``) and
+read their frames with ``utils/image_io.py`` (PNG, Radiance ``.hdr``).
+``trainer.grad_accum`` splits a train step's shading pass into
+microbatches.  Every mode runs at the JAX
 package's default precision (the shading pass and the queried secondary
 coarse pass in the bf16 scope); ``model.primary_dtype=float32`` and
 ``model.secondary_coarse_dtype=float32`` select the exact path.  An eval run at a step
@@ -41,7 +57,8 @@ directory's ``metrics.jsonl``, validates on up to 2 frames of the val split
 every ``trainer.check_val_every_n_steps`` (2,000) steps, saves
 ``ckpt/step<N>`` every ``trainer.ckpt_every_n_steps`` steps (0: never) and
 ``ckpt/final`` at the end, and stops early past the wall-clock time
-``trainer.deadline_ts`` (0: none);
+``trainer.deadline_ts`` (0: none), and writes each validation frame's
+image grid as ``val/it<step>_f<i>.png`` where the dataset has images;
 ``model.pose_correction.enable_pose_correction=true`` trains the per-frame
 pose corrections from ``pose_correction_start_step`` (4,000) on.
 
@@ -54,7 +71,10 @@ budget boost and the data's position start afresh, as in the JAX
 package), in test mode the parameters but the pose corrections, and the
 step (``filter_for_test``: every frame builds its own grids), in validate
 and predict mode the parameters and the step; an eval run renders at the
-checkpoint's step when it is past 0.  ``--params`` loads an ``.npz`` of
+checkpoint's step when it is past 0, writes each frame's image grid as
+``save/<val|test>_<i>.png`` where the dataset has an image size, and in
+test mode also the canonical mesh ``save/mesh.obj`` and the environment
+map ``save/envmap.hdr``.  ``--params`` loads an ``.npz`` of
 the JAX parameter tree flattened to dotted keys (as
 :func:`weights.flatten_tree` names them; every checkpoint holds one as
 ``params.npz``); without either the parameters are the JAX package's
@@ -88,10 +108,6 @@ def main(argv=None):
                         help="torch device (default: cuda)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
-    if args.mode == "test":
-        print("--mode test: the canonical mesh export and the env-map dump "
-              "are not ported yet; they come with a later slice",
-              file=sys.stderr)
 
     import torch
 
@@ -101,7 +117,7 @@ def main(argv=None):
     from intrinsicavatar_tpu_torch.utils import checkpoint as ckpt
     from intrinsicavatar_tpu_torch.utils.device import resolve_device
     from intrinsicavatar_tpu_torch.weights import (
-        from_jax_params, jax_init, to_jax_tree, unflatten,
+        flatten_tree, from_jax_params, jax_init, to_jax_tree, unflatten,
     )
 
     device = resolve_device(args.device)
@@ -135,9 +151,17 @@ def main(argv=None):
         jax_init(model, seed)
     if restored is not None:
         # the restored parameters over the model's (a test restore has no
-        # pose corrections)
+        # pose corrections); corrections of a sequence of another length
+        # (a subject's checkpoint driving an animation) index that
+        # sequence's frames, and the model keeps its own
         tree = to_jax_tree(model)
-        tree.update(restored["params"])
+        params = dict(restored["params"])
+        pc = params.get("pose_correction")
+        if pc is not None and {k: np.shape(v) for k, v in flatten_tree(
+                pc).items()} != {k: np.shape(v) for k, v in flatten_tree(
+                tree["pose_correction"]).items()}:
+            params.pop("pose_correction")
+        tree.update(params)
         from_jax_params(model, tree)
     split = "val" if validate else "test"
     dataset = make_dataset(cfg.dataset.get("name", "synthetic"), cfg.dataset,
@@ -171,25 +195,36 @@ def main(argv=None):
                if k.startswith("ovf_") and v}
         if ovf:
             print(f"frame {i}: budget overflow {ovf}", flush=True)
-        if "rgb" not in batch_np:
-            continue
-        m = EV.frame_metrics(out, batch_np, getattr(dataset, "img_wh", None),
-                             albedo_prealigned=ratio is not None)
-        all_metrics.append(m)
-        print(f"frame {i}: " + " ".join(f"{k}={v:.3f}" for k, v in m.items()
-                                        if np.ndim(v) == 0), flush=True)
+        img_wh = getattr(dataset, "img_wh", None)
+        if "rgb" in batch_np:
+            m = EV.frame_metrics(out, batch_np, img_wh,
+                                 albedo_prealigned=ratio is not None)
+            all_metrics.append(m)
+            print(f"frame {i}: " + " ".join(
+                f"{k}={v:.3f}" for k, v in m.items() if np.ndim(v) == 0),
+                flush=True)
+        if img_wh:
+            EV.dump_frame_images(os.path.join(run_dir, "save"),
+                                 f"{split}_{i:04d}", out, batch_np, img_wh)
     if all_metrics:
         agg = {k: float(np.mean([m[k] for m in all_metrics]))
                for k in all_metrics[0] if np.ndim(all_metrics[0][k]) == 0}
         print("mean:", json.dumps(agg))
         with open(os.path.join(run_dir, "metrics.json"), "w") as f:
             json.dump(agg, f, indent=2)
+    if args.mode == "test":
+        save = os.path.join(run_dir, "save")
+        verts, faces = EV.export_canonical_mesh(
+            model, step, os.path.join(save, "mesh.obj"))
+        env = EV.dump_envmap(model, os.path.join(save, "envmap.exr"))
+        print(f"saved {os.path.join(save, 'mesh.obj')} ({len(verts)} "
+              f"vertices, {len(faces)} faces) and {env}", flush=True)
     return 0
 
 
 def build_config(mode: str, config=None, overrides=()):
     """The run's resolved config: a ``--config`` YAML over the default
-    config (eval) or :func:`train_config` (train), else
+    config in every mode (the JAX launcher's rule), else
     :func:`serve_config` (validate), :func:`relight_config` (test,
     predict) or :func:`train_config`; then the dotlist ``overrides``."""
     from intrinsicavatar_tpu_torch.utils.config import (
@@ -203,8 +238,7 @@ def build_config(mode: str, config=None, overrides=()):
     cfg = (train_config() if train else serve_config() if mode == "validate"
            else relight_config())
     if config:
-        cfg = merge(train_config() if train else default_config(),
-                    load_yaml(config))
+        cfg = merge(default_config(), load_yaml(config))
     if overrides:
         cfg = apply_dotlist(cfg, list(overrides))
     return resolve(cfg)
@@ -274,6 +308,8 @@ def _train(cfg, device, seed, params_path, resume, run_dir):
               f"({e!r})", file=sys.stderr)
         val_ds = None
     if val_ds is not None and val_every > 0:
+        img_wh = getattr(val_ds, "img_wh", None)
+
         def val_fn(system, step):
             flags = system.flags_for_step(step, training=False)
             agg: dict = {}
@@ -284,8 +320,10 @@ def _train(cfg, device, seed, params_path, resume, run_dir):
                     EV.batch_to_device(b_np, device), step, flags,
                     ray_chunk=chunk,
                     generator=torch.Generator().manual_seed(step + i))
-                m = EV.frame_metrics(out, b_np,
-                                     getattr(val_ds, "img_wh", None))
+                m = EV.frame_metrics(out, b_np, img_wh)
+                if img_wh:
+                    EV.dump_frame_images(os.path.join(run_dir, "val"),
+                                         f"it{step}_f{i}", out, b_np, img_wh)
                 # eval budget overflows show in validation too
                 for k, v in out["counters"].items():
                     if k.startswith("ovf_") and v:

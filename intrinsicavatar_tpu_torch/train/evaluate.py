@@ -1,10 +1,12 @@
 """Validation and test rendering: per-frame test occupancy grid and seed
 grid, chunked full-frame render (with the PBR stage from
-``phys_kick_in_step`` on), the albedo alignment pre-pass and metrics
+``phys_kick_in_step`` on), the albedo alignment pre-pass, metrics, and the
+eval outputs: image grids, the canonical mesh and the environment map
 (counterpart of the JAX package's ``train/evaluate.py``)."""
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -15,6 +17,7 @@ from intrinsicavatar_tpu_torch.render.occupancy import (
 )
 from intrinsicavatar_tpu_torch.render.renderer import RenderFlags
 from intrinsicavatar_tpu_torch.utils import metrics as M
+from intrinsicavatar_tpu_torch.utils import saver
 
 
 def eval_flags(model_cfg, step: int, albedo_only: bool = False
@@ -231,3 +234,65 @@ def frame_metrics(out: dict, batch: dict, img_wh=None,
         m["lpips"] = lp(pred.reshape(H, W, 3), gt.reshape(H, W, 3),
                         np.asarray(batch["alpha"]).reshape(H, W) > 0)
     return m
+
+
+def dump_frame_images(out_dir: str, name: str, out: dict, batch: dict,
+                      img_wh):
+    """One eval frame's image grid as ``<out_dir>/<name>.png``, 4 columns:
+    the GT over white (where the batch has one), the render, its normal
+    map, its opacity, then the PBR maps the render has
+    (`systems/intrinsic_avatar.py:423-542`)."""
+    W, H = img_wh
+    imgs = []
+    if "rgb" in batch:
+        gt = np.asarray(batch["rgb"]).reshape(H, W, 3)
+        if "alpha" in batch:
+            a = np.clip(np.asarray(batch["alpha"]).reshape(H, W, 1), 0., 1.)
+            gt = gt * a + 1.0 * (1.0 - a)
+        imgs.append(gt)
+    imgs.append(out["comp_rgb_full"].reshape(H, W, 3))
+    imgs.append(out["comp_normal"].reshape(H, W, 3) * 0.5 + 0.5)
+    imgs.append(np.repeat(out["opacity"].reshape(H, W, 1), 3, -1))
+    for k in ("comp_rgb_phys_full", "comp_demod_phys_full",
+              "comp_albedo_full"):
+        if k in out:
+            imgs.append(out[k].reshape(H, W, 3))
+    for k in ("comp_roughness_full", "comp_metallic_full", "visibility"):
+        if k in out and out[k].shape[-1] == 1:
+            imgs.append(np.repeat(out[k].reshape(H, W, 1), 3, -1))
+    saver.save_image_grid(os.path.join(out_dir, f"{name}.png"), imgs,
+                          ncols=4)
+
+
+@torch.no_grad()
+def export_canonical_mesh(model, step, path, resolution=256):
+    """Marching-tetrahedra mesh of the canonical SDF at ``step``'s level
+    mask over the deformer's canonical bbox, as OBJ at ``path``; the SDF
+    queries run the geometry field on the model's device
+    (`systems/intrinsic_avatar.py:923-930`).  Returns ``(verts, faces)``."""
+    from intrinsicavatar_tpu_torch.utils.marching import (
+        export_mesh_obj, extract_isosurface,
+    )
+
+    geo = model.geometry
+    dev = geo.table.device
+    mask = geo.level_mask(step, dev)
+
+    def sdf_fn(x):
+        x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return geo.features(x, mask)[:, 0].cpu().numpy()
+
+    verts, faces = extract_isosurface(sdf_fn, model.deformer.bbox,
+                                      resolution=resolution)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    export_mesh_obj(path, verts, faces)
+    return verts, faces
+
+
+@torch.no_grad()
+def dump_envmap(model, path):
+    """The learned environment light's lat-long image as a Radiance
+    ``.hdr`` beside ``path`` (`systems/intrinsic_avatar.py:553-564`);
+    returns the path written."""
+    img = model.emitter.generate_image().detach().float().cpu().numpy()
+    return saver.save_hdr(path, img)

@@ -75,9 +75,7 @@ class IntrinsicAvatarSystem:
         self.config = config
         self.device = resolve_device(device)
         tcfg, scfg, mcfg = config.trainer, config.system, config.model
-        if int(tcfg.get("grad_accum", 1)) > 1:
-            raise NotImplementedError("trainer.grad_accum > 1 is not ported "
-                                      "yet")
+        self.grad_accum = int(tcfg.get("grad_accum", 1))
         for key in ("adaptive_query_compaction", "train_seed_grid"):
             if mcfg.get(key, False):
                 raise NotImplementedError(f"model.{key} is not ported yet")
@@ -334,10 +332,23 @@ class IntrinsicAvatarSystem:
         return get_draw(draws, "bg", lambda g: torch.rand((3,), generator=g),
                         self.generator, self.device)
 
+    # the batch keys cut into microbatches (the others are per frame)
+    _PER_RAY_KEYS = ("rays", "rgb", "alpha", "rgb_wo_mask", "valid_mask")
+
     def train_step(self, batch, t_idx, flags: RenderFlags, draws=None):
         """One optimization step at ``self.step``; returns the losses
         (detached) with the sampling stage's counters folded in.  The
-        gradients stay in the parameters' ``.grad`` until the next step."""
+        gradients stay in the parameters' ``.grad`` until the next step.
+
+        With ``trainer.grad_accum = n > 1`` (and the rays divisible by n)
+        the sampling stage runs once on the whole batch, then the shading
+        pass, losses and backward run on n microbatches of R / n rays in
+        order, each with its own forward draws (``draws["micro"][i]``, or
+        from the generator) and one background colour for all; each
+        microbatch's graph is freed before the next.  The gradients are
+        summed and divided by n before one Adam update, and every loss
+        scalar is the mean over the microbatches (the JAX package's
+        ``_train_step_accum``)."""
         step = self.step
         bg = self.background(draws)
         fg = batch["alpha"][..., None]
@@ -350,20 +361,56 @@ class IntrinsicAvatarSystem:
             self.statics, frame, cond, self.occ, batch["rays"], step, flags,
             t_idx, draws, self.generator, s_counters)
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(self.statics, frame, cond, self.occ, batch["rays"],
-                         step, flags, t_idx=t_idx, background_color=bg,
-                         intervals=intervals, draws=draws,
-                         generator=self.generator)
-        loss, losses = self.compute_losses(out, batch, step, flags)
-        loss.backward()
+        n = self.grad_accum
+        R = int(batch["rays"].shape[0])
+        if n <= 1 or R % n:
+            out = self.model(self.statics, frame, cond, self.occ,
+                             batch["rays"], step, flags, t_idx=t_idx,
+                             background_color=bg, intervals=intervals,
+                             draws=draws, generator=self.generator)
+            loss, losses = self.compute_losses(out, batch, step, flags)
+            loss.backward()
+            losses = {k: torch.as_tensor(v).detach()
+                      for k, v in losses.items()}
+        else:
+            losses = self._accumulate(batch, intervals, t_idx, flags, bg,
+                                      draws, n)
         step_every_leaf(self.optimizer)
         self.scheduler.step()
         self.step = step + 1
-        losses = {k: torch.as_tensor(v).detach() for k, v in losses.items()}
         for k, v in s_counters.items():
             v = torch.as_tensor(v).to(torch.int32)
             losses[k] = losses[k] + v if k in losses else v
         return losses
+
+    def _accumulate(self, batch, intervals, t_idx, flags, bg, draws, n):
+        """The microbatches of an accumulated step: their gradients summed
+        into ``.grad`` and divided by ``n``; returns the losses' means."""
+        step = self.step
+        m = int(batch["rays"].shape[0]) // n
+        micro = draws.get("micro") if draws else None
+        per = []
+        for i in range(n):
+            sl = slice(i * m, (i + 1) * m)
+            mb = {k: (v[sl] if k in self._PER_RAY_KEYS else v)
+                  for k, v in batch.items()}
+            frame, cond = self.model.prepare(self.statics, mb, step,
+                                             training=flags.training)
+            out = self.model(self.statics, frame, cond, self.occ, mb["rays"],
+                             step, flags, t_idx=t_idx, background_color=bg,
+                             intervals=tuple(x[sl] for x in intervals),
+                             draws=micro[i] if micro else None,
+                             generator=self.generator)
+            loss, losses = self.compute_losses(out, mb, step, flags)
+            loss.backward()
+            per.append({k: torch.as_tensor(v).detach()
+                        for k, v in losses.items()})
+            del out, loss, losses, frame, cond
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad /= n
+        return {k: torch.stack([d[k] for d in per]).to(torch.float32).mean(0)
+                for k in per[0]}
 
     def occ_update_step(self, batch, t_idx, draws=None):
         """EMA occupancy update on the current frame's level

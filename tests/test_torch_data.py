@@ -118,15 +118,18 @@ def test_capsule_batches_match_jax(mode):
 
 
 def test_capsule_dataset_says_what_is_missing(tmp_path):
-    """The registry builds ``synthetic-image`` and lists what is ported for
-    another name; a ``pose_path`` that does not exist falls back to the
-    synthetic trajectories with a warning; an HDR image file raises and
-    names its missing reader."""
+    """The registry builds ``synthetic-image`` and the real-data loaders,
+    and lists what is ported for another name; a ``pose_path`` that does
+    not exist falls back to the synthetic trajectories with a warning; an
+    ``hdri_filepath`` that does not exist raises, an ``.hdr`` file is read
+    as the JAX package reads it (by ``cv2``), and a format without a reader
+    in the port raises and names it."""
+    cv2 = pytest.importorskip("cv2")
     cfg = {"image_size": 16, "n_frames": 2}
     assert isinstance(TD.make("synthetic-image", dict(cfg), split="val",
                               mode="val"), TC.CapsuleImageDataset)
-    with pytest.raises(KeyError, match="synthetic-image"):
-        TD.make("peoplesnapshot", dict(cfg))
+    with pytest.raises(KeyError, match="peoplesnapshot"):
+        TD.make("zju_mocap", dict(cfg))
     missing = str(tmp_path / "poses.npz")
     with pytest.warns(UserWarning, match="synthetic trajectories"):
         td = TC.CapsuleImageDataset({**cfg, "pose_path": missing},
@@ -134,9 +137,21 @@ def test_capsule_dataset_says_what_is_missing(tmp_path):
     jd = JC.CapsuleImageDataset({**cfg, "pose_path": missing}, split="val",
                                 mode="val")
     np.testing.assert_array_equal(td.body_pose, jd.body_pose)
-    with pytest.raises(NotImplementedError, match="cv2"):
-        TC.CapsuleImageDataset({**cfg, "hdri_filepath": str(
-            tmp_path / "sky.hdr")}, split="test", mode="test")
+    sky = str(tmp_path / "sky.hdr")
+    with pytest.raises(FileNotFoundError, match="sky.hdr"):
+        TC.CapsuleImageDataset({**cfg, "hdri_filepath": sky}, split="test",
+                               mode="test")
+    hdri = (np.random.default_rng(5).random((8, 16, 3)) ** 3 * 20)
+    cv2.imwrite(sky, hdri.astype(np.float32))
+    args = ({**cfg, "hdri_filepath": sky},)
+    np.testing.assert_array_equal(
+        TC.CapsuleImageDataset(*args, split="test", mode="test").hdri,
+        JC.CapsuleImageDataset(*args, split="test", mode="test").hdri)
+    exr = tmp_path / "sky.exr"
+    exr.write_bytes(b"\x76\x2f\x31\x01")
+    with pytest.raises(NotImplementedError, match=r"\.exr"):
+        TC.CapsuleImageDataset({**cfg, "hdri_filepath": str(exr)},
+                               split="test", mode="test")
 
 
 def _mask(rng):

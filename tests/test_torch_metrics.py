@@ -20,6 +20,7 @@ from intrinsicavatar_tpu.utils import metrics as JM
 from intrinsicavatar_tpu_torch.train import evaluate as TE
 from intrinsicavatar_tpu_torch.utils import lpips as TL
 from intrinsicavatar_tpu_torch.utils import metrics as TM
+from intrinsicavatar_tpu_torch.utils.image_io import read_png
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -169,9 +170,11 @@ def test_lpips_matches_jax(lpips_weights, monkeypatch, capsys):
 def test_launcher_trains_tiny_capsule(monkeypatch, tmp_path, capsys):
     """``configs/tiny-capsule.yaml`` through the launcher on the CPU, cut to
     2 steps on 32 x 32 images with the validation after the second (its
-    test grids at 16^3, the launcher's 64^3 taking the CPU twins minutes):
-    the losses are finite and the validation reports the JAX package's
-    image metrics, ``ssim`` and ``normal_error_deg`` among them."""
+    test grids at 16^3 and, since a ``--config`` run validates by the
+    default eval path as JAX's does, its seed grid at 16^3: the launcher's
+    64^3 and 96^3 take the CPU twins minutes): the losses are finite, the
+    validation reports the JAX package's image metrics, ``ssim`` and
+    ``normal_error_deg`` among them, and writes its image grid."""
     from intrinsicavatar_tpu_torch import launch
     build = TE.build_test_occ_grid
     monkeypatch.setattr(TE, "build_test_occ_grid", lambda *a, **k: build(
@@ -179,7 +182,8 @@ def test_launcher_trains_tiny_capsule(monkeypatch, tmp_path, capsys):
     args = ["--mode", "train", "--config", "configs/tiny-capsule.yaml",
             "--device", "cpu", "--exp-dir", str(tmp_path),
             "trainer.max_steps=2", "trainer.check_val_every_n_steps=1",
-            "trainer.log_every_n_steps=1", "dataset.image_size=32"]
+            "trainer.log_every_n_steps=1", "dataset.image_size=32",
+            "model.seed_grid_resolution=16"]
     assert launch.main(args) == 0
     assert "[val @ 1]" in capsys.readouterr().out
     (run,) = glob.glob(str(tmp_path / "tiny-capsule" / "*" /
@@ -194,3 +198,6 @@ def test_launcher_trains_tiny_capsule(monkeypatch, tmp_path, capsys):
         assert np.isfinite(val[f"val/{k}"]), k
     assert 0.0 < val["val/ssim"] < 1.0
     assert 0.0 < val["val/normal_error_deg"] < 180.0
+    (grid,) = glob.glob(str(tmp_path / "tiny-capsule" / "*" / "val" /
+                            "it1_f0.png"))
+    assert read_png(grid).shape == (32, 128, 3)

@@ -1,7 +1,9 @@
 """The port's training slice against the JAX package's: schedules, the Adam
 groups, the losses, the occupancy update, one train step (losses and every
-gradient, leaf by leaf) and five steps of ``fit``, from the same tiny config,
-parameters and batch, with the JAX key path's draws injected into the port.
+gradient, leaf by leaf), one step accumulated over two microbatches
+(``trainer.grad_accum``, against ``_train_step_accum``) and five steps of
+``fit``, from the same tiny config, parameters and batch, with the JAX key
+path's draws injected into the port.
 
 One JAX system is shared by the module: its jitted sampling, occupancy and
 train steps compile once (the bulk of this file's time)."""
@@ -9,6 +11,7 @@ train steps compile once (the bulk of this file's time)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -390,6 +393,105 @@ def test_fit_tracks_jax(setup):
     # within 2 lr per step and entry (Adam's eps, as above)
     _assert_tree_close(to_jax_tree(sys_.model), end.params, 0.0,
                        atol=2 * n * 1e-5, what="params")
+
+
+def _grad_out_tx():
+    """An optax transform whose state after an update is the gradient."""
+    def init(params):
+        return jax.tree.map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        return jax.tree.map(jnp.zeros_like, grads), grads
+
+    return optax.GradientTransformation(init, update)
+
+
+def _accum_draws(rng, n_rays, n_micro, n_samples):
+    """The draws of an accumulated step from ``rng`` (`train/system.py:
+    502-508`): ``rng, k_bg, k_fwd = split(rng, 3)``, the sampling stage's
+    ``k_strat`` from ``k_fwd`` (`:376-377`), and each microbatch's forward
+    draws from its key of ``split(k_fwd, n)`` (its curvature subsample's
+    ``k_sub, k_lap``, as a step's), under ``draws["micro"]``."""
+    _, k_bg, k_fwd = jax.random.split(rng, 3)
+    nq = n_rays // n_micro * n_samples     # no shading compaction here
+    nsub = min(max(int(np.ceil(nq * 0.25 / 128.0)) * 128, 128), nq)
+    micro = []
+    for key in jax.random.split(k_fwd, n_micro):
+        k_sub, k_lap = jax.random.split(jax.random.split(key, 4)[1])
+        micro.append({
+            "lap_sub": np.asarray(jax.random.randint(k_sub, (nsub,), 0, nq)),
+            "lap_u": np.asarray(jax.random.uniform(k_lap, (nsub, 3)))})
+    return {"bg": np.asarray(jax.random.uniform(k_bg, (3,))),
+            "strat_u": np.asarray(jax.random.uniform(
+                jax.random.split(k_fwd, 4)[0], (n_rays,))),
+            "micro": micro}
+
+
+def test_accumulated_step_matches_jax(setup):
+    """One step at step 2000 with ``trainer.grad_accum: 2`` (2 x 32 rays)
+    against the JAX package's ``_train_step_accum``: the losses (each the
+    mean over the microbatches), every gradient (read out of the JAX step
+    by an optax transform whose state is the gradient it was given) and
+    the parameters after JAX's Adam on that gradient."""
+    jsys, state, t_idx = setup["jsys"], setup["state"], setup["t_idx"]
+    flags = jsys.flags_for_step(STEP)
+    intervals, s_counters, _ = jsys.sample_step(state, setup["jbatch"],
+                                                t_idx, flags)
+    adam = jsys.tx
+    jsys.tx = _grad_out_tx()
+    try:
+        out, ref = jsys._train_step_accum(
+            state._replace(opt_state=jsys.tx.init(state.params)),
+            setup["jbatch"], t_idx, flags, intervals, 2)
+    finally:
+        jsys.tx = adam
+    ref = dict(ref)
+    for k, v in s_counters.items():
+        ref[k] = ref[k] + v if k in ref else v
+    ref_grads = out.opt_state
+    updates, _ = jax.jit(adam.update)(ref_grads, state.opt_state,
+                                      state.params)
+    ref_new = jax.tree.map(lambda p, u: p + u, state.params, updates)
+
+    sys_ = _port(setup, merge(setup["cfg"], {"trainer": {"grad_accum": 2}}))
+    assert sys_.grad_accum == 2
+    losses = sys_.train_step(sys_.to_device(setup["batch"]), t_idx,
+                             sys_.flags_for_step(STEP),
+                             _accum_draws(state.rng, 64, 2, 48))
+    for k in LOSS_KEYS:
+        assert float(losses[k]) == pytest.approx(
+            float(ref[k]), rel=CURV_RTOL if k == "curvature"
+            else LOSS_RTOL), k
+    assert sys_.step == STEP + 1
+    grads = to_jax_tree(sys_.model, grads=True)
+    _assert_tree_close(grads, ref_grads, GRAD_RTOL, what="grad")
+    assert np.linalg.norm(grads["geometry"]["table"]) > 0
+    # within 2 lr per entry (Adam's eps, as test_train_step_matches_jax)
+    _assert_tree_close(to_jax_tree(sys_.model), ref_new, 0.0, atol=2e-5,
+                       what="params")
+
+
+def test_indivisible_batch_takes_the_monolithic_step(setup):
+    """With the rays not divisible by ``grad_accum`` the system runs the
+    monolithic step: the same losses and gradients, bit for bit, as
+    ``grad_accum: 1`` from the same generator."""
+    batch = {k: (v[:63] if k in ("rays", "rgb", "alpha") else v)
+             for k, v in setup["batch"].items()}
+    runs = []
+    for n in (1, 2):
+        sys_ = _port(setup, merge(setup["cfg"], {"trainer": {"grad_accum":
+                                                             n}}))
+        sys_.generator = torch.Generator().manual_seed(5)
+        losses = sys_.train_step(sys_.to_device(batch), setup["t_idx"],
+                                 sys_.flags_for_step(STEP))
+        runs.append((losses, flatten_tree(to_jax_tree(sys_.model,
+                                                      grads=True))))
+    (l1, g1), (l2, g2) = runs
+    assert set(l1) == set(l2) and set(g1) == set(g2)
+    for k in l1:
+        assert torch.equal(l1[k], l2[k]), k
+    for k in g1:
+        np.testing.assert_array_equal(g1[k], g2[k], err_msg=k)
 
 
 def test_step0_regime_trains():
