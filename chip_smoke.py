@@ -150,11 +150,23 @@
    with every launch counter set to 0 just before and read just after and
    every plain twin set to fail on a CUDA tensor; every kernel of
    ``REALDATA_KERNELS`` must launch;
-12. prints the ``kernels`` line, the serve, relight and train lines (each
+12. runs the training recipe's levers (``recipe``): phys steps with the
+   per-step seed grid beside searched ones on one system at the train-phys
+   cell's widths (each profiled; KM, KL and KC launches held to the code's
+   count), a 32-ray phys step and a 256-ray scope-``all`` pose step on the
+   card and on the CPU twins from the card's grid, 5 scope-``all`` pose
+   steps from 4,001 (KN behind the seeded shading pass), and
+   ``configs/capsule-m3c-r5.yaml`` and ``configs/capsule-m3c-full.yaml``
+   through the launcher from checkpoints at steps 2,998 and 510 (the
+   optimizer re-init and its rate, the adaptive shading budget and its
+   rows), with every launch counter set to 0 just before and read just
+   after and every plain twin set to fail on a CUDA tensor;
+13. prints the ``kernels`` line, the serve, relight and train lines (each
    profile with the device ms, launches and share of busy time of the
    kernels of the port, KG's count and scatter passes apart, and whether
    each was redesigned for the card, ``port_kernels``), the hand-off line,
-   the capsule line, the realdata line, and last the device line.
+   the capsule line, the realdata line, the recipe line, and last the
+   device line.
 
 Any failure exits nonzero before the last line is printed.  There is no CPU
 fallback: without a card the script fails.
@@ -821,6 +833,7 @@ def main():
     handoff_line = handoff(card)
     capsule_line = capsule(card)
     realdata_line = realdata(card)
+    recipe_line = recipe(card, dev)
 
     # ---------------------------------------------------------- 7. report
     print(json.dumps({
@@ -847,6 +860,7 @@ def main():
     print(json.dumps({"handoff": handoff_line}), flush=True)
     print(json.dumps({"capsule": capsule_line}), flush=True)
     print(json.dumps({"realdata": realdata_line}), flush=True)
+    print(json.dumps({"recipe": recipe_line}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all",
           file=sys.stderr, flush=True)
     print(card, flush=True)
@@ -2889,7 +2903,8 @@ def card_vs_cpu_step(cfg_s, step, dev, skip=("pose_correction", "emitter.",
                                              "material."),
                      loss_tol=1e-4, grad_tol=1e-2):
     """One train step at ``step`` on the card and on the CPU twins from the
-    same parameters, grid and draws: the loss within ``loss_tol`` (1e-4),
+    same parameters, grid and draws (and, with ``train_seed_grid``, the
+    seed grid the card step bakes): the loss within ``loss_tol`` (1e-4),
     each leaf's gradient within ``grad_tol`` (1%) of its norm
     (``GRAD_TOL``), the pose's against the pullback of the card step's KN
     inputs (``CHAINED``).  Leaves starting with ``skip`` are not read at
@@ -2922,21 +2937,47 @@ def card_vs_cpu_step(cfg_s, step, dev, skip=("pose_correction", "emitter.",
     flags = gpu.flags_for_step(step)
     draws, n_samples = check_draws(cfg_s, step, R, flags.enable_phys,
                                    torch.Generator().manual_seed(SEED + 2))
+    # with train_seed_grid both steps read the grid the card step bakes
+    grids = []
+    bake = gpu.model.bake_train_seed_grid
+    gpu.model.bake_train_seed_grid = lambda *a: grids.append(bake(*a)) \
+        or grids[-1]
+    cpu.model.bake_train_seed_grid = lambda *a: grids[-1].to("cpu")
     rec = Recorder(DF, "deform_skinning_bwd", lambda a: a[0].shape[0])
+    polish, card_polish = DF.broyden_polish, []
+    DF.broyden_polish = lambda *a, **k: card_polish.append(
+        polish(*a, **k)) or card_polish[-1]
     try:
         lg = gpu.train_step(gpu.to_device(b), t_idx, flags, draws)
     finally:
         rec.restore()
+        DF.broyden_polish = polish
     # before the CPU step moves the parameters
     chained = pose_pullback(cpu, b, step, rec.best[1]) if rec.best else {}
+    own = polished_on_own(cpu, b, t_idx, step, draws, card_polish) \
+        if grids else None
     tc = time.perf_counter()
-    lc = cpu.train_step(cpu.to_device(b), t_idx, cpu.flags_for_step(step),
-                        draws)
+    if grids:
+        # a grid-seeded polish of seed_grid_polish_iters ends at the
+        # convergence threshold on many lanes, where an ulp of the seed
+        # gather flips a lane; the CPU step takes the card's KL outputs
+        # (KL is held to its twin on the same inputs elsewhere), as the
+        # pose's gradient is held to the card's KN inputs
+        calls = iter(card_polish)
+        DF.broyden_polish = lambda *a, **k: type(card_polish[0])(
+            *(t.cpu() for t in next(calls)))
+    try:
+        lc = cpu.train_step(cpu.to_device(b), t_idx,
+                            cpu.flags_for_step(step), draws)
+    finally:
+        DF.broyden_polish = polish
     cpu_s = time.perf_counter() - tc
     if int(lg["shading_total_samples"]) != n_samples:
         fail(f"the check step at {step} has "
              f"{int(lg['shading_total_samples'])} samples, expected "
              f"{n_samples}")
+    if len(grids) != int(gpu.model.use_train_seed_grid(flags)):
+        fail(f"the check step at {step} baked {len(grids)} seed grids")
     loss_rel = abs(float(lg["total"]) - float(lc["total"])) \
         / abs(float(lc["total"]))
     grads, cancelled, step_rel = {}, {}, {}
@@ -2962,8 +3003,14 @@ def card_vs_cpu_step(cfg_s, step, dev, skip=("pose_correction", "emitter.",
             step_rel[name] = float((gc.cpu() - gp).norm() / gp.norm())
             gp = chained[name]
         grads[name] = float((gc.cpu() - gp).norm() / gp.norm())
+    if own is not None:
+        own["loss_rel"] = abs(float(lg["total"]) - own.pop("total")) \
+            / abs(float(lc["total"]))
+        print(f"card vs CPU-twin step at {step}, the CPU's own polish (not "
+              f"held): {json.dumps(own)}", flush=True)
     print(f"card vs CPU-twin step of {R} rays at step {step} (CPU "
-          f"{cpu_s:.1f} s): loss {float(lg['total']):.7g} vs "
+          f"{cpu_s:.1f} s{', the card polish' if grids else ''}): loss "
+          f"{float(lg['total']):.7g} vs "
           f"{float(lc['total']):.7g} (rel {loss_rel:.2e}); gradient rel "
           f"errors {json.dumps(grads)} (the pose's against the pullback of "
           f"the card's KN inputs; against the CPU step's, not held: "
@@ -2987,7 +3034,40 @@ def card_vs_cpu_step(cfg_s, step, dev, skip=("pose_correction", "emitter.",
             "primary_dtype": cfg_s.model.get("primary_dtype", "bfloat16"),
             "loss_rel": loss_rel, "loss_tol": loss_tol, "grad_rel": grads,
             "grad_tol": grad_tol, "pose_step_rel": step_rel,
-            "cancelled_rel": cancelled, "cpu_s": cpu_s}
+            "cancelled_rel": cancelled, "cpu_s": cpu_s,
+            "shared_seed_grid": bool(grids), "own_polish": own}
+
+
+def polished_on_own(cpu, b, t_idx, step, draws, card_polish):
+    """A copy of the CPU system's step from the same state with its own
+    polish (the twin of KL): its loss, and, call by call, the lanes whose
+    validity differs from the card's KL and the largest root difference
+    where both converged.  Not held: a record of what the shared polish
+    removes."""
+    import torch
+
+    from intrinsicavatar_tpu_torch.anim import deformer as DF
+    twin = copy.deepcopy(cpu)
+    polish, own = DF.broyden_polish, []
+    DF.broyden_polish = lambda *a, **k: own.append(polish(*a, **k)) \
+        or own[-1]
+    try:
+        lo = twin.train_step(twin.to_device(b), t_idx,
+                             twin.flags_for_step(step), draws)
+    finally:
+        DF.broyden_polish = polish
+    calls = []
+    for mine, card in zip(own, card_polish):
+        cv, cx = card.valid.cpu(), card.x.cpu()
+        both = mine.valid & cv
+        calls.append({"lanes": int(cv.numel()),
+                      "valid_card": int(cv.sum()),
+                      "valid_differ": int((mine.valid != cv).sum()),
+                      "max_root_diff": float((mine.x - cx)[both].abs().max())
+                      if bool(both.any()) else 0.0})
+    del twin
+    torch.cuda.synchronize()
+    return {"total": float(lo["total"]), "polish_calls": calls}
 
 
 BWD_NAMES = ("hashgrid_encode_bwd", "encode_mlp_sdfgrad_bwd_gather",
@@ -4183,6 +4263,399 @@ def realdata(card):
     missing = [k for k in REALDATA_KERNELS if not launches.get(k)]
     if missing or twins:
         fail(f"realdata: kernels not launched {missing}, plain twins on "
+             f"CUDA tensors {twins}")
+    print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all", flush=True)
+    return line
+
+# the recipe phase's configs, and the kernels that its grid steps launch:
+# the bake's search (KC, the KH prologue and epilogue), KM's gathers (the
+# importance rounds, the shading pass's seeds, the secondary coarse pass),
+# KL's polish (the shading pass, the fine pass), and the rest of a phys step
+RECIPE_R5 = "configs/capsule-m3c-r5.yaml"
+RECIPE_FULL = "configs/capsule-m3c-full.yaml"
+GRID_STEP_KERNELS = ("hashgrid_encode", "hashgrid_encode_bf16",
+                     "hashgrid_encode_bwd", "encode_mlp_sdfgrad",
+                     "encode_mlp_sdfgrad_bf16",
+                     "encode_mlp_sdfgrad_bwd_gather",
+                     "encode_mlp_sdfgrad_bwd_scatter", "broyden_search",
+                     "deform_prologue", "deform_epilogue", "deform_skinning",
+                     "occupancy_march", "merge_resample", "volrend_weights",
+                     "volrend_composite", "volrend_composite_bwd",
+                     "compact_indices", "cdf_resample", "fine_resample",
+                     "secondary_march", "broyden_polish", "seed_gather")
+# the r5 recipe run from step 2,998 (a checkpoint written there) to 3,001,
+# across its optimizer re-init and phys kick-in at 3,000; full's from step
+# 510 to 515, across its compaction warm-up (512).  Cut: the validation
+# (r5's at 3,000, every 500 steps; the eval path runs in earlier phases)
+R5_STEPS, FULL_STEPS = (2998, 3002), (510, 516)
+RECIPE_CUT = ("trainer.check_val_every_n_steps=0",
+              "trainer.log_every_n_steps=1")
+
+
+def grid_step_counts(system, flags, R):
+    """The code's count of KM's, KL's and KC's launches in one train step of
+    ``R`` rays with the step's seed grid: KM at each importance round's
+    gather, at the shading pass's seeds and at each shader chunk's coarse
+    pass, a microbatch; KL at the seeded shading pass and each chunk's fine
+    pass; KC at each chunk of the bake (and the searched shading pass)."""
+    m = system.model
+    cfg = m.config
+    n = system.grad_accum if system.grad_accum > 1 \
+        and R % system.grad_accum == 0 else 1
+    res = int(cfg.get("train_seed_grid_resolution", 64))
+    primary = int(bool(cfg.get("train_seed_grid_primary", True)))
+    chunks = 0
+    if flags.enable_phys:
+        chunks = -(-(R // n) * m.samples_per_pixel
+                   // int(cfg.get("secondary_shader_chunk", 32768)))
+    imp = m.n_importance_rounds if flags.importance_sample else 0
+    return {"seed_gather": imp + n * (primary + chunks),
+            "broyden_polish": n * (primary + chunks),
+            "broyden_search": -(-res ** 3 // 65536) + n * (1 - primary)}
+
+
+class StepLog:
+    """Stands in for a system's ``train_step`` and its model's
+    ``bake_train_seed_grid``: each step's wall seconds, launches, peak
+    memory and counters, and each bake's milliseconds and launches (the
+    card synchronized around both)."""
+
+    def __init__(self, system):
+        self.system, self.steps, self.bakes = system, [], []
+        self.step_fn = system.train_step
+        self.bake_fn = system.model.bake_train_seed_grid
+        system.train_step = self.step
+        system.model.bake_train_seed_grid = self.bake
+
+    @staticmethod
+    def _diff(before):
+        from intrinsicavatar_tpu_torch import kernels
+        return {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                if v - before.get(k, 0)}
+
+    def bake(self, *a):
+        import torch
+
+        from intrinsicavatar_tpu_torch import kernels
+        torch.cuda.synchronize()
+        before, t0 = dict(kernels.launches), time.perf_counter()
+        grid = self.bake_fn(*a)
+        torch.cuda.synchronize()
+        self.bakes.append({"ms": (time.perf_counter() - t0) * 1e3,
+                           "launches": self._diff(before),
+                           "resolution": grid.resolution})
+        return grid
+
+    def step(self, batch, t_idx, flags, draws=None):
+        import torch
+
+        from intrinsicavatar_tpu_torch import kernels
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = dict(kernels.launches), time.perf_counter()
+        n_bakes = len(self.bakes)
+        losses = self.step_fn(batch, t_idx, flags, draws)
+        torch.cuda.synchronize()
+        self.steps.append({
+            "step": self.system.step - 1,
+            "s": time.perf_counter() - t0,
+            "grid": len(self.bakes) > n_bakes,
+            "bake": self.bakes[n_bakes] if len(self.bakes) > n_bakes
+            else None,
+            "launches": self._diff(before),
+            "expected": grid_step_counts(self.system, flags,
+                                         int(batch["rays"].shape[0])),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "counters": {k: float(v) for k, v in losses.items()
+                         if k.startswith(("sec_", "ovf_", "shading_"))},
+            "total": float(losses["total"])})
+        return losses
+
+    def restore(self):
+        self.system.train_step = self.step_fn
+        self.system.model.bake_train_seed_grid = self.bake_fn
+
+
+def check_grid_counts(where, steps):
+    """Each grid step's KM, KL and KC launches equal the code's count."""
+    for st in steps:
+        got = {k: st["launches"].get(k, 0) for k in st["expected"]}
+        if not st["grid"] or got != st["expected"]:
+            fail(f"recipe {where}: step {st['step']} launched {got}, the "
+                 f"code counts {st['expected']} (grid baked: {st['grid']})")
+
+
+def recipe(card, dev):
+    """Step 12: the training recipe's levers on the card, with every launch
+    counter set to 0 just before and read just after, and every plain twin
+    set to fail on a CUDA tensor.
+
+    a. the train-phys cell (``train_config()``, 4,096 rays, 512 scattering
+       points, 64-step secondary rays) with ``train_seed_grid`` (scope
+       ``phys``, 64^3): a warm-up step by each path, then 3 phys steps from
+       10,002 by the grid and 2 by the search (the flag switched on the
+       same system), each under the profiler: wall, busy, idle share,
+       launches, the bake's ms and launches, KM / KL / KC launches held to
+       the code's count (``grid_step_counts``), ``sec_seed_polish_fail``
+       and peak memory;
+    b. a 32-ray phys step at 10,000 on the card and on the CPU twins, both
+       from the grid the card step bakes (``card_vs_cpu_step``'s gates, by
+       the float32 path);
+    c. scope ``all`` with the pose correction: 5 steps from 4,001 (one KN
+       launch a step behind the seeded shading pass, KC only in the bake),
+       and a 256-ray card-vs-CPU step at 4,001 on a shared grid;
+    d. ``configs/capsule-m3c-r5.yaml`` at its widths (2,048 rays,
+       ``grad_accum: 2``, 128 scattering points) through the launcher from
+       a checkpoint at step 2,998 to 3,001, across its optimizer re-init
+       and phys kick-in: the Adam count and the applied rate restart at
+       3,000 (the warm-up's start factor times the base), one bake a
+       step from 3,000;
+    e. ``configs/capsule-m3c-full.yaml`` at its widths (4,096 rays,
+       ``grad_accum: 2``, 256^2 images) through the launcher from a
+       checkpoint at step 510 to 515, past its compaction warm-up (512):
+       the published ``budget_frac_n16`` and each step's shading rows.
+
+    Returns the ``recipe`` line."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from intrinsicavatar_tpu_torch import kernels, launch
+    from intrinsicavatar_tpu_torch.data import make as make_dataset
+    from intrinsicavatar_tpu_torch.data.synthetic import SyntheticDataset
+    from intrinsicavatar_tpu_torch.render import renderer as RD
+    from intrinsicavatar_tpu_torch.train.system import IntrinsicAvatarSystem
+    from intrinsicavatar_tpu_torch.utils import checkpoint as CK
+    from intrinsicavatar_tpu_torch.utils.config import merge
+    from intrinsicavatar_tpu_torch.utils.default_config import train_config
+
+    print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all", flush=True)
+    t_phase = time.perf_counter()
+    line = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="recipe-")
+    trips = [DeviceTripwire(m, name) for m, name in _capsule_modules(
+        CAPSULE_TWINS)]
+    kernels.reset_launches()
+    try:
+        # ------------------------------------------ a. grid vs searched
+        t0 = time.perf_counter()
+        cfg = merge(train_config(), {"model": {"train_seed_grid": True}})
+        ds = SyntheticDataset(cfg.dataset, rng=np.random.default_rng(SEED))
+        data = ds.train_iter(np.random.default_rng(SEED + 1))
+        system = IntrinsicAvatarSystem(cfg, dev).setup(ds.betas)
+        system.step = PHYS_START
+        mcfg = system.model.config
+        log = StepLog(system)
+        profiles = []
+
+        def one_step(grid, profiled):
+            mcfg.train_seed_grid = grid
+            fn = lambda: system.fit(data, system.step + 1, log_every=1)
+            if not profiled:
+                fn()
+                return
+            wall_ms, by_kernel = profile_device(fn)
+            prof = busy_idle(wall_ms, by_kernel)
+            prof.update(step=system.step - 1, grid=grid,
+                        port_kernels={k: v for k, v in kernel_shares(
+                            by_kernel, prof["device_busy_ms"]).items()
+                            if v["launches"]})
+            profiles.append(prof)
+
+        one_step(True, False)          # 10,000, with its occupancy update
+        one_step(False, False)
+        for grid in (True, True, True, False, False):
+            one_step(grid, True)
+        mcfg.train_seed_grid = False
+        log.restore()
+        steps = log.steps
+        for st, prof in zip(steps[2:], profiles):
+            prof.update({k: st[k] for k in ("s", "launches", "bake",
+                                            "peak_mem_bytes")})
+            prof["sec_seed_polish_fail"] = st["counters"].get(
+                "sec_seed_polish_fail")
+            prof["expected"] = st["expected"] if st["grid"] else None
+            print(f"recipe a, {'grid' if st['grid'] else 'searched'} phys "
+                  f"step {st['step']}: {json.dumps(prof)} ({card})",
+                  flush=True)
+        check_grid_counts("a", [st for st in steps if st["grid"]])
+        if [st["grid"] for st in steps] != [True, False, True, True, True,
+                                            False, False]:
+            fail(f"recipe a: the steps' paths {[st['grid'] for st in steps]}")
+        if any(st["launches"].get("seed_gather") for st in steps
+               if not st["grid"]):
+            fail("recipe a: a searched step gathered from a seed grid")
+        line["a"] = {"steps": profiles, "bakes": log.bakes,
+                     "warm_up": steps[:2], "s": time.perf_counter() - t0}
+        print(f"recipe a: bakes {json.dumps(log.bakes)}", flush=True)
+        del system, log
+
+        # ------------------------------------------ b. card vs CPU twins
+        t0 = time.perf_counter()
+        line["b"] = card_vs_cpu_step(
+            merge(train_config(), {"dataset": {"n_rays": 32}, "model": {
+                **FLOAT32, "train_seed_grid": True}}),
+            PHYS_START, dev, skip=("pose_correction",))
+        line["b"]["s"] = time.perf_counter() - t0
+        if not line["b"]["shared_seed_grid"]:
+            fail("recipe b: the check step baked no seed grid")
+
+        # ------------------------------------------ c. scope all, pose
+        t0 = time.perf_counter()
+        cfg_c = merge(train_config(), {"model": {
+            "train_seed_grid": True, "train_seed_grid_scope": "all",
+            "pose_correction": {"enable_pose_correction": True}}})
+        ds = SyntheticDataset(cfg_c.dataset, rng=np.random.default_rng(SEED))
+        data = ds.train_iter(np.random.default_rng(SEED + 1))
+        system = IntrinsicAvatarSystem(cfg_c, dev).setup(ds.betas)
+        log = StepLog(system)
+        before = dict(kernels.launches)
+        pose, seen = run_regime(system, data, POSE_START, 5, cfg_c)
+        log.restore()
+        pose["launches"] = StepLog._diff(before)
+        pose["bakes"] = log.bakes
+        check_grid_counts("c", log.steps)
+        kn = pose["launches"].get("deform_skinning_bwd", 0)
+        if kn != 5:
+            fail(f"recipe c: deform_skinning_bwd launched {kn} times in 5 "
+                 f"steps behind the seeded shading pass")
+        corr = system.model.pose_correction.pose.detach()
+        pose["pose_correction_max_abs"] = {
+            i: float(corr[i].abs().max()) for i in seen}
+        if not all(v > 0 for v in pose["pose_correction_max_abs"].values()):
+            fail(f"recipe c: the pose corrections did not move: "
+                 f"{pose['pose_correction_max_abs']}")
+        del system, log
+        pose["cpu_check"] = card_vs_cpu_step(
+            merge(cfg_c, {"dataset": {"n_rays": 256}, "model": FLOAT32}),
+            POSE_START, dev, skip=("emitter.", "material.",
+                                   "pose_correction.betas"))
+        if not pose["cpu_check"]["shared_seed_grid"]:
+            fail("recipe c: the check step baked no seed grid")
+        pose["s"] = time.perf_counter() - t0
+        line["c"] = pose
+        print(f"recipe c: {json.dumps(pose)}", flush=True)
+
+        # ------------------------------------------ d, e. the recipes
+        records = []
+        step_fn = IntrinsicAvatarSystem.train_step
+
+        def recorded_step(self, batch, t_idx, flags, draws=None):
+            group = next(g for g in self.optimizer.param_groups
+                         if g["name"] == "default")
+            counts = {int(v["step"]) for v in self.optimizer.state.values()}
+            records.append({"step": self.step, "lr": group["lr"],
+                            "adam_count": max(counts, default=0),
+                            "phys": flags.enable_phys,
+                            "budget_frac_n16": flags.budget_frac_n16,
+                            "budget_boost": flags.budget_boost,
+                            "full_budget": flags.full_budget})
+            return step_fn(self, batch, t_idx, flags, draws)
+
+        bakes, rows_of = [], []
+        bake_fn = RD.IntrinsicAvatar.bake_train_seed_grid
+        compact_fn = RD.compact_indices_interleaved
+        IntrinsicAvatarSystem.train_step = recorded_step
+        RD.IntrinsicAvatar.bake_train_seed_grid = \
+            lambda self, *a: bakes.append(a[-1]) or bake_fn(self, *a)
+        RD.compact_indices_interleaved = lambda m, b: (
+            rows_of.append((records[-1]["step"], m.numel(), b)),
+            compact_fn(m, b))[1]
+        try:
+            for key, config, (start, stop) in (
+                    ("d", RECIPE_R5, R5_STEPS),
+                    ("e", RECIPE_FULL, FULL_STEPS)):
+                t0 = time.perf_counter()
+                records.clear()
+                bakes.clear()
+                rows_of.clear()
+                c = launch.build_config("train", config)
+                d_s = make_dataset(c.dataset.name, c.dataset, split="train",
+                                   mode="train",
+                                   rng=np.random.default_rng(SEED))
+                system = IntrinsicAvatarSystem(c, dev).setup(d_s.betas)
+                system.step = start
+                ck = os.path.join(tmp, f"{key}_step{start}")
+                CK.save_checkpoint(ck, system.state_dict())
+                del system, d_s
+                run_dir, run_s = _launch_run(
+                    tmp, key, "train", config, "--resume", ck,
+                    f"trainer.max_steps={stop}", *RECIPE_CUT,
+                    phase="recipe")
+                recs = [r for r in _run_records(run_dir) if "total" in r]
+                line[key] = {
+                    "config": config, "from_step": start,
+                    "steps": records[:], "bakes": bakes[:],
+                    "run_s": run_s, "s": time.perf_counter() - t0,
+                    "step_s": np.diff([r["wall_time"] for r in recs])
+                    .tolist(),
+                    "losses": [r["total"] for r in recs],
+                    "published_n16": {r["step"]: r["budget_frac_n16"]
+                                      for r in recs
+                                      if "budget_frac_n16" in r},
+                    "shading_rows": rows_of[:]}
+                print(f"recipe {key}: {json.dumps(line[key])} ({card})",
+                      flush=True)
+                if [r["step"] for r in records] != list(range(start, stop)) \
+                        or not np.all(np.isfinite(line[key]["losses"])):
+                    fail(f"recipe {key}: the run is off: {line[key]}")
+        finally:
+            IntrinsicAvatarSystem.train_step = step_fn
+            RD.IntrinsicAvatar.bake_train_seed_grid = bake_fn
+            RD.compact_indices_interleaved = compact_fn
+
+        # r5: the optimizer re-created at 3,000 counts from 0 (the warm-up's
+        # start factor), one bake a step from the phys kick-in
+        d = line["d"]
+        c = launch.build_config("train", RECIPE_R5)
+        base = float(c.system.optimizer.args.lr)
+        start_f = float(c.system.scheduler.get("warmup_start_factor", 0.01))
+        warm1 = base * (start_f + (1 - start_f) / int(c.system.warmup_steps))
+        want = [(0, base * start_f), (1, warm1), (0, base * start_f),
+                (1, warm1)]
+        got = [(r["adam_count"], r["lr"]) for r in d["steps"]]
+        if [a for a, _ in got] != [a for a, _ in want] or not np.allclose(
+                [x for _, x in got], [x for _, x in want], rtol=1e-6):
+            fail(f"recipe d: Adam counts and rates {got}, expected {want}")
+        if [r["phys"] for r in d["steps"]] != [False, False, True, True] \
+                or d["bakes"] != [3000, 3001]:
+            fail(f"recipe d: phys {[r['phys'] for r in d['steps']]}, bakes "
+                 f"at {d['bakes']}")
+        # full: a published budget, and each compacted shading pass at it
+        e = line["e"]
+        if not e["published_n16"]:
+            fail("recipe e: no adaptive budget published")
+        qc = float(launch.build_config("train", RECIPE_FULL).model
+                   .query_compaction)
+        at = {r["step"]: r for r in e["steps"]}
+        for st, full, rows in e["shading_rows"]:
+            r = at[st]
+            frac = r["budget_frac_n16"] / 16 if r["budget_frac_n16"] else qc
+            want = min(max(int(np.ceil(full * min(
+                1.0, frac + 0.0625 * (1 + r["budget_boost"])) / 128)) * 128,
+                128), full)
+            if rows != want:
+                fail(f"recipe e: step {st} shaded {rows} of {full} rows at "
+                     f"{frac}, expected {want}")
+        if not any(st >= 512 and at[st]["budget_frac_n16"]
+                   for st, _, _ in e["shading_rows"]):
+            fail(f"recipe e: no compacted step at a published budget: "
+                 f"{e['shading_rows']}")
+        launches = dict(kernels.launches)
+    finally:
+        for t in trips:
+            t.restore()
+        shutil.rmtree(tmp, ignore_errors=True)
+    twins = {t.name: t.calls for t in trips if t.calls}
+    line["launches"] = launches
+    line["twins_on_cuda_tensors"] = twins
+    line["phase_s"] = time.perf_counter() - t_phase
+    missing = [k for k in GRID_STEP_KERNELS + ("deform_skinning_bwd",)
+               if not launches.get(k)]
+    if missing or twins:
+        fail(f"recipe: kernels not launched {missing}, plain twins on "
              f"CUDA tensors {twins}")
     print(f"chip_smoke: {time.perf_counter() - T0:.0f} s in all", flush=True)
     return line

@@ -10,13 +10,14 @@ rotation where a gradient query reads it), queries the canonical field on
 them and reduces by min-SDF (`snarf_deformer.py:187-255`).  Gradients of
 the field outputs pass through the candidate compaction's scatter and the
 min-SDF gather.  A seeded query (:meth:`FastSNARF.deform_seeded`: the
-secondary fine pass, and at eval every query the seed grid answers)
-replaces the search with one polish lane per point started at a known root
-(kernel KL).  In train mode, with a pose that carries a gradient (pose
-correction or optimized betas), the roots take the implicit-function
-correction of the JAX package (`anim/deformer.py:396-412`): their value is
-unchanged, and their cotangent, with that of the blended rotation, reaches
-``tfs`` through kernel KN (:class:`_SkinningCorrection`).
+secondary fine pass, and every query a seed grid answers, at eval or in a
+training step with ``train_seed_grid``) replaces the search with one polish
+lane per point started at a known root (kernel KL).  In train mode, with a
+pose that carries a gradient (pose correction or optimized betas), the
+roots of either take the implicit-function correction of the JAX package
+(`anim/deformer.py:396-412`, `:525-533`): their value is unchanged, and
+their cotangent, with that of the blended rotation, reaches ``tfs`` through
+kernel KN (:class:`_SkinningCorrection`).
 """
 
 from __future__ import annotations
@@ -290,15 +291,19 @@ class FastSNARF(nn.Module):
 
     def deform_seeded(self, statics: DeformerStatics, frame: FrameState, pts,
                       seed_xc, seed_ok, geometry_fn: Callable,
-                      with_jac: bool = True, boost: int = 0, counters=None,
-                      seed_iters=None):
-        """Eval-mode canonicalization warm-started at known nearby roots
-        ``seed_xc [N, 3]`` (``seed_ok [N]`` marks the usable ones): one
-        polish lane per point (kernel KL) replaces the search, its filter
-        and its top-K; outputs as :meth:`deform`.  The polish runs
-        ``seed_iters`` iterations (None: ``seed_polish_iters``; the seed
-        grid's callers pass ``seed_grid_polish_iters``).  Lanes whose polish
-        fails despite a usable seed are counted (``sec_seed_polish_fail``)."""
+                      with_jac: bool = True, eval_mode: bool = True,
+                      boost: int = 0, counters=None, seed_iters=None):
+        """Canonicalization warm-started at known nearby roots ``seed_xc
+        [N, 3]`` (``seed_ok [N]`` marks the usable ones): one polish lane
+        per point (kernel KL) replaces the search, its filter and its
+        top-K; outputs as :meth:`deform`.  The polish runs ``seed_iters``
+        iterations (None: ``seed_polish_iters``; the seed grid's callers
+        pass ``seed_grid_polish_iters``).  Lanes whose polish fails despite
+        a usable seed are counted (``sec_seed_polish_fail``).  In train mode
+        with a ``frame.tfs`` that requires a gradient the polished roots
+        (detached, with their J^-1) and the rotation take :meth:`deform`'s
+        correction (`anim/deformer.py:519-534` of the JAX package, the same
+        formula); otherwise it is zero and nothing launches for it."""
         N = pts.shape[0]
         res = broyden_polish(
             pts.contiguous(), seed_xc.contiguous(), seed_ok.contiguous(),
@@ -308,18 +313,23 @@ class FastSNARF(nn.Module):
                        else int(seed_iters)))
         record(counters, "sec_seed_polish_fail",
                (seed_ok & ~res.valid).sum(dtype=torch.int64))
-        if self.use_j_inv:
-            c2w = res.j_inv
-        elif with_jac:
-            c2w = deform_skinning(res.x, statics.lbs_cl, self.spec,
+        need_rot = with_jac and not self.use_j_inv
+        pose_grad = not eval_mode and frame.tfs.requires_grad \
+            and torch.is_grad_enabled()
+        xc, rot = res.x, None
+        if pose_grad:
+            xc, rot = _SkinningCorrection.apply(
+                res.x, res.j_inv, res.valid, frame.tfs, statics.lbs_cl,
+                self.spec, frame.voxel_J, need_rot)
+        elif need_rot:
+            rot = deform_skinning(res.x, statics.lbs_cl, self.spec,
                                   frame.tfs.detach().contiguous(),
                                   frame.voxel_J)
-        else:
-            c2w = None
+        c2w = res.j_inv if self.use_j_inv else rot
         # the lanes were compacted by the caller and are mostly valid: no
         # candidate-level budget (`anim/deformer.py:424-429` of the JAX
         # package)
-        return self._finish_query(N, 1, res.x, c2w, res.valid, geometry_fn,
+        return self._finish_query(N, 1, xc, c2w, res.valid, geometry_fn,
                                   boost, counters, frac=0.0)
 
     def _finish_query(self, N, K, xc, c2w, valid_flat, geometry_fn, boost,
@@ -425,21 +435,18 @@ class SNARFDeformer(nn.Module):
                 counters=None, seed=None, seed_iters=None):
         """Canonicalize ``points``; with ``seed = (seed_xc, seed_ok)`` by
         the seeded polish of ``seed_iters`` iterations (None: the
-        deformer's ``seed_polish_iters``; eval mode only), else by the
-        search."""
+        deformer's ``seed_polish_iters``), else by the search; either in
+        ``eval_mode`` or with the train-mode correction."""
         def composed_geometry_fn(x):
             x_nr, j_inv_nr = self.non_rigid(x, cond=cond, with_jac=with_jac,
                                             global_step=global_step)
             return geometry_fn(x_nr), j_inv_nr
 
         if seed is not None:
-            if not eval_mode:
-                raise NotImplementedError("the seeded polish runs at eval "
-                                          "only in the port")
             return self.rigid.deform_seeded(
                 statics, frame, points, seed[0], seed[1],
-                composed_geometry_fn, with_jac=with_jac, boost=boost,
-                counters=counters, seed_iters=seed_iters)
+                composed_geometry_fn, with_jac=with_jac, eval_mode=eval_mode,
+                boost=boost, counters=counters, seed_iters=seed_iters)
         return self.rigid.deform(statics, frame, points, composed_geometry_fn,
                                  with_jac=with_jac, eval_mode=eval_mode,
                                  boost=boost, counters=counters)

@@ -347,7 +347,8 @@ def _train(cfg, device, seed, params_path, resume, run_dir):
             callback=log, all_frames_fn=all_frames, logger=logger,
             val_fn=val_fn, val_every=val_every, ckpt_fn=ckpt_fn,
             ckpt_every=int(tcfg.get("ckpt_every_n_steps", 0)),
-            deadline_ts=float(tcfg.get("deadline_ts", 0.0)))
+            deadline_ts=float(tcfg.get("deadline_ts", 0.0)),
+            betas=dataset.betas)
     finally:
         logger.close()
     final = os.path.join(run_dir, "ckpt", "final")

@@ -5,8 +5,9 @@
   (kernel KI) and reuses the primary pass's normals and materials there;
 - :func:`compute_indirect_radiance` marches secondary rays in shader chunks:
   the march with its cap of occupied samples (kernel KK), the coarse SDF
-  (with the eval seed grid, by default: one compacted gather of the grid,
-  kernel KM; without it, by the inverse-skinning search), the zero-crossing
+  (with a seed grid, the eval frame's by default or a training step's
+  with ``train_seed_grid``: one compacted gather of the grid, kernel KM;
+  without it, by the inverse-skinning search), the zero-crossing
   fine resampling (kernel KJ), the fine query seeded from the nearest
   valid coarse root (kernel KL), radiance and compositing -> per-ray
   (transmittance, indirect rgb);
@@ -103,7 +104,8 @@ def compute_indirect_radiance(model, statics, frame, cond, sched, binaries,
     [M, 3])``, in chunks of ``secondary_shader_chunk`` rays (the last one
     padded with inactive rays of direction 1); the chunks' counters are
     summed (`models/intrinsic_avatar.py:396-545` of the reference).
-    ``seed_grid`` is the frame's eval seed grid, or None."""
+    ``seed_grid`` is the frame's eval seed grid, a training step's grid,
+    or None."""
     if float(model.config.get("secondary_active_compaction", 0.0)):
         raise NotImplementedError(
             "secondary_active_compaction is not ported yet")

@@ -22,7 +22,13 @@ At eval a per-frame seed grid (:meth:`IntrinsicAvatar.bake_seed_grid`,
 importance rounds' SDF from its gather (kernel KM, ``baked_importance``) and
 seeds the shading pass's inverse skinning, polished by kernel KL for
 ``seed_grid_polish_iters`` in place of the multi-init search;
-``eval_seed_grid: false`` gives the searched path.
+``eval_seed_grid: false`` gives the searched path.  In training,
+``train_seed_grid`` bakes a smaller grid once a step
+(:meth:`IntrinsicAvatar.use_train_seed_grid`, the caller's
+:meth:`IntrinsicAvatar.bake_train_seed_grid`) that serves the same passes
+and the PBR stage's secondary coarse and fine passes; the seeded shading
+pass keeps the pose gradient through the train-mode correction of
+``FastSNARF.deform_seeded``.
 
 The shading pass runs in the ``primary_dtype`` compute scope
 (``ops/precision.py``; bf16 by default, as in JAX): hash rows gathered as
@@ -78,6 +84,10 @@ class RenderFlags(NamedTuple):
     albedo_only: bool = False
     full_budget: bool = False
     budget_boost: int = 0
+    # the adaptive shading budget in 16ths (0: the config's
+    # query_compaction), published by the training loop's controller
+    # (`adaptive_query_compaction`)
+    budget_frac_n16: int = 0
 
 
 def get_draw(draws, key, make, generator, device):
@@ -200,8 +210,9 @@ class IntrinsicAvatar(nn.Module):
         (sdf = 1e5 -> alpha 0).  ``mask2d`` selects sample-major order.
         ``seed = (xc [M, 3], ok [M])`` warm-starts each point's root search
         at a known canonical root (the seeded polish of ``seed_iters``
-        iterations, eval only); the seeds ride along as extra point columns
-        through the compaction.
+        iterations; in train mode with the deformer's pose-gradient
+        correction); the seeds ride along as extra point columns through
+        the compaction.
         """
         geo = self.geometry
 
@@ -260,6 +271,32 @@ class IntrinsicAvatar(nn.Module):
             return out[0], out[2], out[1]
 
         return SG.bake_seed_grid(deform_fn, aabb, resolution, chunk)
+
+    def use_train_seed_grid(self, flags: RenderFlags) -> bool:
+        """Whether a training step bakes its own seed grid
+        (`render/renderer.py:417-441` of the JAX package): with
+        ``train_seed_grid``, scope ``phys`` in the phys regime, scope
+        ``all`` also in the radiance regime once importance sampling is
+        on; never at eval."""
+        if not flags.training or not bool(self.config.get("train_seed_grid",
+                                                          False)):
+            return False
+        if str(self.config.get("train_seed_grid_scope", "phys")) == "all":
+            return flags.enable_phys or flags.importance_sample
+        return flags.enable_phys
+
+    @torch.no_grad()
+    def bake_train_seed_grid(self, statics, frame, cond,
+                             step) -> SG.SeedGrid:
+        """A training step's seed grid (`render/renderer.py:443-449` of the
+        JAX package): :meth:`bake_seed_grid` at
+        ``train_seed_grid_resolution`` (64) from the frame detached, so
+        that it is safe inside a differentiated step."""
+        frame = type(frame)(*(t.detach() for t in frame))
+        return self.bake_seed_grid(
+            statics, frame, None if cond is None else cond.detach(), step,
+            resolution=int(self.config.get("train_seed_grid_resolution",
+                                           64)))
 
     def _grid_gather(self, seed_grid, pts):
         """``(seed_xc, seed_ok, sdf | None)`` of ``pts`` from the seed grid
@@ -376,7 +413,8 @@ class IntrinsicAvatar(nn.Module):
         ``(t_starts, t_ends, smask)`` rectangular ``[R, S]``, without
         gradient.  ``draws["strat_u"] [R]`` holds the stratified offsets
         (drawn from ``generator`` when absent and ``flags.randomized``);
-        ``seed_grid`` serves the importance rounds (eval)."""
+        ``seed_grid`` (a frame's, or a training step's) serves the
+        importance rounds."""
         sched = self.schedules(step, rays_world.device)
         rays = self.deformer.rigid.transform_rays_w2s(frame, rays_world)
         R = rays.shape[0]
@@ -425,15 +463,15 @@ class IntrinsicAvatar(nn.Module):
         map (in training also the ``*_loss_map`` outputs of the smoothness
         and normal-orientation losses); ``emitter_state`` replaces the
         emitter's sampling tables.  ``seed_grid`` (from
-        :meth:`bake_seed_grid`, eval only) answers the importance rounds and
-        the secondary coarse pass and seeds the shading and fine passes.
+        :meth:`bake_seed_grid` at eval, :meth:`bake_train_seed_grid` in
+        training, which a training render without ``intervals`` bakes
+        itself where :meth:`use_train_seed_grid` says so, and ignores where
+        it does not) answers the importance rounds and the secondary coarse
+        pass and seeds the shading pass (in training where
+        ``train_seed_grid_primary``) and the fine passes.
         Eval renders run without autograd; a training render is
         differentiable in every parameter it reads.
         """
-        if flags.training and seed_grid is not None:
-            raise NotImplementedError("the seed grid serves eval renders "
-                                      "only (train_seed_grid is not "
-                                      "ported)")
         counters: dict = {}
         with torch.set_grad_enabled(flags.training
                                     and torch.is_grad_enabled()):
@@ -460,6 +498,15 @@ class IntrinsicAvatar(nn.Module):
         if background_color is None:
             background_color = torch.zeros(3, device=dev)
 
+        # training: a step's baked grid serves the render where
+        # use_train_seed_grid says so; eval passes its frame's grid in
+        if flags.training:
+            if not self.use_train_seed_grid(flags):
+                seed_grid = None
+            elif seed_grid is None and intervals is None:
+                seed_grid = self.bake_train_seed_grid(statics, frame, cond,
+                                                      step)
+
         if intervals is None:
             intervals = self.sample_intervals(
                 statics, frame, cond, occ, rays_world, step, flags, t_idx,
@@ -475,6 +522,10 @@ class IntrinsicAvatar(nn.Module):
         with_lap = flags.training and flags.with_curvature_loss
         Mfull = R * S
         frac = self.config.get("query_compaction", 0.5)
+        # the adaptive budget's fraction (`render/renderer.py:544-551` of
+        # the JAX package); an explicit query_compaction: 0 always wins
+        if flags.budget_frac_n16 > 0 and frac:
+            frac = flags.budget_frac_n16 / 16.0
         use_compact = bool(frac) and Mfull >= 4096 and not flags.full_budget
         record(counters, "shading_valid_samples", smask.sum(dtype=torch.int64))
         record(counters, "shading_total_samples", torch.tensor(Mfull))
@@ -501,12 +552,18 @@ class IntrinsicAvatar(nn.Module):
         # the exact path.  The test grid, the importance rounds and the
         # seed grid's bake stay float32.
         with precision.scope(self.config.get("primary_dtype", "bfloat16")):
-            # at eval the grid seeds the shading pass's inverse skinning
+            # the grid seeds the shading pass's inverse skinning: at eval,
+            # and in training where train_seed_grid_primary (the seeded
+            # polish then keeps the pose gradient by its train-mode
+            # correction)
+            primary_seed = not flags.training or bool(self.config.get(
+                "train_seed_grid_primary", True))
             out = self._deform_query(
                 statics, frame, cond, pos_q, sched, with_grad=True,
                 global_step=step, mask=qmask, boost=flags.budget_boost,
                 counters=counters, eval_mode=not flags.training,
-                seed=self._grid_seed(seed_grid, pos_q),
+                seed=self._grid_seed(seed_grid, pos_q) if primary_seed
+                else None,
                 seed_iters=self.grid_iters())
             pos_cano, sdf, valid, sdf_grad, sdf_grad_cano, feat = out[:6]
 

@@ -5,10 +5,16 @@ each render mode (``uniform_light``, ``light``, ``mats``, ``mis``); with pose
 correction the per-frame corrections train from
 ``pose_correction_start_step`` on (kernel KN in the backward).
 
-One step (``train_step``): the sampling stage without gradient, then the
-differentiated shading pass, the losses, ``loss.backward()`` (kernels KA',
-KB' and KD' on a card) and one Adam update; the occupancy grid's EMA update
-runs every ``occ_update_every`` (20) steps.  Unlike the JAX package's
+One step (``train_step``): the sampling stage without gradient (with
+``train_seed_grid``, after one bake of the step's seed grid, which every
+microbatch shares), then the differentiated shading pass, the losses,
+``loss.backward()`` (kernels KA', KB' and KD' on a card) and one Adam
+update; the occupancy grid's EMA update runs every ``occ_update_every`` (20)
+steps.  ``fit`` also re-creates the optimizer at ``reinit_optimizer_steps``
+(its rate schedule restarts, as optax's count does), rebuilds the statics
+every ``reinit_shape_every_n_steps`` and, with
+``adaptive_query_compaction``, publishes the shading budget's fraction from
+the measured valid-sample share.  Unlike the JAX package's
 functional ``TrainState``, the parameters, the optimizer and the occupancy
 grid live on the system and are updated in place.
 
@@ -51,6 +57,8 @@ from intrinsicavatar_tpu_torch.weights import (
 )
 
 BUDGET_COUNTERS = ("ovf_shading", "ovf_query", "ovf_candidate_query")
+# the adaptive budget's (valid, total) shading-sample counts
+SHADING_COUNTERS = ("shading_valid_samples", "shading_total_samples")
 
 
 def masked_mean(x, mask):
@@ -76,22 +84,26 @@ class IntrinsicAvatarSystem:
         self.device = resolve_device(device)
         tcfg, scfg, mcfg = config.trainer, config.system, config.model
         self.grad_accum = int(tcfg.get("grad_accum", 1))
-        for key in ("adaptive_query_compaction", "train_seed_grid"):
-            if mcfg.get(key, False):
-                raise NotImplementedError(f"model.{key} is not ported yet")
-        if [s for s in scfg.get("reinit_optimizer_steps", []) if s >= 0] \
-                or int(scfg.get("reinit_shape_every_n_steps", -1)) > 0:
-            raise NotImplementedError("optimizer and shape re-inits are not "
-                                      "ported yet")
         self.model = IntrinsicAvatar(mcfg).to(self.device)
         self.loss_cfg = scfg.loss
         self.reinit_occ_steps = list(scfg.get("reinit_occupancy_grid_steps",
                                               [8000]))
+        # optimizer and shape re-init milestones (both off by default)
+        self.reinit_optimizer_steps = [
+            s for s in scfg.get("reinit_optimizer_steps", []) if s >= 0]
+        self.reinit_shape_every = int(scfg.get("reinit_shape_every_n_steps",
+                                               -1))
         self.occ_update_every = scfg.get("occ_update_every", 20)
         # overflow-feedback escalation: each level adds 1/16 of headroom to
         # every fractional query budget (RenderFlags.budget_boost)
         self._budget_boost = int(scfg.get("budget_boost_init", 0))
         self._budget_boost_max = int(scfg.get("budget_boost_max", 6))
+        # the adaptive shading budget (RenderFlags.budget_frac_n16, in
+        # 16ths; 0: the config's query_compaction)
+        self._adaptive_budget = bool(mcfg.get("adaptive_query_compaction",
+                                              False))
+        self._valid_frac_ema = None
+        self._budget_frac_n16 = 0
         self.generator = torch.Generator().manual_seed(
             int(config.get("seed", 42)))
         self.statics = self.optimizer = self.scheduler = self.occ = None
@@ -180,7 +192,28 @@ class IntrinsicAvatarSystem:
             # full query budgets while the grid is still mostly occupied
             full_budget=training and step < mcfg.get(
                 "compaction_warmup_steps", 512),
-            budget_boost=self._budget_boost)
+            budget_boost=self._budget_boost,
+            budget_frac_n16=self._budget_frac_n16)
+
+    def _update_adaptive_budget(self, valid, total) -> None:
+        """Feed one (valid, total) shading-sample count pair to the
+        adaptive budget (`train/system.py:140-157` of the JAX package): an
+        EMA (0.8 / 0.2) of the valid share picks ``ceil(1.25 * ema * 16)``
+        sixteenths, clipped to [2, 16]; the published value moves on a
+        difference of 2 or more, or on any widening.  A new value is only
+        a new row count of the shading pass (no recompile in eager
+        PyTorch); the overflow escalator still adds its headroom on
+        top."""
+        if not self._adaptive_budget or not total:
+            return
+        frac = float(valid) / float(total)
+        self._valid_frac_ema = frac if self._valid_frac_ema is None else \
+            0.8 * self._valid_frac_ema + 0.2 * frac
+        cand = int(np.clip(np.ceil(self._valid_frac_ema * 1.25 * 16.0), 2,
+                           16))
+        cur = self._budget_frac_n16
+        if cur == 0 or abs(cand - cur) >= 2 or cand > cur:
+            self._budget_frac_n16 = cand
 
     # ------------------------------------------------------------ losses
 
@@ -348,7 +381,14 @@ class IntrinsicAvatarSystem:
         microbatch's graph is freed before the next.  The gradients are
         summed and divided by n before one Adam update, and every loss
         scalar is the mean over the microbatches (the JAX package's
-        ``_train_step_accum``)."""
+        ``_train_step_accum``).
+
+        With ``train_seed_grid`` (where the renderer's
+        ``use_train_seed_grid`` says so) the sampling stage first bakes the
+        step's seed grid from the step's parameters, once, and the
+        importance rounds, the shading pass and the PBR stage of the whole
+        batch or of every microbatch read it (the JAX package's
+        ``sample_step``)."""
         step = self.step
         bg = self.background(draws)
         fg = batch["alpha"][..., None]
@@ -356,10 +396,14 @@ class IntrinsicAvatarSystem:
         batch = {**batch, "rgb_wo_mask": batch["rgb"], "rgb": rgb}
         frame, cond = self.model.prepare(self.statics, batch, step,
                                          training=flags.training)
+        seed_grid = None
+        if self.model.use_train_seed_grid(flags):
+            seed_grid = self.model.bake_train_seed_grid(self.statics, frame,
+                                                        cond, step)
         s_counters: dict = {}
         intervals = self.model.sample_intervals(
             self.statics, frame, cond, self.occ, batch["rays"], step, flags,
-            t_idx, draws, self.generator, s_counters)
+            t_idx, draws, self.generator, s_counters, seed_grid=seed_grid)
         self.optimizer.zero_grad(set_to_none=True)
         n = self.grad_accum
         R = int(batch["rays"].shape[0])
@@ -367,14 +411,15 @@ class IntrinsicAvatarSystem:
             out = self.model(self.statics, frame, cond, self.occ,
                              batch["rays"], step, flags, t_idx=t_idx,
                              background_color=bg, intervals=intervals,
-                             draws=draws, generator=self.generator)
+                             draws=draws, generator=self.generator,
+                             seed_grid=seed_grid)
             loss, losses = self.compute_losses(out, batch, step, flags)
             loss.backward()
             losses = {k: torch.as_tensor(v).detach()
                       for k, v in losses.items()}
         else:
             losses = self._accumulate(batch, intervals, t_idx, flags, bg,
-                                      draws, n)
+                                      draws, n, seed_grid)
         step_every_leaf(self.optimizer)
         self.scheduler.step()
         self.step = step + 1
@@ -383,9 +428,11 @@ class IntrinsicAvatarSystem:
             losses[k] = losses[k] + v if k in losses else v
         return losses
 
-    def _accumulate(self, batch, intervals, t_idx, flags, bg, draws, n):
-        """The microbatches of an accumulated step: their gradients summed
-        into ``.grad`` and divided by ``n``; returns the losses' means."""
+    def _accumulate(self, batch, intervals, t_idx, flags, bg, draws, n,
+                    seed_grid=None):
+        """The microbatches of an accumulated step, each reading the step's
+        ``seed_grid``: their gradients summed into ``.grad`` and divided by
+        ``n``; returns the losses' means."""
         step = self.step
         m = int(batch["rays"].shape[0]) // n
         micro = draws.get("micro") if draws else None
@@ -400,7 +447,7 @@ class IntrinsicAvatarSystem:
                              step, flags, t_idx=t_idx, background_color=bg,
                              intervals=tuple(x[sl] for x in intervals),
                              draws=micro[i] if micro else None,
-                             generator=self.generator)
+                             generator=self.generator, seed_grid=seed_grid)
             loss, losses = self.compute_losses(out, mb, step, flags)
             loss.backward()
             per.append({k: torch.as_tensor(v).detach()
@@ -452,12 +499,36 @@ class IntrinsicAvatarSystem:
             occs=torch.zeros((len(batches), res ** 3), device=self.device),
             binaries=torch.stack(binaries), aabbs=torch.stack(aabbs))
 
+    # ------------------------------------------------------------ re-inits
+
+    def reinit_optimizer(self) -> None:
+        """A new optimizer and rate schedule (`train/system.py:607-614` of
+        the JAX package): Adam's moments and counts and the schedule's
+        count start again from 0, so the warm-up runs again and the
+        milestones count from this step, as a fresh optax state counts
+        its updates."""
+        scfg = self.config.system
+        self.optimizer, self.scheduler = make_optimizer(
+            self.model, scfg.optimizer, scfg.get("scheduler", {}),
+            scfg.get("warmup_steps", 1000))
+
+    def reinit_shape(self, betas) -> None:
+        """Rebuild the statics from the optimized shape, ``betas`` plus the
+        pose correction's betas (`train/system.py:616-624` of the JAX
+        package, whose lookup of ``betas_correction`` in its parameter tree
+        finds no such leaf: see ROADMAP queue 3)."""
+        betas = np.asarray(betas, np.float32).reshape(-1)[:10]
+        corr = getattr(self.model.pose_correction, "betas", None)
+        if corr is not None:
+            betas = betas + corr.detach().cpu().numpy().reshape(-1)[:10]
+        self.statics = self.model.initialize(betas)
+
     # ------------------------------------------------------------ loop
 
     def fit(self, data_iter, max_steps: int, log_every: int = 100,
             callback=None, all_frames_fn=None, draws_fn=None, logger=None,
             val_fn=None, val_every: int = 0, ckpt_fn=None,
-            ckpt_every: int = 0, deadline_ts: float = 0.0):
+            ckpt_every: int = 0, deadline_ts: float = 0.0, betas=None):
         """The training loop from ``self.step`` to ``max_steps``.
 
         ``data_iter`` yields ``(batch, t_idx)`` (numpy arrays or tensors);
@@ -470,13 +541,19 @@ class IntrinsicAvatarSystem:
         ``ckpt_fn(state, step)`` saves the ``state_dict()`` taken after
         the step, every ``ckpt_every`` steps, on a worker thread with one
         save in flight at most; past the wall-clock time ``deadline_ts``
-        the loop stops after the step.  Returns the ``(step, scalars)``
-        history of the log steps; a logged nonzero budget-overflow counter
-        raises ``budget_boost`` by one level.
+        the loop stops after the step.  At each step of
+        ``reinit_optimizer_steps`` past 0 the optimizer is re-created; every
+        ``reinit_shape_every_n_steps`` steps the statics are rebuilt from
+        ``betas`` (the dataset's; zeros when None) and the shape's
+        correction.  Returns the ``(step, scalars)`` history of the log
+        steps; a logged nonzero budget-overflow counter raises
+        ``budget_boost`` by one level, and the window's summed shading
+        sample counts feed the adaptive budget.
         """
         tput = Throughput()
         history = []
         ovf_window: dict = {}
+        shading_window = dict.fromkeys(SHADING_COUNTERS, 0)
         # the host's wall time a log window, anchored at the log step's
         # read of the losses (which waits for the device), and its
         # non-step time by section
@@ -498,6 +575,12 @@ class IntrinsicAvatarSystem:
                     self.reinit_occupancy_grid(
                         [self.to_device(b) for b in all_frames_fn()])
                     sect_t["occ"] += time.perf_counter() - _t
+                if step in self.reinit_optimizer_steps and step > 0:
+                    self.reinit_optimizer()
+                if (self.reinit_shape_every > 0 and step > 0
+                        and step % self.reinit_shape_every == 0):
+                    self.reinit_shape(np.zeros(10) if betas is None
+                                      else betas)
                 if step % self.occ_update_every == 0:
                     _t = time.perf_counter()
                     self.occ_update_step(batch, t_idx, draws)
@@ -512,6 +595,11 @@ class IntrinsicAvatarSystem:
                 for k in BUDGET_COUNTERS:
                     if k in losses:
                         ovf_window[k] = ovf_window.get(k, 0) + losses[k]
+                # apart from the overflow total: valid samples never
+                # escalate the budgets
+                for k in SHADING_COUNTERS:
+                    if k in losses:
+                        shading_window[k] = shading_window[k] + losses[k]
                 if step % log_every == 0:
                     scalars = {k: float(v) for k, v in losses.items()
                                if v.dim() == 0}
@@ -534,6 +622,15 @@ class IntrinsicAvatarSystem:
                         scalars["budget_boost"] = float(self._budget_boost)
                         print(f"[{step}] budget overflow ({ovf} lanes) -> "
                               f"boost {self._budget_boost}", flush=True)
+                    prev_n16 = self._budget_frac_n16
+                    self._update_adaptive_budget(
+                        *(float(shading_window[k]) for k in SHADING_COUNTERS))
+                    shading_window = dict.fromkeys(SHADING_COUNTERS, 0)
+                    if self._budget_frac_n16 != prev_n16:
+                        scalars["budget_frac_n16"] = float(
+                            self._budget_frac_n16)
+                        print(f"[{step}] adaptive shading budget -> "
+                              f"{self._budget_frac_n16}/16", flush=True)
                     scalars["lr"] = lr_schedule_host(step, self.config.system)
                     if callback is not None:
                         callback(step, scalars)

@@ -91,33 +91,43 @@ class JaxDraws:
         d = {}
         if (step % 20 == 0) if occ is None else occ:
             self.rng, k_occ = jax.random.split(self.rng)
-            d["occ_u"] = jax.random.uniform(k_occ, (RES ** 3, 1, 3))
+            d["occ_u"] = np.asarray(jax.random.uniform(k_occ,
+                                                       (RES ** 3, 1, 3)))
         self.rng, k_bg, k_fwd = jax.random.split(self.rng, 3)
-        k_strat, k_lap, k_jit, k_pbr = jax.random.split(k_fwd, 4)
-        k_sub, k_lap = jax.random.split(k_lap)
-        nq, compact = self.nq_of(step)
-        nsub = min(max(int(np.ceil(nq * 0.25 / 128.0)) * 128, 128), nq)
-        d.update(bg=jax.random.uniform(k_bg, (3,)),
-                 strat_u=jax.random.uniform(k_strat, (self.R,)),
-                 lap_sub=jax.random.randint(k_sub, (nsub,), 0, nq),
-                 lap_u=jax.random.uniform(k_lap, (nsub, 3)))
-        if self.phys(step):
-            if compact:
-                k_jsub, k_jit = jax.random.split(k_jit)
-                d["jit_sub"] = jax.random.randint(k_jsub, (nsub,), 0, nq)
-                d["jit_noise"] = jax.random.normal(k_jit, (nsub, 3))
-            else:
-                d["jit_noise"] = jax.random.normal(k_jit, (nq, 3))
-            k_dirs, k_scatter, _ = jax.random.split(k_pbr, 3)
-            n1 = max(self.spp // 32, 1)
-            k1, k2 = jax.random.split(k_dirs)
-            d["sphere_u"] = np.stack([
-                np.asarray(jax.random.uniform(k1, (n1, self.spp // n1))),
-                np.asarray(jax.random.uniform(k2, (n1, self.spp // n1)))])
-            d["strata_u"] = jax.random.uniform(k_scatter, (self.R, self.spp))
-        d["k_fwd"] = k_fwd
-        return {k: (v if k == "k_fwd" else np.asarray(v))
-                for k, v in d.items()}
+        d.update(forward_draws(k_fwd, self.R, *self.nq_of(step),
+                               self.phys(step), self.spp))
+        d["bg"] = np.asarray(jax.random.uniform(k_bg, (3,)))
+        return d
+
+
+def forward_draws(k_fwd, R, nq, compact, phys, spp):
+    """The draws of the forward of ``R`` rays from its key ``k_fwd``, with
+    ``nq`` shading lanes (``compact``: on the compacted path) and, with
+    ``phys``, the PBR stage's at ``spp`` scattering points; ``k_fwd`` kept
+    under its name."""
+    k_strat, k_lap, k_jit, k_pbr = jax.random.split(k_fwd, 4)
+    k_sub, k_lap = jax.random.split(k_lap)
+    nsub = min(max(int(np.ceil(nq * 0.25 / 128.0)) * 128, 128), nq)
+    d = dict(strat_u=jax.random.uniform(k_strat, (R,)),
+             lap_sub=jax.random.randint(k_sub, (nsub,), 0, nq),
+             lap_u=jax.random.uniform(k_lap, (nsub, 3)))
+    if phys:
+        if compact:
+            k_jsub, k_jit = jax.random.split(k_jit)
+            d["jit_sub"] = jax.random.randint(k_jsub, (nsub,), 0, nq)
+            d["jit_noise"] = jax.random.normal(k_jit, (nsub, 3))
+        else:
+            d["jit_noise"] = jax.random.normal(k_jit, (nq, 3))
+        k_dirs, k_scatter, _ = jax.random.split(k_pbr, 3)
+        n1 = max(spp // 32, 1)
+        k1, k2 = jax.random.split(k_dirs)
+        d["sphere_u"] = np.stack([
+            np.asarray(jax.random.uniform(k1, (n1, spp // n1))),
+            np.asarray(jax.random.uniform(k2, (n1, spp // n1)))])
+        d["strata_u"] = jax.random.uniform(k_scatter, (R, spp))
+    d = {k: np.asarray(v) for k, v in d.items()}
+    d["k_fwd"] = k_fwd
+    return d
 
 
 def shading_lanes(cfg, flags, n_rays):
@@ -137,10 +147,11 @@ def shading_lanes(cfg, flags, n_rays):
 def make_grad_fn(jsys, flags):
     """The body of the JAX ``train_step_impl`` (`train/system.py:324-355`)
     as one jitted function of ``(params, occ, batch, t_idx, step, k_fwd,
-    bg, intervals)``: ``(losses, grads)``."""
+    bg, intervals[, seed_grid])``: ``(losses, grads)``."""
 
     @jax.jit
-    def fn(params, occ, jb, t_idx, step, k_fwd, bg, intervals):
+    def fn(params, occ, jb, t_idx, step, k_fwd, bg, intervals,
+           seed_grid=None):
         fg = jb["alpha"][..., None]
         jb = {**jb, "rgb_wo_mask": jb["rgb"],
               "rgb": jb["rgb"] * fg + j_srgb(bg)[None, :] * (1.0 - fg)}
@@ -150,7 +161,7 @@ def make_grad_fn(jsys, flags):
             out = jsys.model.forward(
                 p, jsys.statics, frame, cond, occ, jb["rays"], k_fwd, step,
                 flags, t_idx=t_idx, background_color=bg,
-                intervals=intervals)
+                intervals=intervals, seed_grid=seed_grid)
             return jsys.compute_losses(p, out, jb, step, flags)
 
         (_, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(
@@ -160,13 +171,17 @@ def make_grad_fn(jsys, flags):
     return fn
 
 
-def jax_step(jsys, grad_fn, state, jb, t_idx, draws, flags):
+def jax_step(jsys, grad_fn, state, jb, t_idx, draws, flags, sampled=None):
     """One JAX train step from ``state``: ``(losses, grads, new state)``,
-    the sampling stage's counters folded into the losses."""
-    intervals, s_counters, _ = jsys.sample_step(state, jb, t_idx, flags)
+    the sampling stage's counters folded into the losses.  ``sampled``
+    is the sampling stage's output (``jsys.sample_step``'s: intervals,
+    counters and the step's seed grid), run here when None."""
+    if sampled is None:
+        sampled = jsys.sample_step(state, jb, t_idx, flags)
+    intervals, s_counters, seed_grid = sampled
     losses, grads = grad_fn(state.params, state.occ, jb, t_idx, state.step,
                             draws["k_fwd"], jnp.asarray(draws["bg"]),
-                            intervals)
+                            intervals, seed_grid)
     losses = dict(losses)
     for k, v in s_counters.items():
         losses[k] = losses[k] + v if k in losses else v
